@@ -1,0 +1,84 @@
+"""Conv1d encoder stack -> (mu, logvar) heads.
+
+Port of ``molvax/nn/encoder.py``: three VALID Conv1d layers with ReLU,
+flatten (channel-major), Linear + SELU, then the mu and logvar heads. Both
+conv orientations of the reference lineage: 'seq' convolves along the T
+positions with the charset as channels, 'charset' along the charset axis with
+the positions as channels. Weights are in torch layout (``nn.Linear``
+(out, in), ``nn.Conv1d`` (out, in, k)); the heads stay fp32 whatever the
+compute dtype, as in the reference.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+
+from ..utils import matmul_dtype, round_to
+
+
+def linear(
+    x: torch.Tensor,
+    weight: torch.Tensor,
+    bias: torch.Tensor,
+    compute_dtype: torch.dtype = torch.float32,
+) -> torch.Tensor:
+    """x @ weight.T + bias, operands rounded to ``compute_dtype``, fp32
+    accumulation and output."""
+    return round_to(x, compute_dtype) @ round_to(weight, compute_dtype).T + bias
+
+
+def conv1d(
+    x_nch: torch.Tensor,
+    weight: torch.Tensor,
+    bias: torch.Tensor,
+    compute_dtype: torch.dtype = torch.float32,
+) -> torch.Tensor:
+    """VALID 1-D conv in torch layout: (B, C_in, W) -> (B, C_out, W-k+1).
+
+    The operands are rounded to ``compute_dtype`` and the conv runs in
+    fp32. cuDNN runs fp32 convolutions in TF32 unless
+    ``torch.backends.cudnn.allow_tf32`` is off; bf16-rounded operands are
+    exact in TF32, so only the 'float32' dtype depends on that switch."""
+    out = F.conv1d(round_to(x_nch, compute_dtype), round_to(weight, compute_dtype))
+    return out + bias[None, :, None]
+
+
+def conv_input_channels(cfg) -> int:
+    return cfg.charset_size if cfg.conv_orientation == "seq" else cfg.max_len
+
+
+def conv_spatial_len(cfg) -> int:
+    """Spatial length after the VALID conv stack."""
+    w = cfg.max_len if cfg.conv_orientation == "seq" else cfg.charset_size
+    for k in cfg.conv_kernels:
+        w = w - k + 1
+    if w <= 0:
+        raise ValueError(
+            f"conv stack consumes the whole axis (len {w}); check "
+            f"conv_orientation={cfg.conv_orientation!r} vs charset_size/max_len"
+        )
+    return w
+
+
+def flat_conv_dim(cfg) -> int:
+    return cfg.conv_channels[-1] * conv_spatial_len(cfg)
+
+
+def encode(model, cfg, x_onehot: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x_onehot (B, T, C) -> (mu, logvar), each (B, latent_dim) fp32.
+
+    ``model`` is a ``nn.vae.MolecularVAE`` (its ``conv_i`` and
+    ``linear_0..2`` modules hold the weights)."""
+    cd = matmul_dtype(cfg, x_onehot.device)
+    h = x_onehot.transpose(1, 2) if cfg.conv_orientation == "seq" else x_onehot
+    for i in range(1, len(cfg.conv_channels) + 1):
+        conv = getattr(model, f"conv_{i}")
+        h = F.relu(conv1d(h, conv.weight, conv.bias, cd))
+    h = h.reshape(h.shape[0], -1)
+    h = F.selu(linear(h, model.linear_0.weight, model.linear_0.bias, cd))
+    mu = linear(h, model.linear_1.weight, model.linear_1.bias)
+    logvar = linear(h, model.linear_2.weight, model.linear_2.bias)
+    return mu, logvar
