@@ -1,26 +1,42 @@
 #!/usr/bin/env python3
-"""Drive molvax_torch's serving path once on one CUDA card.
+"""Drive molvax_torch's serving path and training step once on one CUDA card.
 
     python3 chip_smoke.py
 
-Run from the root of a checkout. It builds the hand-written generation
-kernel from ``molvax_torch/kernels/csrc/`` (into ``build/molvax_torch/``),
-makes ``zinc250k`` weights at full width from a seed, and runs six phases,
+Run from the root of a checkout. It builds the hand-written kernels from
+``molvax_torch/kernels/csrc/`` (into ``build/molvax_torch/``), makes
+``zinc250k`` weights at full width from a seed, and runs eleven phases,
 each printed on its own lines:
 
-  1. environment: card name and power limit, torch and CUDA versions, TF32
-     switched off, kernel build time and ptxas report;
+  1. environment: card name and power limit, torch and CUDA versions, the
+     global TF32 switches (left at their defaults), kernel build time and
+     ptxas report;
   2. weights: numpy-seeded JAX-layout params, loaded through io/convert.py;
-  3. kernel against plain version, greedy, B=256, T=120: share of identical
-     codes, and a margin check: replaying the kernel's codes through the
-     plain version, every code the kernel chose scores within MARGIN of the
-     plain maximum;
+  3. generation kernel against plain version, greedy, B=256, T=120: share
+     of identical codes, and a margin check: replaying the kernel's codes
+     through the plain version, every code the kernel chose scores within
+     MARGIN of the plain maximum;
   4. the same check sampled at temperature 1.0 and 0.7, identical noise;
-  5. the main path through the public functions: sample_prior(256) and
+  5. the serving path through the public functions: sample_prior(256) and
      reconstruct of 256 SMILES (deterministic and stochastic), counting
      kernel launches and checking the strings and the encoder;
-  6. decode times of the kernel and the plain version at B=256 (CUDA
-     events, warm-up, median of 7).
+  6. decode times of the generation kernel and its plain version;
+  7. GRU stack forward kernel against its plain version on the training
+     inputs of the 256 SMILES: max abs error of out and h_final, and the
+     share of bit-identical bf16 h;
+  8. the stack's backward kernels (reverse sweep, dW contraction) against
+     the plain backward from the same residuals and cotangents: relative
+     error of each gradient;
+  9. encoder kernel against the plain encoder, sampler kernel against its
+     plain version;
+ 10. the training step through the public functions: init_state from the
+     seeded weights, 20 steps of make_train_step on the kernel route
+     (every kernel launched once per step, loss falls), the first 3 steps
+     again on the plain route from the same weights, one make_eval_step;
+ 11. times: the train step on both routes, each new kernel against its
+     plain version (CUDA events, median of 5 after 2 warm-ups), the
+     device-time split of one kernel-route step (torch.profiler), and
+     peak device memory.
 
 Any failure raises and exits non-zero. Without CUDA it exits 2 and prints
 no result. The last line of standard output is the device JSON.
@@ -28,6 +44,7 @@ no result. The last line of standard output is the device JSON.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -40,18 +57,28 @@ import torch
 
 from molvax_torch.config import get_preset
 from molvax_torch.data.charset import DEFAULT_CHARSET
-from molvax_torch.data.featurize import decode_codes, encode_smiles
+from molvax_torch.data.featurize import decode_codes, encode_smiles, one_hot
 from molvax_torch.io.convert import state_dict_from_jax
-from molvax_torch.kernels import _build
+from molvax_torch.kernels import _build, conv_enc, gru_stack, sampler
 from molvax_torch.kernels import generate as kg
 from molvax_torch.latent.sample import reconstruct, sample_prior
-from molvax_torch.nn.decoder import latent_embed
-from molvax_torch.nn.encoder import conv_input_channels, flat_conv_dim
+from molvax_torch.nn.decoder import latent_embed, teacher_inputs
+from molvax_torch.nn.encoder import conv_input_channels, encoder_params, flat_conv_dim
+from molvax_torch.nn.gru import gru_layers
 from molvax_torch.nn.vae import MolecularVAE, encode
+from molvax_torch.train import init_state, make_eval_step, make_train_step
 
 MARGIN = 1e-2  # score units; bf16 operand rounding of a near-tie h can move a logit by ~1e-4
+STACK_FWD_TOL = 3.91e-3  # the reference's on-chip gate for the stack kernel (ROADMAP B)
+STACK_BWD_REL = 1e-2  # ||kernel - plain|| / ||plain|| per gradient
+ENCODER_TOL = 1e-3  # same bf16 operands and stages, fp32 sums in another order
+SAMPLER_REL = 1e-5  # same bits; fp32 transcendentals of the card vs torch's
+ROUTE_REL = 1e-2  # per-step loss, kernel route against plain route
 B = 256
 SEED = 0
+DEVICE = "cuda:0"
+TRAIN_STEPS = 20
+PLAIN_STEPS = 3
 
 _HEADS = ["CCO", "CC(C)N", "c1ccccc1", "CC(=O)O", "C1CCNCC1", "COc1ccccc1", "CN(C)C=O",
           "Clc1ccccc1", "CC#N", "OC(=O)c1ccccc1", "CCS", "c1ccncc1", "CC(C)(C)O", "FC(F)F",
@@ -132,7 +159,7 @@ def check_kernel(model, z_emb, greedy: bool, temperature: float, seed: int) -> f
     return gap
 
 
-def time_ms(fn, warmup: int = 2, reps: int = 7) -> float:
+def time_ms(fn, warmup: int = 2, reps: int = 5) -> float:
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -147,6 +174,105 @@ def time_ms(fn, warmup: int = 2, reps: int = 7) -> float:
     return statistics.median(times)
 
 
+def reset_counts() -> None:
+    kg.launches = conv_enc.launches = sampler.launches = 0
+    gru_stack.fwd_launches = gru_stack.bwd_launches = gru_stack.dw_launches = 0
+
+
+def counts() -> dict:
+    return {
+        "fused_generate": kg.launches,
+        "fused_encode": conv_enc.launches,
+        "fused_sample_kl": sampler.launches,
+        "gru_stack_fwd": gru_stack.fwd_launches,
+        "gru_stack_bwd_sweep": gru_stack.bwd_launches,
+        "gru_stack_bwd_dw": gru_stack.dw_launches,
+    }
+
+
+@contextlib.contextmanager
+def plain_route():
+    """The kernels' plain versions in place of the wrappers that the
+    training forward and the GRU router call, for comparison and timing."""
+    saved = (conv_enc.fused_encode, sampler.fused_sample_kl, gru_stack.gru_stack_scan)
+    conv_enc.fused_encode = conv_enc.fused_encode_ref
+    sampler.fused_sample_kl = sampler.fused_sample_kl_ref
+    gru_stack.gru_stack_scan = gru_stack.gru_stack_scan_ref
+    try:
+        yield
+    finally:
+        conv_enc.fused_encode, sampler.fused_sample_kl, gru_stack.gru_stack_scan = saved
+
+
+def rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+
+def max_abs(a: torch.Tensor, b: torch.Tensor) -> float:
+    return (a.float() - b.float()).abs().max().item()
+
+
+def stack_inputs(model, cfg, codes):
+    """The stack's arguments on the training path: x0 (T, B, 329) from the
+    encoder's mu and the teacher inputs, zero h0, torch-layout weights."""
+    with torch.no_grad():
+        mu, _ = encode(model, cfg, codes)
+        x_seq = teacher_inputs(cfg, latent_embed(model, cfg, mu), one_hot(codes, cfg.charset_size),
+                               model.start_token)
+        wih0, bih0, wih, bih, whh, bhh = gru_stack._stacked(gru_layers(model.gru))
+        h0 = torch.zeros(cfg.gru_layers, codes.shape[0], cfg.gru_hidden, device=codes.device)
+    return (x_seq.transpose(0, 1).contiguous(), wih0, bih0, wih, bih, whh, bhh, h0)
+
+
+def ragged_batch_checks(model, cfg, codes, s_args, rows: int = 6) -> None:
+    """Every training kernel against its plain version at a batch that is
+    not a multiple of the recurrent kernels' rows per block (4)."""
+    x0, wih0, bih0, wih, bih, whh, bhh, h0 = s_args
+    args = (x0[:, :rows].contiguous(), wih0, bih0, wih, bih, whh, bhh, h0[:, :rows].contiguous())
+    g = torch.Generator(device=x0.device).manual_seed(SEED + 3)
+    dY = torch.randn(x0.shape[0], rows, cfg.gru_hidden, device=x0.device, generator=g)
+    dhf = torch.randn(cfg.gru_layers, rows, cfg.gru_hidden, device=x0.device, generator=g)
+    with torch.no_grad():
+        res_k = gru_stack.stack_forward(*args)
+        fwd = max_abs(res_k[0], gru_stack.stack_forward_ref(*args)[0])
+        res = (*res_k, args[0], args[7], wih0, wih, whh)
+        bwd = max(rel_err(a, b) for a, b in zip(gru_stack.stack_backward(res, dY, dhf),
+                                                 gru_stack.stack_backward_ref(res, dY, dhf)))
+        enc = max(max_abs(a, b) for a, b in zip(conv_enc._encode_kernel(cfg, codes[:rows], encoder_params(model)),
+                                                 conv_enc.fused_encode_ref(model, cfg, codes[:rows])))
+        mu, lv = conv_enc.fused_encode_ref(model, cfg, codes[:rows])
+        smp = max(max_abs(a, b) / b.abs().max().item()
+                  for a, b in zip(sampler._sample_kernel(7, mu, lv, 1.0), sampler.fused_sample_kl_ref(7, mu, lv, 1.0)))
+    torch.cuda.synchronize()
+    say("phase9", ragged_batch=rows, stack_fwd_max_abs_err=f"{fwd:.3e}", stack_bwd_max_rel_err=f"{bwd:.3e}",
+        encoder_max_abs_err=f"{enc:.3e}", sampler_rel_err=f"{smp:.3e}")
+    if not (fwd <= STACK_FWD_TOL and bwd <= STACK_BWD_REL and enc <= ENCODER_TOL and smp <= SAMPLER_REL):
+        raise AssertionError(f"a training kernel differs from its plain version at B={rows}")
+
+
+def profile_step(step_fn) -> dict:
+    """Device time by kernel over one train step, with torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step_fn()
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    by_name = {}
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:  # host ops report their kernels' time too
+            continue
+        dev_us = getattr(ev, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(ev, "self_cuda_time_total", 0.0)
+        if dev_us > 0:
+            by_name[ev.key] = by_name.get(ev.key, 0.0) + dev_us / 1e3
+    return {"wall_ms": wall_ms, "device_ms": by_name}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on a GPU", file=sys.stderr)
@@ -155,9 +281,7 @@ def main() -> int:
         raise AssertionError("the port pulled in JAX or the JAX package")
 
     # -- 1. environment ------------------------------------------------------
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    dev = torch.device("cuda:0")
+    dev = torch.device(DEVICE)
     gpu = card()
     print(gpu, flush=True)
     say("phase1", torch=torch.__version__, cuda=torch.version.cuda,
@@ -170,19 +294,21 @@ def main() -> int:
         compiled=_build.info.compiled, nvcc_s=f"{_build.info.seconds:.2f}",
         library=os.path.relpath(_build.info.path))
     for line in _build.info.log.splitlines():
-        if "ptxas info" in line and ("Used" in line or "spill" in line):
+        if line.startswith("==") or ("ptxas info" in line and ("Used" in line or "spill" in line)):
             print("  " + line.strip(), flush=True)
 
     # -- 2. weights ----------------------------------------------------------
-    cfg = get_preset("zinc250k").model
+    full = get_preset("zinc250k")
+    cfg = full.model
+    weights = state_dict_from_jax(random_params(cfg, SEED))
     model = MolecularVAE(cfg, device=dev)
-    model.load_state_dict(state_dict_from_jax(random_params(cfg, SEED)), strict=True)
+    model.load_state_dict(weights, strict=True)
     model.eval()
     say("phase2", preset="zinc250k", T=cfg.max_len, C=cfg.charset_size, latent=cfg.latent_dim,
         gru=f"{cfg.gru_layers}x{cfg.gru_hidden}", compute_dtype=cfg.compute_dtype,
         params=sum(p.numel() for p in model.parameters()))
 
-    # -- 3, 4. kernel against plain version ----------------------------------
+    # -- 3, 4. generation kernel against plain version -----------------------
     rng = np.random.default_rng(SEED + 1)
     z = torch.from_numpy(rng.standard_normal((B, cfg.latent_dim)).astype(np.float32)).to(dev)
     with torch.no_grad():
@@ -191,17 +317,17 @@ def main() -> int:
     for temp, seed in ((1.0, 11), (0.7, 12)):
         gaps.append(check_kernel(model, z_emb, False, temp, seed))
 
-    # -- 5. the main path through the public functions -----------------------
+    # -- 5. the serving path through the public functions --------------------
     gen = torch.Generator().manual_seed(SEED)
-    kg.launches = 0
+    reset_counts()
     prior = sample_prior(model, cfg, B, gen)
     recon = reconstruct(model, cfg, SMILES, gen, stochastic=False)
     recon_s = reconstruct(model, cfg, SMILES, gen, stochastic=True)
     torch.cuda.synchronize()
-    main_launches = kg.launches
-    say("phase5", fused_generate_launches=main_launches)
-    if main_launches != 3:
-        raise AssertionError(f"expected 3 kernel launches on the main path, got {main_launches}")
+    serve_counts = counts()
+    say("phase5", **serve_counts)
+    if serve_counts["fused_generate"] != 3:
+        raise AssertionError(f"expected 3 generation launches on the serving path, got {serve_counts}")
     for name, strings in (("sample_prior", prior), ("reconstruct", recon),
                           ("reconstruct_stochastic", recon_s)):
         if len(strings) != B or not all(
@@ -213,42 +339,191 @@ def main() -> int:
             examples=json.dumps(strings[:3]))
     # the encoder on the card against the same model on the CPU, and the
     # deterministic reconstruct against the plain version of the decode
-    codes = torch.from_numpy(encode_smiles(SMILES, DEFAULT_CHARSET, cfg.max_len))
+    codes_cpu = torch.from_numpy(encode_smiles(SMILES, DEFAULT_CHARSET, cfg.max_len))
+    codes = codes_cpu.to(dev)
     model_cpu = MolecularVAE(cfg)
     model_cpu.load_state_dict(model.state_dict())
     with torch.no_grad():
-        mu, logvar = encode(model, cfg, codes.to(dev))
-        mu_cpu, logvar_cpu = encode(model_cpu, cfg, codes)
+        mu, logvar = encode(model, cfg, codes)
+        mu_cpu, logvar_cpu = encode(model_cpu, cfg, codes_cpu)
     if mu.shape != (B, cfg.latent_dim) or not (torch.isfinite(mu).all() and torch.isfinite(logvar).all()):
         raise AssertionError("encoder output misshapen or non-finite")
-    enc_err = max((mu.cpu() - mu_cpu).abs().max().item(), (logvar.cpu() - logvar_cpu).abs().max().item())
+    enc_err = max(max_abs(mu.cpu(), mu_cpu), max_abs(logvar.cpu(), logvar_cpu))
     with torch.no_grad():
         ref_codes = kg.fused_generate_ref(model, cfg, latent_embed(model, cfg, mu), 0)
     ref_strings = decode_codes(ref_codes, DEFAULT_CHARSET)
     same_str = sum(a == b for a, b in zip(recon, ref_strings)) / B
     say("phase5", encoder_gpu_vs_cpu_max_abs_err=f"{enc_err:.3e}",
         reconstruct_identical_to_plain=f"{same_str:.4f}")
-    if enc_err > 1e-3:  # same bf16 operands, fp32 sums in another order
+    if enc_err > ENCODER_TOL:
         raise AssertionError(f"encoder on the card differs from the CPU by {enc_err:.3e}")
 
-    # -- 6. times ------------------------------------------------------------
-    ms_k = time_ms(lambda: kg.fused_generate(model, cfg, z_emb, 0))
-    ms_r = time_ms(lambda: kg.fused_generate_ref(model, cfg, z_emb, 0))
-    ms_ks = time_ms(lambda: kg.fused_generate(model, cfg, z_emb, 5, greedy=False, temperature=1.0))
-    for name, ms in (("kernel_greedy", ms_k), ("plain_greedy", ms_r), ("kernel_sampled", ms_ks)):
+    # -- 6. generation times -------------------------------------------------
+    ms_gen = time_ms(lambda: kg.fused_generate(model, cfg, z_emb, 0))
+    ms_gen_plain = time_ms(lambda: kg.fused_generate_ref(model, cfg, z_emb, 0))
+    for name, ms in (("kernel_greedy", ms_gen), ("plain_greedy", ms_gen_plain)):
         say("phase6", path=name, B=B, T=cfg.max_len, ms=f"{ms:.4f}",
             smiles_per_s=f"{B / (ms / 1e3):.1f}", card=json.dumps(gpu))
 
-    print(json.dumps({"kernels": [{
-        "name": "fused_generate",
-        "route": "cuda",
-        "source": "molvax_torch/kernels/csrc/generate.cu",
-        "replaces": "molvax/kernels/generate.py:169",
-        "launches": main_launches,
-        "max_abs_err": max(gaps),
-        "ms": ms_k,
-        "plain_ms": ms_r,
-    }]}), flush=True)
+    # -- 7. stack forward kernel against its plain version -------------------
+    s_args = stack_inputs(model, cfg, codes)
+    with torch.no_grad():
+        res_k = gru_stack.stack_forward(*s_args)
+        res_r = gru_stack.stack_forward_ref(*s_args)
+    torch.cuda.synchronize()
+    L = cfg.gru_layers
+    out_err = max_abs(res_k[0][L - 1], res_r[0][L - 1])
+    hf_err = max_abs(res_k[0][:, -1], res_r[0][:, -1])
+    same_h = (res_k[0] == res_r[0]).float().mean().item()
+    fwd_err = max(out_err, hf_err)
+    say("phase7", B=B, T=cfg.max_len, I0=s_args[0].shape[2], H=cfg.gru_hidden, L=L,
+        out_max_abs_err=f"{out_err:.3e}", h_final_max_abs_err=f"{hf_err:.3e}",
+        hseq_bit_identical=f"{same_h:.6f}", tol=STACK_FWD_TOL)
+    if not fwd_err <= STACK_FWD_TOL:
+        raise AssertionError(f"stack forward differs from its plain version by {fwd_err:.3e}")
+
+    # -- 8. stack backward kernels against the plain backward ----------------
+    g = torch.Generator(device=dev).manual_seed(SEED + 2)
+    dY = 1e-2 * torch.randn(cfg.max_len, B, cfg.gru_hidden, device=dev, generator=g)
+    dhf = 1e-2 * torch.randn(L, B, cfg.gru_hidden, device=dev, generator=g)
+    x0, wih0, _, wih, _, whh, _, h0 = s_args
+    res = (*res_k, x0, h0, wih0, wih, whh)
+    with torch.no_grad():
+        grads_k = gru_stack.stack_backward(res, dY, dhf)
+        grads_r = gru_stack.stack_backward_ref(res, dY, dhf)
+    torch.cuda.synchronize()
+    bwd_err = 0.0
+    for name, a, b in zip(["dx0", "dwih0", "dbih0", "dwih", "dbih", "dwhh", "dbhh", "dh0"], grads_k, grads_r):
+        r = rel_err(a, b)
+        if not (torch.isfinite(a).all() and a.shape == b.shape):
+            raise AssertionError(f"stack backward {name}: non-finite or misshapen")
+        bwd_err = max(bwd_err, max_abs(a, b))
+        say("phase8", grad=name, shape=tuple(a.shape), rel_err=f"{r:.3e}", max_abs_err=f"{max_abs(a, b):.3e}")
+        if not r <= STACK_BWD_REL:
+            raise AssertionError(f"stack backward {name}: relative error {r:.3e} > {STACK_BWD_REL}")
+
+    # -- 9. encoder and sampler kernels against their plain versions ---------
+    with torch.no_grad():
+        mu_k, lv_k = conv_enc._encode_kernel(cfg, codes, encoder_params(model))
+        mu_r, lv_r = conv_enc.fused_encode_ref(model, cfg, codes)
+        seed9 = 12345
+        z_k, kl_k = sampler._sample_kernel(seed9, mu_r, lv_r, cfg.eps_scale)
+        z_r, kl_r = sampler.fused_sample_kl_ref(seed9, mu_r, lv_r, cfg.eps_scale)
+    torch.cuda.synchronize()
+    enc_kernel_err = max(max_abs(mu_k, mu_r), max_abs(lv_k, lv_r))
+    z_rel = max_abs(z_k, z_r) / z_r.abs().max().item()
+    kl_rel = max_abs(kl_k, kl_r) / kl_r.abs().max().item()
+    z_same = (z_k == z_r).float().mean().item()
+    say("phase9", encoder_max_abs_err=f"{enc_kernel_err:.3e}", tol=ENCODER_TOL,
+        z_rel_err=f"{z_rel:.3e}", kl_rel_err=f"{kl_rel:.3e}", z_bit_identical=f"{z_same:.6f}",
+        rel_tol=SAMPLER_REL)
+    if not enc_kernel_err <= ENCODER_TOL:
+        raise AssertionError(f"encoder kernel differs from the plain encoder by {enc_kernel_err:.3e}")
+    if not (z_rel <= SAMPLER_REL and kl_rel <= SAMPLER_REL):
+        raise AssertionError(f"sampler kernel differs: z {z_rel:.3e}, kl {kl_rel:.3e}")
+    sampler_err = max(max_abs(z_k, z_r), max_abs(kl_k, kl_r))
+    ragged_batch_checks(model, cfg, codes, s_args)
+
+    # -- 10. the training step through the public functions ------------------
+    train_step = make_train_step(full)
+    state = init_state(full, device=dev, weights=weights)
+    reset_counts()
+    losses = []
+    for _ in range(TRAIN_STEPS):
+        state, metrics = train_step(state, codes, None)
+        losses.append(metrics["loss"])
+    torch.cuda.synchronize()
+    train_counts = counts()
+    losses = [float(x) for x in losses]
+    say("phase10", steps=TRAIN_STEPS, **train_counts)
+    for name in ("fused_encode", "fused_sample_kl", "gru_stack_fwd", "gru_stack_bwd_sweep", "gru_stack_bwd_dw"):
+        if train_counts[name] != TRAIN_STEPS:
+            raise AssertionError(f"{name} launched {train_counts[name]} times in {TRAIN_STEPS} steps")
+    say("phase10", route="kernel", loss=json.dumps([round(x, 4) for x in losses]))
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"the loss did not fall: {losses[0]} -> {losses[-1]}")
+    plain_state = init_state(full, device=dev, weights=weights)
+    plain_losses = []
+    with plain_route():
+        for _ in range(PLAIN_STEPS):
+            plain_state, metrics = train_step(plain_state, codes, None)
+            plain_losses.append(float(metrics["loss"]))
+    route_rel = max(abs(a - b) / abs(b) for a, b in zip(losses, plain_losses))
+    say("phase10", route="plain", loss=json.dumps([round(x, 4) for x in plain_losses]),
+        max_rel_diff=f"{route_rel:.3e}", tol=ROUTE_REL)
+    if not route_rel <= ROUTE_REL:
+        raise AssertionError(f"kernel and plain routes differ by {route_rel:.3e} in the loss")
+    eval_metrics = make_eval_step(full)(state, codes, None)
+    eval_m = {k: float(v) for k, v in eval_metrics.items()}
+    say("phase10", eval=json.dumps({k: round(v, 4) for k, v in eval_m.items()}))
+    if not all(np.isfinite(list(eval_m.values()))):
+        raise AssertionError("eval metrics are not finite")
+
+    # -- 11. times -------------------------------------------------------------
+    # a throwaway state: the timed steps update it in place
+    bench = init_state(full, device=dev, weights=weights)
+
+    def kernel_step():
+        nonlocal bench
+        bench, _ = train_step(bench, codes, None)
+
+    def plain_step():
+        nonlocal bench
+        with plain_route():
+            bench, _ = train_step(bench, codes, None)
+
+    ms_step = time_ms(kernel_step)
+    ms_step_plain = time_ms(plain_step)
+    torch.cuda.reset_peak_memory_stats()
+    kernel_step()
+    torch.cuda.synchronize()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    for route, ms in (("kernel", ms_step), ("plain", ms_step_plain)):
+        say("phase11", train_step=route, B=B, ms=f"{ms:.4f}", smiles_per_s=f"{B / (ms / 1e3):.1f}",
+            card=json.dumps(gpu))
+    say("phase11", peak_device_memory_GB=f"{peak_gb:.3f}", card=json.dumps(gpu))
+
+    enc_params = encoder_params(model)
+    with torch.no_grad():
+        times = {
+            "fused_encode": (time_ms(lambda: conv_enc._encode_kernel(cfg, codes, enc_params)),
+                             time_ms(lambda: conv_enc.fused_encode_ref(model, cfg, codes))),
+            "fused_sample_kl": (time_ms(lambda: sampler._sample_kernel(1, mu_r, lv_r, 1.0)),
+                                time_ms(lambda: sampler.fused_sample_kl_ref(1, mu_r, lv_r, 1.0))),
+            "gru_stack_fwd": (time_ms(lambda: gru_stack.stack_forward(*s_args)),
+                              time_ms(lambda: gru_stack.stack_forward_ref(*s_args))),
+            "gru_stack_bwd": (time_ms(lambda: gru_stack.stack_backward(res, dY, dhf)),
+                              time_ms(lambda: gru_stack.stack_backward_ref(res, dY, dhf))),
+        }
+    for name, (ms_k, ms_p) in times.items():
+        say("phase11", kernel=name, ms=f"{ms_k:.4f}", plain_ms=f"{ms_p:.4f}", card=json.dumps(gpu))
+    prof = profile_step(kernel_step)
+    dev_ms = prof["device_ms"]
+    total = sum(dev_ms.values())
+    # idle share against the event-timed step: the profiler's own wall time
+    # includes its overhead
+    say("phase11", profiled_step_wall_ms=f"{prof['wall_ms']:.3f}", device_busy_ms=f"{total:.3f}",
+        idle_share=f"{1 - total / ms_step:.4f}" if total else "not measured")
+    for name, ms in sorted(dev_ms.items(), key=lambda kv: -kv[1])[:12]:
+        say("phase11", device_kernel=json.dumps(name[:80]), ms=f"{ms:.3f}", share=f"{ms / total:.4f}")
+
+    print(json.dumps({"kernels": [
+        {"name": "fused_generate", "route": "cuda", "source": "molvax_torch/kernels/csrc/generate.cu",
+         "replaces": "molvax/kernels/generate.py:169", "launches": serve_counts["fused_generate"],
+         "max_abs_err": max(gaps), "ms": ms_gen, "plain_ms": ms_gen_plain},
+        {"name": "fused_encode", "route": "cuda", "source": "molvax_torch/kernels/csrc/conv_enc.cu",
+         "replaces": "molvax/kernels/conv_enc.py:181", "launches": train_counts["fused_encode"],
+         "max_abs_err": enc_kernel_err, "ms": times["fused_encode"][0], "plain_ms": times["fused_encode"][1]},
+        {"name": "fused_sample_kl", "route": "cuda", "source": "molvax_torch/kernels/csrc/sampler.cu",
+         "replaces": "molvax/kernels/sampler.py:91", "launches": train_counts["fused_sample_kl"],
+         "max_abs_err": sampler_err, "ms": times["fused_sample_kl"][0], "plain_ms": times["fused_sample_kl"][1]},
+        {"name": "gru_stack_scan_fwd", "route": "cuda", "source": "molvax_torch/kernels/csrc/gru_stack.cu",
+         "replaces": "molvax/kernels/gru_stack.py:552", "launches": train_counts["gru_stack_fwd"],
+         "max_abs_err": fwd_err, "ms": times["gru_stack_fwd"][0], "plain_ms": times["gru_stack_fwd"][1]},
+        {"name": "gru_stack_scan_bwd", "route": "cuda", "source": "molvax_torch/kernels/csrc/gru_stack.cu",
+         "replaces": "molvax/kernels/gru_stack.py:487", "launches": train_counts["gru_stack_bwd_sweep"],
+         "max_abs_err": bwd_err, "ms": times["gru_stack_bwd"][0], "plain_ms": times["gru_stack_bwd"][1]},
+    ]}), flush=True)
     print(gpu, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

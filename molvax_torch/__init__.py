@@ -8,7 +8,11 @@ importing the ``molvax`` package (see ``_shared.py``).
 
 Ported so far: the serving path, encode -> free-running decode
 (``latent.sample.generate``, ``sample_prior``, ``reconstruct``), with the
-hand-written generation kernel in ``kernels/csrc/generate.cu``.
+hand-written generation kernel in ``kernels/csrc/generate.cu``; and the
+training step (``train.init_state``, ``make_train_step``,
+``make_eval_step``: teacher-forced forward, ELBO, Adam), with hand-written
+kernels for the encoder (``conv_enc.cu``), the sampler (``sampler.cu``) and
+the GRU stack's forward and backward (``gru_stack.cu``).
 """
 
 __version__ = "0.1.0"

@@ -40,80 +40,11 @@
 // lowbias32 rounds; molvax_torch/kernels/generate.py computes the same bits
 // with torch integer ops, so kernel and plain version see identical noise.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "common.cuh"
 
 namespace {
 
-constexpr int RB = 4;          // batch rows per block
 constexpr int THREADS = 512;   // 16 warps; one hidden unit per thread at H <= 512
-
-__device__ __forceinline__ uint32_t mix32(uint32_t x) {
-  x ^= x >> 16;
-  x *= 0x7feb352du;
-  x ^= x >> 15;
-  x *= 0x846ca68bu;
-  x ^= x >> 16;
-  return x;
-}
-
-__device__ __forceinline__ uint32_t noise_bits(uint32_t seed, uint32_t t,
-                                               uint32_t row, uint32_t cls) {
-  uint32_t h = mix32(seed);
-  h = mix32(h + row);
-  h = mix32(h + t);
-  return mix32(h + cls);
-}
-
-// Operand k of all RB (= 4) rows from a [k][RB] bf16 buffer, as fp32.
-__device__ __forceinline__ void load_rows(const __nv_bfloat16* buf, int k,
-                                          float x[RB]) {
-  const uint2 v = reinterpret_cast<const uint2*>(buf)[k];
-  x[0] = __uint_as_float(v.x << 16);
-  x[1] = __uint_as_float(v.x & 0xffff0000u);
-  x[2] = __uint_as_float(v.y << 16);
-  x[3] = __uint_as_float(v.y & 0xffff0000u);
-}
-
-__device__ __forceinline__ uint32_t bf16_bits(float x) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16_rn(x)));
-}
-
-__device__ __forceinline__ void store_rows(__nv_bfloat16* buf, int k,
-                                           const float x[RB]) {
-  uint2 v;
-  v.x = bf16_bits(x[0]) | (bf16_bits(x[1]) << 16);
-  v.y = bf16_bits(x[2]) | (bf16_bits(x[3]) << 16);
-  reinterpret_cast<uint2*>(buf)[k] = v;
-}
-
-__device__ __forceinline__ float sigmoid_f(float x) {
-  return 1.0f / (1.0f + expf(-x));
-}
-
-// acc[g][r] += sum_k x[k][r] * w[k][g*H + j], g = r|z|n
-__device__ __forceinline__ void gate_products(const __nv_bfloat16* __restrict__ x,
-                                              const __nv_bfloat16* __restrict__ w,
-                                              int K, int H, int j,
-                                              float acc[3][RB]) {
-  const size_t G = 3 * (size_t)H;
-#pragma unroll 4
-  for (int k = 0; k < K; ++k) {
-    float xr[RB];
-    load_rows(x, k, xr);
-    const __nv_bfloat16* wk = w + k * G + j;
-    const float w0 = __bfloat162float(wk[0]);
-    const float w1 = __bfloat162float(wk[H]);
-    const float w2 = __bfloat162float(wk[2 * H]);
-#pragma unroll
-    for (int r = 0; r < RB; ++r) {
-      acc[0][r] = fmaf(xr[r], w0, acc[0][r]);
-      acc[1][r] = fmaf(xr[r], w1, acc[1][r]);
-      acc[2][r] = fmaf(xr[r], w2, acc[2][r]);
-    }
-  }
-}
 
 // w:    bf16 [W_c (C,3H) | W_hh_0 (H,3H) | (W_ih_l, W_hh_l) (H,3H) l=1..L-1 | W_out (H,C)]
 // bias: fp32 [b_hh_0 (3H) | (b_ih_l, b_hh_l) (3H) l=1..L-1 | b_out (C)]
@@ -215,14 +146,7 @@ fused_generate_kernel(const float* __restrict__ giz1,
       float acc[RB];
 #pragma unroll
       for (int r = 0; r < RB; ++r) acc[r] = 0.0f;
-#pragma unroll 4
-      for (int k = 0; k < H; ++k) {
-        float xr[RB];
-        load_rows(h_top, k, xr);
-        const float wv = __bfloat162float(w_out[(size_t)k * C + c]);
-#pragma unroll
-        for (int r = 0; r < RB; ++r) acc[r] = fmaf(xr[r], wv, acc[r]);
-      }
+      column_product(h_top, w_out, H, C, c, acc);
 #pragma unroll
       for (int r = 0; r < RB; ++r) {
         float s = acc[r] + b_out[c];

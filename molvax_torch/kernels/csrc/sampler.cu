@@ -1,0 +1,72 @@
+// Fused reparameterization sampler + per-row KL in one pass.
+//
+// Replaces molvax/kernels/sampler.py::fused_sample_kl (the Pallas TPU
+// kernel) and computes what it computes, per batch row b and latent dim d:
+//   u1  = (top24(noise_bits(seed, 0, b, d)) + 1) / 2^24     in (0, 1]
+//   u2  =  top24(noise_bits(seed, 1, b, d)) / 2^24          in [0, 1)
+//   eps = sqrt(-2 log u1) cos(2 pi u2)                       Box-Muller
+//   z   = mu + eps_scale exp(logvar / 2) eps
+//   kl  = -1/2 sum_d (1 + logvar - mu^2 - exp(logvar))
+// all in fp32. The TPU kernel drew its bits from the core's hardware PRNG;
+// this one draws them from the counter hash of csrc/common.cuh, which
+// molvax_torch/kernels/sampler.py reproduces with torch integer ops, so the
+// kernel and its plain version see identical bits. Like the TPU stream, the
+// stream is seed-deterministic and differs from jax.random's. The backward
+// is closed-form and stays in plain torch, as in the TPU package.
+//
+// Design. One block per batch row; thread d handles latent dims d,
+// d + blockDim, ...; the KL sum is a fixed-order block reduction (warp
+// shuffles, then one warp over the warp sums), so it is deterministic.
+//
+// What bounds it on an H100: 2 x B x L fp32 in, B x (L + 1) out (~0.9 MB at
+// B=256, L=292) and four transcendentals per element: a few microseconds,
+// bound by launch latency.
+
+#include "common.cuh"
+
+namespace {
+
+constexpr int SAMPLER_THREADS = 128;
+
+__global__ void __launch_bounds__(SAMPLER_THREADS)
+fused_sample_kl_kernel(const float* __restrict__ mu, const float* __restrict__ logvar,
+                       float* __restrict__ z, float* __restrict__ kl, int Lz,
+                       uint32_t seed, float eps_scale) {
+  __shared__ float warp_sums[SAMPLER_THREADS / 32];
+  const int b = blockIdx.x;
+  const int tid = threadIdx.x;
+  const float two_pi = 6.283185307179586f;
+  const float scale24 = 1.0f / 16777216.0f;
+  float part = 0.0f;
+  for (int d = tid; d < Lz; d += SAMPLER_THREADS) {
+    const size_t i = (size_t)b * Lz + d;
+    const float m = mu[i], lv = logvar[i];
+    const uint32_t bits1 = noise_bits(seed, 0u, (uint32_t)b, (uint32_t)d);
+    const uint32_t bits2 = noise_bits(seed, 1u, (uint32_t)b, (uint32_t)d);
+    const float u1 = ((float)(bits1 >> 8) + 1.0f) * scale24;
+    const float u2 = (float)(bits2 >> 8) * scale24;
+    const float eps = sqrtf(-2.0f * logf(u1)) * cosf(two_pi * u2);
+    z[i] = m + eps_scale * expf(0.5f * lv) * eps;
+    part += 1.0f + lv - m * m - expf(lv);
+  }
+  for (int off = 16; off > 0; off >>= 1) part += __shfl_down_sync(0xffffffffu, part, off);
+  if ((tid & 31) == 0) warp_sums[tid >> 5] = part;
+  __syncthreads();
+  if (tid == 0) {
+    float s = 0.0f;
+    for (int w = 0; w < SAMPLER_THREADS / 32; ++w) s += warp_sums[w];
+    kl[b] = -0.5f * s;
+  }
+}
+
+}  // namespace
+
+// Launches on `stream` and returns the launch's cudaError_t (0 = success).
+extern "C" int molvax_fused_sample_kl(const float* mu, const float* logvar, float* z,
+                                      float* kl, int B, int Lz, unsigned int seed,
+                                      float eps_scale, void* stream) {
+  if (B <= 0 || Lz <= 0) return (int)cudaErrorInvalidValue;
+  fused_sample_kl_kernel<<<B, SAMPLER_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      mu, logvar, z, kl, Lz, seed, eps_scale);
+  return (int)cudaGetLastError();
+}

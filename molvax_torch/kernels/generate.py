@@ -27,6 +27,7 @@ from typing import Optional, Tuple
 import torch
 
 from ..utils import matmul_dtype, round_to
+from . import _build
 
 # kernel launches made by fused_generate (not by the plain version)
 launches = 0
@@ -57,7 +58,7 @@ def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
 
 
 def _mix32(x: torch.Tensor) -> torch.Tensor:
-    """lowbias32 (as ``mix32`` in csrc/generate.cu)."""
+    """lowbias32 (as ``mix32`` in csrc/common.cuh)."""
     x = x ^ (x >> 16)
     x = _mul32(x, 0x7FEB352D)
     x = x ^ (x >> 15)
@@ -72,6 +73,13 @@ def noise_bits(seed: int, t: int, rows: torch.Tensor, classes: torch.Tensor) -> 
     h = _mix32((h + rows) & _MASK32)
     h = _mix32((h + t) & _MASK32)
     return _mix32((h + classes) & _MASK32)
+
+
+def fold_in(seed: int, data: int) -> int:
+    """A new 32-bit seed from (seed, data), mix32(mix32(seed) + data): the
+    counterpart of ``jax.random.fold_in`` for the port's counter hash."""
+    h = _mix32(torch.tensor(seed & _MASK32, dtype=torch.int64))
+    return int(_mix32((h + (data & _MASK32)) & _MASK32))
 
 
 def gumbel_noise(seed: int, t: int, batch: int, classes: int, device) -> torch.Tensor:
@@ -220,18 +228,10 @@ def _pack(model, device) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 def _bind():
-    from . import _build
-
-    lib = _build.load()
-    fn = lib.molvax_fused_generate
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
-            ctypes.c_uint32,
-            ctypes.c_float,
-            ctypes.c_void_p,
-        ]
-        fn.restype = ctypes.c_int
-    return fn
+    return _build.function(
+        "molvax_fused_generate",
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_uint32, ctypes.c_float, ctypes.c_void_p],
+    )
 
 
 def fused_generate(
@@ -277,7 +277,6 @@ def fused_generate(
         B, T, C, H, L, int(bool(greedy)), seed & _MASK32, float(temperature),
         torch.cuda.current_stream(z_emb.device).cuda_stream,
     )
-    if err != 0:
-        raise RuntimeError(f"fused_generate kernel launch failed: cudaError_t {err}")
+    _build.check(err, "fused_generate")
     launches += 1
     return codes

@@ -1,0 +1,105 @@
+"""Fused reparameterization sampler + KL: wrapper, plain version, backward.
+
+Port of ``molvax/kernels/sampler.py:37-135``. ``fused_sample_kl`` draws eps,
+forms z = mu + eps_scale * exp(logvar / 2) * eps and the per-row KL in one
+launch of the hand-written kernel ``csrc/sampler.cu``; ``fused_sample_kl_ref``
+is the same math in plain torch ops. eps comes from the counter hash of the
+generation kernel (``kernels.generate.noise_bits``, key (seed, draw, row,
+dim)) through Box-Muller on two 24-bit uniforms, so the kernel and the plain
+version draw identical bits. Like the TPU kernel's on-chip PRNG, the stream
+is seed-deterministic and differs from ``jax.random``'s. The backward is
+the closed form of the reference (``sample_kl_backward``), in plain torch.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Tuple
+
+import torch
+
+from . import _build
+from .generate import _MASK32, noise_bits
+
+# kernel launches made by fused_sample_kl (not by the plain version)
+launches = 0
+
+
+def sample_eps(seed: int, batch: int, dim: int, device) -> torch.Tensor:
+    """(batch, dim) fp32 standard normals of ``seed``: Box-Muller on
+    u1 = (top24(bits(seed, 0, row, d)) + 1) / 2**24 in (0, 1] and
+    u2 = top24(bits(seed, 1, row, d)) / 2**24 in [0, 1)."""
+    rows = torch.arange(batch, dtype=torch.int64, device=device)[:, None]
+    dims = torch.arange(dim, dtype=torch.int64, device=device)[None, :]
+    scale = 1.0 / (1 << 24)
+    u1 = ((noise_bits(seed, 0, rows, dims) >> 8).to(torch.float32) + 1.0) * scale
+    u2 = (noise_bits(seed, 1, rows, dims) >> 8).to(torch.float32) * scale
+    return torch.sqrt(-2.0 * torch.log(u1)) * torch.cos(2.0 * math.pi * u2)
+
+
+def fused_sample_kl_ref(
+    seed: int, mu: torch.Tensor, logvar: torch.Tensor, eps_scale: float = 1.0
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain version: (z (B, L), kl (B,)), fp32. Differentiable by
+    autograd, which gives the closed form of ``sample_kl_backward``."""
+    eps = sample_eps(seed, mu.shape[0], mu.shape[1], mu.device)
+    z = mu + eps_scale * torch.exp(0.5 * logvar) * eps
+    kl = -0.5 * torch.sum(1.0 + logvar - mu * mu - torch.exp(logvar), dim=-1)
+    return z, kl
+
+
+def sample_kl_backward(z, mu, logvar, g_z, g_kl) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Closed-form cotangents of (mu, logvar) (``_fs_bwd`` of the reference):
+    dz/dmu = 1, dz/dlogvar = (z - mu) / 2, dKL/dmu = mu,
+    dKL/dlogvar = -(1 - exp(logvar)) / 2."""
+    d_mu = g_z + g_kl[:, None] * mu
+    d_logvar = g_z * 0.5 * (z - mu) + g_kl[:, None] * (-0.5) * (1.0 - torch.exp(logvar))
+    return d_mu, d_logvar
+
+
+def _sample_kernel(seed: int, mu: torch.Tensor, logvar: torch.Tensor, eps_scale: float):
+    global launches
+    dev = mu.device
+    if dev.type != "cuda":
+        raise ValueError(f"fused_sample_kl: unsupported device {dev}")
+    if mu.dim() != 2 or mu.shape != logvar.shape or logvar.device != dev or mu.shape[0] == 0:
+        raise ValueError(f"fused_sample_kl: mu {tuple(mu.shape)} and logvar {tuple(logvar.shape)}")
+    B, L = mu.shape
+    mu_, lv_ = mu.float().contiguous(), logvar.float().contiguous()
+    z = torch.empty(B, L, device=dev)
+    kl = torch.empty(B, device=dev)
+    fn = _build.function(
+        "molvax_fused_sample_kl",
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_uint32, ctypes.c_float, ctypes.c_void_p],
+    )
+    err = fn(
+        mu_.data_ptr(), lv_.data_ptr(), z.data_ptr(), kl.data_ptr(), B, L, seed & _MASK32,
+        float(eps_scale), torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _build.check(err, "fused_sample_kl")
+    launches += 1
+    return z, kl
+
+
+class _FusedSampleKL(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, seed, mu, logvar, eps_scale):
+        if mu.device.type == "cpu":
+            z, kl = fused_sample_kl_ref(seed, mu, logvar, eps_scale)
+        else:
+            z, kl = _sample_kernel(seed, mu, logvar, eps_scale)
+        ctx.save_for_backward(z, mu, logvar)
+        return z, kl
+
+    @staticmethod
+    def backward(ctx, g_z, g_kl):
+        return (None, *sample_kl_backward(*ctx.saved_tensors, g_z, g_kl), None)
+
+
+def fused_sample_kl(
+    seed: int, mu: torch.Tensor, logvar: torch.Tensor, eps_scale: float = 1.0
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(seed, mu, logvar) -> (z, per-row KL), differentiable in mu and
+    logvar. ``seed`` is a 32-bit int (the train step derives one per step)."""
+    return _FusedSampleKL.apply(seed, mu, logvar, eps_scale)

@@ -1,11 +1,12 @@
 """Generation: prior sampling and free-running (autoregressive) decoding.
 
 Port of ``molvax/latent/sample.py:36-208,246-271,341-361``. ``generate``
-routes as the reference does: with ``cfg.use_pallas_generation`` on, a
-teacher-forced decoder, bf16 matmuls, ``constrained=False`` and tensors on
-CUDA, the whole decode is one launch of the hand-written generation kernel
-(``kernels/generate.py``) and no logits are materialized. Otherwise the
-fp32 scan runs as a plain loop over T.
+routes as the reference does: 'repeat_z' decoders decode in one
+non-autoregressive pass (``nn.decoder.decode``). With
+``cfg.use_pallas_generation`` on, a teacher-forced decoder, bf16 matmuls,
+``constrained=False`` and tensors on CUDA, the whole decode is one launch of
+the hand-written generation kernel (``kernels/generate.py``) and no logits
+are materialized. Otherwise the fp32 scan runs as a plain loop over T.
 
 Host-side draws (z from the prior, the reparameterization noise, the
 sampling seed) come from a ``torch.Generator``; its stream differs from
@@ -20,7 +21,7 @@ import torch
 
 from ..data.charset import DEFAULT_CHARSET, Charset
 from ..data.featurize import decode_codes, encode_smiles, one_hot
-from ..nn.decoder import latent_embed
+from ..nn.decoder import decode, latent_embed
 from ..nn.encoder import linear
 from ..nn.gru import gru_stack_step
 from ..nn.vae import encode as vae_encode, reparameterize
@@ -28,11 +29,6 @@ from ..nn.vae import encode as vae_encode, reparameterize
 _CONSTRAINED_TODO = (
     "constrained decoding is not ported yet (ROADMAP queue A, "
     "'Constrained decoding and beam search', with kernel auto_step_pallas)"
-)
-_REPEAT_Z_TODO = (
-    "'repeat_z' decoders are not ported yet: they decode through "
-    "nn.decoder.decode (ROADMAP queue A, 'Teacher-forced decode and "
-    "vae.forward inference')"
 )
 
 
@@ -70,8 +66,6 @@ def generate(
 
     if constrained:
         raise NotImplementedError(_CONSTRAINED_TODO)
-    if cfg.decoder_conditioning == "repeat_z":
-        raise NotImplementedError(_REPEAT_Z_TODO)
     if charset.size != cfg.charset_size:
         raise ValueError(f"charset size {charset.size} != model charset_size {cfg.charset_size}")
     generator = generator if generator is not None else _default_generator()
@@ -79,6 +73,15 @@ def generate(
     B, T, C = z.shape[0], cfg.max_len, cfg.charset_size
 
     with torch.no_grad():
+        if cfg.decoder_conditioning == "repeat_z":
+            # one non-autoregressive pass: the decoder never sees its outputs
+            logits = decode(model, cfg, z)
+            scores = logits
+            if not greedy:
+                noise = torch.stack([gumbel_noise(seed, t, B, C, z.device) for t in range(T)], dim=1)
+                scores = logits / temperature + noise
+            return torch.argmax(scores, dim=-1).to(torch.int32), logits
+
         z_emb = latent_embed(model, cfg, z)
         if cfg.use_pallas_generation and generation_kernel_supported(cfg, z.device):
             codes = fused_generate(model, cfg, z_emb, seed, greedy=greedy, temperature=temperature)

@@ -11,7 +11,7 @@ compute dtype, as in the reference.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -39,10 +39,22 @@ def conv1d(
     """VALID 1-D conv in torch layout: (B, C_in, W) -> (B, C_out, W-k+1).
 
     The operands are rounded to ``compute_dtype`` and the conv runs in
-    fp32. cuDNN runs fp32 convolutions in TF32 unless
-    ``torch.backends.cudnn.allow_tf32`` is off; bf16-rounded operands are
-    exact in TF32, so only the 'float32' dtype depends on that switch."""
-    out = F.conv1d(round_to(x_nch, compute_dtype), round_to(weight, compute_dtype))
+    fp32. cuDNN runs fp32 convolutions in TF32 by default; bf16-rounded
+    operands are exact in TF32, but fp32 ones are not, so a 'float32'
+    conv turns TF32 off for this call alone."""
+    x, w = round_to(x_nch, compute_dtype), round_to(weight, compute_dtype)
+    if compute_dtype == torch.float32:
+        cudnn = torch.backends.cudnn
+        with cudnn.flags(
+            enabled=True,  # the helper's default would turn cuDNN off
+            benchmark=cudnn.benchmark,
+            benchmark_limit=cudnn.benchmark_limit,
+            deterministic=cudnn.deterministic,
+            allow_tf32=False,
+        ):
+            out = F.conv1d(x, w)
+    else:
+        out = F.conv1d(x, w)
     return out + bias[None, :, None]
 
 
@@ -67,18 +79,40 @@ def flat_conv_dim(cfg) -> int:
     return cfg.conv_channels[-1] * conv_spatial_len(cfg)
 
 
+def encoder_params(model) -> Tuple[torch.Tensor, ...]:
+    """The encoder's tensors in the order ``encode_with`` reads them:
+    (w, b) of each conv, then of ``linear_0``, ``linear_1`` (mu) and
+    ``linear_2`` (logvar)."""
+    out = []
+    for i in range(1, len(model.cfg.conv_channels) + 1):
+        conv = getattr(model, f"conv_{i}")
+        out += [conv.weight, conv.bias]
+    for name in ("linear_0", "linear_1", "linear_2"):
+        lin = getattr(model, name)
+        out += [lin.weight, lin.bias]
+    return tuple(out)
+
+
+def encode_with(
+    cfg, x_onehot: torch.Tensor, params: Sequence[torch.Tensor], compute_dtype: torch.dtype
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The encoder as a function of its tensors (``encoder_params`` order):
+    x_onehot (B, T, C) -> (mu, logvar), each (B, latent_dim) fp32."""
+    n_conv = len(cfg.conv_channels)
+    h = x_onehot.transpose(1, 2) if cfg.conv_orientation == "seq" else x_onehot
+    for i in range(n_conv):
+        h = F.relu(conv1d(h, params[2 * i], params[2 * i + 1], compute_dtype))
+    h = h.reshape(h.shape[0], -1)
+    w0, b0, w_mu, b_mu, w_lv, b_lv = params[2 * n_conv :]
+    h = F.selu(linear(h, w0, b0, compute_dtype))
+    return linear(h, w_mu, b_mu), linear(h, w_lv, b_lv)
+
+
 def encode(model, cfg, x_onehot: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """x_onehot (B, T, C) -> (mu, logvar), each (B, latent_dim) fp32.
 
     ``model`` is a ``nn.vae.MolecularVAE`` (its ``conv_i`` and
     ``linear_0..2`` modules hold the weights)."""
-    cd = matmul_dtype(cfg, x_onehot.device)
-    h = x_onehot.transpose(1, 2) if cfg.conv_orientation == "seq" else x_onehot
-    for i in range(1, len(cfg.conv_channels) + 1):
-        conv = getattr(model, f"conv_{i}")
-        h = F.relu(conv1d(h, conv.weight, conv.bias, cd))
-    h = h.reshape(h.shape[0], -1)
-    h = F.selu(linear(h, model.linear_0.weight, model.linear_0.bias, cd))
-    mu = linear(h, model.linear_1.weight, model.linear_1.bias)
-    logvar = linear(h, model.linear_2.weight, model.linear_2.bias)
-    return mu, logvar
+    return encode_with(
+        cfg, x_onehot, encoder_params(model), matmul_dtype(cfg, x_onehot.device)
+    )

@@ -1,25 +1,43 @@
-"""MolecularVAE: the port's parameter holder, plus encode and reparameterize.
+"""MolecularVAE: the port's parameter holder, encode, reparameterize,
+decode and the training forward.
 
-Port of ``molvax/nn/vae.py:44-67``. Module names are those of the reference
+Port of ``molvax/nn/vae.py:35-156``. Module names are those of the reference
 twin (``bench/torch_twin/model.py``): ``conv_1..N``, ``linear_0`` (dense),
 ``linear_1`` (mu), ``linear_2`` (logvar), ``linear_3`` (latent embed),
 ``gru`` (weights only: the port never runs ``nn.GRU``'s forward),
 ``linear_4`` (output head), ``prop_hidden``/``prop_out`` when the config has
 a property head, and ``start_token`` when it learns one. A state dict from
 ``io.convert.state_dict_from_jax`` loads with ``strict=True``.
+
+Where the reference threads a JAX key, the port threads a 32-bit seed: the
+fused sampler and the scheduled-sampling and word-dropout masks draw from
+the counter hash of ``kernels.generate.noise_bits`` keyed by it, so a step
+is deterministic and resumable on any device.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple, Union
+from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
 import torch.nn as nn
 
 from ..data.featurize import one_hot
-from ..utils import resolve_device
-from .decoder import decoder_input_size
+from ..kernels import conv_enc, sampler
+from ..kernels.generate import noise_bits
+from ..utils import matmul_dtype, resolve_device
+from .decoder import decode as _decode, decoder_input_size
 from .encoder import conv_input_channels, encode as _encode, flat_conv_dim
+from .property_head import init_property_head, predict_properties
+
+
+class VAEOutput(NamedTuple):
+    logits: torch.Tensor  # (B, T, C) decoder logits
+    mu: torch.Tensor  # (B, L)
+    logvar: torch.Tensor  # (B, L)
+    z: torch.Tensor  # (B, L) sampled latent
+    properties: Optional[torch.Tensor] = None  # (B, P) if the head is configured
+    kl: Optional[torch.Tensor] = None  # (B,) per-sample KL when the fused sampler ran
 
 
 class MolecularVAE(nn.Module):
@@ -45,8 +63,7 @@ class MolecularVAE(nn.Module):
         )
         self.linear_4 = nn.Linear(cfg.gru_hidden, cfg.charset_size, device=dev)
         if cfg.n_properties > 0:
-            self.prop_hidden = nn.Linear(cfg.latent_dim, cfg.property_hidden, device=dev)
-            self.prop_out = nn.Linear(cfg.property_hidden, cfg.n_properties, device=dev)
+            self.prop_hidden, self.prop_out = init_property_head(cfg, dev)
         self.start_token = (
             nn.Parameter(torch.zeros(cfg.charset_size, device=dev))
             if cfg.learned_start
@@ -79,3 +96,73 @@ def reparameterize(
     gen_device = generator.device if generator is not None else mu.device
     eps = torch.randn(mu.shape, generator=generator, device=gen_device).to(mu.device)
     return mu + eps_scale * torch.exp(0.5 * logvar) * eps
+
+
+# salts of the per-step mask draws (the reference's fold_in constants)
+_SS_SALT = 0x5C4ED
+_WD_SALT = 0xD409
+
+
+def bernoulli_mask(seed: int, salt: int, p: float, shape, device) -> torch.Tensor:
+    """(B, T) bool mask, True with probability ``p``, from the counter hash:
+    u = top24(noise_bits(seed, salt, row, t)) / 2**24 in [0, 1), mask = u < p.
+    Exactly all False at p = 0 and all True at p = 1."""
+    rows = torch.arange(shape[0], dtype=torch.int64, device=device)[:, None]
+    cols = torch.arange(shape[1], dtype=torch.int64, device=device)[None, :]
+    u = (noise_bits(seed, salt, rows, cols) >> 8).to(torch.float32) * (1.0 / (1 << 24))
+    return u < p
+
+
+def decode(
+    model: MolecularVAE, cfg, z: torch.Tensor, teacher_codes: Optional[torch.Tensor] = None
+) -> torch.Tensor:
+    """z -> logits (B, T, C). ``teacher_codes`` (B, T) is required for
+    teacher-forced decoding; ``latent.sample.generate`` decodes free-running."""
+    teacher = one_hot(teacher_codes, cfg.charset_size) if teacher_codes is not None else None
+    return _decode(model, cfg, z, teacher)
+
+
+def forward(
+    model: MolecularVAE,
+    cfg,
+    seed: int,
+    codes: torch.Tensor,
+    ss_prob: Optional[float] = None,
+    wd_prob: Optional[float] = None,
+) -> VAEOutput:
+    """The training forward: codes (B, T) -> VAEOutput.
+
+    With ``cfg.use_pallas`` and bf16 matmuls, the encoder is the fused
+    encoder kernel and z / KL come from the fused sampler (each takes its
+    plain version for CPU tensors). Otherwise the plain encoder runs and z
+    is reparameterized with torch.randn noise from a generator seeded with
+    ``seed``.
+
+    ``ss_prob`` turns on two-pass scheduled sampling: a first teacher-forced
+    decode (no gradient) predicts each character, and each teacher input is
+    replaced by its prediction with probability ss_prob. ``wd_prob`` zeroes
+    each teacher input's one-hot row with probability wd_prob (word
+    dropout). Pass None, not 0, when off."""
+    kl = None
+    if cfg.use_pallas and matmul_dtype(cfg, codes.device) == torch.bfloat16:
+        mu, logvar = conv_enc.fused_encode(model, cfg, codes)
+        z, kl = sampler.fused_sample_kl(seed, mu, logvar, cfg.eps_scale)
+    else:
+        mu, logvar = encode(model, cfg, codes)
+        gen = torch.Generator(device=mu.device).manual_seed(seed)
+        z = reparameterize(mu, logvar, cfg.eps_scale, gen)
+    teacher = codes if cfg.decoder_conditioning == "teacher_forced" else None
+    if ss_prob is not None and teacher is not None:
+        with torch.no_grad():
+            pred = decode(model, cfg, z.detach(), teacher).argmax(dim=-1).to(codes.dtype)
+        mix = bernoulli_mask(seed, _SS_SALT, ss_prob, codes.shape, codes.device)
+        teacher = torch.where(mix, pred, codes)
+    if wd_prob is not None and teacher is not None:
+        # drop to the zero vector, not to the pad character (a real symbol)
+        toh = one_hot(teacher, cfg.charset_size)
+        drop = bernoulli_mask(seed, _WD_SALT, wd_prob, teacher.shape, teacher.device)
+        logits = _decode(model, cfg, z, toh.masked_fill(drop[..., None], 0.0))
+    else:
+        logits = decode(model, cfg, z, teacher)
+    props = predict_properties(model, cfg, z) if cfg.n_properties > 0 else None
+    return VAEOutput(logits=logits, mu=mu, logvar=logvar, z=z, properties=props, kl=kl)

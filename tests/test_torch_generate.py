@@ -215,10 +215,28 @@ def test_kernel_route_conditions():
 
 
 def test_unported_options_raise():
+    """Constrained decoding is not ported: it raises for both conditionings
+    ('repeat_z' decoders themselves now decode, see below)."""
     _, tcfg, _, model = paired()
     z = torch.zeros(2, tcfg.latent_dim)
     with pytest.raises(NotImplementedError, match="Constrained decoding"):
         generate(model, tcfg, z, constrained=True)
     rz = dataclasses.replace(tcfg, decoder_conditioning="repeat_z")
-    with pytest.raises(NotImplementedError, match="repeat_z"):
-        generate(model, rz, z)
+    with pytest.raises(NotImplementedError, match="Constrained decoding"):
+        generate(model, rz, z, constrained=True)
+
+
+def test_repeat_z_greedy_matches_reference():
+    """A 'repeat_z' decoder decodes in one non-autoregressive pass: greedy
+    codes and logits against the reference's generate, fp32."""
+    jcfg, tcfg, params, model = paired(decoder_conditioning="repeat_z")
+    z = normal((5, jcfg.latent_dim), seed=13)
+    codes_j, logits_j = j_generate(params, jcfg, jnp.asarray(z), jax.random.key(0), greedy=True)
+    codes_t, logits_t = generate(model, tcfg, torch.from_numpy(z), greedy=True)
+    np.testing.assert_array_equal(codes_t.numpy(), np.asarray(codes_j))
+    np.testing.assert_allclose(logits_t.numpy(), np.asarray(logits_j), atol=FP32_TOL, rtol=FP32_TOL)
+    # sampled: Gumbel-max over the same logits, seeded by the generator
+    a, _ = generate(model, tcfg, torch.from_numpy(z), torch.Generator().manual_seed(3), greedy=False)
+    b, _ = generate(model, tcfg, torch.from_numpy(z), torch.Generator().manual_seed(3), greedy=False)
+    np.testing.assert_array_equal(a.numpy(), b.numpy())
+    assert a.dtype == torch.int32 and a.shape == codes_t.shape

@@ -26,6 +26,8 @@ def test_import_pulls_in_no_jax():
         "import sys\n"
         "import molvax_torch, molvax_torch.latent.sample, molvax_torch.kernels.generate\n"
         "import molvax_torch.io.convert, molvax_torch.kernels._build\n"
+        "import molvax_torch.train, molvax_torch.kernels.gru_stack, molvax_torch.kernels.conv_enc\n"
+        "import molvax_torch.kernels.sampler, molvax_torch.kernels.gru\n"
         "bad = [m for m in sys.modules if m in ('jax', 'molvax') "
         "or m.startswith(('jax.', 'molvax.'))]\n"
         "assert not bad, bad\n"
