@@ -5,7 +5,7 @@
 
 Run from the root of a checkout. It builds the hand-written kernels from
 ``molvax_torch/kernels/csrc/`` (into ``build/molvax_torch/``), makes
-``zinc250k`` weights at full width from a seed, and runs eleven phases,
+``zinc250k`` weights at full width from a seed, and runs fifteen phases,
 each printed on its own lines:
 
   1. environment: card name and power limit, torch and CUDA versions, the
@@ -36,7 +36,25 @@ each printed on its own lines:
  11. times: the train step on both routes, each new kernel against its
      plain version (CUDA events, median of 5 after 2 warm-ups), the
      device-time split of one kernel-route step (torch.profiler), and
-     peak device memory.
+     peak device memory;
+ 12. the per-layer GRU kernels against their plain versions on the same
+     inputs, layer 0 (I=329) and layer 1 (I=501): gru_layer_scan_x forward
+     and backward in bf16 and in strict fp32, gru_layer_scan forward and
+     backward, also at a ragged batch of 6; then gru_layer_scan's own path,
+     a 3-layer hoisted-gi decode through its autograd wrapper, counting
+     launches;
+ 13. the zinc250k_quality training step (per-layer kernels, two-pass
+     scheduled sampling) through the public functions: 20 steps on the
+     kernel route with exact launch counts per step (per-layer forward 6,
+     backward 3, encoder 1, sampler 1, stack 0), loss falls, 3 steps on the
+     plain route, one make_eval_step;
+ 14. the strict-fp32 zinc250k step (compute_dtype='float32'): 20 steps on
+     the per-layer kernels in fp32 mode (forward 3, backward 3, encoder and
+     sampler 0), loss falls, 3 plain-route steps within 1e-4, with the TF32
+     switches;
+ 15. times: both new train steps on both routes, each per-layer kernel
+     against its plain version in bf16 and fp32, the device-time split of
+     one step of each, and peak device memory.
 
 Any failure raises and exits non-zero. Without CUDA it exits 2 and prints
 no result. The last line of standard output is the device JSON.
@@ -45,6 +63,7 @@ no result. The last line of standard output is the device JSON.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import os
 import statistics
@@ -60,6 +79,7 @@ from molvax_torch.data.charset import DEFAULT_CHARSET
 from molvax_torch.data.featurize import decode_codes, encode_smiles, one_hot
 from molvax_torch.io.convert import state_dict_from_jax
 from molvax_torch.kernels import _build, conv_enc, gru_stack, sampler
+from molvax_torch.kernels import gru as kgru
 from molvax_torch.kernels import generate as kg
 from molvax_torch.latent.sample import reconstruct, sample_prior
 from molvax_torch.nn.decoder import latent_embed, teacher_inputs
@@ -69,11 +89,15 @@ from molvax_torch.nn.vae import MolecularVAE, encode
 from molvax_torch.train import init_state, make_eval_step, make_train_step
 
 MARGIN = 1e-2  # score units; bf16 operand rounding of a near-tie h can move a logit by ~1e-4
+# the stack's gates, which also hold the bf16 per-layer kernels
 STACK_FWD_TOL = 3.91e-3  # the reference's on-chip gate for the stack kernel (ROADMAP B)
 STACK_BWD_REL = 1e-2  # ||kernel - plain|| / ||plain|| per gradient
 ENCODER_TOL = 1e-3  # same bf16 operands and stages, fp32 sums in another order
 SAMPLER_REL = 1e-5  # same bits; fp32 transcendentals of the card vs torch's
 ROUTE_REL = 1e-2  # per-step loss, kernel route against plain route
+FP32_FWD_TOL = 1e-4  # strict fp32: only the sum order differs; a bf16 or TF32
+FP32_BWD_REL = 1e-3  # cast would show as ~1e-2
+FP32_ROUTE_REL = 1e-4  # per-step loss of the strict-fp32 routes
 B = 256
 SEED = 0
 DEVICE = "cuda:0"
@@ -177,6 +201,8 @@ def time_ms(fn, warmup: int = 2, reps: int = 5) -> float:
 def reset_counts() -> None:
     kg.launches = conv_enc.launches = sampler.launches = 0
     gru_stack.fwd_launches = gru_stack.bwd_launches = gru_stack.dw_launches = 0
+    kgru.layer_fwd_launches = kgru.layer_bwd_launches = kgru.layer_dw_launches = 0
+    kgru.scan_fwd_launches = kgru.scan_bwd_launches = 0
 
 
 def counts() -> dict:
@@ -187,6 +213,11 @@ def counts() -> dict:
         "gru_stack_fwd": gru_stack.fwd_launches,
         "gru_stack_bwd_sweep": gru_stack.bwd_launches,
         "gru_stack_bwd_dw": gru_stack.dw_launches,
+        "gru_layer_scan_x_fwd": kgru.layer_fwd_launches,
+        "gru_layer_scan_x_bwd_sweep": kgru.layer_bwd_launches,
+        "gru_layer_bwd_dw": kgru.layer_dw_launches,
+        "gru_layer_scan_fwd": kgru.scan_fwd_launches,
+        "gru_layer_scan_bwd_sweep": kgru.scan_bwd_launches,
     }
 
 
@@ -194,14 +225,18 @@ def counts() -> dict:
 def plain_route():
     """The kernels' plain versions in place of the wrappers that the
     training forward and the GRU router call, for comparison and timing."""
-    saved = (conv_enc.fused_encode, sampler.fused_sample_kl, gru_stack.gru_stack_scan)
+    saved = (conv_enc.fused_encode, sampler.fused_sample_kl, gru_stack.gru_stack_scan,
+             kgru.gru_layer_scan_x, kgru.gru_layer_scan)
     conv_enc.fused_encode = conv_enc.fused_encode_ref
     sampler.fused_sample_kl = sampler.fused_sample_kl_ref
     gru_stack.gru_stack_scan = gru_stack.gru_stack_scan_ref
+    kgru.gru_layer_scan_x = kgru.gru_layer_scan_x_ref
+    kgru.gru_layer_scan = kgru.gru_layer_scan_ref
     try:
         yield
     finally:
-        conv_enc.fused_encode, sampler.fused_sample_kl, gru_stack.gru_stack_scan = saved
+        (conv_enc.fused_encode, sampler.fused_sample_kl, gru_stack.gru_stack_scan,
+         kgru.gru_layer_scan_x, kgru.gru_layer_scan) = saved
 
 
 def rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -271,6 +306,176 @@ def profile_step(step_fn) -> dict:
         if dev_us > 0:
             by_name[ev.key] = by_name.get(ev.key, 0.0) + dev_us / 1e3
     return {"wall_ms": wall_ms, "device_ms": by_name}
+
+
+GRAD_NAMES = ["dx", "dw_ih", "db_ih", "dw_hh", "db_hh", "dh0"]
+SCAN_GRAD_NAMES = ["dgi", "dw_hh", "db_hh", "dh0"]
+
+
+def layer_args(s_args, l: int, x):
+    """gru_layer_scan_x's arguments for layer l of the stack's weights:
+    (x, w_ih, b_ih, w_hh, b_hh, h0), torch layout."""
+    _, wih0, bih0, wih, bih, whh, bhh, h0 = s_args
+    w_ih, b_ih = (wih0, bih0) if l == 0 else (wih[l - 1], bih[l - 1])
+    return (x, w_ih, b_ih, whh[l], bhh[l], h0[l])
+
+
+def _gates(md):
+    return (STACK_FWD_TOL, STACK_BWD_REL) if md == torch.bfloat16 else (FP32_FWD_TOL, FP32_BWD_REL)
+
+
+def _check_grads(what, names, grads_k, grads_r, rel_tol, **kv):
+    """Relative error of each gradient; raises over rel_tol. Returns the
+    largest max abs error."""
+    rels, worst = {}, 0.0
+    for name, a, b in zip(names, grads_k, grads_r):
+        if not (torch.isfinite(a).all() and a.shape == b.shape):
+            raise AssertionError(f"{what} {name}: non-finite or misshapen")
+        rels[name] = f"{rel_err(a, b):.3e}"
+        worst = max(worst, max_abs(a, b))
+    say("phase12", kernel=what, rel_err=json.dumps(rels).replace(" ", ""), max_abs_err=f"{worst:.3e}",
+        rel_tol=rel_tol, **kv)
+    bad = {name: r for name, r in rels.items() if not float(r) <= rel_tol}
+    if bad:
+        raise AssertionError(f"{what}: relative errors {bad} > {rel_tol} ({kv})")
+    return worst
+
+
+def check_layer_x(args, md, dY, **kv):
+    """gru_layer_scan_x's forward and backward kernels against their plain
+    versions on the same inputs. Returns (forward max abs error, gradient
+    max abs error, the kernel's residuals)."""
+    fwd_tol, bwd_rel = _gates(md)
+    with torch.no_grad():
+        res_k = kgru.layer_forward(*args, md)
+        res_r = kgru.layer_forward_ref(*args, md)
+    torch.cuda.synchronize()
+    if any(r.dtype != md for r in res_k):
+        raise AssertionError(f"gru_layer_scan_x stored {[r.dtype for r in res_k]}, expected {md}")
+    out_err = max_abs(res_k[0], res_r[0])
+    hf_err = max_abs(res_k[0][-1], res_r[0][-1])
+    same = (res_k[0] == res_r[0]).float().mean().item()
+    kv = dict(md=str(md).split(".")[-1], B=args[0].shape[1], I=args[0].shape[2], **kv)
+    say("phase12", kernel="gru_layer_scan_x_fwd", out_max_abs_err=f"{out_err:.3e}",
+        h_final_max_abs_err=f"{hf_err:.3e}", hseq_bit_identical=f"{same:.6f}", tol=fwd_tol, **kv)
+    if not max(out_err, hf_err) <= fwd_tol:
+        raise AssertionError(f"gru_layer_scan_x forward differs from its plain version by {out_err:.3e} ({kv})")
+    x, w_ih, _, w_hh, _, h0 = args
+    res = (*res_k, x, h0, w_ih, w_hh)
+    with torch.no_grad():
+        grads_k = kgru.layer_backward(res, dY)
+        grads_r = kgru.layer_backward_ref(res, dY)
+    torch.cuda.synchronize()
+    bwd_err = _check_grads("gru_layer_scan_x_bwd", GRAD_NAMES, grads_k, grads_r, bwd_rel, **kv)
+    return max(out_err, hf_err), bwd_err, res_k
+
+
+def check_scan(gi, w_hh, b_hh, h0, dY, **kv):
+    """gru_layer_scan's forward and backward kernels against their plain
+    versions (bf16 gates). Returns (forward error, gradient error)."""
+    with torch.no_grad():
+        res_k = kgru.scan_forward(gi, w_hh, b_hh, h0)
+        res_r = kgru.scan_forward_ref(gi, w_hh, b_hh, h0)
+    torch.cuda.synchronize()
+    fwd = max(max_abs(res_k[0], res_r[0]), max_abs(res_k[0][-1], res_r[0][-1]))
+    kv = dict(B=gi.shape[1], **kv)
+    say("phase12", kernel="gru_layer_scan_fwd", out_max_abs_err=f"{fwd:.3e}", tol=STACK_FWD_TOL, **kv)
+    if not fwd <= STACK_FWD_TOL:
+        raise AssertionError(f"gru_layer_scan forward differs from its plain version by {fwd:.3e}")
+    res = (*res_k, h0, w_hh)
+    with torch.no_grad():
+        grads_k = kgru.scan_backward(res, dY)
+        grads_r = kgru.scan_backward_ref(res, dY)
+    torch.cuda.synchronize()
+    return fwd, _check_grads("gru_layer_scan_bwd", SCAN_GRAD_NAMES, grads_k, grads_r, STACK_BWD_REL, **kv)
+
+
+def hoisted_decode(s_args) -> float:
+    """gru_layer_scan's own path: the 3-layer decode with each layer's input
+    GEMM hoisted out of the recurrence (torch.matmul, as the reference left
+    it to XLA) and the recurrence through the autograd wrapper, forward and
+    backward. Returns the loss; raises on a non-finite gradient."""
+    x0, *weights, h0 = s_args
+    wih0, bih0, wih, bih, whh, bhh = (w.detach().clone().requires_grad_(True) for w in weights)
+    inp = x0
+    for l in range(h0.shape[0]):
+        w_ih, b_ih = (wih0, bih0) if l == 0 else (wih[l - 1], bih[l - 1])
+        inp = kgru.gru_layer_scan(inp @ w_ih.T + b_ih, whh[l], bhh[l], h0[l])
+    loss = torch.sin(inp).mean()
+    loss.backward()
+    for w in (wih0, bih0, wih, bih, whh, bhh):
+        if not (torch.isfinite(w.grad).all() and w.grad.abs().sum() > 0):
+            raise AssertionError("hoisted decode: a gradient is zero or non-finite")
+    return float(loss.detach())
+
+
+def train_phase(phase, full, weights, codes, per_step, plain_tol):
+    """TRAIN_STEPS steps of make_train_step on the kernel route, counting
+    every kernel launch: each counter must be exactly per_step[name] times
+    the steps (0 for a name not given). Then PLAIN_STEPS steps on the plain
+    route from the same weights. Returns (state, step fn, launch counts)."""
+    dev = codes.device
+    step_fn = make_train_step(full)
+    state = init_state(full, device=dev, weights=weights)
+    reset_counts()
+    losses = []
+    for _ in range(TRAIN_STEPS):
+        state, metrics = step_fn(state, codes, None)
+        losses.append(metrics["loss"])
+    torch.cuda.synchronize()
+    got = counts()
+    say(phase, preset=full.name, compute_dtype=full.model.compute_dtype, gru_kernel=full.model.gru_kernel,
+        steps=TRAIN_STEPS, **got)
+    bad = {k: v for k, v in got.items() if v != per_step.get(k, 0) * TRAIN_STEPS}
+    if bad:
+        raise AssertionError(f"{phase}: launch counts {bad}, expected per step {per_step}")
+    losses = [float(x) for x in losses]
+    say(phase, route="kernel", loss=json.dumps([round(x, 4) for x in losses]))
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"{phase}: the loss did not fall: {losses[0]} -> {losses[-1]}")
+    plain_state = init_state(full, device=dev, weights=weights)
+    plain_losses = []
+    with plain_route():
+        for _ in range(PLAIN_STEPS):
+            plain_state, metrics = step_fn(plain_state, codes, None)
+            plain_losses.append(float(metrics["loss"]))
+    route_rel = max(abs(a - b) / abs(b) for a, b in zip(losses, plain_losses))
+    say(phase, route="plain", loss=json.dumps([round(x, 6) for x in plain_losses]),
+        kernel_loss=json.dumps([round(x, 6) for x in losses[:PLAIN_STEPS]]),
+        max_rel_diff=f"{route_rel:.3e}", tol=plain_tol)
+    if not route_rel <= plain_tol:
+        raise AssertionError(f"{phase}: kernel and plain routes differ by {route_rel:.3e} in the loss")
+    return state, step_fn, got
+
+
+def timed_steps(full, weights, codes, step_fn):
+    """(kernel-route ms, plain-route ms, peak GB, a kernel step fn) of one
+    train step, on a throwaway state the timed steps update in place."""
+    bench = init_state(full, device=codes.device, weights=weights)
+
+    def kernel_step():
+        nonlocal bench
+        bench, _ = step_fn(bench, codes, None)
+
+    def plain_step():
+        nonlocal bench
+        with plain_route():
+            bench, _ = step_fn(bench, codes, None)
+
+    ms, ms_plain = time_ms(kernel_step), time_ms(plain_step)
+    torch.cuda.reset_peak_memory_stats()
+    kernel_step()
+    torch.cuda.synchronize()
+    return ms, ms_plain, torch.cuda.max_memory_allocated() / 1e9, kernel_step
+
+
+def say_profile(phase, prof, ms_step) -> None:
+    dev_ms = prof["device_ms"]
+    total = sum(dev_ms.values())
+    say(phase, profiled_step_wall_ms=f"{prof['wall_ms']:.3f}", device_busy_ms=f"{total:.3f}",
+        idle_share=f"{1 - total / ms_step:.4f}" if total else "not measured")
+    for name, ms in sorted(dev_ms.items(), key=lambda kv: -kv[1])[:12]:
+        say(phase, device_kernel=json.dumps(name[:80]), ms=f"{ms:.3f}", share=f"{ms / total:.4f}")
 
 
 def main() -> int:
@@ -425,34 +630,11 @@ def main() -> int:
     ragged_batch_checks(model, cfg, codes, s_args)
 
     # -- 10. the training step through the public functions ------------------
-    train_step = make_train_step(full)
-    state = init_state(full, device=dev, weights=weights)
-    reset_counts()
-    losses = []
-    for _ in range(TRAIN_STEPS):
-        state, metrics = train_step(state, codes, None)
-        losses.append(metrics["loss"])
-    torch.cuda.synchronize()
-    train_counts = counts()
-    losses = [float(x) for x in losses]
-    say("phase10", steps=TRAIN_STEPS, **train_counts)
-    for name in ("fused_encode", "fused_sample_kl", "gru_stack_fwd", "gru_stack_bwd_sweep", "gru_stack_bwd_dw"):
-        if train_counts[name] != TRAIN_STEPS:
-            raise AssertionError(f"{name} launched {train_counts[name]} times in {TRAIN_STEPS} steps")
-    say("phase10", route="kernel", loss=json.dumps([round(x, 4) for x in losses]))
-    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
-        raise AssertionError(f"the loss did not fall: {losses[0]} -> {losses[-1]}")
-    plain_state = init_state(full, device=dev, weights=weights)
-    plain_losses = []
-    with plain_route():
-        for _ in range(PLAIN_STEPS):
-            plain_state, metrics = train_step(plain_state, codes, None)
-            plain_losses.append(float(metrics["loss"]))
-    route_rel = max(abs(a - b) / abs(b) for a, b in zip(losses, plain_losses))
-    say("phase10", route="plain", loss=json.dumps([round(x, 4) for x in plain_losses]),
-        max_rel_diff=f"{route_rel:.3e}", tol=ROUTE_REL)
-    if not route_rel <= ROUTE_REL:
-        raise AssertionError(f"kernel and plain routes differ by {route_rel:.3e} in the loss")
+    state, train_step, train_counts = train_phase(
+        "phase10", full, weights, codes,
+        {"fused_encode": 1, "fused_sample_kl": 1, "gru_stack_fwd": 1, "gru_stack_bwd_sweep": 1,
+         "gru_stack_bwd_dw": 1},
+        ROUTE_REL)
     eval_metrics = make_eval_step(full)(state, codes, None)
     eval_m = {k: float(v) for k, v in eval_metrics.items()}
     say("phase10", eval=json.dumps({k: round(v, 4) for k, v in eval_m.items()}))
@@ -460,24 +642,7 @@ def main() -> int:
         raise AssertionError("eval metrics are not finite")
 
     # -- 11. times -------------------------------------------------------------
-    # a throwaway state: the timed steps update it in place
-    bench = init_state(full, device=dev, weights=weights)
-
-    def kernel_step():
-        nonlocal bench
-        bench, _ = train_step(bench, codes, None)
-
-    def plain_step():
-        nonlocal bench
-        with plain_route():
-            bench, _ = train_step(bench, codes, None)
-
-    ms_step = time_ms(kernel_step)
-    ms_step_plain = time_ms(plain_step)
-    torch.cuda.reset_peak_memory_stats()
-    kernel_step()
-    torch.cuda.synchronize()
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    ms_step, ms_step_plain, peak_gb, kernel_step = timed_steps(full, weights, codes, train_step)
     for route, ms in (("kernel", ms_step), ("plain", ms_step_plain)):
         say("phase11", train_step=route, B=B, ms=f"{ms:.4f}", smiles_per_s=f"{B / (ms / 1e3):.1f}",
             card=json.dumps(gpu))
@@ -497,15 +662,104 @@ def main() -> int:
         }
     for name, (ms_k, ms_p) in times.items():
         say("phase11", kernel=name, ms=f"{ms_k:.4f}", plain_ms=f"{ms_p:.4f}", card=json.dumps(gpu))
-    prof = profile_step(kernel_step)
-    dev_ms = prof["device_ms"]
-    total = sum(dev_ms.values())
     # idle share against the event-timed step: the profiler's own wall time
     # includes its overhead
-    say("phase11", profiled_step_wall_ms=f"{prof['wall_ms']:.3f}", device_busy_ms=f"{total:.3f}",
-        idle_share=f"{1 - total / ms_step:.4f}" if total else "not measured")
-    for name, ms in sorted(dev_ms.items(), key=lambda kv: -kv[1])[:12]:
-        say("phase11", device_kernel=json.dumps(name[:80]), ms=f"{ms:.3f}", share=f"{ms / total:.4f}")
+    say_profile("phase11", profile_step(kernel_step), ms_step)
+
+    # -- 12. per-layer kernels against their plain versions ------------------
+    T, H = cfg.max_len, cfg.gru_hidden
+    g = torch.Generator(device=dev).manual_seed(SEED + 4)
+    dY_l = 1e-2 * torch.randn(T, B, H, device=dev, generator=g)
+    x1 = res_k[0][0].float()  # layer 1's input: the stack kernel's bf16 layer-0 outputs
+    layer_err = {torch.bfloat16: [0.0, 0.0], torch.float32: [0.0, 0.0]}
+    layer_res = {}
+    for md in (torch.bfloat16, torch.float32):
+        for l, x_l in ((0, s_args[0]), (1, x1)):
+            args = layer_args(s_args, l, x_l)
+            fwd_e, bwd_e, layer_res[md, l] = check_layer_x(args, md, dY_l, layer=l)
+            ragged = tuple(a[:, :6].contiguous() if i == 0 else a for i, a in enumerate(args[:-1])) + (args[-1][:6],)
+            fwd_r, bwd_r, _ = check_layer_x(ragged, md, dY_l[:, :6].contiguous(), layer=l, ragged_batch=6)
+            layer_err[md][0] = max(layer_err[md][0], fwd_e, fwd_r)
+            layer_err[md][1] = max(layer_err[md][1], bwd_e, bwd_r)
+    x0, wih0, bih0, _, _, whh, bhh, h0 = s_args
+    with torch.no_grad():
+        gi = x0 @ wih0.T + bih0  # the hoisted input GEMM of layer 0
+    scan_args = (gi, whh[0], bhh[0], h0[0])
+    scan_fwd_err, scan_bwd_err = check_scan(*scan_args, dY_l, layer=0)
+    fwd_r, bwd_r = check_scan(gi[:, :6].contiguous(), whh[0], bhh[0], h0[0][:6], dY_l[:, :6].contiguous(),
+                              layer=0, ragged_batch=6)
+    scan_fwd_err, scan_bwd_err = max(scan_fwd_err, fwd_r), max(scan_bwd_err, bwd_r)
+    reset_counts()
+    hoisted_loss = hoisted_decode(s_args)
+    torch.cuda.synchronize()
+    scan_counts = counts()
+    with plain_route():
+        hoisted_plain = hoisted_decode(s_args)
+    hoisted_rel = abs(hoisted_loss - hoisted_plain) / abs(hoisted_plain)
+    say("phase12", path="hoisted_gi_decode", loss=f"{hoisted_loss:.6f}", plain_loss=f"{hoisted_plain:.6f}",
+        rel_diff=f"{hoisted_rel:.3e}", tol=ROUTE_REL, **scan_counts)
+    want_scan = {"gru_layer_scan_fwd": L, "gru_layer_scan_bwd_sweep": L, "gru_layer_bwd_dw": L}
+    if any(v != want_scan.get(k, 0) for k, v in scan_counts.items()) or not hoisted_rel <= ROUTE_REL:
+        raise AssertionError(f"hoisted-gi decode: counts {scan_counts}, loss rel diff {hoisted_rel:.3e}")
+
+    # -- 13. the zinc250k_quality training step ------------------------------
+    qfull = get_preset("zinc250k_quality")
+    q_state, q_step, q_counts = train_phase(
+        "phase13", qfull, weights, codes,
+        {"fused_encode": 1, "fused_sample_kl": 1, "gru_layer_scan_x_fwd": 2 * L,
+         "gru_layer_scan_x_bwd_sweep": L, "gru_layer_bwd_dw": L},
+        ROUTE_REL)
+    reset_counts()
+    q_eval = {k: float(v) for k, v in make_eval_step(qfull)(q_state, codes, None).items()}
+    eval_counts = counts()
+    say("phase13", eval=json.dumps({k: round(v, 4) for k, v in q_eval.items()}), **eval_counts)
+    if eval_counts["gru_layer_scan_x_fwd"] != L or eval_counts["gru_layer_scan_x_bwd_sweep"] != 0:
+        raise AssertionError(f"eval step: launch counts {eval_counts}")
+    if not all(np.isfinite(list(q_eval.values()))):
+        raise AssertionError("zinc250k_quality eval metrics are not finite")
+
+    # -- 14. the strict-fp32 zinc250k training step --------------------------
+    ffull = dataclasses.replace(full, name="zinc250k_fp32",
+                                model=dataclasses.replace(cfg, compute_dtype="float32"))
+    _, f_step, f_counts = train_phase(
+        "phase14", ffull, weights, codes,
+        {"gru_layer_scan_x_fwd": L, "gru_layer_scan_x_bwd_sweep": L, "gru_layer_bwd_dw": L},
+        FP32_ROUTE_REL)
+    say("phase14", matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32,
+        cudnn_allow_tf32=torch.backends.cudnn.allow_tf32,
+        float32_matmul_precision=torch.get_float32_matmul_precision())
+
+    # -- 15. times ---------------------------------------------------------------
+    for name, f, fn in (("zinc250k_quality", qfull, q_step), ("zinc250k_fp32", ffull, f_step)):
+        ms_k, ms_p, peak, k_step = timed_steps(f, weights, codes, fn)
+        for route, ms in (("kernel", ms_k), ("plain", ms_p)):
+            say("phase15", train_step=name, route=route, B=B, ms=f"{ms:.4f}",
+                smiles_per_s=f"{B / (ms / 1e3):.1f}", card=json.dumps(gpu))
+        say("phase15", train_step=name, peak_device_memory_GB=f"{peak:.3f}", card=json.dumps(gpu))
+        say_profile("phase15", profile_step(k_step), ms_k)
+    layer_ms = {}
+    with torch.no_grad():
+        for md in (torch.bfloat16, torch.float32):
+            for l, x_l in ((0, s_args[0]), (1, x1)):
+                args = layer_args(s_args, l, x_l)
+                res = (*layer_res[md, l], x_l, args[5], args[1], args[3])
+                layer_ms[md, l] = (
+                    time_ms(lambda: kgru.layer_forward(*args, md)),
+                    time_ms(lambda: kgru.layer_forward_ref(*args, md)),
+                    time_ms(lambda: kgru.layer_backward(res, dY_l)),
+                    time_ms(lambda: kgru.layer_backward_ref(res, dY_l)),
+                )
+                say("phase15", kernel="gru_layer_scan_x", md=str(md).split(".")[-1], layer=l, I=x_l.shape[2],
+                    fwd_ms=f"{layer_ms[md, l][0]:.4f}", fwd_plain_ms=f"{layer_ms[md, l][1]:.4f}",
+                    bwd_ms=f"{layer_ms[md, l][2]:.4f}", bwd_plain_ms=f"{layer_ms[md, l][3]:.4f}",
+                    card=json.dumps(gpu))
+        s_res = (*kgru.scan_forward(*scan_args), h0[0], whh[0])
+        scan_ms = (time_ms(lambda: kgru.scan_forward(*scan_args)), time_ms(lambda: kgru.scan_forward_ref(*scan_args)),
+                   time_ms(lambda: kgru.scan_backward(s_res, dY_l)),
+                   time_ms(lambda: kgru.scan_backward_ref(s_res, dY_l)))
+    say("phase15", kernel="gru_layer_scan", fwd_ms=f"{scan_ms[0]:.4f}", fwd_plain_ms=f"{scan_ms[1]:.4f}",
+        bwd_ms=f"{scan_ms[2]:.4f}", bwd_plain_ms=f"{scan_ms[3]:.4f}", card=json.dumps(gpu))
+    bf, f32 = torch.bfloat16, torch.float32
 
     print(json.dumps({"kernels": [
         {"name": "fused_generate", "route": "cuda", "source": "molvax_torch/kernels/csrc/generate.cu",
@@ -523,6 +777,25 @@ def main() -> int:
         {"name": "gru_stack_scan_bwd", "route": "cuda", "source": "molvax_torch/kernels/csrc/gru_stack.cu",
          "replaces": "molvax/kernels/gru_stack.py:487", "launches": train_counts["gru_stack_bwd_sweep"],
          "max_abs_err": bwd_err, "ms": times["gru_stack_bwd"][0], "plain_ms": times["gru_stack_bwd"][1]},
+        # per-layer times at layer 0 (I=329); layer 1's are on the phase15 lines
+        {"name": "gru_layer_scan_x_fwd", "route": "cuda", "source": "molvax_torch/kernels/csrc/gru_layer.cu",
+         "replaces": "molvax/kernels/gru.py:527",
+         "launches": q_counts["gru_layer_scan_x_fwd"] + f_counts["gru_layer_scan_x_fwd"],
+         "max_abs_err": layer_err[bf][0], "max_abs_err_fp32": layer_err[f32][0],
+         "ms": layer_ms[bf, 0][0], "plain_ms": layer_ms[bf, 0][1],
+         "ms_fp32": layer_ms[f32, 0][0], "plain_ms_fp32": layer_ms[f32, 0][1]},
+        {"name": "gru_layer_scan_x_bwd", "route": "cuda", "source": "molvax_torch/kernels/csrc/gru_layer.cu",
+         "replaces": "molvax/kernels/gru.py:689",
+         "launches": q_counts["gru_layer_scan_x_bwd_sweep"] + f_counts["gru_layer_scan_x_bwd_sweep"],
+         "max_abs_err": layer_err[bf][1], "max_abs_err_fp32": layer_err[f32][1],
+         "ms": layer_ms[bf, 0][2], "plain_ms": layer_ms[bf, 0][3],
+         "ms_fp32": layer_ms[f32, 0][2], "plain_ms_fp32": layer_ms[f32, 0][3]},
+        {"name": "gru_layer_scan_fwd", "route": "cuda", "source": "molvax_torch/kernels/csrc/gru_layer.cu",
+         "replaces": "molvax/kernels/gru.py:237", "launches": scan_counts["gru_layer_scan_fwd"],
+         "max_abs_err": scan_fwd_err, "ms": scan_ms[0], "plain_ms": scan_ms[1]},
+        {"name": "gru_layer_scan_bwd", "route": "cuda", "source": "molvax_torch/kernels/csrc/gru_layer.cu",
+         "replaces": "molvax/kernels/gru.py:348", "launches": scan_counts["gru_layer_scan_bwd_sweep"],
+         "max_abs_err": scan_bwd_err, "ms": scan_ms[2], "plain_ms": scan_ms[3]},
     ]}), flush=True)
     print(gpu, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,10 +1,12 @@
 // Device helpers shared by the hand-written kernels.
 //
-// RB batch rows share one block in the recurrent kernels; their bf16
-// operands sit row-interleaved in shared memory ([k][RB]), so one 8-byte
-// load gives operand k of all RB rows. mix32 / noise_bits are the
-// counter-based hash of the sampling noise; molvax_torch/kernels/generate.py
-// computes the same bits with torch integer ops.
+// RB batch rows share one block in the recurrent kernels; their operands
+// sit row-interleaved in shared memory ([k][RB]), so one 8-byte (bf16) or
+// 16-byte (fp32) load gives operand k of all RB rows. The product helpers
+// are templated on the operand type T (__nv_bfloat16 or float); products
+// always accumulate in fp32. mix32 / noise_bits are the counter-based hash
+// of the sampling noise; molvax_torch/kernels/generate.py computes the same
+// bits with torch integer ops.
 
 #pragma once
 
@@ -33,11 +35,22 @@ __device__ __forceinline__ uint32_t noise_bits(uint32_t seed, uint32_t t,
   return mix32(h + cls);
 }
 
-__device__ __forceinline__ float bf16_to_f(__nv_bfloat16 v) {
-  return __uint_as_float(static_cast<uint32_t>(__bfloat16_as_ushort(v)) << 16);
+// to_f / from_f<T>: an operand of type T as fp32, and fp32 rounded to T
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_f(float v) { return v; }
+
+template <typename T>
+__device__ __forceinline__ T from_f(float x);
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+template <>
+__device__ __forceinline__ float from_f<float>(float x) {
+  return x;
 }
 
-// Operand k of all RB (= 4) rows from a [k][RB] bf16 buffer, as fp32.
+// Operand k of all RB (= 4) rows from a [k][RB] buffer, as fp32.
 __device__ __forceinline__ void load_rows(const __nv_bfloat16* buf, int k,
                                           float x[RB]) {
   const uint2 v = reinterpret_cast<const uint2*>(buf)[k];
@@ -45,6 +58,14 @@ __device__ __forceinline__ void load_rows(const __nv_bfloat16* buf, int k,
   x[1] = __uint_as_float(v.x & 0xffff0000u);
   x[2] = __uint_as_float(v.y << 16);
   x[3] = __uint_as_float(v.y & 0xffff0000u);
+}
+
+__device__ __forceinline__ void load_rows(const float* buf, int k, float x[RB]) {
+  const float4 v = reinterpret_cast<const float4*>(buf)[k];
+  x[0] = v.x;
+  x[1] = v.y;
+  x[2] = v.z;
+  x[3] = v.w;
 }
 
 __device__ __forceinline__ uint32_t bf16_bits(float x) {
@@ -59,13 +80,18 @@ __device__ __forceinline__ void store_rows(__nv_bfloat16* buf, int k,
   reinterpret_cast<uint2*>(buf)[k] = v;
 }
 
+__device__ __forceinline__ void store_rows(float* buf, int k, const float x[RB]) {
+  reinterpret_cast<float4*>(buf)[k] = make_float4(x[0], x[1], x[2], x[3]);
+}
+
 __device__ __forceinline__ float sigmoid_f(float x) {
   return 1.0f / (1.0f + expf(-x));
 }
 
 // acc[g][r] += sum_k x[k][r] * w[k][g*H + j], g = r|z|n; w is (K, 3H)
-__device__ __forceinline__ void gate_products(const __nv_bfloat16* __restrict__ x,
-                                              const __nv_bfloat16* __restrict__ w,
+template <typename T>
+__device__ __forceinline__ void gate_products(const T* __restrict__ x,
+                                              const T* __restrict__ w,
                                               int K, int H, int j,
                                               float acc[3][RB]) {
   const size_t G = 3 * (size_t)H;
@@ -73,10 +99,10 @@ __device__ __forceinline__ void gate_products(const __nv_bfloat16* __restrict__ 
   for (int k = 0; k < K; ++k) {
     float xr[RB];
     load_rows(x, k, xr);
-    const __nv_bfloat16* wk = w + k * G + j;
-    const float w0 = __bfloat162float(wk[0]);
-    const float w1 = __bfloat162float(wk[H]);
-    const float w2 = __bfloat162float(wk[2 * H]);
+    const T* wk = w + k * G + j;
+    const float w0 = to_f(wk[0]);
+    const float w1 = to_f(wk[H]);
+    const float w2 = to_f(wk[2 * H]);
 #pragma unroll
     for (int r = 0; r < RB; ++r) {
       acc[0][r] = fmaf(xr[r], w0, acc[0][r]);
@@ -87,17 +113,129 @@ __device__ __forceinline__ void gate_products(const __nv_bfloat16* __restrict__ 
 }
 
 // acc[r] += sum_k x[k][r] * w[k * ld + c]: one output column c
-__device__ __forceinline__ void column_product(const __nv_bfloat16* __restrict__ x,
-                                               const __nv_bfloat16* __restrict__ w,
+template <typename T>
+__device__ __forceinline__ void column_product(const T* __restrict__ x,
+                                               const T* __restrict__ w,
                                                int K, int ld, int c, float acc[RB]) {
 #pragma unroll 4
   for (int k = 0; k < K; ++k) {
     float xr[RB];
     load_rows(x, k, xr);
-    const float wv = __bfloat162float(w[(size_t)k * ld + c]);
+    const float wv = to_f(w[(size_t)k * ld + c]);
 #pragma unroll
     for (int r = 0; r < RB; ++r) acc[r] = fmaf(xr[r], wv, acc[r]);
   }
+}
+
+// -- dW = D^T X over R rows, for the GRU backward kernels ---------------------
+// One job per weight matrix:
+//   D (R, M) gate cotangents of type T, M = 3H
+//   X rows r < n_first from x_first, rows r >= n_first from x[r - n_first],
+//   (R, N) of type T; column N of X is a column of ones, which gives db.
+// Each output is summed in a fixed order by one thread: deterministic, no
+// atomics. Operands are read as T and multiplied in fp32 (FMA pipes).
+template <typename T>
+struct DwJob {
+  const T* d;
+  const T* x;
+  const T* x_first;
+  float* dw;  // (M, N)
+  float* db;  // (M)
+  int N;
+  int n_first;
+};
+
+constexpr int MAX_JOBS = 16;  // 2 per layer: stacks of up to 8 layers
+
+template <typename T>
+struct DwJobs {
+  DwJob<T> job[MAX_JOBS];
+};
+
+constexpr int BM = 64, BN = 64, BK = 32, DW_THREADS = 256;
+
+template <typename T>
+__global__ void __launch_bounds__(DW_THREADS)
+gru_dw_kernel(DwJobs<T> jobs, int R, int M) {
+  const DwJob<T> jb = jobs.job[blockIdx.z];
+  const int tiles_n = (jb.N + 1 + BN - 1) / BN;
+  const int tiles_m = (M + BM - 1) / BM;
+  if ((int)blockIdx.x >= tiles_m * tiles_n) return;
+  const int m0 = (blockIdx.x / tiles_n) * BM;
+  const int n0 = (blockIdx.x % tiles_n) * BN;
+
+  __shared__ __align__(16) float sD[BK][BM];
+  __shared__ __align__(16) float sX[BK][BN];
+  const int tid = threadIdx.x;
+  const int tx = tid % 16, ty = tid / 16;
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
+
+  for (int r0 = 0; r0 < R; r0 += BK) {
+    for (int i = tid; i < BK * BM; i += DW_THREADS) {
+      const int kk = i / BM, mm = i % BM;
+      const int r = r0 + kk, m = m0 + mm;
+      sD[kk][mm] = (r < R && m < M) ? to_f(jb.d[(size_t)r * M + m]) : 0.0f;
+    }
+    for (int i = tid; i < BK * BN; i += DW_THREADS) {
+      const int kk = i / BN, nn = i % BN;
+      const int r = r0 + kk, n = n0 + nn;
+      float v = 0.0f;
+      if (r < R) {
+        if (n < jb.N) {
+          v = to_f(r < jb.n_first ? jb.x_first[(size_t)r * jb.N + n]
+                                  : jb.x[(size_t)(r - jb.n_first) * jb.N + n]);
+        } else if (n == jb.N) {
+          v = 1.0f;
+        }
+      }
+      sX[kk][nn] = v;
+    }
+    __syncthreads();
+#pragma unroll 8
+    for (int kk = 0; kk < BK; ++kk) {
+      const float4 a = *reinterpret_cast<const float4*>(&sD[kk][ty * 4]);
+      const float4 b = *reinterpret_cast<const float4*>(&sX[kk][tx * 4]);
+      const float av[4] = {a.x, a.y, a.z, a.w};
+      const float bv[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int m = m0 + ty * 4 + i;
+    if (m >= M) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int n = n0 + tx * 4 + j;
+      if (n < jb.N) {
+        jb.dw[(size_t)m * jb.N + n] = acc[i][j];
+      } else if (n == jb.N) {
+        jb.db[m] = acc[i][j];
+      }
+    }
+  }
+}
+
+// Launch the n jobs of `jobs` in one grid (blockIdx.z = job).
+template <typename T>
+cudaError_t launch_dw(const DwJobs<T>& jobs, int n, int R, int M, cudaStream_t stream) {
+  int max_tiles = 0;
+  const int tiles_m = (M + BM - 1) / BM;
+  for (int i = 0; i < n; ++i) {
+    const int tiles = tiles_m * ((jobs.job[i].N + 1 + BN - 1) / BN);
+    if (tiles > max_tiles) max_tiles = tiles;
+  }
+  gru_dw_kernel<T><<<dim3(max_tiles, 1, n), DW_THREADS, 0, stream>>>(jobs, R, M);
+  return cudaGetLastError();
 }
 
 }  // namespace

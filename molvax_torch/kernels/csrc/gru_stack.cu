@@ -17,7 +17,8 @@
 //   dgi = bf16(dr | dz | dn), dgh = bf16(dr | dz | dn r)
 //   dh_l = dout z + dgh @ W_hh_l^T
 //   dx staged for layer l-1 = dgi @ W_ih_l^T (fp32); dx0 = bf16(dgi @ W_ih0^T)
-// dW (a third kernel, over the dgi / dgh the sweep wrote):
+// dW (a third kernel, gru_dw_kernel of common.cuh, over the dgi / dgh the
+// sweep wrote):
 //   dW_hh_l = sum_{t,b} dgh^T hprev, dW_ih_l = sum dgi^T x_l, db = sum dgi|dgh
 // with hprev = hseq[l][t-1] (bf16(h0) at t = 0). Products take bf16
 // operands and accumulate in fp32, as in the TPU kernels. Rows are
@@ -267,98 +268,6 @@ gru_stack_bwd_kernel(const __nv_bfloat16* __restrict__ hseq,  // (L, T, B, H)
   }
 }
 
-// dW = D^T X over R rows, one job per weight matrix of the stack:
-//   D (R, M) bf16 gate cotangents, M = 3H
-//   X rows r < n_first from x_first, rows r >= n_first from x[r - n_first],
-//   (R, N) bf16; column N of X is a column of ones, which gives db.
-struct DwJob {
-  const __nv_bfloat16* d;
-  const __nv_bfloat16* x;
-  const __nv_bfloat16* x_first;
-  float* dw;  // (M, N)
-  float* db;  // (M)
-  int N;
-  int n_first;
-};
-
-constexpr int MAX_JOBS = 16;  // 2 per layer: stacks of up to 8 layers
-
-struct DwJobs {
-  DwJob job[MAX_JOBS];
-};
-
-constexpr int BM = 64, BN = 64, BK = 32, DW_THREADS = 256;
-
-__global__ void __launch_bounds__(DW_THREADS)
-gru_stack_dw_kernel(DwJobs jobs, int R, int M) {
-  const DwJob jb = jobs.job[blockIdx.z];
-  const int tiles_n = (jb.N + 1 + BN - 1) / BN;
-  const int tiles_m = (M + BM - 1) / BM;
-  if ((int)blockIdx.x >= tiles_m * tiles_n) return;
-  const int m0 = (blockIdx.x / tiles_n) * BM;
-  const int n0 = (blockIdx.x % tiles_n) * BN;
-
-  __shared__ __align__(16) float sD[BK][BM];
-  __shared__ __align__(16) float sX[BK][BN];
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
-
-  for (int r0 = 0; r0 < R; r0 += BK) {
-    for (int i = tid; i < BK * BM; i += DW_THREADS) {
-      const int kk = i / BM, mm = i % BM;
-      const int r = r0 + kk, m = m0 + mm;
-      sD[kk][mm] = (r < R && m < M) ? bf16_to_f(jb.d[(size_t)r * M + m]) : 0.0f;
-    }
-    for (int i = tid; i < BK * BN; i += DW_THREADS) {
-      const int kk = i / BN, nn = i % BN;
-      const int r = r0 + kk, n = n0 + nn;
-      float v = 0.0f;
-      if (r < R) {
-        if (n < jb.N) {
-          v = bf16_to_f(r < jb.n_first ? jb.x_first[(size_t)r * jb.N + n]
-                                       : jb.x[(size_t)(r - jb.n_first) * jb.N + n]);
-        } else if (n == jb.N) {
-          v = 1.0f;
-        }
-      }
-      sX[kk][nn] = v;
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int kk = 0; kk < BK; ++kk) {
-      const float4 a = *reinterpret_cast<const float4*>(&sD[kk][ty * 4]);
-      const float4 b = *reinterpret_cast<const float4*>(&sX[kk][tx * 4]);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + ty * 4 + i;
-    if (m >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx * 4 + j;
-      if (n < jb.N) {
-        jb.dw[(size_t)m * jb.N + n] = acc[i][j];
-      } else if (n == jb.N) {
-        jb.db[m] = acc[i][j];
-      }
-    }
-  }
-}
-
 size_t fwd_smem(int I0, int H, int L) {
   return (size_t)L * RB * H * sizeof(float) +
          (size_t)2 * L * H * RB * sizeof(__nv_bfloat16) +
@@ -430,27 +339,20 @@ extern "C" int molvax_gru_stack_dw(const void* x0, const void* h0b, const void* 
   cbf hseq_ = static_cast<cbf>(hseq);
   cbf dgi_ = static_cast<cbf>(dgi);
   cbf dgh_ = static_cast<cbf>(dgh);
-  DwJobs jobs;
-  int n = 0, max_tiles = 0;
-  const int tiles_m = (int)((G + BM - 1) / BM);
+  typedef DwJob<__nv_bfloat16> Job;
+  DwJobs<__nv_bfloat16> jobs;
+  int n = 0;
   for (int l = 0; l < L; ++l) {
     // W_hh_l: hprev = bf16(h0) for the first B rows, then hseq[l] one step behind
-    jobs.job[n++] = DwJob{dgh_ + l * TB * G, hseq_ + l * TB * H, h0b_ + (size_t)l * B * H,
-                          dwhh + l * G * H, dbhh + l * G, H, B};
+    jobs.job[n++] = Job{dgh_ + l * TB * G, hseq_ + l * TB * H, h0b_ + (size_t)l * B * H,
+                        dwhh + l * G * H, dbhh + l * G, H, B};
     if (l == 0) {
-      jobs.job[n++] = DwJob{dgi_, x0_, x0_, dwih0, dbih0, I0, 0};
+      jobs.job[n++] = Job{dgi_, x0_, x0_, dwih0, dbih0, I0, 0};
     } else {
-      jobs.job[n++] = DwJob{dgi_ + l * TB * G, hseq_ + (l - 1) * TB * H,
-                            hseq_ + (l - 1) * TB * H, dwih + (l - 1) * G * H,
-                            dbih + (l - 1) * G, H, 0};
+      jobs.job[n++] = Job{dgi_ + l * TB * G, hseq_ + (l - 1) * TB * H,
+                          hseq_ + (l - 1) * TB * H, dwih + (l - 1) * G * H,
+                          dbih + (l - 1) * G, H, 0};
     }
   }
-  for (int i = 0; i < n; ++i) {
-    const int tiles = tiles_m * ((jobs.job[i].N + 1 + BN - 1) / BN);
-    if (tiles > max_tiles) max_tiles = tiles;
-  }
-  const dim3 grid(max_tiles, 1, n);
-  gru_stack_dw_kernel<<<grid, DW_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      jobs, (int)TB, (int)G);
-  return (int)cudaGetLastError();
+  return (int)launch_dw(jobs, n, (int)TB, (int)G, static_cast<cudaStream_t>(stream));
 }

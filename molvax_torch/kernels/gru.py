@@ -1,34 +1,415 @@
-"""The GRU kernel router of the training decode.
+"""The GRU kernel router of the training decode, and the per-layer kernels.
 
-Port of the router of ``molvax/kernels/gru.py:856-938``
-(``gru_forward_pallas``). bf16 stacks that ``stack_plan_ok`` accepts take the
-fused stack kernels (``kernels/gru_stack.py``). Everything else, strict
-fp32, single-layer or non-uniform stacks, and configs pinned to
-``gru_kernel='per_layer'``, takes the per-layer kernel ``gru_layer_scan_x``
-in the reference, which is not ported yet: on CUDA the router raises, and
-on the CPU it runs the plain sweep (``nn.gru.gru_forward``). The TPU-only
-batch-size fallback (``pallas_batch_ok``) is dropped: the CUDA kernels take
-any batch.
+Port of ``molvax/kernels/gru.py``. The router (``gru_forward_pallas``,
+``:856-938``) sends bf16 stacks that ``stack_plan_ok`` accepts to the fused
+stack kernels (``kernels/gru_stack.py``), unless the config pins
+``gru_kernel='per_layer'``. Everything else, strict fp32, single-layer and
+non-uniform stacks, and pinned configs, runs one per-layer kernel per layer:
+
+- ``gru_layer_scan_x`` (``:748``): one layer with the input gates
+  ``x @ W_ih`` computed in the kernel, bf16 operands (``matmul_dtype=
+  'bfloat16'``) or strict fp32 (``'float32'``: every operand, residual and
+  cotangent fp32, no TF32). Its backward is a reverse-sweep kernel that
+  writes dx and the gate cotangents, then the dW contraction kernel.
+- ``gru_layer_scan`` (``:390``): the same recurrence with precomputed input
+  gates, rounded to bf16 at the boundary; its backward returns dgi.
+
+Both live in ``csrc/gru_layer.cu``. ``layer_forward_ref`` /
+``layer_backward_ref`` and ``scan_forward_ref`` / ``scan_backward_ref`` are
+the same math in plain torch ops, rounding where the kernels round. For CUDA
+tensors the wrappers launch the kernels or raise; the plain versions run
+only for tensors on the CPU (and when called by name). Like the TPU
+kernels' custom VJPs, the backward reads the stored residuals and rounds
+dgi / dgh and dx to the storage type, so it is the kernels' gradient, not
+autograd's exact one.
+
+Weights are in torch layout: ``w_ih`` (3H, I), ``w_hh`` (3H, H), the
+transposes of the JAX arguments; sequences are (T, B, ·) as in the
+reference. The TPU's batch and time blocking, its per-gate padding of H to
+a multiple of 128 and its batch-size fallback (``pallas_batch_ok``) have no
+counterpart: the CUDA kernels take any B, I and H whose shared memory fits.
 """
 
 from __future__ import annotations
 
+import ctypes
+import sys
 from typing import List, Optional, Tuple
 
 import torch
 
-from ..nn.gru import gru_forward
-from . import gru_stack
+from ..utils import round_to
+from . import _build, gru_stack
+from .gru_stack import _check_cuda, _contract, _stream
 
-PER_LAYER_TODO = (
-    "the per-layer GRU kernel gru_layer_scan_x (strict fp32, single-layer and "
-    "non-uniform stacks, gru_kernel='per_layer') is not ported yet: ROADMAP "
-    "queue B, 'gru_layer_scan_x'"
-)
+# kernel launches made by the wrappers (not by the plain versions)
+layer_fwd_launches = 0  # gru_layer_scan_x forward
+layer_bwd_launches = 0  # gru_layer_scan_x reverse sweep
+scan_fwd_launches = 0  # gru_layer_scan forward
+scan_bwd_launches = 0  # gru_layer_scan reverse sweep
+layer_dw_launches = 0  # the dW contraction of either backward
+
+_RB = 4  # batch rows per block (csrc/common.cuh)
+_MAX_SMEM = 232448  # an H100 block's dynamic shared memory, bytes
+_MATMUL_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+_warned_fp32 = False  # one-time note: the fused stack is bf16-only
+
+Residuals = Tuple[torch.Tensor, ...]
 
 
-def _on_cuda(x: torch.Tensor) -> bool:
-    return x.device.type == "cuda"
+def _plain_here(x: torch.Tensor) -> bool:
+    """The wrappers run the plain versions for CPU tensors only."""
+    return x.device.type == "cpu"
+
+
+# -- plain versions ------------------------------------------------------------
+
+
+def _recurrence_ref(gi_seq, w_hh, b_hh, h0, md) -> Residuals:
+    """gi_seq (T, B, 3H) fp32 input gates, bias included -> residuals
+    (hseq (T, B, H), rzn (T, B, 3H), ghn (T, B, H)) stored in ``md``; the
+    h carry and the gates are fp32, h enters its product rounded to md."""
+    T, B, G = gi_seq.shape
+    H = G // 3
+    dev = gi_seq.device
+    hseq = torch.empty(T, B, H, dtype=md, device=dev)
+    rzn = torch.empty(T, B, G, dtype=md, device=dev)
+    ghn = torch.empty(T, B, H, dtype=md, device=dev)
+    w = round_to(w_hh, md).T
+    h = h0.float()
+    for t in range(T):
+        gi = gi_seq[t]
+        gh = round_to(h, md) @ w + b_hh
+        r = torch.sigmoid(gi[:, :H] + gh[:, :H])
+        z = torch.sigmoid(gi[:, H : 2 * H] + gh[:, H : 2 * H])
+        gn = gh[:, 2 * H :]
+        n = torch.tanh(gi[:, 2 * H :] + r * gn)
+        h = (1.0 - z) * n + z * h
+        hseq[t] = h
+        rzn[t] = torch.cat([r, z, n], dim=-1)
+        ghn[t] = gn
+    return hseq, rzn, ghn
+
+
+def layer_forward_ref(x, w_ih, b_ih, w_hh, b_hh, h0, md: torch.dtype) -> Residuals:
+    """``gru_layer_scan_x``'s forward kernel: x (T, B, I) -> residuals in
+    ``md`` (bf16 or fp32). x and the weights are rounded to md; the input
+    gates are an fp32 sum, never stored."""
+    gi = round_to(x, md) @ round_to(w_ih, md).T + b_ih
+    return _recurrence_ref(gi, w_hh, b_hh, h0, md)
+
+
+def scan_forward_ref(gi, w_hh, b_hh, h0) -> Residuals:
+    """``gru_layer_scan``'s forward kernel: gi (T, B, 3H) rounded to bf16
+    at the boundary (``gru.py:409``) -> bf16 residuals."""
+    bf = torch.bfloat16
+    return _recurrence_ref(round_to(gi, bf), w_hh, b_hh, h0, bf)
+
+
+def _sweep_ref(hseq, rzn, ghn, h0, w_hh, dY):
+    """The reverse sweep over stored residuals (storage type md =
+    hseq.dtype): dY (T, B, H) is the cotangent of hseq. Returns the gate
+    cotangents dgi, dgh (T, B, 3H) in md, dh0 (B, H) fp32, and hprev
+    (T, B, H) in md."""
+    md = hseq.dtype
+    T, B, H = hseq.shape
+    hprev = torch.cat([h0.to(md)[None], hseq[:-1]], dim=0)
+    w = round_to(w_hh, md)  # (3H, H)
+    dgi = torch.empty(T, B, 3 * H, dtype=md, device=hseq.device)
+    dgh = torch.empty_like(dgi)
+    dh = torch.zeros(B, H, device=hseq.device)
+    for t in reversed(range(T)):
+        r, z, n = rzn[t].float().split(H, dim=-1)
+        gn = ghn[t].float()
+        hp = hprev[t].float()
+        dout = dh + dY[t].float()
+        dz = dout * (hp - n) * z * (1.0 - z)
+        dn = dout * (1.0 - z) * (1.0 - n * n)
+        dghn = dn * r
+        dr = dn * gn * r * (1.0 - r)
+        dgi[t] = torch.cat([dr, dz, dn], dim=-1)
+        dgh[t] = torch.cat([dr, dz, dghn], dim=-1)
+        dh = dout * z + dgh[t].float() @ w
+    return dgi, dgh, dh, hprev
+
+
+def layer_backward_ref(res: Residuals, dY: torch.Tensor):
+    """``gru_layer_scan_x``'s backward kernels: res = (hseq, rzn, ghn, x,
+    h0, w_ih, w_hh). Returns (dx, dW_ih, db_ih, dW_hh, db_hh, dh0), fp32;
+    dx is rounded to the storage type (``gru.py:636-638``), the weight and
+    bias gradients are fp32 sums of the rounded cotangents."""
+    hseq, rzn, ghn, x, h0, w_ih, w_hh = res
+    md = hseq.dtype
+    dgi, dgh, dh0, hprev = _sweep_ref(hseq, rzn, ghn, h0, w_hh, dY)
+    dx = round_to(dgi.float() @ round_to(w_ih, md), md)
+    return (
+        dx,
+        _contract(dgi, x.to(md)),
+        dgi.float().sum((0, 1)),
+        _contract(dgh, hprev),
+        dgh.float().sum((0, 1)),
+        dh0,
+    )
+
+
+def scan_backward_ref(res: Residuals, dY: torch.Tensor):
+    """``gru_layer_scan``'s backward: res = (hseq, rzn, ghn, h0, w_hh).
+    Returns (dgi, dW_hh, db_hh, dh0), fp32; dgi is the fp32 of the bf16
+    cotangent, and the dW_hh product takes bf16 operands (``gru.py:438-443``)."""
+    hseq, rzn, ghn, h0, w_hh = res
+    dgi, dgh, dh0, hprev = _sweep_ref(hseq, rzn, ghn, h0, w_hh, dY)
+    return dgi.float(), _contract(dgh, hprev), dgh.float().sum((0, 1)), dh0
+
+
+# -- the kernels ---------------------------------------------------------------
+
+
+def smem_bytes(I: int, H: int, md: torch.dtype) -> int:
+    """The larger shared-memory need of the per-layer forward (x staged,
+    I wide; I = 0 for ``gru_layer_scan``) and reverse-sweep kernels."""
+    s = torch.finfo(md).bits // 8
+    carry = _RB * H * 4
+    return max(carry + 2 * H * _RB * s + I * _RB * s, carry + 6 * H * _RB * s)
+
+
+def _check_fits(what: str, I: int, H: int, md: torch.dtype) -> None:
+    need = smem_bytes(I, H, md)
+    if need > _MAX_SMEM:
+        raise ValueError(f"{what}: I={I}, H={H} in {md} needs {need} bytes of shared memory per block, "
+                         f"more than the {_MAX_SMEM} an H100 block has")
+
+
+def _check_layer(what, x, w_ih, w_hh, h0, md) -> Tuple[int, int, int, int]:
+    T, B, I = x.shape
+    B_h, H = h0.shape
+    if B_h != B or tuple(w_ih.shape) != (3 * H, I) or tuple(w_hh.shape) != (3 * H, H):
+        raise ValueError(f"{what}: x {tuple(x.shape)}, w_ih {tuple(w_ih.shape)}, "
+                         f"w_hh {tuple(w_hh.shape)}, h0 {tuple(h0.shape)}")
+    _check_fits(what, I, H, md)
+    return T, B, I, H
+
+
+def _check_residuals(what, shape, md, hseq, rzn, ghn, dY) -> None:
+    """The sweep reads the forward's residuals in place: contiguous, in the
+    storage type md, hseq and ghn of ``shape`` (T, B, H), rzn (T, B, 3H);
+    dY (T, B, H)."""
+    T, B, H = shape
+    if md not in _MATMUL_DTYPES.values():
+        raise ValueError(f"{what}: residuals stored in {md}")
+    for name, t, want in (("hseq", hseq, shape), ("rzn", rzn, (T, B, 3 * H)), ("ghn", ghn, shape)):
+        if tuple(t.shape) != want or t.dtype != md or not t.is_contiguous():
+            raise ValueError(f"{what}: residual {name} {tuple(t.shape)} {t.dtype}, "
+                             f"expected a contiguous {want} {md}")
+    if tuple(dY.shape) != shape:
+        raise ValueError(f"{what}: dY {tuple(dY.shape)}, expected {shape}")
+
+
+def _ptrs(*tensors):
+    return [None if t is None else t.data_ptr() for t in tensors]
+
+
+def _contract_kernel(x, h0s, hseq, dgi, dgh, T, B, I, H, md, with_ih: bool):
+    """The dW contraction kernel: (dW_ih, db_ih) if with_ih, and (dW_hh,
+    db_hh), fp32, torch layout."""
+    global layer_dw_launches
+    dev, G = hseq.device, 3 * H
+    dwih = torch.empty(G, I, device=dev) if with_ih else None
+    dbih = torch.empty(G, device=dev) if with_ih else None
+    dwhh = torch.empty(G, H, device=dev)
+    dbhh = torch.empty(G, device=dev)
+    fn = _build.function("molvax_gru_layer_dw", [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+    err = fn(*_ptrs(x, h0s, hseq, dgi, dgh, dwih, dbih, dwhh, dbhh),
+             T, B, I, H, int(md == torch.float32), int(with_ih), _stream(hseq))
+    _build.check(err, "gru_layer dW")
+    layer_dw_launches += 1
+    return dwih, dbih, dwhh, dbhh
+
+
+def layer_forward(x, w_ih, b_ih, w_hh, b_hh, h0, md: torch.dtype) -> Residuals:
+    """``layer_forward_ref`` on the card: one launch of the forward kernel."""
+    global layer_fwd_launches
+    what = "gru_layer_scan_x forward"
+    _check_cuda(what, x, w_ih, b_ih, w_hh, b_hh, h0)
+    T, B, I, H = _check_layer(what, x, w_ih, w_hh, h0, md)
+    dev = x.device
+    with torch.no_grad():
+        x_ = x.to(md).contiguous()
+        # (in, 3H) copies: a warp reads 32 neighbouring gate columns
+        wih_t = w_ih.t().to(md).contiguous()
+        whh_t = w_hh.t().to(md).contiguous()
+        bih_, bhh_, h0_ = (t.float().contiguous() for t in (b_ih, b_hh, h0))
+    hseq = torch.empty(T, B, H, dtype=md, device=dev)
+    rzn = torch.empty(T, B, 3 * H, dtype=md, device=dev)
+    ghn = torch.empty(T, B, H, dtype=md, device=dev)
+    fn = _build.function("molvax_gru_layer_x_fwd", [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    err = fn(*_ptrs(x_, wih_t, bih_, whh_t, bhh_, h0_, hseq, rzn, ghn),
+             T, B, I, H, int(md == torch.float32), _stream(x))
+    _build.check(err, what)
+    layer_fwd_launches += 1
+    return hseq, rzn, ghn
+
+
+def layer_backward(res: Residuals, dY: torch.Tensor):
+    """``layer_backward_ref`` on the card: the reverse-sweep kernel, then
+    the dW / db contraction kernel."""
+    global layer_bwd_launches
+    hseq, rzn, ghn, x, h0, w_ih, w_hh = res
+    what = "gru_layer_scan_x backward"
+    _check_cuda(what, hseq, rzn, ghn, x, h0, w_ih, w_hh, dY)
+    md = hseq.dtype
+    T, B, I, H = _check_layer(what, x, w_ih, w_hh, h0, md)
+    _check_residuals(what, (T, B, H), md, hseq, rzn, ghn, dY)
+    dev = x.device
+    with torch.no_grad():
+        x_ = x.to(md).contiguous()
+        h0s = h0.to(md).contiguous()
+        # torch's (3H, in) layout is the transposed copy the sweep reads
+        wih_, whh_ = w_ih.to(md).contiguous(), w_hh.to(md).contiguous()
+        dY_ = dY.float().contiguous()
+    dx = torch.empty(T, B, I, dtype=md, device=dev)
+    dh0 = torch.empty(B, H, device=dev)
+    dgi = torch.empty(T, B, 3 * H, dtype=md, device=dev)
+    dgh = torch.empty_like(dgi)
+    sweep = _build.function("molvax_gru_layer_x_bwd", [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    err = sweep(*_ptrs(hseq, h0s, rzn, ghn, dY_, wih_, whh_, dx, dh0, dgi, dgh),
+                T, B, I, H, int(md == torch.float32), _stream(x))
+    _build.check(err, what + " sweep")
+    layer_bwd_launches += 1
+    dwih, dbih, dwhh, dbhh = _contract_kernel(x_, h0s, hseq, dgi, dgh, T, B, I, H, md, True)
+    return dx.float(), dwih, dbih, dwhh, dbhh, dh0
+
+
+def scan_forward(gi, w_hh, b_hh, h0) -> Residuals:
+    """``scan_forward_ref`` on the card: one launch of the forward kernel
+    with the input gates read from device memory."""
+    global scan_fwd_launches
+    what = "gru_layer_scan forward"
+    bf = torch.bfloat16
+    _check_cuda(what, gi, w_hh, b_hh, h0)
+    T, B, G = gi.shape
+    H = G // 3
+    if tuple(w_hh.shape) != (G, H) or tuple(h0.shape) != (B, H):
+        raise ValueError(f"{what}: gi {tuple(gi.shape)}, w_hh {tuple(w_hh.shape)}, h0 {tuple(h0.shape)}")
+    _check_fits(what, 0, H, bf)
+    dev = gi.device
+    with torch.no_grad():
+        gi_ = gi.to(bf).contiguous()  # rounded at the boundary, as gru.py:409
+        whh_t = w_hh.t().to(bf).contiguous()
+        bhh_, h0_ = b_hh.float().contiguous(), h0.float().contiguous()
+    hseq = torch.empty(T, B, H, dtype=bf, device=dev)
+    rzn = torch.empty(T, B, G, dtype=bf, device=dev)
+    ghn = torch.empty(T, B, H, dtype=bf, device=dev)
+    fn = _build.function("molvax_gru_layer_scan_fwd", [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    err = fn(*_ptrs(gi_, whh_t, bhh_, h0_, hseq, rzn, ghn), T, B, H, _stream(gi))
+    _build.check(err, what)
+    scan_fwd_launches += 1
+    return hseq, rzn, ghn
+
+
+def scan_backward(res: Residuals, dY: torch.Tensor):
+    """``scan_backward_ref`` on the card: the reverse-sweep kernel without
+    the dx product, then the contraction kernel for dW_hh / db_hh."""
+    global scan_bwd_launches
+    hseq, rzn, ghn, h0, w_hh = res
+    what = "gru_layer_scan backward"
+    bf = torch.bfloat16
+    _check_cuda(what, hseq, rzn, ghn, h0, w_hh, dY)
+    T, B, H = hseq.shape
+    if tuple(w_hh.shape) != (3 * H, H) or tuple(h0.shape) != (B, H):
+        raise ValueError(f"{what}: hseq {tuple(hseq.shape)}, w_hh {tuple(w_hh.shape)}, h0 {tuple(h0.shape)}")
+    _check_residuals(what, (T, B, H), bf, hseq, rzn, ghn, dY)
+    _check_fits(what, 0, H, bf)
+    dev = hseq.device
+    with torch.no_grad():
+        h0s = h0.to(bf).contiguous()
+        whh_ = w_hh.to(bf).contiguous()
+        dY_ = dY.float().contiguous()
+    dh0 = torch.empty(B, H, device=dev)
+    dgi = torch.empty(T, B, 3 * H, dtype=bf, device=dev)
+    dgh = torch.empty_like(dgi)
+    sweep = _build.function("molvax_gru_layer_scan_bwd", [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    err = sweep(*_ptrs(hseq, h0s, rzn, ghn, dY_, whh_, dh0, dgi, dgh), T, B, H, _stream(hseq))
+    _build.check(err, what + " sweep")
+    scan_bwd_launches += 1
+    _, _, dwhh, dbhh = _contract_kernel(None, h0s, hseq, None, dgh, T, B, 0, H, bf, False)
+    return dgi.float(), dwhh, dbhh, dh0
+
+
+class _GRULayerX(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, plain, md, x, w_ih, b_ih, w_hh, b_hh, h0):
+        ctx.plain = plain or _plain_here(x)
+        fwd = layer_forward_ref if ctx.plain else layer_forward
+        hseq, rzn, ghn = fwd(x, w_ih, b_ih, w_hh, b_hh, h0, md)
+        ctx.save_for_backward(hseq, rzn, ghn, x, h0, w_ih, w_hh)
+        return hseq.float()
+
+    @staticmethod
+    def backward(ctx, dY):
+        bwd = layer_backward_ref if ctx.plain else layer_backward
+        return (None, None, *bwd(ctx.saved_tensors, dY))
+
+
+class _GRULayerScan(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, plain, gi, w_hh, b_hh, h0):
+        ctx.plain = plain or _plain_here(gi)
+        fwd = scan_forward_ref if ctx.plain else scan_forward
+        hseq, rzn, ghn = fwd(gi, w_hh, b_hh, h0)
+        ctx.save_for_backward(hseq, rzn, ghn, h0, w_hh)
+        return hseq.float()
+
+    @staticmethod
+    def backward(ctx, dY):
+        bwd = scan_backward_ref if ctx.plain else scan_backward
+        return (None, *bwd(ctx.saved_tensors, dY))
+
+
+def _matmul_dtype(name: str) -> torch.dtype:
+    if name not in _MATMUL_DTYPES:
+        raise ValueError(f"matmul_dtype must be one of {sorted(_MATMUL_DTYPES)}, got {name!r}")
+    return _MATMUL_DTYPES[name]
+
+
+def gru_layer_scan_x(x, w_ih, b_ih, w_hh, b_hh, h0, matmul_dtype: str = "bfloat16") -> torch.Tensor:
+    """One GRU layer, differentiable, input gates computed in the kernel:
+    x (T, B, I), w_ih (3H, I), w_hh (3H, H), h0 (B, H) -> h_seq (T, B, H)
+    fp32, the values of the stored h. ``matmul_dtype`` 'bfloat16' or
+    'float32' (strict mode), as the reference's. Kernels for CUDA tensors,
+    the plain versions for CPU tensors."""
+    return _GRULayerX.apply(False, _matmul_dtype(matmul_dtype), x, w_ih, b_ih, w_hh, b_hh, h0)
+
+
+def gru_layer_scan_x_ref(x, w_ih, b_ih, w_hh, b_hh, h0, matmul_dtype: str = "bfloat16") -> torch.Tensor:
+    """``gru_layer_scan_x`` through the plain versions on any device."""
+    return _GRULayerX.apply(True, _matmul_dtype(matmul_dtype), x, w_ih, b_ih, w_hh, b_hh, h0)
+
+
+def gru_layer_scan(gi, w_hh, b_hh, h0) -> torch.Tensor:
+    """The recurrent half of one GRU layer, differentiable: gi (T, B, 3H)
+    precomputed input gates (x @ W_ih^T + b_ih), w_hh (3H, H), h0 (B, H)
+    -> h_seq (T, B, H) fp32. bf16 only, as the reference's. Kernels for
+    CUDA tensors, the plain versions for CPU tensors."""
+    return _GRULayerScan.apply(False, gi, w_hh, b_hh, h0)
+
+
+def gru_layer_scan_ref(gi, w_hh, b_hh, h0) -> torch.Tensor:
+    """``gru_layer_scan`` through the plain versions on any device."""
+    return _GRULayerScan.apply(True, gi, w_hh, b_hh, h0)
+
+
+# -- the router ----------------------------------------------------------------
+
+
+def _note_fused_stack_fp32() -> None:
+    global _warned_fp32
+    if not _warned_fp32:
+        _warned_fp32 = True
+        print(
+            "[molvax_torch] note: the fused-stack kernel is bf16-only; "
+            "compute_dtype='float32' routes the strict-fp32 per-layer kernels instead",
+            file=sys.stderr,
+        )
 
 
 def gru_forward_pallas(
@@ -42,13 +423,23 @@ def gru_forward_pallas(
     x_seq (B, T, in) -> (out (B, T, H), h_final (L, B, H)).
 
     ``kernel`` is ``ModelConfig.gru_kernel``: 'auto' and 'fused_stack' take
-    the stack kernels where they apply, 'per_layer' never does."""
-    if (
-        compute_dtype == torch.bfloat16
-        and kernel != "per_layer"
-        and gru_stack.stack_plan_ok(layers)
-    ):
+    the stack kernels where they apply, 'per_layer' never does. Strict fp32
+    always takes the per-layer kernels in fp32 mode (a pinned 'fused_stack'
+    gets a one-time note). h_final is each layer's stored last step."""
+    strict_fp32 = compute_dtype != torch.bfloat16
+    if strict_fp32 and kernel == "fused_stack":
+        _note_fused_stack_fp32()
+    if not strict_fp32 and kernel != "per_layer" and gru_stack.stack_plan_ok(layers):
         return gru_stack.gru_forward_wavefront(layers, x_seq, h0)
-    if _on_cuda(x_seq):
-        raise NotImplementedError(PER_LAYER_TODO)
-    return gru_forward(layers, x_seq, h0, compute_dtype)
+    md = "float32" if strict_fp32 else "bfloat16"
+    B = x_seq.shape[0]
+    H = layers[0]["w_hh"].shape[1]
+    if h0 is None:
+        h0 = torch.zeros(len(layers), B, H, device=x_seq.device)
+    inp = x_seq.transpose(0, 1)  # (T, B, in)
+    finals = []
+    for li, layer in enumerate(layers):
+        # module-level lookup, so that a swap of the wrapper takes effect
+        inp = gru_layer_scan_x(inp, layer["w_ih"], layer["b_ih"], layer["w_hh"], layer["b_hh"], h0[li], md)
+        finals.append(inp[-1])
+    return inp.transpose(0, 1), torch.stack(finals)

@@ -4,7 +4,8 @@ The CUDA stack kernels run only on a card (``chip_smoke.py`` holds them
 against their plain versions there). Here: the plain forward against the
 reference twin that rounds at the same points, the plain forward and
 backward against the reference's Pallas stack kernel in interpret mode,
-the fp32 sweep against the reference sweep, and the router.
+the fp32 sweep against the reference sweep, and the router (its
+per-layer routes against the reference in ``test_torch_gru_layer.py``).
 """
 
 import functools
@@ -149,16 +150,33 @@ def _launches():
     return ks.fwd_launches, ks.bwd_launches, ks.dw_launches
 
 
+def _per_layer(layers, x, dtype):
+    """The router's per-layer route written out: one gru_layer_scan_x per
+    layer in the matmul dtype, h_final the stored last step of each."""
+    inp, finals = x.transpose(0, 1), []
+    h0 = torch.zeros(len(layers), x.shape[0], layers[0]["w_hh"].shape[1])
+    md = "bfloat16" if dtype == torch.bfloat16 else "float32"
+    for li, layer in enumerate(layers):
+        inp = kgru.gru_layer_scan_x(inp, layer["w_ih"], layer["b_ih"], layer["w_hh"], layer["b_hh"], h0[li], md)
+        finals.append(inp[-1])
+    return inp.transpose(0, 1), torch.stack(finals)
+
+
 @pytest.mark.parametrize("L,dtype", [(1, torch.bfloat16), (2, torch.float32), (1, torch.float32)])
 def test_router_takes_plain_sweep_on_cpu(L, dtype):
+    """Off the stack (one layer, or strict fp32) the router takes the
+    per-layer kernels, whose plain versions run on the CPU."""
     layers = _torch_layers(_layers_np(6, 10, L, seed=11))
     x = torch.from_numpy(normal((3, 5, 6), seed=12))
     before = _launches()
     got = kgru.gru_forward_pallas(layers, x, compute_dtype=dtype)
-    want = gru_forward(layers, x, compute_dtype=dtype)
+    want = _per_layer(layers, x, dtype)
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, atol=0, rtol=0)
     assert _launches() == before
+    if dtype == torch.float32:  # strict fp32: the plain fp32 sweep to fp32 tolerance
+        for a, b in zip(got, gru_forward(layers, x, compute_dtype=dtype)):
+            torch.testing.assert_close(a, b, atol=FP32_TOL, rtol=FP32_TOL)
 
 
 def test_router_takes_stack_for_bf16():
@@ -168,20 +186,25 @@ def test_router_takes_stack_for_bf16():
     want = ks.gru_forward_faithful(layers, x)
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, atol=0, rtol=0)
-    # a config pinned to the per-layer kernel takes the plain sweep on the CPU
+    # a config pinned to the per-layer kernel takes it, never the stack
+    before = _launches()
     pinned = kgru.gru_forward_pallas(layers, x, compute_dtype=torch.bfloat16, kernel="per_layer")
-    torch.testing.assert_close(pinned[0], gru_forward(layers, x, compute_dtype=torch.bfloat16)[0])
+    for a, b in zip(pinned, _per_layer(layers, x, torch.bfloat16)):
+        torch.testing.assert_close(a, b, atol=0, rtol=0)
+    assert _launches() == before
 
 
 def test_router_raises_on_cuda_off_the_stack(monkeypatch):
-    """On a CUDA tensor the per-layer route is not ported: it raises and
-    never runs the plain sweep instead."""
-    monkeypatch.setattr(kgru, "_on_cuda", lambda x: True)
+    """Off the stack the router goes to the per-layer kernel wrapper, which
+    on a tensor that is not on the CPU launches the kernel or raises: it
+    never runs the plain sweep instead. (Here the wrapper is made to treat
+    CPU tensors as off the CPU, and the launch raises on the device.)"""
+    monkeypatch.setattr(kgru, "_plain_here", lambda x: False)
     x = torch.from_numpy(normal((2, 4, 6), seed=15))
     for L, dtype, kernel in ((3, torch.float32, "auto"), (1, torch.bfloat16, "auto"),
                              (3, torch.bfloat16, "per_layer")):
         layers = _torch_layers(_layers_np(6, 10, L, seed=16))
-        with pytest.raises(NotImplementedError, match="gru_layer_scan_x"):
+        with pytest.raises(ValueError, match="gru_layer_scan_x forward: unsupported device"):
             kgru.gru_forward_pallas(layers, x, compute_dtype=dtype, kernel=kernel)
 
 

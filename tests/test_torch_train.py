@@ -202,9 +202,9 @@ STEPS = 6
 BATCH = 16
 
 
-def _parity_cfgs():
+def _parity_cfgs(**model_kw):
     model = dict(max_len=40, charset_size=DEFAULT_CHARSET.size, latent_dim=16, conv_kernels=(9, 9, 11),
-                 enc_hidden=24, gru_hidden=20, gru_layers=2, eps_scale=0.0, learned_start=True)
+                 enc_hidden=24, gru_hidden=20, gru_layers=2, eps_scale=0.0, learned_start=True, **model_kw)
     train = dict(batch_size=BATCH, learning_rate=1e-3)
     kl = dict(kind="constant", beta_max=1.0)
     jcfg = JConfig(model=JModel(**model), train=JTrain(kl=JKL(**kl), **train), data=JData(max_len=40))
@@ -221,7 +221,12 @@ def test_six_fp32_adam_steps_track_reference():
     every loss rel 1e-2; the final weights within 1e-2 of the largest
     weight of their tensor (six Adam steps at lr 1e-3 move a weight by at
     most 6e-3; the measured gap is far below)."""
-    jcfg, tcfg = _parity_cfgs()
+    track_reference_six_steps(*_parity_cfgs())
+
+
+def track_reference_six_steps(jcfg, tcfg):
+    """Six steps of each package's make_train_step from identical weights
+    and batches, held to the tolerances above."""
     params = init_vae_params(jax.random.key(0), jcfg.model)
     params["decoder"]["start_token"] = jnp.asarray(normal((DEFAULT_CHARSET.size,), 1))
     ds = synthetic_dataset(BATCH * STEPS, max_len=40, seed=0)
