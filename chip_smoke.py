@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
-"""Drive molvax_torch's serving path and training step once on one CUDA card.
+"""Drive molvax_torch's serving path, training step and constrained decoding
+once on one CUDA card.
 
     python3 chip_smoke.py
 
 Run from the root of a checkout. It builds the hand-written kernels from
 ``molvax_torch/kernels/csrc/`` (into ``build/molvax_torch/``), makes
-``zinc250k`` weights at full width from a seed, and runs fifteen phases,
+``zinc250k`` weights at full width from a seed, and runs eighteen phases,
 each printed on its own lines:
 
   1. environment: card name and power limit, torch and CUDA versions, the
@@ -54,10 +55,34 @@ each printed on its own lines:
      switches;
  15. times: both new train steps on both routes, each per-layer kernel
      against its plain version in bf16 and fp32, the device-time split of
-     one step of each, and peak device memory.
+     one step of each, and peak device memory;
+ 16. the automaton kernel (csrc/automaton.cu) against its plain version at
+     zinc250k_quality width, B=256: a 120-step greedy walk from seeded
+     scores (codes and packed state identical at every step), the same walk
+     as one n=120 launch, the 256 SMILES as teacher codes through auto_mask
+     / auto_advance (masks and states identical; every parser-valid row
+     threads the automaton, closes and never escapes), a ragged batch of 6
+     with a NaN row;
+ 17. constrained decoding through the public functions: sample_prior
+     greedy and at temperature 1.0 and 0.7 (auto_step launched 120 times
+     per decode, fused_generate 0, every string chem-valid),
+     beam_reconstruct with beam 5 (auto_mask and auto_advance 120 times
+     each), and the kernel route against the plain route on the same card
+     (greedy codes and logits, beam codes and scores identical);
+ 18. times: the constrained decode on both routes, the automaton per step
+     as n=1 launches, one n=120 launch and its plain version, auto_mask and
+     auto_advance, beam 5, the device-time split of one constrained decode;
+     the library yardsticks (torch.nn.GRU on cuDNN, torch.matmul for the dW
+     contraction), and each kernel's bound.
 
 Any failure raises and exits non-zero. Without CUDA it exits 2 and prints
-no result. The last line of standard output is the device JSON.
+no result. The line before the card's is the ``kernels`` JSON: each kernel
+with its launches on the main path, its error against its plain version,
+its time, the plain version's, its bound (the larger of its operations over
+the card's peak for their type and its bytes over 3.35 TB/s, and which of
+the two binds) and the time of one library call computing the same
+function, or null where there is none. The last line of standard output is
+the device JSON.
 """
 
 from __future__ import annotations
@@ -77,11 +102,15 @@ import torch
 from molvax_torch.config import get_preset
 from molvax_torch.data.charset import DEFAULT_CHARSET
 from molvax_torch.data.featurize import decode_codes, encode_smiles, one_hot
+from molvax_torch.data.smiles_check import chem_valid
 from molvax_torch.io.convert import state_dict_from_jax
 from molvax_torch.kernels import _build, conv_enc, gru_stack, sampler
+from molvax_torch.kernels import automaton as kauto
 from molvax_torch.kernels import gru as kgru
 from molvax_torch.kernels import generate as kg
-from molvax_torch.latent.sample import reconstruct, sample_prior
+from molvax_torch.latent import constrain as kcon
+from molvax_torch.latent.beam import beam_generate, beam_reconstruct
+from molvax_torch.latent.sample import generate, reconstruct, sample_prior
 from molvax_torch.nn.decoder import latent_embed, teacher_inputs
 from molvax_torch.nn.encoder import conv_input_channels, encoder_params, flat_conv_dim
 from molvax_torch.nn.gru import gru_layers
@@ -100,6 +129,13 @@ FP32_BWD_REL = 1e-3  # cast would show as ~1e-2
 FP32_ROUTE_REL = 1e-4  # per-step loss of the strict-fp32 routes
 B = 256
 SEED = 0
+BEAM = 5
+# the least time the card could take, from the
+# published peaks of one H100 SXM at its full 700 W
+PEAK_BF16 = 989e12  # dense bf16 tensor-core FLOP/s
+PEAK_FP32 = 67e12  # fp32 FLOP/s outside the tensor cores (strict fp32)
+PEAK_INT32 = 33.5e12  # int32 op/s: half the fp32 lane rate
+HBM_BYTES_S = 3.35e12
 DEVICE = "cuda:0"
 TRAIN_STEPS = 20
 PLAIN_STEPS = 3
@@ -198,11 +234,19 @@ def time_ms(fn, warmup: int = 2, reps: int = 5) -> float:
     return statistics.median(times)
 
 
+def time_on_copies(fn, state: torch.Tensor, warmup: int = 2, reps: int = 5) -> float:
+    """time_ms of fn(copy), where fn updates ``state`` in place: each call
+    gets its own copy, made before the timing starts, so no copy is timed."""
+    pool = [state.clone() for _ in range(warmup + reps)]
+    return time_ms(lambda: fn(pool.pop()), warmup, reps)
+
+
 def reset_counts() -> None:
     kg.launches = conv_enc.launches = sampler.launches = 0
     gru_stack.fwd_launches = gru_stack.bwd_launches = gru_stack.dw_launches = 0
     kgru.layer_fwd_launches = kgru.layer_bwd_launches = kgru.layer_dw_launches = 0
     kgru.scan_fwd_launches = kgru.scan_bwd_launches = 0
+    kauto.step_launches = kauto.mask_launches = kauto.advance_launches = 0
 
 
 def counts() -> dict:
@@ -218,6 +262,9 @@ def counts() -> dict:
         "gru_layer_bwd_dw": kgru.layer_dw_launches,
         "gru_layer_scan_fwd": kgru.scan_fwd_launches,
         "gru_layer_scan_bwd_sweep": kgru.scan_bwd_launches,
+        "auto_step": kauto.step_launches,
+        "auto_mask": kauto.mask_launches,
+        "auto_advance": kauto.advance_launches,
     }
 
 
@@ -478,6 +525,354 @@ def say_profile(phase, prof, ms_step) -> None:
         say(phase, device_kernel=json.dumps(name[:80]), ms=f"{ms:.3f}", share=f"{ms / total:.4f}")
 
 
+# -- bounds ----------------------------------------------------------------------
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def bound(ops: float, moved: int, peak: float):
+    """(bound ms, what binds): the larger of ops / peak and bytes / HBM rate."""
+    t_ops, t_bytes = ops / peak * 1e3, moved / HBM_BYTES_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def gru_macs(I: int, H: int) -> int:
+    """Multiply-adds of one GRU layer for one row and step: x@W_ih, h@W_hh."""
+    return (I + H) * 3 * H
+
+
+def encoder_macs(cfg) -> int:
+    """Multiply-adds of the encoder for one row: the VALID convs, dense, mu
+    and logvar heads."""
+    in_ch = conv_input_channels(cfg)
+    length = cfg.max_len if cfg.conv_orientation == "seq" else cfg.charset_size
+    macs = 0
+    for out_ch, k in zip(cfg.conv_channels, cfg.conv_kernels):
+        length = length - k + 1
+        macs += length * out_ch * in_ch * k
+        in_ch = out_ch
+    return macs + flat_conv_dim(cfg) * cfg.enc_hidden + 2 * cfg.enc_hidden * cfg.latent_dim
+
+
+def automaton_ops(rows: int, C: int, mask: bool = True, select: bool = True, advance: bool = True) -> int:
+    """A lower count of the integer operations of one automaton step over
+    ``rows`` rows, from the function's arithmetic: the mask tests each of
+    the C classes against the 18 token-attribute tables (18 C per row), the
+    selection compares the C masked scores for the maximum and its first
+    index (2 C), the transition reads the chosen token's 18 table entries
+    and writes the 17 scalar fields and at most 4 array words (39). The
+    duplicate-ring checks, which scan the row's pair pool as far as the data
+    needs, are left out: the count can only understate the work, so the
+    bound never flatters the kernel."""
+    per_row = (18 * C if mask else 0) + (2 * C if select else 0) + (39 if advance else 0)
+    return rows * per_row
+
+
+# -- the automaton (phases 16-18) -----------------------------------------------
+
+
+@contextlib.contextmanager
+def plain_automaton():
+    """The automaton wrappers' plain versions in their place, on the card."""
+    saved = (kauto.auto_step, kauto.auto_mask, kauto.auto_advance)
+    kauto.auto_step, kauto.auto_mask, kauto.auto_advance = (
+        kauto.auto_step_plain, kauto.auto_mask_plain, kauto.auto_advance_plain)
+    try:
+        yield
+    finally:
+        kauto.auto_step, kauto.auto_mask, kauto.auto_advance = saved
+
+
+def trajectory_scores(rows: int, T: int, C: int, dev, seed: int) -> torch.Tensor:
+    """(rows, T, C) fp32 scores from a seed, tilted so the greedy walk emits
+    branches, rings, brackets and bonds and pads late: the automaton's
+    whole state gets exercised."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    scores = 2.0 * torch.randn(rows, T, C, generator=g, device=dev)
+    tilt = torch.zeros(C, device=dev)
+    tilt[DEFAULT_CHARSET.chars.index(" ")] = -4.0
+    for ch in "()123[]=#+-@H":
+        tilt[DEFAULT_CHARSET.chars.index(ch)] = 1.0
+    return scores + tilt
+
+
+def compare_trajectory(itab, scores, T: int, what: str) -> dict:
+    """Step the kernel (auto_step, n=1) and its plain version side by side
+    over scores (rows, T, C): codes and packed state must be identical at
+    every step. Then the whole walk again as one n=T launch. Returns the
+    kernel's codes and final state."""
+    rows = scores.shape[0]
+    dev = scores.device
+    sk, sp = kauto.new_state(rows, T, dev), kauto.new_state(rows, T, dev)
+    codes, err = [], 0
+    for t in range(T):
+        ck = kauto.auto_step(itab, sk, scores[:, t].contiguous(), T - 1 - t)
+        cp = kauto.auto_step_plain(itab, sp, scores[:, t], T - 1 - t)
+        torch.cuda.synchronize()
+        err = max(err, int((ck - cp).abs().max()), int((sk - sp).abs().max()))
+        if not torch.equal(ck, cp):
+            bad = (ck != cp).nonzero()[:4].tolist()
+            raise AssertionError(f"{what}: auto_step codes differ from the plain version at step {t}, rows {bad}")
+        if not torch.equal(sk, sp):
+            bad = (sk != sp).nonzero()[:4].tolist()
+            raise AssertionError(f"{what}: auto_step state differs from the plain version at step {t}, [row, col] {bad}")
+        codes.append(ck)
+    codes = torch.cat(codes, dim=1)
+    s1 = kauto.new_state(rows, T, dev)
+    c1 = kauto.auto_step(itab, s1, scores.contiguous(), T - 1)
+    torch.cuda.synchronize()
+    if not (torch.equal(c1, codes) and torch.equal(s1, sk)):
+        raise AssertionError(f"{what}: one n={T} launch differs from {T} launches of n=1")
+    return {"codes": codes, "state": sk, "max_abs_err": err}
+
+
+def teacher_checks(itab, codes, T: int, valid: list) -> dict:
+    """Teacher codes through auto_mask / auto_advance and their plain
+    versions: masks and states identical on every row at every step; on
+    the rows the parser accepts, every teacher token is legal, the row ends
+    closed and the escape hatch never fires."""
+    rows = codes.shape[0]
+    dev = codes.device
+    toks = codes.to(torch.int32)
+    sk, sp = kauto.new_state(rows, T, dev), kauto.new_state(rows, T, dev)
+    legal = torch.ones(rows, dtype=torch.bool, device=dev)
+    mask_err = state_err = 0
+    for t in range(T):
+        mk = kauto.auto_mask(itab, sk, T - 1 - t)
+        mp = kauto.auto_mask_plain(itab, sp, T - 1 - t)
+        torch.cuda.synchronize()
+        mask_err = max(mask_err, int((mk.to(torch.int32) - mp.to(torch.int32)).abs().max()))
+        if not torch.equal(mk, mp):
+            bad = (mk != mp).nonzero()[:4].tolist()
+            raise AssertionError(f"auto_mask differs from the plain mask at step {t}, [row, class] {bad}")
+        legal &= mk.gather(1, toks[:, t : t + 1].long())[:, 0]
+        kauto.auto_advance(itab, sk, toks[:, t].contiguous())
+        kauto.auto_advance_plain(itab, sp, toks[:, t])
+        torch.cuda.synchronize()
+        state_err = max(state_err, int((sk - sp).abs().max()))
+        if not torch.equal(sk, sp):
+            bad = (sk != sp).nonzero()[:4].tolist()
+            raise AssertionError(f"auto_advance state differs from the plain version at step {t}, [row, col] {bad}")
+    st = kauto.unpack_state(sk)
+    closed = kcon.is_closed(st)
+    ok = torch.tensor(valid, device=dev)
+    n_bad = int((ok & ~(legal & closed & ~st.esc)).sum())
+    return {"valid_rows": int(ok.sum()), "rows_failing": n_bad,
+            "invalid_rows_accepted": int((~ok & legal & closed & ~st.esc).sum()),
+            "mask_max_abs_err": mask_err, "state_max_abs_err": state_err}
+
+
+def phase16(dev, T: int, C: int) -> dict:
+    """The automaton kernel against its plain version on the card."""
+    itab = kauto.pack_tables(kcon.build_tables(DEFAULT_CHARSET)).to(dev)
+    scores = trajectory_scores(B, T, C, dev, SEED + 16)
+    traj = compare_trajectory(itab, scores, T, f"B={B}")
+    strings = decode_codes(traj["codes"], DEFAULT_CHARSET)
+    valid_traj = sum(chem_valid(x) for x in strings)
+    st = kauto.unpack_state(traj["state"])
+    say("phase16", check="trajectory_n1_and_n120", B=B, T=T, codes_and_state_identical=True,
+        mean_len=f"{np.mean([len(x) for x in strings]):.1f}", chem_valid=f"{valid_traj}/{B}",
+        esc=int(st.esc.sum()), max_atoms=int(st.n_atoms.max()), max_rings_closed=int(st.pn.max()))
+    if valid_traj != B or int(st.esc.sum()):
+        raise AssertionError(f"greedy constrained walks: {B - valid_traj} invalid strings, esc {int(st.esc.sum())}")
+    codes = torch.from_numpy(encode_smiles(SMILES, DEFAULT_CHARSET, T)).to(dev)
+    valid = [chem_valid(x) for x in SMILES]
+    tch = teacher_checks(itab, codes, T, valid)
+    say("phase16", check="teacher_codes", rows=len(SMILES), masks_and_state_identical=True, **tch)
+    if tch["rows_failing"]:
+        raise AssertionError(f"{tch['rows_failing']} parser-valid SMILES do not thread the automaton")
+    # a ragged batch of 6, one row with a NaN among its legal scores
+    rag = trajectory_scores(6, T, C, dev, SEED + 17)
+    rag[2, 5] = float("nan")
+    rt = compare_trajectory(itab, rag, T, "ragged B=6 with a NaN row")
+    rst = kauto.unpack_state(rt["state"])
+    say("phase16", check="ragged_6_nan_row", codes_and_state_identical=True,
+        nan_row_code_at_nan_step=int(rt["codes"][2, 5]), nan_row_esc=bool(rst.esc[2]),
+        other_rows_esc=int(rst.esc.sum()) - int(rst.esc[2]))
+    if int(rt["codes"][2, 5]) != 0:
+        raise AssertionError("a NaN among the legal scores must give the pad code")
+    return {"itab": itab, "scores": scores, "step_err": max(traj["max_abs_err"], rt["max_abs_err"]),
+            "mask_err": tch["mask_max_abs_err"], "advance_err": tch["state_max_abs_err"]}
+
+
+def phase17(model, qcfg, dev) -> dict:
+    """Constrained decoding and beam search through the public functions."""
+    T = qcfg.max_len
+    out = {}
+    gen = torch.Generator().manual_seed(SEED + 17)
+    for name, greedy, temp in (("greedy", True, 1.0), ("T1.0", False, 1.0), ("T0.7", False, 0.7)):
+        reset_counts()
+        strings = sample_prior(model, qcfg, B, gen, greedy=greedy, temperature=temp, constrained=True)
+        torch.cuda.synchronize()
+        got = counts()
+        bad = [x for x in strings if not chem_valid(x)]
+        say("phase17", call="sample_prior", mode=name, n=len(strings), chem_valid=f"{len(strings) - len(bad)}/{len(strings)}",
+            distinct=len(set(strings)), examples=json.dumps(strings[:3]), auto_step=got["auto_step"],
+            fused_generate=got["fused_generate"])
+        want = {"auto_step": T}
+        if any(v != want.get(k, 0) for k, v in got.items()):
+            raise AssertionError(f"constrained sample_prior ({name}): launch counts {got}, expected {want}")
+        if bad or len(strings) != B:
+            raise AssertionError(f"constrained sample_prior ({name}): invalid strings {bad[:5]}")
+        out[name] = got
+    reset_counts()
+    beams = beam_reconstruct(model, qcfg, SMILES, beam=BEAM, constrained=True)
+    torch.cuda.synchronize()
+    got = counts()
+    bad = [x for x in beams if not chem_valid(x)]
+    say("phase17", call="beam_reconstruct", beam=BEAM, n=len(beams), chem_valid=f"{len(beams) - len(bad)}/{len(beams)}",
+        identical_to_input=f"{sum(a == b for a, b in zip(beams, SMILES)) / len(SMILES):.4f}",
+        examples=json.dumps(beams[:3]), **{k: got[k] for k in ("auto_step", "auto_mask", "auto_advance", "fused_encode")})
+    # vae.encode runs the plain encoder, as the reference's does: the fused
+    # encoder serves the training forward only
+    want = {"auto_mask": T, "auto_advance": T}
+    if any(v != want.get(k, 0) for k, v in got.items()):
+        raise AssertionError(f"constrained beam_reconstruct: launch counts {got}, expected {want}")
+    if bad:
+        raise AssertionError(f"constrained beam search: invalid strings {bad[:5]}")
+    out["beam"] = got
+    # greedy codes on the kernel route and the plain route, same card
+    rng = np.random.default_rng(SEED + 18)
+    z = torch.from_numpy(rng.standard_normal((B, qcfg.latent_dim)).astype(np.float32)).to(dev)
+    codes_k, logits_k = generate(model, qcfg, z, constrained=True)
+    with plain_automaton():
+        codes_p, logits_p = generate(model, qcfg, z, constrained=True)
+    # the beam decode at its own shape: B latents, B * BEAM automaton rows
+    bk, sk = beam_generate(model, qcfg, z, beam=BEAM, constrained=True)
+    with plain_automaton():
+        bp, sp = beam_generate(model, qcfg, z, beam=BEAM, constrained=True)
+    torch.cuda.synchronize()
+    same = bool(torch.equal(codes_k, codes_p) and torch.equal(logits_k, logits_p))
+    beam_same = bool(torch.equal(bk, bp) and torch.equal(sk, sp))
+    say("phase17", check="kernel_vs_plain_route", greedy_codes_identical=same, beam_identical=beam_same,
+        B=B, beam_latents=B, beam_rows=B * BEAM)
+    if not (same and beam_same):
+        raise AssertionError("constrained decode: the kernel route differs from the plain route")
+    out["z"] = z
+    return out
+
+
+def classify(name: str) -> str:
+    if "auto_" in name:
+        return "automaton"
+    if any(k in name.lower() for k in ("gemm", "xmma", "cutlass", "sm90", "sm80")):
+        return "gru_matmuls"
+    return "other"
+
+
+def phase18(model, qcfg, z, itab, scores, gpu) -> dict:
+    """Times of the constrained decode and the automaton kernel."""
+    T = qcfg.max_len
+    t = {}
+    t["decode"] = time_ms(lambda: generate(model, qcfg, z, constrained=True))
+    with plain_automaton():
+        t["decode_plain"] = time_ms(lambda: generate(model, qcfg, z, constrained=True))
+    t["beam"] = time_ms(lambda: beam_generate(model, qcfg, z, beam=BEAM, constrained=True))
+    for route in ("decode", "decode_plain"):
+        say("phase18", constrained_decode=route, B=B, T=T, ms=f"{t[route]:.4f}",
+            smiles_per_s=f"{B / (t[route] / 1e3):.1f}", card=json.dumps(gpu))
+    say("phase18", beam_decode=BEAM, B=B, ms=f"{t['beam']:.4f}", smiles_per_s=f"{B / (t['beam'] / 1e3):.1f}",
+        card=json.dumps(gpu))
+    s0 = kauto.new_state(B, T, z.device)
+    sc_steps = [scores[:, k].contiguous() for k in range(T)]
+
+    def steps(step_fn):
+        def walk(s):
+            for k in range(T):
+                step_fn(itab, s, sc_steps[k], T - 1 - k)
+        return walk
+
+    # every timed call updates a copy made before the timing starts
+    t["step_n1"] = time_on_copies(steps(kauto.auto_step), s0) / T
+    t["step_n120"] = time_on_copies(lambda s: kauto.auto_step(itab, s, scores, T - 1), s0) / T
+    t["step_plain"] = time_on_copies(steps(kauto.auto_step_plain), s0) / T
+    # mask and advance alone, at the beam's rows, on a mid-decode state
+    # reached by both routes; both must agree bit for bit on it
+    rows = B * BEAM
+    sb, sb_plain = kauto.new_state(rows, T, z.device), kauto.new_state(rows, T, z.device)
+    walk = trajectory_scores(rows, 40, itab.shape[1], z.device, SEED + 19)
+    walk_codes = kauto.auto_step(itab, sb, walk, T - 1)
+    walk_codes_plain = kauto.auto_step_plain(itab, sb_plain, walk, T - 1)
+    mask_k = kauto.auto_mask(itab, sb, T - 41)
+    mask_p = kauto.auto_mask_plain(itab, sb_plain, T - 41)
+    tok = mask_k.to(torch.float32).argmax(1).to(torch.int32)
+    adv_k, adv_p = sb.clone(), sb.clone()
+    kauto.auto_advance(itab, adv_k, tok)
+    kauto.auto_advance_plain(itab, adv_p, tok)
+    torch.cuda.synchronize()
+    agree = {"walk_n40": torch.equal(walk_codes, walk_codes_plain) and torch.equal(sb, sb_plain),
+             "mask": torch.equal(mask_k, mask_p), "advance": torch.equal(adv_k, adv_p)}
+    say("phase18", check="beam_rows_kernel_vs_plain", rows=rows, **{f"{k}_identical": v for k, v in agree.items()})
+    if not all(agree.values()):
+        raise AssertionError(f"automaton at {rows} rows: the kernel differs from the plain version {agree}")
+    t["mask"] = time_ms(lambda: kauto.auto_mask(itab, sb, T - 41))
+    t["mask_plain"] = time_ms(lambda: kauto.auto_mask_plain(itab, sb, T - 41))
+    t["advance"] = time_on_copies(lambda s: kauto.auto_advance(itab, s, tok), sb)
+    t["advance_plain"] = time_on_copies(lambda s: kauto.auto_advance_plain(itab, s, tok), sb)
+    say("phase18", automaton="auto_step per step", B=B, n1_launch_ms=f"{t['step_n1']:.5f}",
+        n120_launch_ms_per_step=f"{t['step_n120']:.5f}", plain_ms=f"{t['step_plain']:.5f}",
+        card=json.dumps(gpu))
+    say("phase18", automaton="auto_mask, auto_advance", rows=rows, mask_ms=f"{t['mask']:.5f}",
+        mask_plain_ms=f"{t['mask_plain']:.5f}", advance_ms=f"{t['advance']:.5f}",
+        advance_plain_ms=f"{t['advance_plain']:.5f}", card=json.dumps(gpu))
+    t["rows"], t["sb"], t["tok"] = rows, sb, tok
+    prof = profile_step(lambda: generate(model, qcfg, z, constrained=True))
+    parts = {}
+    for name, ms in prof["device_ms"].items():
+        parts[classify(name)] = parts.get(classify(name), 0.0) + ms
+    busy = sum(parts.values())
+    say("phase18", profiled="constrained_decode", wall_ms=f"{prof['wall_ms']:.3f}", device_busy_ms=f"{busy:.3f}",
+        idle_share=f"{1 - busy / t['decode']:.4f}" if busy else "not measured",
+        **{f"{k}_ms": f"{v:.3f}" for k, v in sorted(parts.items())})
+    say_profile("phase18", prof, t["decode"])
+    t["split"] = parts
+    return t
+
+
+def library_times(cfg, s_args, dev) -> dict:
+    """One PyTorch call computing the same function as a kernel, timed as
+    its yardstick and never called by the port: torch.nn.GRU (cuDNN) with
+    the kernel's layers, sizes and dtype, forward and autograd backward;
+    torch.matmul of the dW contraction's operands."""
+    T, H, L = cfg.max_len, cfg.gru_hidden, cfg.gru_layers
+    x0 = s_args[0]
+    out = {}
+    g = torch.Generator(device=dev).manual_seed(SEED + 20)
+
+    def gru_pair(I, layers, dtype):
+        # flatten_parameters takes no bf16: cuDNN compacts those weights per call
+        gru = torch.nn.GRU(I, H, layers, device=dev, dtype=dtype)
+        x = x0[..., :I].to(dtype) if I <= x0.shape[-1] else torch.randn(T, B, I, device=dev, dtype=dtype, generator=g)
+        with torch.no_grad():
+            fwd = time_ms(lambda: gru(x))
+        xg = x.detach().clone().requires_grad_(True)
+        y, _ = gru(xg)
+        dy = torch.randn_like(y)
+        inputs = [xg, *gru.parameters()]
+        bwd = time_ms(lambda: torch.autograd.grad(y, inputs, dy, retain_graph=True))
+        return fwd, bwd
+
+    I0 = x0.shape[-1]
+    out["stack"] = gru_pair(I0, L, torch.bfloat16) + ("bfloat16",)
+    out["layer_bf16"] = gru_pair(I0, 1, torch.bfloat16) + ("bfloat16",)
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        out["layer_fp32"] = gru_pair(I0, 1, torch.float32) + ("float32",)
+    # the stack's dW contraction: sum over (T, B) of x^T dgi and h^T dgh
+    ops = [(torch.randn(T * B, i, device=dev, generator=g).to(torch.bfloat16),
+            torch.randn(T * B, 3 * H, device=dev, generator=g).to(torch.bfloat16))
+           for i in [I0, H] + [H, H] * (L - 1)]
+    out["dw_stack"] = time_ms(lambda: [torch.matmul(a.T, d) for a, d in ops])
+    out["dw_layer0"] = time_ms(lambda: [torch.matmul(a.T, d) for a, d in ops[:2]])
+    for name, v in out.items():
+        if isinstance(v, tuple):
+            say("phase18", library=f"torch.nn.GRU[{name}]", fwd_ms=f"{v[0]:.4f}", bwd_ms=f"{v[1]:.4f}", dtype=v[2])
+        else:
+            say("phase18", library=f"torch.matmul[{name}]", ms=f"{v:.4f}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on a GPU", file=sys.stderr)
@@ -546,7 +941,7 @@ def main() -> int:
     # deterministic reconstruct against the plain version of the decode
     codes_cpu = torch.from_numpy(encode_smiles(SMILES, DEFAULT_CHARSET, cfg.max_len))
     codes = codes_cpu.to(dev)
-    model_cpu = MolecularVAE(cfg)
+    model_cpu = MolecularVAE(cfg, device="cpu")
     model_cpu.load_state_dict(model.state_dict())
     with torch.no_grad():
         mu, logvar = encode(model, cfg, codes)
@@ -662,6 +1057,19 @@ def main() -> int:
         }
     for name, (ms_k, ms_p) in times.items():
         say("phase11", kernel=name, ms=f"{ms_k:.4f}", plain_ms=f"{ms_p:.4f}", card=json.dumps(gpu))
+    T, H, C, L = cfg.max_len, cfg.gru_hidden, cfg.charset_size, cfg.gru_layers
+    I0 = s_args[0].shape[2]
+    stack_ops = 2 * B * T * (gru_macs(I0, H) + (L - 1) * gru_macs(H, H))
+    w_gen, b_gen = kg._pack(model, dev)
+    bounds = {
+        "fused_generate": bound(2 * B * T * (C * 3 * H + H * 3 * H + (L - 1) * 2 * H * 3 * H + H * C),
+                                nbytes(w_gen, b_gen) + B * 3 * H * 4 + B * T * 4 + C * 4, PEAK_BF16),
+        "fused_encode": bound(2 * B * encoder_macs(cfg),
+                              nbytes(codes) + nbytes(*enc_params) // 2 + nbytes(mu_k, lv_k), PEAK_BF16),
+        "fused_sample_kl": bound(30 * B * cfg.latent_dim, nbytes(mu_r, lv_r, z_k, kl_k), PEAK_FP32),
+        "gru_stack_fwd": bound(stack_ops, nbytes(*s_args) + nbytes(*res_k), PEAK_BF16),
+        "gru_stack_bwd": bound(2 * stack_ops, nbytes(*res, dY, dhf) + nbytes(*grads_k), PEAK_BF16),
+    }
     # idle share against the event-timed step: the profiler's own wall time
     # includes its overhead
     say_profile("phase11", profile_step(kernel_step), ms_step)
@@ -757,45 +1165,92 @@ def main() -> int:
         scan_ms = (time_ms(lambda: kgru.scan_forward(*scan_args)), time_ms(lambda: kgru.scan_forward_ref(*scan_args)),
                    time_ms(lambda: kgru.scan_backward(s_res, dY_l)),
                    time_ms(lambda: kgru.scan_backward_ref(s_res, dY_l)))
+        # bounds of the per-layer kernels at layer 0 (I=329)
+        for md, peak in ((torch.bfloat16, PEAK_BF16), (torch.float32, PEAK_FP32)):
+            args = layer_args(s_args, 0, s_args[0])
+            res0 = (*layer_res[md, 0], s_args[0], args[5], args[1], args[3])
+            ops0 = 2 * B * T * gru_macs(I0, H)
+            bounds["layer_fwd", md] = bound(ops0, nbytes(*args) + nbytes(*layer_res[md, 0]), peak)
+            bounds["layer_bwd", md] = bound(2 * ops0, nbytes(*res0, dY_l) + nbytes(*kgru.layer_backward(res0, dY_l)),
+                                            peak)
+        bounds["scan_fwd"] = bound(2 * B * T * H * 3 * H, nbytes(*scan_args) + nbytes(*s_res[:3]), PEAK_BF16)
+        bounds["scan_bwd"] = bound(4 * B * T * H * 3 * H, nbytes(*s_res, dY_l) + nbytes(*kgru.scan_backward(s_res, dY_l)),
+                                   PEAK_BF16)
     say("phase15", kernel="gru_layer_scan", fwd_ms=f"{scan_ms[0]:.4f}", fwd_plain_ms=f"{scan_ms[1]:.4f}",
         bwd_ms=f"{scan_ms[2]:.4f}", bwd_plain_ms=f"{scan_ms[3]:.4f}", card=json.dumps(gpu))
     bf, f32 = torch.bfloat16, torch.float32
 
+    # -- 16. the automaton kernel against its plain version ------------------
+    qfull_cfg = get_preset("zinc250k_quality").model
+    auto = phase16(dev, qfull_cfg.max_len, qfull_cfg.charset_size)
+
+    # -- 17. constrained decoding and beam search, public functions ----------
+    decodes = phase17(model, qfull_cfg, dev)
+
+    # -- 18. times ---------------------------------------------------------------
+    at = phase18(model, qfull_cfg, decodes["z"], auto["itab"], auto["scores"], gpu)
+    lib = library_times(cfg, s_args, dev)
+    state_b = nbytes(kauto.new_state(B, T, dev))
+    bounds["auto_step"] = bound(automaton_ops(B, C), 2 * state_b + B * C * 4 + B * 4, PEAK_INT32)
+    bounds["auto_step_n120"] = bound(T * automaton_ops(B, C), 2 * state_b + B * T * C * 4 + B * T * 4,
+                                     PEAK_INT32)
+    rows_b = nbytes(at["sb"])
+    bounds["auto_mask"] = bound(automaton_ops(at["rows"], C, select=False, advance=False),
+                                rows_b + at["rows"] * C, PEAK_INT32)
+    bounds["auto_advance"] = bound(automaton_ops(at["rows"], C, mask=False, select=False),
+                                   2 * rows_b + at["rows"] * 4, PEAK_INT32)
+    for name, (ms_b, by) in sorted((str(k), v) for k, v in bounds.items()):
+        say("phase18", bound_of=name, bound_ms=f"{ms_b:.6f}", bound_by=by)
+
+    def entry(name, source, replaces, launches, err, ms, plain_ms, bnd, library_ms, **extra):
+        return {"name": name, "route": "cuda", "source": f"molvax_torch/kernels/csrc/{source}",
+                "replaces": replaces, "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": library_ms, **extra}
+
+    beam_counts = decodes["beam"]
     print(json.dumps({"kernels": [
-        {"name": "fused_generate", "route": "cuda", "source": "molvax_torch/kernels/csrc/generate.cu",
-         "replaces": "molvax/kernels/generate.py:169", "launches": serve_counts["fused_generate"],
-         "max_abs_err": max(gaps), "ms": ms_gen, "plain_ms": ms_gen_plain},
-        {"name": "fused_encode", "route": "cuda", "source": "molvax_torch/kernels/csrc/conv_enc.cu",
-         "replaces": "molvax/kernels/conv_enc.py:181", "launches": train_counts["fused_encode"],
-         "max_abs_err": enc_kernel_err, "ms": times["fused_encode"][0], "plain_ms": times["fused_encode"][1]},
-        {"name": "fused_sample_kl", "route": "cuda", "source": "molvax_torch/kernels/csrc/sampler.cu",
-         "replaces": "molvax/kernels/sampler.py:91", "launches": train_counts["fused_sample_kl"],
-         "max_abs_err": sampler_err, "ms": times["fused_sample_kl"][0], "plain_ms": times["fused_sample_kl"][1]},
-        {"name": "gru_stack_scan_fwd", "route": "cuda", "source": "molvax_torch/kernels/csrc/gru_stack.cu",
-         "replaces": "molvax/kernels/gru_stack.py:552", "launches": train_counts["gru_stack_fwd"],
-         "max_abs_err": fwd_err, "ms": times["gru_stack_fwd"][0], "plain_ms": times["gru_stack_fwd"][1]},
-        {"name": "gru_stack_scan_bwd", "route": "cuda", "source": "molvax_torch/kernels/csrc/gru_stack.cu",
-         "replaces": "molvax/kernels/gru_stack.py:487", "launches": train_counts["gru_stack_bwd_sweep"],
-         "max_abs_err": bwd_err, "ms": times["gru_stack_bwd"][0], "plain_ms": times["gru_stack_bwd"][1]},
+        entry("fused_generate", "generate.cu", "molvax/kernels/generate.py:169", serve_counts["fused_generate"],
+              max(gaps), ms_gen, ms_gen_plain, bounds["fused_generate"], None),
+        entry("fused_encode", "conv_enc.cu", "molvax/kernels/conv_enc.py:181", train_counts["fused_encode"],
+              enc_kernel_err, times["fused_encode"][0], times["fused_encode"][1], bounds["fused_encode"], None),
+        entry("fused_sample_kl", "sampler.cu", "molvax/kernels/sampler.py:91", train_counts["fused_sample_kl"],
+              sampler_err, times["fused_sample_kl"][0], times["fused_sample_kl"][1], bounds["fused_sample_kl"],
+              None),
+        entry("gru_stack_scan_fwd", "gru_stack.cu", "molvax/kernels/gru_stack.py:552", train_counts["gru_stack_fwd"],
+              fwd_err, times["gru_stack_fwd"][0], times["gru_stack_fwd"][1], bounds["gru_stack_fwd"],
+              lib["stack"][0], library_dtype=lib["stack"][2]),
+        entry("gru_stack_scan_bwd", "gru_stack.cu", "molvax/kernels/gru_stack.py:487",
+              train_counts["gru_stack_bwd_sweep"], bwd_err, times["gru_stack_bwd"][0], times["gru_stack_bwd"][1],
+              bounds["gru_stack_bwd"], lib["stack"][1], library_dtype=lib["stack"][2],
+              library_ms_dw_matmul=lib["dw_stack"]),
         # per-layer times at layer 0 (I=329); layer 1's are on the phase15 lines
-        {"name": "gru_layer_scan_x_fwd", "route": "cuda", "source": "molvax_torch/kernels/csrc/gru_layer.cu",
-         "replaces": "molvax/kernels/gru.py:527",
-         "launches": q_counts["gru_layer_scan_x_fwd"] + f_counts["gru_layer_scan_x_fwd"],
-         "max_abs_err": layer_err[bf][0], "max_abs_err_fp32": layer_err[f32][0],
-         "ms": layer_ms[bf, 0][0], "plain_ms": layer_ms[bf, 0][1],
-         "ms_fp32": layer_ms[f32, 0][0], "plain_ms_fp32": layer_ms[f32, 0][1]},
-        {"name": "gru_layer_scan_x_bwd", "route": "cuda", "source": "molvax_torch/kernels/csrc/gru_layer.cu",
-         "replaces": "molvax/kernels/gru.py:689",
-         "launches": q_counts["gru_layer_scan_x_bwd_sweep"] + f_counts["gru_layer_scan_x_bwd_sweep"],
-         "max_abs_err": layer_err[bf][1], "max_abs_err_fp32": layer_err[f32][1],
-         "ms": layer_ms[bf, 0][2], "plain_ms": layer_ms[bf, 0][3],
-         "ms_fp32": layer_ms[f32, 0][2], "plain_ms_fp32": layer_ms[f32, 0][3]},
-        {"name": "gru_layer_scan_fwd", "route": "cuda", "source": "molvax_torch/kernels/csrc/gru_layer.cu",
-         "replaces": "molvax/kernels/gru.py:237", "launches": scan_counts["gru_layer_scan_fwd"],
-         "max_abs_err": scan_fwd_err, "ms": scan_ms[0], "plain_ms": scan_ms[1]},
-        {"name": "gru_layer_scan_bwd", "route": "cuda", "source": "molvax_torch/kernels/csrc/gru_layer.cu",
-         "replaces": "molvax/kernels/gru.py:348", "launches": scan_counts["gru_layer_scan_bwd_sweep"],
-         "max_abs_err": scan_bwd_err, "ms": scan_ms[2], "plain_ms": scan_ms[3]},
+        entry("gru_layer_scan_x_fwd", "gru_layer.cu", "molvax/kernels/gru.py:527",
+              q_counts["gru_layer_scan_x_fwd"] + f_counts["gru_layer_scan_x_fwd"], layer_err[bf][0],
+              layer_ms[bf, 0][0], layer_ms[bf, 0][1], bounds["layer_fwd", bf], lib["layer_bf16"][0],
+              library_dtype=lib["layer_bf16"][2], max_abs_err_fp32=layer_err[f32][0], ms_fp32=layer_ms[f32, 0][0],
+              plain_ms_fp32=layer_ms[f32, 0][1], bound_ms_fp32=bounds["layer_fwd", f32][0],
+              library_ms_fp32=lib["layer_fp32"][0]),
+        entry("gru_layer_scan_x_bwd", "gru_layer.cu", "molvax/kernels/gru.py:689",
+              q_counts["gru_layer_scan_x_bwd_sweep"] + f_counts["gru_layer_scan_x_bwd_sweep"], layer_err[bf][1],
+              layer_ms[bf, 0][2], layer_ms[bf, 0][3], bounds["layer_bwd", bf], lib["layer_bf16"][1],
+              library_dtype=lib["layer_bf16"][2], library_ms_dw_matmul=lib["dw_layer0"],
+              max_abs_err_fp32=layer_err[f32][1], ms_fp32=layer_ms[f32, 0][2], plain_ms_fp32=layer_ms[f32, 0][3],
+              bound_ms_fp32=bounds["layer_bwd", f32][0], library_ms_fp32=lib["layer_fp32"][1]),
+        entry("gru_layer_scan_fwd", "gru_layer.cu", "molvax/kernels/gru.py:237", scan_counts["gru_layer_scan_fwd"],
+              scan_fwd_err, scan_ms[0], scan_ms[1], bounds["scan_fwd"], None),
+        entry("gru_layer_scan_bwd", "gru_layer.cu", "molvax/kernels/gru.py:348",
+              scan_counts["gru_layer_scan_bwd_sweep"], scan_bwd_err, scan_ms[2], scan_ms[3], bounds["scan_bwd"], None),
+        # the automaton: codes, masks and state rows against the plain version (phase 16)
+        # launches of one constrained decode (phase 17 holds all three at T)
+        entry("auto_step", "automaton.cu", "molvax/kernels/automaton.py:218",
+              decodes["greedy"]["auto_step"], auto["step_err"], at["step_n1"],
+              at["step_plain"], bounds["auto_step"], None, ms_n120_per_step=at["step_n120"],
+              bound_ms_n120_per_step=bounds["auto_step_n120"][0] / T),
+        entry("auto_mask", "automaton.cu", "molvax/kernels/automaton.py:218", beam_counts["auto_mask"], auto["mask_err"],
+              at["mask"], at["mask_plain"], bounds["auto_mask"], None, rows=at["rows"]),
+        entry("auto_advance", "automaton.cu", "molvax/kernels/automaton.py:218", beam_counts["auto_advance"],
+              auto["advance_err"],
+              at["advance"], at["advance_plain"], bounds["auto_advance"], None, rows=at["rows"]),
     ]}), flush=True)
     print(gpu, flush=True)
     print(json.dumps({"ok": True, "device": {

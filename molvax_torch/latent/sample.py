@@ -8,6 +8,15 @@ non-autoregressive pass (``nn.decoder.decode``). With
 the hand-written generation kernel (``kernels/generate.py``) and no logits
 are materialized. Otherwise the fp32 scan runs as a plain loop over T.
 
+``constrained=True`` threads the valence automaton (``latent/constrain.py``)
+through the decode, as the reference does: the GRU step stays the fp32
+scan, and each step's scores (the logits, or logits / temperature + Gumbel
+noise) go through one ``kernels.automaton.auto_step`` with n=1, which masks
+the illegal tokens, picks the first maximum and advances the automaton: the
+hand-written kernel on CUDA, its plain version on the CPU. A 'repeat_z'
+decoder takes one ``auto_step`` with n=T over its precomputed scores. The
+generation kernel is never taken when ``constrained=True``.
+
 Host-side draws (z from the prior, the reparameterization noise, the
 sampling seed) come from a ``torch.Generator``; its stream differs from
 ``jax.random``'s, so tests hand both packages the same numpy inputs.
@@ -21,15 +30,12 @@ import torch
 
 from ..data.charset import DEFAULT_CHARSET, Charset
 from ..data.featurize import decode_codes, encode_smiles, one_hot
+from ..kernels import automaton as kauto
 from ..nn.decoder import decode, latent_embed
 from ..nn.encoder import linear
 from ..nn.gru import gru_stack_step
 from ..nn.vae import encode as vae_encode, reparameterize
-
-_CONSTRAINED_TODO = (
-    "constrained decoding is not ported yet (ROADMAP queue A, "
-    "'Constrained decoding and beam search', with kernel auto_step_pallas)"
-)
+from .constrain import build_tables
 
 
 def _default_generator() -> torch.Generator:
@@ -57,20 +63,29 @@ def generate(
     value is None; callers that need logits must take the scan route
     (``dataclasses.replace(cfg, use_pallas_generation=False)``). Sampling
     (``greedy=False``) draws Gumbel-max noise keyed by a seed drawn from
-    ``generator``, identical on both routes (``kernels.generate.noise_bits``)."""
+    ``generator``, identical on both routes (``kernels.generate.noise_bits``).
+    ``constrained=True`` masks every step through the valence automaton
+    (module docstring) and always returns the logits."""
     from ..kernels.generate import (
         fused_generate,
         generation_kernel_supported,
         gumbel_noise,
     )
 
-    if constrained:
-        raise NotImplementedError(_CONSTRAINED_TODO)
     if charset.size != cfg.charset_size:
         raise ValueError(f"charset size {charset.size} != model charset_size {cfg.charset_size}")
     generator = generator if generator is not None else _default_generator()
     seed = _draw_seed(generator)
     B, T, C = z.shape[0], cfg.max_len, cfg.charset_size
+    itab = state = None
+    if constrained:
+        itab = kauto.pack_tables(build_tables(charset)).to(z.device)
+        state = kauto.new_state(B, T, z.device)
+
+    def scores_of(logits_t, t):
+        if greedy:
+            return logits_t
+        return logits_t / temperature + gumbel_noise(seed, t, B, C, z.device)
 
     with torch.no_grad():
         if cfg.decoder_conditioning == "repeat_z":
@@ -78,12 +93,14 @@ def generate(
             logits = decode(model, cfg, z)
             scores = logits
             if not greedy:
-                noise = torch.stack([gumbel_noise(seed, t, B, C, z.device) for t in range(T)], dim=1)
-                scores = logits / temperature + noise
+                scores = torch.stack([scores_of(logits[:, t], t) for t in range(T)], dim=1)
+            if constrained:
+                # non-autoregressive logits, sequential constrained selection
+                return kauto.auto_step(itab, state, scores.float().contiguous(), T - 1), logits
             return torch.argmax(scores, dim=-1).to(torch.int32), logits
 
         z_emb = latent_embed(model, cfg, z)
-        if cfg.use_pallas_generation and generation_kernel_supported(cfg, z.device):
+        if cfg.use_pallas_generation and not constrained and generation_kernel_supported(cfg, z.device):
             codes = fused_generate(model, cfg, z_emb, seed, greedy=greedy, temperature=temperature)
             return codes, None
 
@@ -100,10 +117,11 @@ def generate(
             x_t = torch.cat([z_emb, prev], dim=-1)
             hs, out = gru_stack_step(gru, hs, x_t)
             logits_t = linear(out, model.linear_4.weight, model.linear_4.bias)
-            scores = logits_t
-            if not greedy:
-                scores = logits_t / temperature + gumbel_noise(seed, t, B, C, z.device)
-            code_t = torch.argmax(scores, dim=-1)
+            scores = scores_of(logits_t, t)
+            if constrained:
+                code_t = kauto.auto_step(itab, state, scores.contiguous(), T - 1 - t)[:, 0]
+            else:
+                code_t = torch.argmax(scores, dim=-1)
             codes[:, t] = code_t.to(torch.int32)
             logits[:, t] = logits_t
             prev = one_hot(code_t, C)

@@ -23,6 +23,7 @@ import torch
 
 from ..kernels.generate import fold_in
 from ..nn.vae import MolecularVAE, forward
+from ..utils import resolve_device
 from .loss import vae_loss
 from .schedules import beta_at, ss_prob_at
 
@@ -148,15 +149,18 @@ def init_state(
     """A fresh state: weights from torch's default init (the reference's
     distributions) seeded by ``seed`` (default ``cfg.train.seed``) and made
     on the CPU, so they do not depend on the device; or ``weights``, a state
-    dict (e.g. ``io.convert.state_dict_from_jax``). Then moved to
-    ``device``, with a new optimizer and EMA copy."""
+    dict (e.g. ``io.convert.state_dict_from_jax``). The model is built on
+    ``device`` (default: the card; ``"cpu"`` where the caller asks for it),
+    with a new optimizer and EMA copy."""
     seed = cfg.train.seed if seed is None else seed
-    with torch.random.fork_rng(devices=[]):
+    dev = resolve_device(device)
+    # the caller's RNG streams are left as they were
+    with torch.random.fork_rng(devices=[dev] if dev.type == "cuda" else []):
         torch.manual_seed(seed)
-        model = MolecularVAE(cfg.model)
-    if weights is not None:
-        model.load_state_dict(weights, strict=True)
-    model.to(device if device is not None else "cpu")
+        if weights is None:
+            weights = MolecularVAE(cfg.model, device="cpu").state_dict()
+        model = MolecularVAE(cfg.model, device=dev)
+    model.load_state_dict(weights, strict=True)
     ema = None
     if cfg.train.ema_decay > 0:
         ema = {name: p.detach().clone() for name, p in model.named_parameters()}

@@ -8,9 +8,10 @@ import torch
 
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.device:
-    """``None`` means the CPU. Asking for CUDA where there is none raises:
-    the port never falls back to the CPU behind the caller's back."""
-    dev = torch.device("cpu" if device is None else device)
+    """``None`` means the card (``cuda``); a caller that wants the CPU asks
+    for it (``"cpu"``), as the tests do. Asking for CUDA where there is none
+    raises: the port never falls back to the CPU behind the caller's back."""
+    dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {str(dev)!r} requested but CUDA is not available")
     return dev

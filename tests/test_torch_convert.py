@@ -59,7 +59,7 @@ def test_npz_written_on_a_jax_host_loads(tmp_path):
     np.savez(path, **to_torch_state_dict(params))
     from molvax_torch.nn.vae import MolecularVAE
 
-    model = MolecularVAE(tcfg)
+    model = MolecularVAE(tcfg, device="cpu")
     model.load_state_dict(load_npz(path), strict=True)
     np.testing.assert_array_equal(
         model.start_token.detach().numpy(), np.asarray(params["decoder"]["start_token"])

@@ -215,15 +215,23 @@ def test_kernel_route_conditions():
 
 
 def test_unported_options_raise():
-    """Constrained decoding is not ported: it raises for both conditionings
-    ('repeat_z' decoders themselves now decode, see below)."""
-    _, tcfg, _, model = paired()
-    z = torch.zeros(2, tcfg.latent_dim)
-    with pytest.raises(NotImplementedError, match="Constrained decoding"):
-        generate(model, tcfg, z, constrained=True)
-    rz = dataclasses.replace(tcfg, decoder_conditioning="repeat_z")
-    with pytest.raises(NotImplementedError, match="Constrained decoding"):
-        generate(model, rz, z, constrained=True)
+    """Every option of generate is ported now: constrained decoding runs for
+    both conditionings, never through the generation kernel, and returns
+    the logits (tests/test_torch_beam.py holds it to the reference). What
+    still raises is a charset the model was not built for."""
+    from molvax_torch.data.charset import Charset
+
+    small = Charset.from_list(["C", "c", "1", "(", ")"])
+    z = torch.zeros(2, configs()[1].latent_dim)
+    before = kg.launches
+    for cond in ("teacher_forced", "repeat_z"):
+        _, tcfg, _, model = paired(decoder_conditioning=cond, compute_dtype="bfloat16", use_pallas_generation=True)
+        codes, logits = generate(model, tcfg, z, constrained=True)
+        assert codes.shape == (2, tcfg.max_len) and codes.dtype == torch.int32
+        assert logits.shape == (2, tcfg.max_len, tcfg.charset_size)
+        with pytest.raises(ValueError, match="charset size"):
+            generate(model, tcfg, z, constrained=True, charset=small)
+    assert kg.launches == before
 
 
 def test_repeat_z_greedy_matches_reference():

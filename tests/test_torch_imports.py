@@ -28,6 +28,8 @@ def test_import_pulls_in_no_jax():
         "import molvax_torch.io.convert, molvax_torch.kernels._build\n"
         "import molvax_torch.train, molvax_torch.kernels.gru_stack, molvax_torch.kernels.conv_enc\n"
         "import molvax_torch.kernels.sampler, molvax_torch.kernels.gru\n"
+        "import molvax_torch.config, molvax_torch.data.charset, molvax_torch.data.smiles_check\n"
+        "import molvax_torch.latent.constrain, molvax_torch.latent.beam, molvax_torch.kernels.automaton\n"
         "bad = [m for m in sys.modules if m in ('jax', 'molvax') "
         "or m.startswith(('jax.', 'molvax.'))]\n"
         "assert not bad, bad\n"
@@ -42,11 +44,22 @@ def test_import_pulls_in_no_jax():
 
 
 def test_no_source_imports_jax_or_the_reference_package():
+    """No import of JAX or ``molvax``, and no loading of a reference file by
+    path (``spec_from_file_location``, or ``"molvax"`` joined to a path):
+    the port keeps its own copies of what it needs."""
     pattern = re.compile(r"^\s*(import|from)\s+(jax|molvax)(\.|\s|$)", re.M)
+    by_path = re.compile(
+        r"spec_from_file_location|SourceFileLoader|run_path"
+        r"|/\s*[\"']molvax[\"']|joinpath\([^)]*[\"']molvax[\"']"
+        r"|os\.path\.join\([^)]*[\"']molvax[\"']"
+    )
     files = sorted((ROOT / "molvax_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 10
     offenders = [str(f) for f in files if pattern.search(f.read_text())]
     assert not offenders, offenders
+    loaders = [str(f) for f in files if by_path.search(f.read_text())]
+    assert not loaders, loaders
+    assert not (ROOT / "molvax_torch" / "_shared.py").exists()
 
 
 def test_cuda_request_without_cuda_raises():
@@ -55,10 +68,20 @@ def test_cuda_request_without_cuda_raises():
     from molvax_torch.nn.vae import MolecularVAE
     from molvax_torch.utils import resolve_device
 
+    from molvax_torch.config import get_preset
+    from molvax_torch.train import init_state
+
+    for dev in ("cuda", None):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            resolve_device(dev)
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            MolecularVAE(configs()[1], device=dev)
+    # the entry points default to the card: without a device they raise too
     with pytest.raises(RuntimeError, match="CUDA is not available"):
-        resolve_device("cuda")
+        MolecularVAE(configs()[1])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
-        MolecularVAE(configs()[1], device="cuda")
+        init_state(get_preset("chemvae_5k"))
+    assert resolve_device("cpu") == torch.device("cpu")
 
 
 def test_chip_smoke_fails_without_cuda_and_prints_no_result():

@@ -170,7 +170,7 @@ def test_ema_update_and_eval_state():
                                   gru_hidden=8, gru_layers=2),
         train=tconfig.TrainConfig(ema_decay=0.75, learning_rate=1e-2),
     )
-    state = init_state(cfg, seed=3)
+    state = init_state(cfg, seed=3, device="cpu")
     before = {k: v.detach().clone() for k, v in state.params.named_parameters()}
     codes = torch.from_numpy(np.random.default_rng(0).integers(0, 37, (4, 12)))
     state, _ = make_train_step(cfg)(state, codes)
@@ -188,7 +188,7 @@ def test_ema_update_and_eval_state():
 def test_init_state_is_seeded_and_device_independent():
     cfg = tconfig.Config(model=tconfig.ModelConfig(max_len=12, latent_dim=8, conv_kernels=(3, 3, 3),
                                                    enc_hidden=8, gru_hidden=8, gru_layers=2))
-    a, b, c = init_state(cfg, seed=1), init_state(cfg, seed=1), init_state(cfg, seed=2)
+    a, b, c = (init_state(cfg, seed=s, device="cpu") for s in (1, 1, 2))
     for (n, p), q, r in zip(a.params.named_parameters(), b.params.parameters(), c.params.parameters()):
         assert torch.equal(p, q), n
         assert n == "start_token" or not torch.equal(p, r), n
@@ -232,7 +232,7 @@ def track_reference_six_steps(jcfg, tcfg):
     ds = synthetic_dataset(BATCH * STEPS, max_len=40, seed=0)
     batches = [ds.codes[i * BATCH:(i + 1) * BATCH] for i in range(STEPS)]
     # before the reference's step, which donates (deletes) its input state
-    tstate = init_state(tcfg, weights=state_dict_from_jax(numpy_tree(params)))
+    tstate = init_state(tcfg, device="cpu", weights=state_dict_from_jax(numpy_tree(params)))
 
     jstate = jtrain.init_state(jcfg)
     jstate = jstate._replace(params=params, opt_state=jtrain.loop.make_optimizer(jcfg).init(params))
@@ -325,7 +325,7 @@ def test_eval_step_and_kernel_route_step_run_on_cpu():
                                   learned_start=True),
         train=tconfig.TrainConfig(kl=tconfig.KLScheduleConfig(kind="cyclical", cycle_steps=4)),
     )
-    state = init_state(cfg, seed=5)
+    state = init_state(cfg, seed=5, device="cpu")
     codes = torch.from_numpy(np.random.default_rng(1).integers(0, 37, (4, 12)))
     ev = make_eval_step(cfg)
     m0 = ev(state, codes)

@@ -124,7 +124,7 @@ def test_quality_step_with_scheduled_sampling_runs_and_moves_weights():
     3 backwards. The step moves the weights and keeps the loss finite."""
     cfg = _small_quality_cfg()
     assert cfg.model.gru_kernel == "per_layer" and cfg.train.scheduled_sampling == 0.25
-    state = init_state(cfg, seed=7)
+    state = init_state(cfg, seed=7, device="cpu")
     codes = torch.from_numpy(np.random.default_rng(2).integers(0, 37, (4, 12)))
     w0 = state.params.gru.weight_ih_l0.detach().clone()
     calls = []
