@@ -6,7 +6,7 @@ once on one CUDA card.
 
 Run from the root of a checkout. It builds the hand-written kernels from
 ``molvax_torch/kernels/csrc/`` (into ``build/molvax_torch/``), makes
-``zinc250k`` weights at full width from a seed, and runs eighteen phases,
+``zinc250k`` weights at full width from a seed, and runs twenty phases,
 each printed on its own lines:
 
   1. environment: card name and power limit, torch and CUDA versions, the
@@ -73,16 +73,29 @@ each printed on its own lines:
      as n=1 launches, one n=120 launch and its plain version, auto_mask and
      auto_advance, beam 5, the device-time split of one constrained decode;
      the library yardsticks (torch.nn.GRU on cuDNN, torch.matmul for the dW
-     contraction), and each kernel's bound.
+     contraction), and each kernel's bound;
+ 19. the design probes' kernels against their plain versions at full width
+     (B=256, T=120, H=501, L=3) and at a ragged batch of 6: the hoisted-gi
+     forward's two probe modes (gru_probe_scan, run_variant's) and the
+     stack forward's fused3 mode (gru_fused3_scan) within the bf16 gate;
+     floor_loop bit for bit, at the probe's three shapes; gru_layer_scan_x's
+     forward at fwd_gi's I=330;
+ 20. the three probe modules (molvax_torch/probes/): each run once with its
+     launches counted (every probe kernel once), then their tables: the
+     recurrence step decomposed (matmul_only, gates_nostore, full) at H=501
+     and 512, the 3-layer forward per layer, on the stack and fused3; the
+     in-kernel against the hoisted input GEMM; the automaton per step and
+     its budget; the int32-op floor; each with its bound.
 
 Any failure raises and exits non-zero. Without CUDA it exits 2 and prints
 no result. The line before the card's is the ``kernels`` JSON: each kernel
-with its launches on the main path, its error against its plain version,
-its time, the plain version's, its bound (the larger of its operations over
-the card's peak for their type and its bytes over 3.35 TB/s, and which of
-the two binds) and the time of one library call computing the same
-function, or null where there is none. The last line of standard output is
-the device JSON.
+with its launches on its path (0 on the main paths for a probe kernel,
+which phase 20's run launches), its error against its plain version, its
+time, the plain version's, its bound (the larger of its operations over the
+card's peak for their type and its bytes over 3.35 TB/s, and which of the
+two binds) and the time of one library call computing the same function, or
+null where there is none. The last line of standard output is the device
+JSON.
 """
 
 from __future__ import annotations
@@ -91,8 +104,6 @@ import contextlib
 import dataclasses
 import json
 import os
-import statistics
-import subprocess
 import sys
 import time
 
@@ -106,6 +117,7 @@ from molvax_torch.data.smiles_check import chem_valid
 from molvax_torch.io.convert import state_dict_from_jax
 from molvax_torch.kernels import _build, conv_enc, gru_stack, sampler
 from molvax_torch.kernels import automaton as kauto
+from molvax_torch.kernels import floor as kfloor
 from molvax_torch.kernels import gru as kgru
 from molvax_torch.kernels import generate as kg
 from molvax_torch.latent import constrain as kcon
@@ -115,7 +127,11 @@ from molvax_torch.nn.decoder import latent_embed, teacher_inputs
 from molvax_torch.nn.encoder import conv_input_channels, encoder_params, flat_conv_dim
 from molvax_torch.nn.gru import gru_layers
 from molvax_torch.nn.vae import MolecularVAE, encode
+from molvax_torch.probes import auto_loop_probe, gru_experiments, proto_gi_kernel
 from molvax_torch.train import init_state, make_eval_step, make_train_step
+from molvax_torch.train import profiling
+from molvax_torch.train.profiling import card_line as card
+from molvax_torch.train.profiling import event_ms as time_ms
 
 MARGIN = 1e-2  # score units; bf16 operand rounding of a near-tie h can move a logit by ~1e-4
 # the stack's gates, which also hold the bf16 per-layer kernels
@@ -130,12 +146,12 @@ FP32_ROUTE_REL = 1e-4  # per-step loss of the strict-fp32 routes
 B = 256
 SEED = 0
 BEAM = 5
-# the least time the card could take, from the
-# published peaks of one H100 SXM at its full 700 W
-PEAK_BF16 = 989e12  # dense bf16 tensor-core FLOP/s
-PEAK_FP32 = 67e12  # fp32 FLOP/s outside the tensor cores (strict fp32)
-PEAK_INT32 = 33.5e12  # int32 op/s: half the fp32 lane rate
-HBM_BYTES_S = 3.35e12
+# the least time the card could take, from the published peaks of one H100
+# SXM at its full 700 W (train/profiling.py's table)
+PEAKS = profiling.H100_SXM
+PEAK_BF16 = PEAKS.bf16_tflops * 1e12  # dense bf16 tensor-core FLOP/s
+PEAK_FP32 = PEAKS.fp32_tflops * 1e12  # fp32 FLOP/s outside the tensor cores (strict fp32)
+PEAK_INT32 = PEAKS.int32_tops * 1e12  # int32 op/s: half the fp32 lane rate
 DEVICE = "cuda:0"
 TRAIN_STEPS = 20
 PLAIN_STEPS = 3
@@ -150,14 +166,6 @@ SMILES = [h + t for h in _HEADS for t in _TAILS]  # 256 distinct strings
 
 def say(phase: str, **kv) -> None:
     print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in kv.items()), flush=True)
-
-
-def card() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()
-    return out[0].strip()
 
 
 def random_params(cfg, seed: int) -> dict:
@@ -219,21 +227,6 @@ def check_kernel(model, z_emb, greedy: bool, temperature: float, seed: int) -> f
     return gap
 
 
-def time_ms(fn, warmup: int = 2, reps: int = 5) -> float:
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
 def time_on_copies(fn, state: torch.Tensor, warmup: int = 2, reps: int = 5) -> float:
     """time_ms of fn(copy), where fn updates ``state`` in place: each call
     gets its own copy, made before the timing starts, so no copy is timed."""
@@ -247,6 +240,8 @@ def reset_counts() -> None:
     kgru.layer_fwd_launches = kgru.layer_bwd_launches = kgru.layer_dw_launches = 0
     kgru.scan_fwd_launches = kgru.scan_bwd_launches = 0
     kauto.step_launches = kauto.mask_launches = kauto.advance_launches = 0
+    kgru.probe_matmul_only_launches = kgru.probe_gates_nostore_launches = 0
+    gru_stack.fused3_launches = kfloor.launches = 0
 
 
 def counts() -> dict:
@@ -265,6 +260,10 @@ def counts() -> dict:
         "auto_step": kauto.step_launches,
         "auto_mask": kauto.mask_launches,
         "auto_advance": kauto.advance_launches,
+        "gru_probe_matmul_only": kgru.probe_matmul_only_launches,
+        "gru_probe_gates_nostore": kgru.probe_gates_nostore_launches,
+        "gru_fused3": gru_stack.fused3_launches,
+        "floor_loop": kfloor.launches,
     }
 
 
@@ -532,10 +531,7 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
-def bound(ops: float, moved: int, peak: float):
-    """(bound ms, what binds): the larger of ops / peak and bytes / HBM rate."""
-    t_ops, t_bytes = ops / peak * 1e3, moved / HBM_BYTES_S * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+bound = profiling.bound_ms  # (bound ms, what binds) of ops at a peak and bytes at the HBM rate
 
 
 def gru_macs(I: int, H: int) -> int:
@@ -873,6 +869,171 @@ def library_times(cfg, s_args, dev) -> dict:
     return out
 
 
+# -- the design probes (phases 19-20) -------------------------------------------
+
+# matmul_only times the serial chain over all 3H columns; were its z and n
+# products dropped as dead code it would take about a third of full's time
+MATMUL_ONLY_MIN_SHARE = 0.6
+
+
+def phase19(dev) -> dict:
+    """The probe kernels against their plain versions at full width (B=256,
+    T=120, H=501, L=3) and at a ragged batch of 6, on the probe modules'
+    inputs with a nonzero h0; floor_loop bit for bit; gru_layer_scan_x's
+    forward at fwd_gi's I=330. Returns the probe modules' inputs, the errors and
+    the plain versions' times."""
+    g = gru_experiments.make_inputs(device=dev, seed=SEED + 19)
+    p = proto_gi_kernel.make_inputs(device=dev, seed=SEED + 20)
+    L_, H_ = g["L"], g["H"]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 19)
+    h0 = 0.1 * torch.randn(L_, B, H_, generator=gen, device=dev)
+    l0 = g["layers"][0]
+    err, plain = {}, {}
+    with torch.no_grad():
+        for rows in (B, 6):
+            one = (g["gi"][:, :rows].contiguous(), l0["w_hh"], l0["b_hh"], h0[0, :rows].contiguous())
+            stack = (g["gi"][:, :rows].contiguous(), *g["stack"], h0[:, :rows].contiguous())
+            checks = [(f"gru_probe_scan[{m}]", m, lambda m=m: kgru.gru_probe_scan(*one, m),
+                       lambda m=m: kgru.gru_probe_scan_ref(*one, m)) for m in kgru.PROBE_MODES]
+            checks.append(("gru_fused3_scan", "fused3", lambda: gru_stack.gru_fused3_scan(*stack),
+                           lambda: gru_stack.gru_fused3_scan_ref(*stack)))
+            for name, key, kern, ref in checks:
+                k, r = kern(), ref()
+                torch.cuda.synchronize()
+                e = max_abs(k, r)
+                say("phase19", kernel=name, B=rows, T=g["T"], H=H_, hseq_max_abs_err=f"{e:.3e}",
+                    hseq_bit_identical=f"{(k == r).float().mean().item():.6f}", tol=STACK_FWD_TOL)
+                if not (torch.isfinite(k.float()).all() and k.shape == r.shape and e <= STACK_FWD_TOL):
+                    raise AssertionError(f"{name} differs from its plain version by {e:.3e} at B={rows}")
+                err[key] = max(err.get(key, 0.0), e)
+                if rows == B:
+                    plain[key] = time_ms(ref)
+        # floor_loop: bit for bit at the probe's shapes, x near the int32 limits too
+        for shape in auto_loop_probe.FLOOR_SHAPES:
+            x = torch.randint(-64, 64, shape, dtype=torch.int32, generator=gen, device=dev)
+            x.view(-1)[:2] = torch.tensor([2**31 - 1, -(2**31)], dtype=torch.int32, device=dev)
+            for k_ops, chains in ((auto_loop_probe.FLOOR_K[0], auto_loop_probe.FLOOR_CHAINS), (13, 3)):
+                same = torch.equal(kfloor.floor_loop(x, g["T"], k_ops, chains),
+                                   kfloor.floor_loop_ref(x, g["T"], k_ops, chains))
+                say("phase19", kernel="floor_loop", shape=json.dumps(shape), T=g["T"], k_ops=k_ops, chains=chains,
+                    bit_identical=same)
+                if not same:
+                    raise AssertionError(f"floor_loop differs from its plain version at {shape}, k_ops={k_ops}")
+        fx = torch.ones(auto_loop_probe.FLOOR_SHAPES[-1], dtype=torch.int32, device=dev)
+        plain["floor"] = time_ms(lambda: kfloor.floor_loop_ref(fx, g["T"], auto_loop_probe.FLOOR_K[0]))
+        # fwd_gi: gru_layer_scan_x's bf16 forward at I=330, and a ragged batch
+        lay = p["layers"][0]
+        for rows in (B, 6):
+            args = (p["x"][:, :rows].contiguous(), lay["w_ih"], lay["b_ih"], lay["w_hh"], lay["b_hh"],
+                    h0[0, :rows].contiguous())
+            k, r = kgru.layer_forward(*args, torch.bfloat16), kgru.layer_forward_ref(*args, torch.bfloat16)
+            torch.cuda.synchronize()
+            e = max_abs(k[0], r[0])
+            say("phase19", kernel="gru_layer_scan_x_fwd[fwd_gi]", B=rows, I=p["I"], H=p["H"],
+                hseq_max_abs_err=f"{e:.3e}", tol=STACK_FWD_TOL)
+            if not e <= STACK_FWD_TOL:
+                raise AssertionError(f"gru_layer_scan_x at I={p['I']} differs from its plain version by {e:.3e}")
+            err["fwd_gi"] = max(err.get("fwd_gi", 0.0), e)
+            if rows == B:
+                plain["fwd_gi"] = time_ms(lambda: kgru.layer_forward_ref(*args, torch.bfloat16))
+    return {"g": g, "p": p, "err": err, "plain": plain}
+
+
+# each probe module's probe run launches each of its kernels once; fwd_gi's
+# counterpart, gru_layer_scan_x, once for one layer and 3 times for the stack
+PROBE_LAUNCHES = {
+    "gru_experiments": {"gru_probe_matmul_only": 1, "gru_probe_gates_nostore": 1, "gru_layer_scan_fwd": 1,
+                        "gru_layer_scan_x_fwd": 3, "gru_stack_fwd": 1, "gru_fused3": 1},
+    "proto_gi_kernel": {"gru_layer_scan_x_fwd": 4, "gru_layer_scan_fwd": 4},
+    "auto_loop_probe": {"auto_step": 1, "floor_loop": 1},
+}
+
+
+def phase20(dev, g, p, ms_gen: float, gpu: str) -> dict:
+    """The three probe modules: one probe run each with its launches
+    counted, then their tables (molvax_torch/probes/)."""
+    a = auto_loop_probe.make_inputs(device=dev, seed=SEED + 21)
+    runs = {}
+    for name, module, inp in (("gru_experiments", gru_experiments, g), ("proto_gi_kernel", proto_gi_kernel, p),
+                              ("auto_loop_probe", auto_loop_probe, a)):
+        reset_counts()
+        out = module.probe(inp)
+        torch.cuda.synchronize()
+        got = counts()
+        finite = all(torch.isfinite(v.float()).all().item() for v in out.values())
+        say("phase20", probe_run=name, outputs_finite=finite, **{k: v for k, v in got.items() if v})
+        if not finite or any(v != PROBE_LAUNCHES[name].get(k, 0) for k, v in got.items()):
+            raise AssertionError(f"{name}: launch counts {got}, expected {PROBE_LAUNCHES[name]}; finite {finite}")
+        runs[name] = got
+    rows = {g["H"]: gru_experiments.measure(g)}
+    g512 = gru_experiments.make_inputs(H=512, device=dev, seed=SEED + 19)
+    rows[512] = gru_experiments.measure(g512)
+    print(gpu, flush=True)
+    for h, inp in ((g["H"], g), (512, g512)):
+        gru_experiments.print_table(rows[h], inp)
+    share = rows[g["H"]]["matmul_only"]["ms"] / rows[g["H"]]["full"]["ms"]
+    sass = gru_experiments.sass_counts()
+    say("phase20", matmul_only_over_full=f"{share:.4f}", min_share=MATMUL_ONLY_MIN_SHARE,
+        sass_static_counts=json.dumps(sass).replace(" ", "") if sass else "not measured (no cuobjdump)")
+    if not share >= MATMUL_ONLY_MIN_SHARE:
+        raise AssertionError(f"matmul_only took {share:.3f} of full's time: its product lost columns")
+    prow = proto_gi_kernel.measure(p)
+    proto_gi_kernel.print_table(prow, p)
+    arow = auto_loop_probe.measure(a, fused_ms=ms_gen, plain_steps=8)
+    auto_loop_probe.print_table(arow, a)
+    frows = auto_loop_probe.floor_measure(device=dev)
+    auto_loop_probe.print_floor(frows)
+    # the one PyTorch call computing fwd_gi's function: cuDNN's one-layer bf16 GRU
+    gru = torch.nn.GRU(p["I"], p["H"], 1, device=dev, dtype=torch.bfloat16)
+    xb = p["x"].to(torch.bfloat16)
+    with torch.no_grad():
+        lib_fwd_gi = time_ms(lambda: gru(xb))
+    say("phase20", library=f"torch.nn.GRU[one layer, I={p['I']}]", fwd_ms=f"{lib_fwd_gi:.4f}", dtype="bfloat16")
+    return {"runs": runs, "rows": rows[g["H"]], "proto": prow, "auto": arow, "floor": frows,
+            "lib_fwd_gi": lib_fwd_gi}
+
+
+def entry(name, source, replaces, launches, err, ms, plain_ms, bnd, library_ms, **extra) -> dict:
+    """One kernel of the ``kernels`` line."""
+    return {"name": name, "route": "cuda", "source": f"molvax_torch/kernels/csrc/{source}",
+            "replaces": replaces, "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": library_ms, **extra}
+
+
+def probe_entries(p19: dict, p20: dict) -> list:
+    """The probe kernels' entries of the ``kernels`` line, at B=256, T=120,
+    H=501: launches of phase 20's probe run (0 on the main paths, which
+    phases 5-18 count), errors and plain times of phase 19, times and
+    bounds of phase 20's tables. run_variant's ms is matmul_only's."""
+    rows, prow, runs = p20["rows"], p20["proto"], p20["runs"]
+    g = p19["g"]
+    floor_shape, floor_k = auto_loop_probe.FLOOR_SHAPES[-1], auto_loop_probe.FLOOR_K[0]
+    bnd = {name: (rows[name]["bound_ms"], rows[name]["bound_by"]) for name in ("matmul_only", "gates_nostore", "fused3")}
+    bnd["fwd_gi"] = prow["in_kernel_1"]["bound"]
+    bnd["floor_loop"] = auto_loop_probe.floor_bound(floor_shape, g["T"], floor_k)
+    for name, (ms_b, by) in bnd.items():
+        say("phase20", bound_of=name, bound_ms=f"{ms_b:.6f}", bound_by=by)
+    ge_runs = runs["gru_experiments"]
+    return [
+        entry("run_variant", "gru_layer.cu", "bench/gru_experiments.py:86",
+              ge_runs["gru_probe_matmul_only"] + ge_runs["gru_probe_gates_nostore"],
+              max(p19["err"]["matmul_only"], p19["err"]["gates_nostore"]), rows["matmul_only"]["ms"],
+              p19["plain"]["matmul_only"], bnd["matmul_only"], None, mode="matmul_only",
+              ms_gates_nostore=rows["gates_nostore"]["ms"], plain_ms_gates_nostore=p19["plain"]["gates_nostore"],
+              bound_ms_gates_nostore=bnd["gates_nostore"][0], ms_full=rows["full"]["ms"]),
+        entry("run_fused3", "gru_stack.cu", "bench/gru_experiments.py:155", ge_runs["gru_fused3"],
+              p19["err"]["fused3"], rows["fused3"]["ms"], p19["plain"]["fused3"], bnd["fused3"], None,
+              layers=g["L"]),
+        entry("fwd_gi", "gru_layer.cu", "bench/proto_gi_kernel.py:69",
+              runs["proto_gi_kernel"]["gru_layer_scan_x_fwd"], p19["err"]["fwd_gi"], prow["in_kernel_1"]["ms"],
+              p19["plain"]["fwd_gi"], bnd["fwd_gi"], p20["lib_fwd_gi"], library_dtype="bfloat16",
+              I=p19["p"]["I"], ms_hoisted=prow["hoisted_1"]["ms"]),
+        entry("floor_loop", "floor.cu", "bench/auto_loop_probe.py:152", runs["auto_loop_probe"]["floor_loop"], 0,
+              p20["floor"][floor_shape]["ms"][floor_k], p19["plain"]["floor"], bnd["floor_loop"], None,
+              shape=list(floor_shape), T=g["T"], k_ops=floor_k, ns_per_op=p20["floor"][floor_shape]["ns_per_op"]),
+    ]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on a GPU", file=sys.stderr)
@@ -1202,10 +1363,11 @@ def main() -> int:
     for name, (ms_b, by) in sorted((str(k), v) for k, v in bounds.items()):
         say("phase18", bound_of=name, bound_ms=f"{ms_b:.6f}", bound_by=by)
 
-    def entry(name, source, replaces, launches, err, ms, plain_ms, bnd, library_ms, **extra):
-        return {"name": name, "route": "cuda", "source": f"molvax_torch/kernels/csrc/{source}",
-                "replaces": replaces, "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": library_ms, **extra}
+    # -- 19. the design probes' kernels against their plain versions ---------
+    p19 = phase19(dev)
+
+    # -- 20. the probe modules' runs and tables ------------------------------
+    p20 = phase20(dev, p19["g"], p19["p"], ms_gen, gpu)
 
     beam_counts = decodes["beam"]
     print(json.dumps({"kernels": [
@@ -1251,6 +1413,7 @@ def main() -> int:
         entry("auto_advance", "automaton.cu", "molvax/kernels/automaton.py:218", beam_counts["auto_advance"],
               auto["advance_err"],
               at["advance"], at["advance_plain"], bounds["auto_advance"], None, rows=at["rows"]),
+        *probe_entries(p19, p20),
     ]}), flush=True)
     print(gpu, flush=True)
     print(json.dumps({"ok": True, "device": {

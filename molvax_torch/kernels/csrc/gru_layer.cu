@@ -45,6 +45,17 @@
 // fp32 FMA pipes: per-block instruction issue sets the step time, as for
 // the stack kernels (PERF.md). The contraction is fp32 FMA from shared
 // memory. Tensor cores and weight residency are later work.
+//
+// Probe modes (molvax_gru_probe_scan_fwd). The hoisted-gi forward also runs
+// as the two design probes of bench/gru_experiments.py::run_variant
+// (_kernel_variant), each the production kernel less what the TPU probe
+// took out, so their times decompose this kernel's step:
+//   GATES_NOSTORE: the full gate math, hseq stored, no r|z|n or gh_n;
+//   MATMUL_ONLY:   h = gh_r + b_hh_r (the reference's gh[:, :Hp]): the serial
+//                  h @ W_hh chain and the carry, gi never read.
+// MATMUL_ONLY's output reads only the r third of gh, so the z and n products
+// would be dead code; their sum goes to `sink` when it is not null (it is
+// null in every probe run), which keeps all 3H columns of the product live.
 
 #include "common.cuh"
 
@@ -53,8 +64,10 @@ namespace {
 constexpr int THREADS = 512;  // one hidden unit per thread at H <= 512
 constexpr size_t MAX_SMEM = 232448;  // an H100 block's dynamic shared memory
 
+enum FwdMode { FULL = 0, GATES_NOSTORE = 1, MATMUL_ONLY = 2 };
+
 // shared memory: h32 fp32 [RB][H], hb S [2][H][RB], xb S [I][RB] (!HOISTED)
-template <typename S, bool HOISTED>
+template <typename S, bool HOISTED, int MODE = FULL>
 __global__ void __launch_bounds__(THREADS)
 gru_layer_fwd_kernel(const S* __restrict__ x,               // (T, B, I)
                      const __nv_bfloat16* __restrict__ gi,  // (T, B, 3H), HOISTED
@@ -64,9 +77,11 @@ gru_layer_fwd_kernel(const S* __restrict__ x,               // (T, B, I)
                      const float* __restrict__ bhh,         // (3H)
                      const float* __restrict__ h0,          // (B, H)
                      S* __restrict__ hseq,                  // (T, B, H)
-                     S* __restrict__ rzn,                   // (T, B, 3H)
-                     S* __restrict__ ghn,                   // (T, B, H)
-                     int T, int B, int I, int H) {
+                     S* __restrict__ rzn,                   // (T, B, 3H), FULL
+                     S* __restrict__ ghn,                   // (T, B, H), FULL
+                     int T, int B, int I, int H,
+                     float* __restrict__ sink) {            // MATMUL_ONLY, null
+  static_assert(MODE == FULL || HOISTED, "the probe modes are of the hoisted-gi forward");
   extern __shared__ __align__(16) unsigned char smem[];
   const size_t G = 3 * (size_t)H;
   float* h32 = reinterpret_cast<float*>(smem);
@@ -104,7 +119,7 @@ gru_layer_fwd_kernel(const S* __restrict__ x,               // (T, B, I)
       for (int g = 0; g < 3; ++g)
 #pragma unroll
         for (int r = 0; r < RB; ++r) ig[g][r] = gh[g][r] = 0.0f;
-      if (HOISTED) {
+      if (HOISTED && MODE != MATMUL_ONLY) {
 #pragma unroll
         for (int r = 0; r < RB; ++r) {
           const int row = row0 + r;
@@ -115,7 +130,7 @@ gru_layer_fwd_kernel(const S* __restrict__ x,               // (T, B, I)
             ig[2][r] = __bfloat162float(gr[2 * H]);
           }
         }
-      } else {
+      } else if (!HOISTED) {
         gate_products(xb, wih, I, H, j, ig);
 #pragma unroll
         for (int r = 0; r < RB; ++r) {
@@ -128,21 +143,39 @@ gru_layer_fwd_kernel(const S* __restrict__ x,               // (T, B, I)
       float hv[RB];
 #pragma unroll
       for (int r = 0; r < RB; ++r) {
-        const float rg = sigmoid_f(ig[0][r] + (gh[0][r] + bhh[j]));
-        const float zg = sigmoid_f(ig[1][r] + (gh[1][r] + bhh[H + j]));
-        const float gn = gh[2][r] + bhh[2 * H + j];
-        const float n = tanhf(ig[2][r] + rg * gn);
-        const float h = (1.0f - zg) * n + zg * h32[r * H + j];
-        h32[r * H + j] = h;  // only this thread touches unit j's carry
-        hv[r] = h;
-        const int row = row0 + r;
-        if (row < B) {
-          const size_t o = (size_t)t * B + row;
-          hseq[o * H + j] = from_f<S>(h);
-          rzn[o * G + j] = from_f<S>(rg);
-          rzn[o * G + H + j] = from_f<S>(zg);
-          rzn[o * G + 2 * H + j] = from_f<S>(n);
-          ghn[o * H + j] = from_f<S>(gn);
+        if constexpr (MODE == MATMUL_ONLY) {
+          const float h = gh[0][r] + bhh[j];
+          h32[r * H + j] = h;
+          hv[r] = h;
+          const int row = row0 + r;
+          if (row < B) hseq[((size_t)t * B + row) * H + j] = from_f<S>(h);
+        } else {
+          const float rg = sigmoid_f(ig[0][r] + (gh[0][r] + bhh[j]));
+          const float zg = sigmoid_f(ig[1][r] + (gh[1][r] + bhh[H + j]));
+          const float gn = gh[2][r] + bhh[2 * H + j];
+          const float n = tanhf(ig[2][r] + rg * gn);
+          const float h = (1.0f - zg) * n + zg * h32[r * H + j];
+          h32[r * H + j] = h;  // only this thread touches unit j's carry
+          hv[r] = h;
+          const int row = row0 + r;
+          if (row < B) {
+            const size_t o = (size_t)t * B + row;
+            hseq[o * H + j] = from_f<S>(h);
+            if constexpr (MODE == FULL) {
+              rzn[o * G + j] = from_f<S>(rg);
+              rzn[o * G + H + j] = from_f<S>(zg);
+              rzn[o * G + 2 * H + j] = from_f<S>(n);
+              ghn[o * H + j] = from_f<S>(gn);
+            }
+          }
+        }
+      }
+      if constexpr (MODE == MATMUL_ONLY) {
+        if (sink != nullptr) {
+          float s = 0.0f;
+#pragma unroll
+          for (int r = 0; r < RB; ++r) s += gh[1][r] + gh[2][r];
+          sink[(size_t)blockIdx.x * H + j] = s;
         }
       }
       store_rows(h_new, j, hv);
@@ -264,20 +297,21 @@ size_t bwd_smem(int H) {
 
 bool bad_shape(int T, int B, int I, int H) { return T <= 0 || B <= 0 || I <= 0 || H <= 0; }
 
-template <typename S, bool HOISTED>
+template <typename S, bool HOISTED, int MODE = FULL>
 cudaError_t launch_fwd(const void* x, const void* gi, const void* wih, const float* bih,
                        const void* whh, const float* bhh, const float* h0, void* hseq,
-                       void* rzn, void* ghn, int T, int B, int I, int H, void* stream) {
+                       void* rzn, void* ghn, int T, int B, int I, int H, void* stream,
+                       float* sink = nullptr) {
   const size_t smem = fwd_smem<S>(I, H, HOISTED);
   if (smem > MAX_SMEM) return cudaErrorInvalidValue;
-  auto kernel = gru_layer_fwd_kernel<S, HOISTED>;
+  auto kernel = gru_layer_fwd_kernel<S, HOISTED, MODE>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   kernel<<<(B + RB - 1) / RB, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const S*>(x), static_cast<const __nv_bfloat16*>(gi),
       static_cast<const S*>(wih), bih, static_cast<const S*>(whh), bhh, h0,
-      static_cast<S*>(hseq), static_cast<S*>(rzn), static_cast<S*>(ghn), T, B, I, H);
+      static_cast<S*>(hseq), static_cast<S*>(rzn), static_cast<S*>(ghn), T, B, I, H, sink);
   return cudaGetLastError();
 }
 
@@ -351,6 +385,23 @@ extern "C" int molvax_gru_layer_scan_fwd(const void* gi, const void* whh, const 
   if (bad_shape(T, B, 1, H)) return (int)cudaErrorInvalidValue;
   return (int)launch_fwd<__nv_bfloat16, true>(nullptr, gi, nullptr, nullptr, whh, bhh, h0,
                                               hseq, rzn, ghn, T, B, 0, H, stream);
+}
+
+// run_variant's probe modes of gru_layer_scan's forward: mode 1 =
+// GATES_NOSTORE, 2 = MATMUL_ONLY; hseq only. `sink` is null in a probe run
+// (see the note at the top).
+extern "C" int molvax_gru_probe_scan_fwd(int mode, const void* gi, const void* whh,
+                                         const float* bhh, const float* h0, void* hseq,
+                                         float* sink, int T, int B, int H, void* stream) {
+  if (bad_shape(T, B, 1, H)) return (int)cudaErrorInvalidValue;
+  if (mode == GATES_NOSTORE)
+    return (int)launch_fwd<__nv_bfloat16, true, GATES_NOSTORE>(
+        nullptr, gi, nullptr, nullptr, whh, bhh, h0, hseq, nullptr, nullptr, T, B, 0, H, stream);
+  if (mode == MATMUL_ONLY)
+    return (int)launch_fwd<__nv_bfloat16, true, MATMUL_ONLY>(
+        nullptr, nullptr, nullptr, nullptr, whh, bhh, h0, hseq, nullptr, nullptr, T, B, 0, H,
+        stream, sink);
+  return (int)cudaErrorInvalidValue;
 }
 
 extern "C" int molvax_gru_layer_scan_bwd(const void* hseq, const void* h0s, const void* rzn,

@@ -43,6 +43,15 @@
 // step time (PERF.md, PR 1). The dW contraction is ~280 GFLOP of fp32 FMA
 // at B=256: bound by FMA issue from shared memory. Tensor cores (mma /
 // wgmma) and weight residency across a cluster are work for later.
+//
+// The fused3 probe (molvax_gru_fused3_fwd) is this forward as the design
+// probe bench/gru_experiments.py::run_fused3 (_fused3_kernel) ran it: layer
+// 0 reads its input gates gi0 (T, B, 3H) bf16, bias included (b_ih0 is then
+// a zero vector), where the production kernel computes x0 @ W_ih0 + b_ih0;
+// the upper layers compute theirs in the kernel as before; hseq of every
+// layer is stored and no r|z|n or gh_n. The TPU probe's separate copy of the
+// top layer (htop) was a layout device: hseq[L-1] is already contiguous
+// here. The production instance (FUSED3 = false) compiles as before.
 
 #include "common.cuh"
 
@@ -51,6 +60,8 @@ namespace {
 constexpr int THREADS = 512;  // one hidden unit per thread at H <= 512
 
 // shared memory: h32 fp32 [L][RB][H], hb bf16 [2][L][H][RB], xb bf16 [I0][RB]
+// (FUSED3: I0 = 0, no xb)
+template <bool FUSED3 = false>
 __global__ void __launch_bounds__(THREADS)
 gru_stack_fwd_kernel(const __nv_bfloat16* __restrict__ x0,    // (T, B, I0)
                      const __nv_bfloat16* __restrict__ wih0,  // (I0, 3H)
@@ -61,9 +72,10 @@ gru_stack_fwd_kernel(const __nv_bfloat16* __restrict__ x0,    // (T, B, I0)
                      const float* __restrict__ bhh,           // (L, 3H)
                      const float* __restrict__ h0,            // (L, B, H)
                      __nv_bfloat16* __restrict__ hseq,        // (L, T, B, H)
-                     __nv_bfloat16* __restrict__ rzn,         // (L, T, B, 3H)
-                     __nv_bfloat16* __restrict__ ghn,         // (L, T, B, H)
-                     int T, int B, int I0, int H, int L) {
+                     __nv_bfloat16* __restrict__ rzn,         // (L, T, B, 3H), !FUSED3
+                     __nv_bfloat16* __restrict__ ghn,         // (L, T, B, H), !FUSED3
+                     int T, int B, int I0, int H, int L,
+                     const __nv_bfloat16* __restrict__ gi0) { // (T, B, 3H), FUSED3
   extern __shared__ __align__(16) unsigned char smem[];
   const size_t G = 3 * (size_t)H;
   float* h32 = reinterpret_cast<float*>(smem);
@@ -121,7 +133,24 @@ gru_stack_fwd_kernel(const __nv_bfloat16* __restrict__ x0,    // (T, B, I0)
         for (int g = 0; g < 3; ++g)
 #pragma unroll
           for (int r = 0; r < RB; ++r) gi[g][r] = gh[g][r] = 0.0f;
-        gate_products(x_in, w_in, K, H, j, gi);
+        if constexpr (FUSED3) {
+          if (l == 0) {  // layer 0's gates are given (b_ih0 is zero)
+#pragma unroll
+            for (int r = 0; r < RB; ++r) {
+              const int row = row0 + r;
+              if (row < B) {
+                const __nv_bfloat16* gr = gi0 + ((size_t)t * B + row) * G + j;
+                gi[0][r] = __bfloat162float(gr[0]);
+                gi[1][r] = __bfloat162float(gr[H]);
+                gi[2][r] = __bfloat162float(gr[2 * H]);
+              }
+            }
+          } else {
+            gate_products(x_in, w_in, K, H, j, gi);
+          }
+        } else {
+          gate_products(x_in, w_in, K, H, j, gi);
+        }
         gate_products(h_old, w_h, H, H, j, gh);
         float hv[RB];
 #pragma unroll
@@ -137,10 +166,12 @@ gru_stack_fwd_kernel(const __nv_bfloat16* __restrict__ x0,    // (T, B, I0)
           if (row < B) {
             const size_t o = ((size_t)l * T + t) * B + row;
             hseq[o * H + j] = __float2bfloat16_rn(h);
-            rzn[o * G + j] = __float2bfloat16_rn(rg);
-            rzn[o * G + H + j] = __float2bfloat16_rn(zg);
-            rzn[o * G + 2 * H + j] = __float2bfloat16_rn(n);
-            ghn[o * H + j] = __float2bfloat16_rn(gn);
+            if constexpr (!FUSED3) {
+              rzn[o * G + j] = __float2bfloat16_rn(rg);
+              rzn[o * G + H + j] = __float2bfloat16_rn(zg);
+              rzn[o * G + 2 * H + j] = __float2bfloat16_rn(n);
+              ghn[o * H + j] = __float2bfloat16_rn(gn);
+            }
           }
         }
         store_rows(h_new, j, hv);
@@ -294,15 +325,37 @@ extern "C" int molvax_gru_stack_fwd(const void* x0, const void* wih0, const floa
                                     int L, void* stream) {
   if (bad_shape(T, B, I0, H, L)) return (int)cudaErrorInvalidValue;
   const size_t smem = fwd_smem(I0, H, L);
-  cudaError_t err = cudaFuncSetAttribute(
-      gru_stack_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  auto kernel = gru_stack_fwd_kernel<false>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   typedef const __nv_bfloat16* cbf;
-  gru_stack_fwd_kernel<<<(B + RB - 1) / RB, THREADS, smem,
-                         static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<(B + RB - 1) / RB, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<cbf>(x0), static_cast<cbf>(wih0), bih0, static_cast<cbf>(wih), bih,
       static_cast<cbf>(whh), bhh, h0, static_cast<__nv_bfloat16*>(hseq),
-      static_cast<__nv_bfloat16*>(rzn), static_cast<__nv_bfloat16*>(ghn), T, B, I0, H, L);
+      static_cast<__nv_bfloat16*>(rzn), static_cast<__nv_bfloat16*>(ghn), T, B, I0, H, L,
+      nullptr);
+  return (int)cudaGetLastError();
+}
+
+// run_fused3's probe: gi0 (T, B, 3H) bf16 in place of x0 and W_ih0, hseq
+// (L, T, B, H) out, no residuals. gi0 holds layer 0's bias; `zeros` (3H)
+// stands in for b_ih0, so the gate math is the production kernel's.
+extern "C" int molvax_gru_fused3_fwd(const void* gi0, const float* zeros, const void* wih,
+                                     const float* bih, const void* whh, const float* bhh,
+                                     const float* h0, void* hseq, int T, int B, int H, int L,
+                                     void* stream) {
+  if (bad_shape(T, B, 1, H, L)) return (int)cudaErrorInvalidValue;
+  const size_t smem = fwd_smem(0, H, L);
+  auto kernel = gru_stack_fwd_kernel<true>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  typedef const __nv_bfloat16* cbf;
+  kernel<<<(B + RB - 1) / RB, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      nullptr, nullptr, zeros, static_cast<cbf>(wih), bih, static_cast<cbf>(whh), bhh, h0,
+      static_cast<__nv_bfloat16*>(hseq), nullptr, nullptr, T, B, 0, H, L,
+      static_cast<cbf>(gi0));
   return (int)cudaGetLastError();
 }
 

@@ -16,7 +16,10 @@ non-uniform stacks, and pinned configs, runs one per-layer kernel per layer:
 
 Both live in ``csrc/gru_layer.cu``. ``layer_forward_ref`` /
 ``layer_backward_ref`` and ``scan_forward_ref`` / ``scan_backward_ref`` are
-the same math in plain torch ops, rounding where the kernels round. For CUDA
+the same math in plain torch ops, rounding where the kernels round.
+``gru_probe_scan`` runs ``gru_layer_scan``'s forward kernel in the two modes
+of the design probe ``bench/gru_experiments.py::run_variant`` (forward only,
+no autograd; plain version ``gru_probe_scan_ref``). For CUDA
 tensors the wrappers launch the kernels or raise; the plain versions run
 only for tensors on the CPU (and when called by name). Like the TPU
 kernels' custom VJPs, the backward reads the stored residuals and rounds
@@ -48,10 +51,13 @@ layer_bwd_launches = 0  # gru_layer_scan_x reverse sweep
 scan_fwd_launches = 0  # gru_layer_scan forward
 scan_bwd_launches = 0  # gru_layer_scan reverse sweep
 layer_dw_launches = 0  # the dW contraction of either backward
+probe_matmul_only_launches = 0  # gru_probe_scan(mode='matmul_only')
+probe_gates_nostore_launches = 0  # gru_probe_scan(mode='gates_nostore')
 
 _RB = 4  # batch rows per block (csrc/common.cuh)
 _MAX_SMEM = 232448  # an H100 block's dynamic shared memory, bytes
 _MATMUL_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+PROBE_MODES = {"gates_nostore": 1, "matmul_only": 2}  # csrc/gru_layer.cu FwdMode
 _warned_fp32 = False  # one-time note: the fused stack is bf16-only
 
 Residuals = Tuple[torch.Tensor, ...]
@@ -104,6 +110,32 @@ def scan_forward_ref(gi, w_hh, b_hh, h0) -> Residuals:
     at the boundary (``gru.py:409``) -> bf16 residuals."""
     bf = torch.bfloat16
     return _recurrence_ref(round_to(gi, bf), w_hh, b_hh, h0, bf)
+
+
+def _probe_mode(mode: str) -> int:
+    if mode not in PROBE_MODES:
+        raise ValueError(f"probe mode must be one of {sorted(PROBE_MODES)}, got {mode!r}")
+    return PROBE_MODES[mode]
+
+
+def gru_probe_scan_ref(gi, w_hh, b_hh, h0, mode: str) -> torch.Tensor:
+    """``gru_probe_scan``'s plain version: ``run_variant``'s kernel body
+    (``bench/gru_experiments.py:61-83``) on gi (T, B, 3H), w_hh (3H, H),
+    b_hh (3H), h0 (B, H) -> hseq (T, B, H) bf16. 'gates_nostore' is
+    ``scan_forward_ref``'s h; 'matmul_only' carries h = (bf16(h) @ W_hh +
+    b_hh)[:, :H] and reads no gi. bf16 h operand, fp32 sums, bf16 hseq."""
+    if _probe_mode(mode) == PROBE_MODES["gates_nostore"]:
+        return scan_forward_ref(gi, w_hh, b_hh, h0)[0]
+    bf = torch.bfloat16
+    T, B, G = gi.shape
+    H = G // 3
+    hseq = torch.empty(T, B, H, dtype=bf, device=gi.device)
+    w = round_to(w_hh, bf).T
+    h = h0.float()
+    for t in range(T):
+        h = (round_to(h, bf) @ w + b_hh)[:, :H]
+        hseq[t] = h
+    return hseq
 
 
 def _sweep_ref(hseq, rzn, ghn, h0, w_hh, dY):
@@ -279,11 +311,9 @@ def layer_backward(res: Residuals, dY: torch.Tensor):
     return dx.float(), dwih, dbih, dwhh, dbhh, dh0
 
 
-def scan_forward(gi, w_hh, b_hh, h0) -> Residuals:
-    """``scan_forward_ref`` on the card: one launch of the forward kernel
-    with the input gates read from device memory."""
-    global scan_fwd_launches
-    what = "gru_layer_scan forward"
+def _scan_operands(what, gi, w_hh, b_hh, h0):
+    """The hoisted-gi forward's checks and operands: (T, B, H, gi bf16,
+    W_hh (H, 3H) bf16, b_hh fp32, h0 fp32), contiguous."""
     bf = torch.bfloat16
     _check_cuda(what, gi, w_hh, b_hh, h0)
     T, B, G = gi.shape
@@ -291,19 +321,55 @@ def scan_forward(gi, w_hh, b_hh, h0) -> Residuals:
     if tuple(w_hh.shape) != (G, H) or tuple(h0.shape) != (B, H):
         raise ValueError(f"{what}: gi {tuple(gi.shape)}, w_hh {tuple(w_hh.shape)}, h0 {tuple(h0.shape)}")
     _check_fits(what, 0, H, bf)
-    dev = gi.device
     with torch.no_grad():
         gi_ = gi.to(bf).contiguous()  # rounded at the boundary, as gru.py:409
         whh_t = w_hh.t().to(bf).contiguous()
         bhh_, h0_ = b_hh.float().contiguous(), h0.float().contiguous()
+    return T, B, H, gi_, whh_t, bhh_, h0_
+
+
+def scan_forward(gi, w_hh, b_hh, h0) -> Residuals:
+    """``scan_forward_ref`` on the card: one launch of the forward kernel
+    with the input gates read from device memory."""
+    global scan_fwd_launches
+    what = "gru_layer_scan forward"
+    bf = torch.bfloat16
+    T, B, H, gi_, whh_t, bhh_, h0_ = _scan_operands(what, gi, w_hh, b_hh, h0)
+    dev = gi.device
     hseq = torch.empty(T, B, H, dtype=bf, device=dev)
-    rzn = torch.empty(T, B, G, dtype=bf, device=dev)
+    rzn = torch.empty(T, B, 3 * H, dtype=bf, device=dev)
     ghn = torch.empty(T, B, H, dtype=bf, device=dev)
     fn = _build.function("molvax_gru_layer_scan_fwd", [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     err = fn(*_ptrs(gi_, whh_t, bhh_, h0_, hseq, rzn, ghn), T, B, H, _stream(gi))
     _build.check(err, what)
     scan_fwd_launches += 1
     return hseq, rzn, ghn
+
+
+def gru_probe_scan(gi, w_hh, b_hh, h0, mode: str) -> torch.Tensor:
+    """``gru_layer_scan``'s forward kernel as ``run_variant``'s probe:
+    gi (T, B, 3H), w_hh (3H, H), b_hh (3H), h0 (B, H) -> hseq (T, B, H)
+    bf16, forward only. ``mode`` 'gates_nostore' (the production kernel
+    without its r|z|n and gh_n stores) or 'matmul_only' (the serial h @ W_hh
+    chain and the carry; all 3H columns of the product are computed). One
+    launch for CUDA tensors, ``gru_probe_scan_ref`` for CPU tensors."""
+    global probe_matmul_only_launches, probe_gates_nostore_launches
+    code = _probe_mode(mode)
+    if _plain_here(gi):
+        return gru_probe_scan_ref(gi, w_hh, b_hh, h0, mode)
+    what = f"gru_probe_scan {mode}"
+    T, B, H, gi_, whh_t, bhh_, h0_ = _scan_operands(what, gi, w_hh, b_hh, h0)
+    hseq = torch.empty(T, B, H, dtype=torch.bfloat16, device=gi.device)
+    fn = _build.function("molvax_gru_probe_scan_fwd",
+                         [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    # the sink stays null: it only keeps matmul_only's z and n products live
+    err = fn(code, *_ptrs(gi_, whh_t, bhh_, h0_, hseq, None), T, B, H, _stream(gi))
+    _build.check(err, what)
+    if code == PROBE_MODES["matmul_only"]:
+        probe_matmul_only_launches += 1
+    else:
+        probe_gates_nostore_launches += 1
+    return hseq
 
 
 def scan_backward(res: Residuals, dY: torch.Tensor):

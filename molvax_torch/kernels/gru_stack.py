@@ -8,7 +8,10 @@ dgi / dgh and dx0, then a contraction kernel that sums them into the weight
 and bias gradients. ``stack_forward_ref`` / ``stack_backward_ref`` are the
 same math in plain torch ops, rounding where the kernels round. For CUDA
 tensors the wrappers launch the kernels or raise; the plain versions run
-only for tensors on the CPU (and when called by name).
+only for tensors on the CPU (and when called by name). ``gru_fused3_scan``
+runs the forward kernel as the design probe
+``bench/gru_experiments.py::run_fused3`` (layer 0's input gates given, no
+residuals; plain version ``gru_fused3_scan_ref``).
 
 The backward is not autograd of the forward: like the TPU kernel it reads
 bf16 residuals and rounds dgi / dgh to bf16 (``gru_stack.py:400-401``), so
@@ -34,6 +37,7 @@ from . import _build
 fwd_launches = 0
 bwd_launches = 0
 dw_launches = 0
+fused3_launches = 0  # gru_fused3_scan
 
 _MAX_LAYERS = 8  # the dW kernel's job table holds two matrices per layer
 
@@ -58,21 +62,22 @@ def stack_plan_ok(layers: Sequence[dict]) -> bool:
 # -- plain versions ------------------------------------------------------------
 
 
-def stack_forward_ref(x0, wih0, bih0, wih, bih, whh, bhh, h0) -> Residuals:
-    """The forward kernel's math: x0 (T, B, I0) -> residuals (hseq (L, T, B,
-    H), rzn (L, T, B, 3H), ghn (L, T, B, H)), all bf16. x0 and the weights
-    are rounded to bf16, products accumulate in fp32, gates and the h carry
-    are fp32; layer l > 0 reads the bf16 h sequence of the layer below."""
+def _stack_ref(gi_first, wih, bih, whh, bhh, h0) -> Residuals:
+    """Layer 0's recurrence over its fp32 input gates gi_first (T, B, 3H),
+    bias included; layer l > 0 computes its gates from the bf16 h sequence
+    of the layer below. Residuals as ``stack_forward_ref``'s."""
     bf = torch.bfloat16
-    T, B, _ = x0.shape
+    T, B, _ = gi_first.shape
     L, _, H = h0.shape
-    hseq = torch.empty(L, T, B, H, dtype=bf, device=x0.device)
-    rzn = torch.empty(L, T, B, 3 * H, dtype=bf, device=x0.device)
-    ghn = torch.empty(L, T, B, H, dtype=bf, device=x0.device)
-    x = round_to(x0, bf)
+    dev = gi_first.device
+    hseq = torch.empty(L, T, B, H, dtype=bf, device=dev)
+    rzn = torch.empty(L, T, B, 3 * H, dtype=bf, device=dev)
+    ghn = torch.empty(L, T, B, H, dtype=bf, device=dev)
     for l in range(L):
-        w_ih, b_ih = (wih0, bih0) if l == 0 else (wih[l - 1], bih[l - 1])
-        gi_seq = x @ round_to(w_ih, bf).T + b_ih
+        if l == 0:
+            gi_seq = gi_first
+        else:
+            gi_seq = hseq[l - 1].float() @ round_to(wih[l - 1], bf).T + bih[l - 1]
         w_hh, b_hh = round_to(whh[l], bf).T, bhh[l]
         h = h0[l].float()
         for t in range(T):
@@ -86,8 +91,23 @@ def stack_forward_ref(x0, wih0, bih0, wih, bih, whh, bhh, h0) -> Residuals:
             hseq[l, t] = h
             rzn[l, t] = torch.cat([r, z, n], dim=-1)
             ghn[l, t] = gn
-        x = hseq[l].float()
     return hseq, rzn, ghn
+
+
+def stack_forward_ref(x0, wih0, bih0, wih, bih, whh, bhh, h0) -> Residuals:
+    """The forward kernel's math: x0 (T, B, I0) -> residuals (hseq (L, T, B,
+    H), rzn (L, T, B, 3H), ghn (L, T, B, H)), all bf16. x0 and the weights
+    are rounded to bf16, products accumulate in fp32, gates and the h carry
+    are fp32; layer l > 0 reads the bf16 h sequence of the layer below."""
+    bf = torch.bfloat16
+    return _stack_ref(round_to(x0, bf) @ round_to(wih0, bf).T + bih0, wih, bih, whh, bhh, h0)
+
+
+def gru_fused3_scan_ref(gi0, wih, bih, whh, bhh, h0) -> torch.Tensor:
+    """``gru_fused3_scan``'s plain version, the body of ``run_fused3``
+    (``bench/gru_experiments.py:111-152``): layer 0's gates are gi0
+    (T, B, 3H) rounded to bf16, bias included -> hseq (L, T, B, H) bf16."""
+    return _stack_ref(round_to(gi0, torch.bfloat16), wih, bih, whh, bhh, h0)[0]
 
 
 def _hprev(hseq: torch.Tensor, h0: torch.Tensor, l: int) -> torch.Tensor:
@@ -152,16 +172,27 @@ def _check_cuda(what: str, *tensors: torch.Tensor) -> None:
         raise ValueError(f"{what}: tensors are on different devices")
 
 
+def _check_shape(what: str, name: str, t: torch.Tensor, want: Tuple[int, ...]) -> None:
+    if tuple(t.shape) != want:
+        raise ValueError(f"{what}: {name} is {tuple(t.shape)}, expected {want}")
+
+
+def _check_layers(what: str, first: torch.Tensor, wih, whh, h0) -> Tuple[int, int]:
+    """The checks every stack kernel's wrapper shares: 2 to _MAX_LAYERS
+    layers, h0 (L, B, H) with B the batch of layer 0's input ``first``
+    (T, B, ·), wih (L-1, 3H, H) and whh (L, 3H, H). Returns (L, H)."""
+    L, B_h, H = h0.shape
+    if not 2 <= L <= _MAX_LAYERS or B_h != first.shape[1]:
+        raise ValueError(f"{what}: {L} layers, h0 {tuple(h0.shape)}, layer 0's input {tuple(first.shape)}")
+    _check_shape(what, "wih", wih, (L - 1, 3 * H, H))
+    _check_shape(what, "whh", whh, (L, 3 * H, H))
+    return L, H
+
+
 def _check_shapes(x0, wih0, wih, whh, h0) -> Tuple[int, int, int, int, int]:
     T, B, I0 = x0.shape
-    L, B_h, H = h0.shape
-    G = 3 * H
-    if not 2 <= L <= _MAX_LAYERS or B_h != B:
-        raise ValueError(f"gru_stack: {L} layers, h0 {tuple(h0.shape)}, x0 {tuple(x0.shape)}")
-    want = {"wih0": (G, I0), "wih": (L - 1, G, H), "whh": (L, G, H)}
-    for name, t in (("wih0", wih0), ("wih", wih), ("whh", whh)):
-        if tuple(t.shape) != want[name]:
-            raise ValueError(f"gru_stack: {name} is {tuple(t.shape)}, expected {want[name]}")
+    L, H = _check_layers("gru_stack", x0, wih, whh, h0)
+    _check_shape("gru_stack", "wih0", wih0, (3 * H, I0))
     return T, B, I0, H, L
 
 
@@ -235,6 +266,40 @@ def stack_backward(res: Residuals, dY: torch.Tensor, dhf: torch.Tensor):
     _build.check(err, "gru_stack dW")
     dw_launches += 1
     return dx0.float(), dwih0, dbih0, dwih, dbih, dwhh, dbhh, dh0
+
+
+def gru_fused3_scan(gi0, wih, bih, whh, bhh, h0) -> torch.Tensor:
+    """The stack forward kernel as ``run_fused3``'s probe: gi0 (T, B, 3H)
+    layer 0's input gates (bias included), wih (L-1, 3H, H), bih (L-1, 3H),
+    whh (L, 3H, H), bhh (L, 3H), h0 (L, B, H) -> hseq (L, T, B, H) bf16,
+    forward only, no residuals. The TPU probe also wrote a copy of the top
+    layer (``htop``) to have it contiguous; ``hseq[L-1]`` already is. One
+    launch for CUDA tensors, ``gru_fused3_scan_ref`` for CPU tensors."""
+    global fused3_launches
+    if gi0.device.type == "cpu":
+        return gru_fused3_scan_ref(gi0, wih, bih, whh, bhh, h0)
+    what = "gru_fused3_scan"
+    _check_cuda(what, gi0, wih, bih, whh, bhh, h0)
+    T, B = gi0.shape[:2]
+    L, H = _check_layers(what, gi0, wih, whh, h0)
+    G = 3 * H
+    for name, t, want in (("gi0", gi0, (T, B, G)), ("bih", bih, (L - 1, G)), ("bhh", bhh, (L, G))):
+        _check_shape(what, name, t, want)
+    bf = torch.bfloat16
+    with torch.no_grad():
+        gi0_ = gi0.to(bf).contiguous()
+        # (in, 3H) copies, as stack_forward's
+        wih_t = wih.transpose(1, 2).to(bf).contiguous()
+        whh_t = whh.transpose(1, 2).to(bf).contiguous()
+        bih_, bhh_, h0_ = (t.float().contiguous() for t in (bih, bhh, h0))
+    zeros = torch.zeros(G, device=gi0.device)  # b_ih0: gi0 holds layer 0's bias
+    hseq = torch.empty(L, T, B, H, dtype=bf, device=gi0.device)
+    fn = _build.function("molvax_gru_fused3_fwd", [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    err = fn(*(t.data_ptr() for t in (gi0_, zeros, wih_t, bih_, whh_t, bhh_, h0_, hseq)), T, B, H, L,
+             _stream(gi0))
+    _build.check(err, what)
+    fused3_launches += 1
+    return hseq
 
 
 class _GRUStack(torch.autograd.Function):

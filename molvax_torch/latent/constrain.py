@@ -30,6 +30,7 @@ from typing import NamedTuple, Tuple, Union
 import torch
 
 from ..data.charset import Charset
+from ..utils import resolve_device
 
 DMAX = 16  # max branch nesting depth
 NRING = 10  # ring-digit slots (digits 1..9 in slot 1..9; slot 0 unused)
@@ -145,7 +146,11 @@ def n_pairs(max_atoms: int) -> int:
     return max(1, max_atoms // 2)
 
 
-def init_state(batch: int, max_atoms: int, device="cpu") -> ConState:
+def init_state(batch: int, max_atoms: int, device=None) -> ConState:
+    """The automaton's start state of ``batch`` rows on ``device`` (None:
+    the card; it raises where there is none)."""
+    device = resolve_device(device)
+
     def z(*s):
         return torch.zeros(s if s else (batch,), dtype=I32, device=device)
 

@@ -1,0 +1,20 @@
+"""Design probes of the hand-written kernels, on the card.
+
+Counterparts of the reference's TPU probes under ``bench/``, each runnable
+as ``python -m molvax_torch.probes.<name>`` on a CUDA card and callable from
+``chip_smoke.py``:
+
+  * ``gru_experiments``: where a GRU recurrence step's time goes (the serial
+    h @ W_hh chain, the gate math, the residual stores), and one fused
+    kernel for a 3-layer stack against three layer launches;
+  * ``proto_gi_kernel``: the input GEMM inside the recurrence kernel against
+    a hoisted one;
+  * ``auto_loop_probe``: the automaton per step as n=1 launches and as one
+    n=T launch, the per-step budget, and (``--floor``) the int32-op floor.
+
+Each probe module has ``make_inputs`` (seeded, on the card), ``probe``
+(one run of each probe kernel, which ``chip_smoke.py`` counts) and
+``measure`` (the timed table). Single launches are timed with
+``train.profiling.event_ms`` (CUDA events), host-composed sequences with
+``train.profiling.step_timer``.
+"""

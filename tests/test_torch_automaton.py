@@ -52,7 +52,7 @@ def test_layout_constants():
 
 
 def test_pack_unpack_round_trip():
-    st = tc.init_state(B, T)
+    st = tc.init_state(B, T, device="cpu")
     # move every field off its initial value
     scores = torch.from_numpy(_scores(12, B, 0))
     for k in range(12):
@@ -63,7 +63,7 @@ def test_pack_unpack_round_trip():
     for name, a, b in zip(st._fields, st, back):
         assert a.dtype == b.dtype, name
         assert torch.equal(a, b), name
-    assert torch.equal(tauto.new_state(B, T, "cpu"), tauto.pack_state(tc.init_state(B, T)))
+    assert torch.equal(tauto.new_state(B, T, "cpu"), tauto.pack_state(tc.init_state(B, T, device="cpu")))
 
 
 def test_auto_step_ref_matches_reference_auto_step_ref():

@@ -84,7 +84,7 @@ def test_random_walks_match_reference_exactly(seed):
     B = 12
     scores = _walk_scores(B, T, seed, nan_row=3)
     ttb = tc.build_tables(DEFAULT_CHARSET)
-    jst, tst = jc.init_state(B, T), tc.init_state(B, T)
+    jst, tst = jc.init_state(B, T), tc.init_state(B, T, device="cpu")
     _assert_state_equal(jst, tst, "init")
     j_step = _j_select_advance()
     for t in range(T):
@@ -137,7 +137,7 @@ PREFIXES = ["", "C", "B", "N", "Cl", "C1", "C=C", "CO", "CF", "C=", "N#C", "CC("
 
 def _masks_after(prefix, jcs, tcs, max_len, rem=None):
     jtb, ttb = jc.build_tables(jcs), tc.build_tables(tcs)
-    jst, tst = jc.init_state(1, max_len), tc.init_state(1, max_len)
+    jst, tst = jc.init_state(1, max_len), tc.init_state(1, max_len, device="cpu")
     for ch in prefix:
         idx = tcs.chars.index(ch)
         jst = jc.advance(jtb, jst, jnp.asarray([idx], jnp.int32))

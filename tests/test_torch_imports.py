@@ -30,8 +30,11 @@ def test_import_pulls_in_no_jax():
         "import molvax_torch.kernels.sampler, molvax_torch.kernels.gru\n"
         "import molvax_torch.config, molvax_torch.data.charset, molvax_torch.data.smiles_check\n"
         "import molvax_torch.latent.constrain, molvax_torch.latent.beam, molvax_torch.kernels.automaton\n"
-        "bad = [m for m in sys.modules if m in ('jax', 'molvax') "
-        "or m.startswith(('jax.', 'molvax.'))]\n"
+        "import molvax_torch.train.profiling, molvax_torch.kernels.floor, molvax_torch.probes\n"
+        "import molvax_torch.probes.gru_experiments, molvax_torch.probes.proto_gi_kernel\n"
+        "import molvax_torch.probes.auto_loop_probe\n"
+        "bad = [m for m in sys.modules if m in ('jax', 'molvax', 'bench') "
+        "or m.startswith(('jax.', 'molvax.', 'bench.'))]\n"
         "assert not bad, bad\n"
         "print('ok')\n"
     )
@@ -44,10 +47,11 @@ def test_import_pulls_in_no_jax():
 
 
 def test_no_source_imports_jax_or_the_reference_package():
-    """No import of JAX or ``molvax``, and no loading of a reference file by
-    path (``spec_from_file_location``, or ``"molvax"`` joined to a path):
-    the port keeps its own copies of what it needs."""
-    pattern = re.compile(r"^\s*(import|from)\s+(jax|molvax)(\.|\s|$)", re.M)
+    """No import of JAX, ``molvax`` or the reference's probes (``bench``, which
+    import JAX), and no loading of a reference file by path
+    (``spec_from_file_location``, or ``"molvax"`` joined to a path): the port
+    keeps its own copies of what it needs."""
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|molvax|bench)(\.|\s|$)", re.M)
     by_path = re.compile(
         r"spec_from_file_location|SourceFileLoader|run_path"
         r"|/\s*[\"']molvax[\"']|joinpath\([^)]*[\"']molvax[\"']"
@@ -82,6 +86,18 @@ def test_cuda_request_without_cuda_raises():
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         init_state(get_preset("chemvae_5k"))
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_automaton_init_state_defaults_to_the_card():
+    """``latent.constrain.init_state`` builds on the card unless asked for
+    the CPU; without a card the default raises."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from molvax_torch.latent.constrain import init_state
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        init_state(4, 10)
+    assert init_state(4, 10, device="cpu").val.device == torch.device("cpu")
 
 
 def test_chip_smoke_fails_without_cuda_and_prints_no_result():
