@@ -18,8 +18,9 @@ per step:
 
 then the production 3-layer forward on both routes of
 ``gru_forward_pallas`` (three per-layer ``gru_layer_scan_x`` launches; the
-fused stack) and ``fused3`` (``gru_fused3_scan``: the stack kernel with
-layer 0's gates given and no residuals). Each row carries its bound (the
+stack route, per layer an input-gate GEMM and a persistent recurrence) and
+``fused3`` (``gru_fused3_scan``: the previous design's one-launch stack
+kernel with layer 0's gates given and no residuals). Each row carries its bound (the
 least time the card could take, ``train.profiling.bound_ms``); the
 products count 2 FLOPs per multiply-add at the bf16 tensor-core peak.
 """

@@ -93,7 +93,7 @@ def vae_loss(
         "recon": recon.mean(),
         "kl": kl.mean(),
         "elbo": (recon + kl).mean(),  # beta = 1 ELBO, comparable across schedules
-        "beta": torch.tensor(float(beta)),
+        "beta": torch.tensor(float(beta), device=loss.device),
     }
     metrics["acc"], metrics["acc_nonpad"] = recon_accuracy(logits, codes)
     metrics["post_std_batch"] = post_std_batch(mu, logvar, cfg.eps_scale)

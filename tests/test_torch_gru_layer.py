@@ -139,7 +139,7 @@ def test_backward_rounds_like_the_kernel():
 
 
 def _stack_launches():
-    return ks.fwd_launches, ks.bwd_launches, ks.dw_launches
+    return ks.gemm_gi_launches, ks.rec_launches, ks.sweep_launches, ks.gemm_dx_launches, ks.dw_launches
 
 
 def _route_case(md_j, seed):

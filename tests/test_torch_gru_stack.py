@@ -147,7 +147,7 @@ def test_fp32_gru_forward_matches_reference():
 
 
 def _launches():
-    return ks.fwd_launches, ks.bwd_launches, ks.dw_launches
+    return ks.gemm_gi_launches, ks.rec_launches, ks.sweep_launches, ks.gemm_dx_launches, ks.dw_launches
 
 
 def _per_layer(layers, x, dtype):

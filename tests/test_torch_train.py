@@ -288,12 +288,12 @@ def test_bf16_kernel_route_gradients_match_reference_composition():
     codes = synthetic_dataset(16, max_len=12, seed=3).codes  # the reference plan needs B % 16 == 0
     loss_j, grads_j = _slice_grads_jax(params, jcfg, jnp.asarray(codes), jnp.float32(0.5))
 
-    counts = (conv_enc.launches, sampler.launches, gru_stack.fwd_launches, gru_stack.bwd_launches)
+    counts = (conv_enc.launches, sampler.launches, gru_stack.rec_launches, gru_stack.sweep_launches)
     out = forward(model, tcfg, 0, torch.from_numpy(codes))
     loss_t, _ = tloss.vae_loss(tcfg, out.logits, torch.from_numpy(codes).long(), out.mu, out.logvar, 0.5, kl=out.kl)
     names = [n for n, _ in model.named_parameters()]
     grads_t = dict(zip(names, torch.autograd.grad(loss_t, list(model.parameters()))))
-    assert counts == (conv_enc.launches, sampler.launches, gru_stack.fwd_launches, gru_stack.bwd_launches)
+    assert counts == (conv_enc.launches, sampler.launches, gru_stack.rec_launches, gru_stack.sweep_launches)
 
     assert float(loss_t.detach()) == pytest.approx(float(loss_j), rel=1e-5)
     want = state_dict_from_jax(numpy_tree(grads_j))

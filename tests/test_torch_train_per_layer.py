@@ -33,7 +33,7 @@ FREE_BITS = 0.1  # zinc250k_quality's
 
 
 def _launches():
-    return (conv_enc.launches, sampler.launches, gru_stack.fwd_launches, gru_stack.bwd_launches,
+    return (conv_enc.launches, sampler.launches, gru_stack.rec_launches, gru_stack.sweep_launches,
             gru.layer_fwd_launches, gru.layer_bwd_launches, gru.layer_dw_launches)
 
 
