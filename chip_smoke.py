@@ -43,23 +43,33 @@ each printed on its own lines:
      device time by kernel and the device-time split of one kernel-route
      step (torch.profiler), and peak device memory;
  12. the per-layer GRU kernels against their plain versions on the same
-     inputs, layer 0 (I=329) and layer 1 (I=501): gru_layer_scan_x forward
-     and backward in bf16 and in strict fp32, gru_layer_scan forward and
-     backward, also at a ragged batch of 6; then gru_layer_scan's own path,
-     a 3-layer hoisted-gi decode through its autograd wrapper, counting
+     inputs, layer 0 (I=329) and layer 1 (I=501), also at a ragged batch of
+     6: gru_layer_scan_x forward and backward in bf16 (the persistent route:
+     input-gate GEMM and recurrence; sweep, dx GEMM, one dW GEMM over spans
+     of steps and the sum of the spans)
+     and in strict fp32 (the in-kernel instance), each with its exact
+     launches, residual dtypes and two backward runs bit for bit; the bf16
+     in-kernel instance at a width no layout takes (H=2304, B=16);
+     gru_layer_scan forward and backward; then gru_layer_scan's own path, a
+     3-layer hoisted-gi decode through its autograd wrapper, counting
      launches;
  13. the zinc250k_quality training step (per-layer kernels, two-pass
      scheduled sampling) through the public functions: 20 steps on the
-     kernel route with exact launch counts per step (per-layer forward 6,
-     backward 3, encoder 1, sampler 1, stack 0), loss falls, 3 steps on the
-     plain route, one make_eval_step;
+     kernel route with exact launch counts per step (per layer and forward
+     pass an input-gate GEMM and a recurrence, 6 each; per layer a sweep, a
+     dx GEMM, a dW GEMM and the sum of its parts, 3 each; encoder 1, sampler 1; the in-kernel
+     instance and the stack 0), loss falls, 3 steps on the plain route, one
+     make_eval_step (3 GEMMs and recurrences, no sweep);
  14. the strict-fp32 zinc250k step (compute_dtype='float32'): 20 steps on
      the per-layer kernels in fp32 mode (forward 3, backward 3, encoder and
      sampler 0), loss falls, 3 plain-route steps within 1e-4, with the TF32
      switches;
  15. times: both new train steps on both routes, each per-layer kernel
-     against its plain version in bf16 and fp32, the device-time split of
-     one step of each, and peak device memory;
+     against its plain version in bf16 and fp32, the bf16 forward's and
+     backward's device time by kernel, the library yardsticks
+     (torch.nn.GRU on cuDNN, torch.matmul for the dW contraction) in the
+     same call, the device-time split of one step of each, and peak device
+     memory;
  16. the automaton kernel (csrc/automaton.cu) against its plain version at
      zinc250k_quality width, B=256: a 120-step greedy walk from seeded
      scores (codes and packed state identical at every step), the same walk
@@ -75,15 +85,14 @@ each printed on its own lines:
      (greedy codes and logits, beam codes and scores identical);
  18. times: the constrained decode on both routes, the automaton per step
      as n=1 launches, one n=120 launch and its plain version, auto_mask and
-     auto_advance, beam 5, the device-time split of one constrained decode;
-     the library yardsticks (torch.nn.GRU on cuDNN, torch.matmul for the dW
-     contraction), and each kernel's bound;
+     auto_advance, beam 5, the device-time split of one constrained decode,
+     and each kernel's bound;
  19. the design probes' kernels against their plain versions at full width
      (B=256, T=120, H=501, L=3) and at a ragged batch of 6: the hoisted-gi
      forward's two probe modes (gru_probe_scan, run_variant's) and the
      stack forward's fused3 mode (gru_fused3_scan) within the bf16 gate;
      floor_loop bit for bit, at the probe's three shapes; gru_layer_scan_x's
-     forward at fwd_gi's I=330;
+     in-kernel forward (fwd_gi's kernel) at fwd_gi's I=330;
  20. the three probe modules (molvax_torch/probes/): each run once with its
      launches counted (every probe kernel once), then their tables: the
      recurrence step decomposed (matmul_only, gates_nostore, full) at H=501
@@ -245,6 +254,8 @@ def reset_counts() -> None:
     gru_stack.gemm_gi_launches = gru_stack.rec_launches = gru_stack.sweep_launches = 0
     gru_stack.gemm_dx_launches = gru_stack.dw_launches = 0
     kgru.layer_fwd_launches = kgru.layer_bwd_launches = kgru.layer_dw_launches = 0
+    kgru.layer_gi_launches = kgru.layer_rec_launches = kgru.layer_sweep_launches = 0
+    kgru.layer_dx_launches = kgru.layer_gemm_dw_launches = kgru.layer_dw_sum_launches = 0
     kgru.scan_fwd_launches = kgru.scan_bwd_launches = 0
     kauto.step_launches = kauto.mask_launches = kauto.advance_launches = 0
     kgru.probe_matmul_only_launches = kgru.probe_gates_nostore_launches = 0
@@ -261,6 +272,12 @@ def counts() -> dict:
         "gru_stack_sweep": gru_stack.sweep_launches,
         "gru_stack_gemm_dx": gru_stack.gemm_dx_launches,
         "gru_stack_gemm_dw": gru_stack.dw_launches,
+        "gru_layer_gemm_gi": kgru.layer_gi_launches,
+        "gru_layer_rec": kgru.layer_rec_launches,
+        "gru_layer_sweep": kgru.layer_sweep_launches,
+        "gru_layer_gemm_dx": kgru.layer_dx_launches,
+        "gru_layer_gemm_dw": kgru.layer_gemm_dw_launches,
+        "gru_layer_dw_sum": kgru.layer_dw_sum_launches,
         "gru_layer_scan_x_fwd": kgru.layer_fwd_launches,
         "gru_layer_scan_x_bwd_sweep": kgru.layer_bwd_launches,
         "gru_layer_bwd_dw": kgru.layer_dw_launches,
@@ -451,11 +468,13 @@ def moses_width_check(dev, gpu: str) -> dict:
 
 
 STACK_SOURCES = ["molvax_torch/kernels/csrc/gru_stack.cu", "molvax_torch/kernels/csrc/gemm.cuh"]
+# bf16 gru_layer_scan_x runs the stack's kernels; strict fp32 the in-kernel instance
+LAYER_SOURCES = STACK_SOURCES + ["molvax_torch/kernels/csrc/gru_layer.cu"]
 # the stack's kernels as torch.profiler names them (demangled or not)
 STACK_KERNELS = (("gemm_kernel<true, true, 0>", "gemm_gi"), ("gemm_kernelILb1ELb1ELi0E", "gemm_gi"),
                  ("gemm_kernel<true, false, 1>", "gemm_dx"), ("gemm_kernelILb1ELb0ELi1E", "gemm_dx"),
                  ("gemm_kernel<false, false, 2>", "gemm_dw"), ("gemm_kernelILb0ELb0ELi2E", "gemm_dw"),
-                 ("gru_rec_kernel", "recurrence"), ("gru_sweep_kernel", "sweep"))
+                 ("gru_rec_kernel", "recurrence"), ("gru_sweep_kernel", "sweep"), ("sum_parts_kernel", "dw_sum"))
 
 
 def stack_split(fn) -> dict:
@@ -550,11 +569,35 @@ def _check_grads(what, names, grads_k, grads_r, rel_tol, **kv):
     return worst
 
 
+def saved_x(args, md):
+    """gru_layer_scan_x's input x as its autograd wrapper saves it for the
+    backward: on the bf16 persistent route the padded bf16 copy that the
+    forward's GEMM read and the dW GEMM reads again, else x."""
+    x, h0 = args[0], args[5]
+    return gru_stack._padded(x) if kgru._persistent(md, x.shape[1], h0.shape[-1]) else x
+
+
+def layer_launches(md, B: int, H: int, fwd: int, bwd: int) -> dict:
+    """The launches of ``fwd`` forwards and ``bwd`` backwards of one
+    gru_layer_scan_x layer on the route its shape takes: per batch slice of
+    the plan a recurrence and a sweep, the GEMMs and the dW parts' sum; or
+    the in-kernel instance's forward, sweep and dW contraction."""
+    if kgru._persistent(md, B, H):
+        n = gru_stack.stack_plan(B, H).slices
+        return {"gru_layer_gemm_gi": fwd, "gru_layer_rec": n * fwd, "gru_layer_sweep": n * bwd,
+                "gru_layer_gemm_dx": bwd, "gru_layer_gemm_dw": bwd, "gru_layer_dw_sum": bwd}
+    return {"gru_layer_scan_x_fwd": fwd, "gru_layer_scan_x_bwd_sweep": bwd, "gru_layer_bwd_dw": bwd}
+
+
 def check_layer_x(args, md, dY, **kv):
-    """gru_layer_scan_x's forward and backward kernels against their plain
-    versions on the same inputs. Returns (forward max abs error, gradient
-    max abs error, the kernel's residuals)."""
+    """gru_layer_scan_x's forward and backward kernels, on the route the
+    shape takes, against their plain versions on the same inputs: residual
+    dtypes, exact launches, two backward runs bit for bit. Returns (forward
+    max abs error, gradient max abs error, the kernel's residuals)."""
     fwd_tol, bwd_rel = _gates(md)
+    T, B, I = args[0].shape
+    H = args[5].shape[-1]
+    reset_counts()
     with torch.no_grad():
         res_k = kgru.layer_forward(*args, md)
         res_r = kgru.layer_forward_ref(*args, md)
@@ -564,19 +607,47 @@ def check_layer_x(args, md, dY, **kv):
     out_err = max_abs(res_k[0], res_r[0])
     hf_err = max_abs(res_k[0][-1], res_r[0][-1])
     same = (res_k[0] == res_r[0]).float().mean().item()
-    kv = dict(md=str(md).split(".")[-1], B=args[0].shape[1], I=args[0].shape[2], **kv)
+    route = "persistent" if kgru._persistent(md, B, H) else "in_kernel"
+    kv = dict(md=str(md).split(".")[-1], B=B, I=I, H=H, route=route, **kv)
     say("phase12", kernel="gru_layer_scan_x_fwd", out_max_abs_err=f"{out_err:.3e}",
         h_final_max_abs_err=f"{hf_err:.3e}", hseq_bit_identical=f"{same:.6f}", tol=fwd_tol, **kv)
     if not max(out_err, hf_err) <= fwd_tol:
         raise AssertionError(f"gru_layer_scan_x forward differs from its plain version by {out_err:.3e} ({kv})")
     x, w_ih, _, w_hh, _, h0 = args
-    res = (*res_k, x, h0, w_ih, w_hh)
+    res = (*res_k, saved_x(args, md), h0, w_ih, w_hh)
     with torch.no_grad():
         grads_k = kgru.layer_backward(res, dY)
+        grads_again = kgru.layer_backward(res, dY)
         grads_r = kgru.layer_backward_ref(res, dY)
     torch.cuda.synchronize()
+    got = {k: v for k, v in counts().items() if v}
+    twice = all(torch.equal(a, b) for a, b in zip(grads_k, grads_again))
+    say("phase12", kernel="gru_layer_scan_x", launches=json.dumps(got).replace(" ", ""),
+        backward_twice_bit_identical=twice, **kv)
+    if got != layer_launches(md, B, H, 1, 2) or not twice:
+        raise AssertionError(f"gru_layer_scan_x ({kv}): launches {got}, two backward runs identical {twice}")
     bwd_err = _check_grads("gru_layer_scan_x_bwd", GRAD_NAMES, grads_k, grads_r, bwd_rel, **kv)
     return max(out_err, hf_err), bwd_err, res_k
+
+
+def wide_layer_check(dev):
+    """bf16 gru_layer_scan_x at a width no layout of the persistent kernels
+    takes (H=2304, B=16; I=329, T=16, seeded weights uniform +-1/sqrt(H)):
+    the in-kernel instance of csrc/gru_layer.cu, against its plain versions.
+    Returns (forward error, gradient error)."""
+    T_, B_, I_, H_ = 16, 16, 329, 2304
+    if kgru.layer_route(B_, H_) != "in_kernel":
+        raise AssertionError(f"layer_route({B_}, {H_}) found a persistent layout")
+    g = torch.Generator(device=dev).manual_seed(SEED + 5)
+    k = 1.0 / np.sqrt(H_)
+
+    def u(*shape):
+        return (2.0 * torch.rand(*shape, generator=g, device=dev) - 1.0) * k
+
+    args = (torch.randn(T_, B_, I_, generator=g, device=dev), u(3 * H_, I_), u(3 * H_), u(3 * H_, H_), u(3 * H_),
+            0.1 * torch.randn(B_, H_, generator=g, device=dev))
+    dY = 1e-2 * torch.randn(T_, B_, H_, generator=g, device=dev)
+    return check_layer_x(args, torch.bfloat16, dY, layer="wide")[:2]
 
 
 def check_scan(gi, w_hh, b_hh, h0, dY, **kv):
@@ -990,7 +1061,7 @@ def phase18(model, qcfg, z, itab, scores, gpu) -> dict:
     return t
 
 
-def library_times(cfg, s_args, dev) -> dict:
+def library_times(cfg, s_args, dev, phase: str) -> dict:
     """One PyTorch call computing the same function as a kernel, timed as
     its yardstick and never called by the port: torch.nn.GRU (cuDNN) with
     the kernel's layers, sizes and dtype, forward and autograd backward;
@@ -1026,9 +1097,9 @@ def library_times(cfg, s_args, dev) -> dict:
     out["dw_layer0"] = time_ms(lambda: [torch.matmul(a.T, d) for a, d in ops[:2]])
     for name, v in out.items():
         if isinstance(v, tuple):
-            say("phase18", library=f"torch.nn.GRU[{name}]", fwd_ms=f"{v[0]:.4f}", bwd_ms=f"{v[1]:.4f}", dtype=v[2])
+            say(phase, library=f"torch.nn.GRU[{name}]", fwd_ms=f"{v[0]:.4f}", bwd_ms=f"{v[1]:.4f}", dtype=v[2])
         else:
-            say("phase18", library=f"torch.matmul[{name}]", ms=f"{v:.4f}")
+            say(phase, library=f"torch.matmul[{name}]", ms=f"{v:.4f}")
     return out
 
 
@@ -1084,12 +1155,12 @@ def phase19(dev) -> dict:
                     raise AssertionError(f"floor_loop differs from its plain version at {shape}, k_ops={k_ops}")
         fx = torch.ones(auto_loop_probe.FLOOR_SHAPES[-1], dtype=torch.int32, device=dev)
         plain["floor"] = time_ms(lambda: kfloor.floor_loop_ref(fx, g["T"], auto_loop_probe.FLOOR_K[0]))
-        # fwd_gi: gru_layer_scan_x's bf16 forward at I=330, and a ragged batch
+        # fwd_gi: gru_layer_scan_x's in-kernel bf16 forward at I=330, and a ragged batch
         lay = p["layers"][0]
         for rows in (B, 6):
             args = (p["x"][:, :rows].contiguous(), lay["w_ih"], lay["b_ih"], lay["w_hh"], lay["b_hh"],
                     h0[0, :rows].contiguous())
-            k, r = kgru.layer_forward(*args, torch.bfloat16), kgru.layer_forward_ref(*args, torch.bfloat16)
+            k, r = kgru.layer_forward_in_kernel(*args, torch.bfloat16), kgru.layer_forward_ref(*args, torch.bfloat16)
             torch.cuda.synchronize()
             e = max_abs(k[0], r[0])
             say("phase19", kernel="gru_layer_scan_x_fwd[fwd_gi]", B=rows, I=p["I"], H=p["H"],
@@ -1102,11 +1173,13 @@ def phase19(dev) -> dict:
     return {"g": g, "p": p, "err": err, "plain": plain}
 
 
-# each probe module's probe run launches each of its kernels once; fwd_gi's
-# counterpart, gru_layer_scan_x, once for one layer and 3 times for the stack
+# each probe module's probe run launches each of its kernels once; both
+# 3-layer routes of gru_experiments a GEMM and a recurrence per layer; fwd_gi's
+# counterpart, the in-kernel instance, once for one layer and 3 times for the stack
 PROBE_LAUNCHES = {
     "gru_experiments": {"gru_probe_matmul_only": 1, "gru_probe_gates_nostore": 1, "gru_layer_scan_fwd": 1,
-                        "gru_layer_scan_x_fwd": 3, "gru_stack_gemm_gi": 3, "gru_stack_rec": 3, "gru_fused3": 1},
+                        "gru_layer_gemm_gi": 3, "gru_layer_rec": 3, "gru_stack_gemm_gi": 3, "gru_stack_rec": 3,
+                        "gru_fused3": 1},
     "proto_gi_kernel": {"gru_layer_scan_x_fwd": 4, "gru_layer_scan_fwd": 4},
     "auto_loop_probe": {"auto_step": 1, "floor_loop": 1},
 }
@@ -1400,6 +1473,7 @@ def main() -> int:
             fwd_r, bwd_r, _ = check_layer_x(ragged, md, dY_l[:, :6].contiguous(), layer=l, ragged_batch=6)
             layer_err[md][0] = max(layer_err[md][0], fwd_e, fwd_r)
             layer_err[md][1] = max(layer_err[md][1], bwd_e, bwd_r)
+    wide_err = wide_layer_check(dev)
     x0, wih0, bih0, _, _, whh, bhh, h0 = s_args
     with torch.no_grad():
         gi = x0 @ wih0.T + bih0  # the hoisted input GEMM of layer 0
@@ -1423,17 +1497,18 @@ def main() -> int:
 
     # -- 13. the zinc250k_quality training step ------------------------------
     qfull = get_preset("zinc250k_quality")
+    # two forward passes (scheduled sampling), the graded one's backward
+    qL, qH = qfull.model.gru_layers, qfull.model.gru_hidden
+    q_layer = {k: qL * v for k, v in layer_launches(torch.bfloat16, B, qH, 2, 1).items()}
     q_state, q_step, q_counts = train_phase(
-        "phase13", qfull, weights, codes,
-        {"fused_encode": 1, "fused_sample_kl": 1, "gru_layer_scan_x_fwd": 2 * L,
-         "gru_layer_scan_x_bwd_sweep": L, "gru_layer_bwd_dw": L},
-        ROUTE_REL)
+        "phase13", qfull, weights, codes, {"fused_encode": 1, "fused_sample_kl": 1, **q_layer}, ROUTE_REL)
     reset_counts()
     q_eval = {k: float(v) for k, v in make_eval_step(qfull)(q_state, codes, None).items()}
     eval_counts = counts()
     say("phase13", eval=json.dumps({k: round(v, 4) for k, v in q_eval.items()}), **eval_counts)
-    if eval_counts["gru_layer_scan_x_fwd"] != L or eval_counts["gru_layer_scan_x_bwd_sweep"] != 0:
-        raise AssertionError(f"eval step: launch counts {eval_counts}")
+    eval_want = {k: qL * v for k, v in layer_launches(torch.bfloat16, B, qH, 1, 0).items()}
+    if any(eval_counts[k] != eval_want.get(k, 0) for k in eval_counts if k.startswith("gru_")):
+        raise AssertionError(f"eval step: launch counts {eval_counts}, expected GRU launches {eval_want}")
     if not all(np.isfinite(list(q_eval.values()))):
         raise AssertionError("zinc250k_quality eval metrics are not finite")
 
@@ -1456,12 +1531,13 @@ def main() -> int:
                 smiles_per_s=f"{B / (ms / 1e3):.1f}", card=json.dumps(gpu))
         say("phase15", train_step=name, peak_device_memory_GB=f"{peak:.3f}", card=json.dumps(gpu))
         say_profile("phase15", profile_step(k_step), ms_k)
+    bf, f32 = torch.bfloat16, torch.float32
     layer_ms = {}
     with torch.no_grad():
-        for md in (torch.bfloat16, torch.float32):
+        for md in (bf, f32):
             for l, x_l in ((0, s_args[0]), (1, x1)):
                 args = layer_args(s_args, l, x_l)
-                res = (*layer_res[md, l], x_l, args[5], args[1], args[3])
+                res = (*layer_res[md, l], saved_x(args, md), args[5], args[1], args[3])
                 layer_ms[md, l] = (
                     time_ms(lambda: kgru.layer_forward(*args, md)),
                     time_ms(lambda: kgru.layer_forward_ref(*args, md)),
@@ -1476,8 +1552,16 @@ def main() -> int:
         scan_ms = (time_ms(lambda: kgru.scan_forward(*scan_args)), time_ms(lambda: kgru.scan_forward_ref(*scan_args)),
                    time_ms(lambda: kgru.scan_backward(s_res, dY_l)),
                    time_ms(lambda: kgru.scan_backward_ref(s_res, dY_l)))
+        # the bf16 kernels' device time by kernel at layer 0 (I=329)
+        args0 = layer_args(s_args, 0, s_args[0])
+        res0_bf = (*layer_res[bf, 0], saved_x(args0, bf), args0[5], args0[1], args0[3])
+        layer_split = {"fwd": stack_split(lambda: kgru.layer_forward(*args0, bf)),
+                       "bwd": stack_split(lambda: kgru.layer_backward(res0_bf, dY_l))}
+        for name, parts in layer_split.items():
+            say("phase15", layer_split=name, layer=0, **{f"{k}_ms": f"{v:.4f}" for k, v in sorted(parts.items())},
+                card=json.dumps(gpu))
         # bounds of the per-layer kernels at layer 0 (I=329)
-        for md, peak in ((torch.bfloat16, PEAK_BF16), (torch.float32, PEAK_FP32)):
+        for md, peak in ((bf, PEAK_BF16), (f32, PEAK_FP32)):
             args = layer_args(s_args, 0, s_args[0])
             res0 = (*layer_res[md, 0], s_args[0], args[5], args[1], args[3])
             ops0 = 2 * B * T * gru_macs(I0, H)
@@ -1489,7 +1573,11 @@ def main() -> int:
                                    PEAK_BF16)
     say("phase15", kernel="gru_layer_scan", fwd_ms=f"{scan_ms[0]:.4f}", fwd_plain_ms=f"{scan_ms[1]:.4f}",
         bwd_ms=f"{scan_ms[2]:.4f}", bwd_plain_ms=f"{scan_ms[3]:.4f}", card=json.dumps(gpu))
-    bf, f32 = torch.bfloat16, torch.float32
+    lib = library_times(cfg, s_args, dev, "phase15")
+    for md, name in ((bf, "layer_bf16"), (f32, "layer_fp32")):
+        say("phase15", kernel="gru_layer_scan_x", md=str(md).split(".")[-1], layer=0, fwd_ms=f"{layer_ms[md, 0][0]:.4f}",
+            cudnn_fwd_ms=f"{lib[name][0]:.4f}", bwd_ms=f"{layer_ms[md, 0][2]:.4f}",
+            cudnn_autograd_bwd_ms=f"{lib[name][1]:.4f}", card=json.dumps(gpu))
 
     # -- 16. the automaton kernel against its plain version ------------------
     qfull_cfg = get_preset("zinc250k_quality").model
@@ -1500,7 +1588,6 @@ def main() -> int:
 
     # -- 18. times ---------------------------------------------------------------
     at = phase18(model, qfull_cfg, decodes["z"], auto["itab"], auto["scores"], gpu)
-    lib = library_times(cfg, s_args, dev)
     state_b = nbytes(kauto.new_state(B, T, dev))
     bounds["auto_step"] = bound(automaton_ops(B, C), 2 * state_b + B * C * 4 + B * 4, PEAK_INT32)
     bounds["auto_step_n120"] = bound(T * automaton_ops(B, C), 2 * state_b + B * T * C * 4 + B * T * 4,
@@ -1543,17 +1630,32 @@ def main() -> int:
               library_ms_dw_matmul=lib["dw_stack"], sources=STACK_SOURCES,
               launches_by_kernel={k: train_counts[f"gru_stack_{k}"] for k in ("sweep", "gemm_dx", "gemm_dw")},
               ms_split=split["bwd"]),
-        # per-layer times at layer 0 (I=329); layer 1's are on the phase15 lines
-        entry("gru_layer_scan_x_fwd", "gru_layer.cu", "molvax/kernels/gru.py:527",
-              q_counts["gru_layer_scan_x_fwd"] + f_counts["gru_layer_scan_x_fwd"], layer_err[bf][0],
-              layer_ms[bf, 0][0], layer_ms[bf, 0][1], bounds["layer_fwd", bf], lib["layer_bf16"][0],
-              library_dtype=lib["layer_bf16"][2], max_abs_err_fp32=layer_err[f32][0], ms_fp32=layer_ms[f32, 0][0],
+        # per-layer times at layer 0 (I=329); layer 1's are on the phase15 lines.
+        # bf16: the stack's GEMM and persistent kernels for one layer
+        # (zinc250k_quality's steps); fp32: the in-kernel instance (the
+        # strict-fp32 steps). ``launches`` counts what it counted before the
+        # bf16 redesign: the serial recurrence's launches forward and the
+        # reverse sweep's backward, of both steps; the GEMMs and the dW sum
+        # are in launches_by_kernel.
+        entry("gru_layer_scan_x_fwd", "gru_stack.cu", "molvax/kernels/gru.py:527",
+              q_counts["gru_layer_rec"] + f_counts["gru_layer_scan_x_fwd"], layer_err[bf][0], layer_ms[bf, 0][0], layer_ms[bf, 0][1], bounds["layer_fwd", bf], lib["layer_bf16"][0],
+              library_dtype=lib["layer_bf16"][2], sources=LAYER_SOURCES, source_fp32=LAYER_SOURCES[-1],
+              launches_by_kernel={"gemm_gi": q_counts["gru_layer_gemm_gi"], "rec": q_counts["gru_layer_rec"],
+                                  "in_kernel_fp32": f_counts["gru_layer_scan_x_fwd"]},
+              ms_split=layer_split["fwd"], max_abs_err_in_kernel_bf16_H2304=wide_err[0],
+              max_abs_err_fp32=layer_err[f32][0], ms_fp32=layer_ms[f32, 0][0],
               plain_ms_fp32=layer_ms[f32, 0][1], bound_ms_fp32=bounds["layer_fwd", f32][0],
               library_ms_fp32=lib["layer_fp32"][0]),
-        entry("gru_layer_scan_x_bwd", "gru_layer.cu", "molvax/kernels/gru.py:689",
-              q_counts["gru_layer_scan_x_bwd_sweep"] + f_counts["gru_layer_scan_x_bwd_sweep"], layer_err[bf][1],
+        entry("gru_layer_scan_x_bwd", "gru_stack.cu", "molvax/kernels/gru.py:689",
+              q_counts["gru_layer_sweep"] + f_counts["gru_layer_scan_x_bwd_sweep"], layer_err[bf][1],
               layer_ms[bf, 0][2], layer_ms[bf, 0][3], bounds["layer_bwd", bf], lib["layer_bf16"][1],
-              library_dtype=lib["layer_bf16"][2], library_ms_dw_matmul=lib["dw_layer0"],
+              library_dtype=lib["layer_bf16"][2], library_ms_dw_matmul=lib["dw_layer0"], sources=LAYER_SOURCES,
+              source_fp32=LAYER_SOURCES[-1],
+              launches_by_kernel={"sweep": q_counts["gru_layer_sweep"], "gemm_dx": q_counts["gru_layer_gemm_dx"],
+                                  "gemm_dw": q_counts["gru_layer_gemm_dw"], "dw_sum": q_counts["gru_layer_dw_sum"],
+                                  "in_kernel_fp32_sweep": f_counts["gru_layer_scan_x_bwd_sweep"],
+                                  "in_kernel_fp32_dw": f_counts["gru_layer_bwd_dw"]},
+              ms_split=layer_split["bwd"], max_abs_err_in_kernel_bf16_H2304=wide_err[1],
               max_abs_err_fp32=layer_err[f32][1], ms_fp32=layer_ms[f32, 0][2], plain_ms_fp32=layer_ms[f32, 0][3],
               bound_ms_fp32=bounds["layer_bwd", f32][0], library_ms_fp32=lib["layer_fp32"][1]),
         entry("gru_layer_scan_fwd", "gru_layer.cu", "molvax/kernels/gru.py:237", scan_counts["gru_layer_scan_fwd"],

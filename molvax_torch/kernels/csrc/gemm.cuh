@@ -23,8 +23,10 @@
 //             (written into shared memory after each tile lands), so the
 //             bias sums ride the same contraction.
 // Every output is summed by one thread in a fixed order over K: the result
-// is deterministic (no split over K, no atomics). Up to GEMM_MAX_JOBS
-// independent products share one launch (blockIdx.z = job).
+// is deterministic (no atomics). Up to GEMM_MAX_JOBS independent products
+// share one launch (blockIdx.z = job). A caller that splits K into parts,
+// one job each with its own output, sums the parts in a fixed order with
+// sum_parts_kernel, a second pass: deterministic too.
 
 #pragma once
 
@@ -297,6 +299,18 @@ gemm_kernel(GemmJobs jobs) {
         }
       }
     }
+  }
+}
+
+// out[i] = parts[0][i] + parts[1][i] + ... + parts[k-1][i], in that order:
+// the second pass of a product whose K was split into k parts of n outputs.
+__global__ void sum_parts_kernel(const float* __restrict__ parts, int k, long long n,
+                                 float* __restrict__ out) {
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
+       i += (long long)gridDim.x * blockDim.x) {
+    float s = parts[i];
+    for (int p = 1; p < k; ++p) s += parts[(size_t)p * n + i];
+    out[i] = s;
   }
 }
 

@@ -42,9 +42,17 @@
 // What bounds it on an H100. Each step of a block re-reads both weight
 // matrices from L2 (~2.5 MB bf16 per layer at zinc250k width, I = 329 or
 // 501, H = 501; twice that in fp32), ~2 or 4 bytes per 2*RB FLOPs on the
-// fp32 FMA pipes: per-block instruction issue sets the step time, as for
-// the stack kernels (PERF.md). The contraction is fp32 FMA from shared
-// memory. Tensor cores and weight residency are later work.
+// fp32 FMA pipes: per-block instruction issue sets the step time (PERF.md).
+// The contraction is fp32 FMA from shared memory.
+//
+// Where these kernels run. bf16 gru_layer_scan_x runs, wherever
+// kernels/gru_stack.py::stack_plan lays it out (kernels/gru.py::layer_route),
+// the stack's tensor-core kernels for one layer instead: the input-gate and
+// dW GEMMs of csrc/gemm.cuh and the persistent recurrence and sweep of
+// csrc/gru_stack.cu, W_hh resident in shared memory. The scan_x instances
+// here serve strict fp32 (mma has no fp32 operand), bf16 widths no layout
+// takes, and the fwd_gi probe (gru_layer_scan_x_in_kernel); the hoisted-gi
+// instances serve gru_layer_scan and the run_variant probes.
 //
 // Probe modes (molvax_gru_probe_scan_fwd). The hoisted-gi forward also runs
 // as the two design probes of bench/gru_experiments.py::run_variant

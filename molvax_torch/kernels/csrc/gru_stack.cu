@@ -600,6 +600,15 @@ extern "C" int molvax_gemm(int kind, const void* jobs, int n, void* stream) {
   }
 }
 
+// The parts of a split product summed in order: parts (k, n) fp32 -> out (n).
+extern "C" int molvax_sum_parts(const float* parts, int k, long long n, float* out, void* stream) {
+  if (k <= 0 || n <= 0) return (int)cudaErrorInvalidValue;
+  const long long threads = 256, blocks = (n + threads - 1) / threads;
+  sum_parts_kernel<<<(int)(blocks < 1024 ? blocks : 1024), (int)threads, 0,
+                     static_cast<cudaStream_t>(stream)>>>(parts, k, n, out);
+  return (int)cudaGetLastError();
+}
+
 extern "C" int molvax_gru_rec(const float* gi, const void* whh, const float* bhh, const float* h0,
                               const void* h0b, void* hseq, void* rzn, void* ghn, int* flags, int T,
                               int B, int H, int ldw, int ldh, int units, int rows, int q, int g,

@@ -6,31 +6,45 @@ stack kernels (``kernels/gru_stack.py``), unless the config pins
 ``gru_kernel='per_layer'``. Everything else, strict fp32, single-layer and
 non-uniform stacks, and pinned configs, runs one per-layer kernel per layer:
 
-- ``gru_layer_scan_x`` (``:748``): one layer with the input gates
-  ``x @ W_ih`` computed in the kernel, bf16 operands (``matmul_dtype=
-  'bfloat16'``) or strict fp32 (``'float32'``: every operand, residual and
-  cotangent fp32, no TF32). Its backward is a reverse-sweep kernel that
-  writes dx and the gate cotangents, then the dW contraction kernel.
+- ``gru_layer_scan_x`` (``:748``): one layer, input gates ``x @ W_ih``
+  included, bf16 operands (``matmul_dtype='bfloat16'``) or strict fp32
+  (``'float32'``: every operand, residual and cotangent fp32, no TF32).
+  In bf16, wherever ``layer_route`` finds a layout (``stack_plan``), it runs
+  the stack's pieces for one layer: forward, one tensor-core GEMM of the
+  input gates over all T B rows (``csrc/gemm.cuh``), then the persistent
+  recurrence with W_hh resident in shared memory (``csrc/gru_stack.cu``);
+  backward, the persistent reverse sweep, one GEMM of dx (bf16 out) and one
+  GEMM launch of dW_ih / db_ih and dW_hh / db_hh. Unlike the stack, every
+  layer rounds the cotangent it passes down to bf16 (``gru.py:636-638``).
+  Strict fp32, and bf16 shapes the plan cannot lay out, run the in-kernel
+  instance of ``csrc/gru_layer.cu``: ``x[t] @ W_ih`` inside the recurrence
+  on the FMA pipes, weights re-read from L2 each step; its backward is a
+  reverse-sweep kernel that writes dx and the gate cotangents, then a dW
+  contraction kernel. ``gru_layer_scan_x_in_kernel`` names that instance
+  (the ``fwd_gi`` probe's kernel).
 - ``gru_layer_scan`` (``:390``): the same recurrence with precomputed input
-  gates, rounded to bf16 at the boundary; its backward returns dgi.
+  gates, rounded to bf16 at the boundary; its backward returns dgi
+  (``csrc/gru_layer.cu``).
 
-Both live in ``csrc/gru_layer.cu``. ``layer_forward_ref`` /
-``layer_backward_ref`` and ``scan_forward_ref`` / ``scan_backward_ref`` are
-the same math in plain torch ops, rounding where the kernels round.
-``gru_probe_scan`` runs ``gru_layer_scan``'s forward kernel in the two modes
-of the design probe ``bench/gru_experiments.py::run_variant`` (forward only,
-no autograd; plain version ``gru_probe_scan_ref``). For CUDA
-tensors the wrappers launch the kernels or raise; the plain versions run
-only for tensors on the CPU (and when called by name). Like the TPU
-kernels' custom VJPs, the backward reads the stored residuals and rounds
-dgi / dgh and dx to the storage type, so it is the kernels' gradient, not
-autograd's exact one.
+``layer_forward_ref`` / ``layer_backward_ref`` and ``scan_forward_ref`` /
+``scan_backward_ref`` are the same math in plain torch ops, rounding where
+the kernels round; the bf16 persistent route also composes to them from
+the stack's plain pieces (``gemm_ref``, ``layer_recurrence_ref``,
+``layer_sweep_ref``), bit for bit. ``gru_probe_scan`` runs
+``gru_layer_scan``'s forward kernel in the two modes of the design probe
+``bench/gru_experiments.py::run_variant`` (forward only, no autograd; plain
+version ``gru_probe_scan_ref``). For CUDA tensors the wrappers launch the
+kernels or raise; the plain versions run only for tensors on the CPU (and
+when called by name). Like the TPU kernels' custom VJPs, the backward reads
+the stored residuals and rounds dgi / dgh and dx to the storage type, so it
+is the kernels' gradient, not autograd's exact one.
 
 Weights are in torch layout: ``w_ih`` (3H, I), ``w_hh`` (3H, H), the
 transposes of the JAX arguments; sequences are (T, B, ·) as in the
 reference. The TPU's batch and time blocking, its per-gate padding of H to
 a multiple of 128 and its batch-size fallback (``pallas_batch_ok``) have no
-counterpart: the CUDA kernels take any B, I and H whose shared memory fits.
+counterpart: the kernels take any B and I, and any H that a layout or the
+in-kernel instance's shared memory takes.
 """
 
 from __future__ import annotations
@@ -43,14 +57,20 @@ import torch
 
 from ..utils import round_to
 from . import _build, gru_stack
-from .gru_stack import _check_cuda, _contract, _stream
+from .gru_stack import _check_cuda, _contract, _dw_job, _dx_job, _gemm, _is_padded, _padded, _stream, counter
 
 # kernel launches made by the wrappers (not by the plain versions)
-layer_fwd_launches = 0  # gru_layer_scan_x forward
-layer_bwd_launches = 0  # gru_layer_scan_x reverse sweep
+layer_gi_launches = 0  # bf16 gru_layer_scan_x forward: the input-gate GEMM
+layer_rec_launches = 0  # ... and the persistent recurrence (per batch slice)
+layer_sweep_launches = 0  # bf16 backward: the persistent reverse sweep (per slice)
+layer_dx_launches = 0  # ... the GEMM of dx
+layer_gemm_dw_launches = 0  # ... the GEMM of dW_ih, db_ih, dW_hh and db_hh (two jobs per part)
+layer_dw_sum_launches = 0  # ... the sum of its parts
+layer_fwd_launches = 0  # gru_layer_scan_x's in-kernel instance: forward
+layer_bwd_launches = 0  # ... reverse sweep
 scan_fwd_launches = 0  # gru_layer_scan forward
 scan_bwd_launches = 0  # gru_layer_scan reverse sweep
-layer_dw_launches = 0  # the dW contraction of either backward
+layer_dw_launches = 0  # the dW contraction of either in-kernel backward
 probe_matmul_only_launches = 0  # gru_probe_scan(mode='matmul_only')
 probe_gates_nostore_launches = 0  # gru_probe_scan(mode='gates_nostore')
 
@@ -211,29 +231,53 @@ def _check_fits(what: str, I: int, H: int, md: torch.dtype) -> None:
                          f"more than the {_MAX_SMEM} an H100 block has")
 
 
-def _check_layer(what, x, w_ih, w_hh, h0, md) -> Tuple[int, int, int, int]:
+def _layer_dims(what, x, w_ih, w_hh, h0) -> Tuple[int, int, int, int]:
     T, B, I = x.shape
     B_h, H = h0.shape
     if B_h != B or tuple(w_ih.shape) != (3 * H, I) or tuple(w_hh.shape) != (3 * H, H):
         raise ValueError(f"{what}: x {tuple(x.shape)}, w_ih {tuple(w_ih.shape)}, "
                          f"w_hh {tuple(w_hh.shape)}, h0 {tuple(h0.shape)}")
+    return T, B, I, H
+
+
+def _check_layer(what, x, w_ih, w_hh, h0, md) -> Tuple[int, int, int, int]:
+    T, B, I, H = _layer_dims(what, x, w_ih, w_hh, h0)
     _check_fits(what, I, H, md)
     return T, B, I, H
 
 
-def _check_residuals(what, shape, md, hseq, rzn, ghn, dY) -> None:
-    """The sweep reads the forward's residuals in place: contiguous, in the
-    storage type md, hseq and ghn of ``shape`` (T, B, H), rzn (T, B, 3H);
-    dY (T, B, H)."""
+def _check_residuals(what, shape, md, hseq, rzn, ghn, dY, padded: bool = False) -> None:
+    """The sweep reads the forward's residuals in place: in the storage type
+    md, hseq and ghn of ``shape`` (T, B, H), rzn (T, B, 3H), contiguous; with
+    ``padded`` (the persistent sweep's), hseq may also have its rows padded
+    to a multiple of 8, as the persistent recurrence writes it. dY (T, B, H)."""
     T, B, H = shape
     if md not in _MATMUL_DTYPES.values():
         raise ValueError(f"{what}: residuals stored in {md}")
     for name, t, want in (("hseq", hseq, shape), ("rzn", rzn, (T, B, 3 * H)), ("ghn", ghn, shape)):
-        if tuple(t.shape) != want or t.dtype != md or not t.is_contiguous():
+        in_place = t.is_contiguous() or (padded and name == "hseq" and _is_padded(t, md))
+        if tuple(t.shape) != want or t.dtype != md or not in_place:
             raise ValueError(f"{what}: residual {name} {tuple(t.shape)} {t.dtype}, "
                              f"expected a contiguous {want} {md}")
     if tuple(dY.shape) != shape:
         raise ValueError(f"{what}: dY {tuple(dY.shape)}, expected {shape}")
+
+
+def layer_route(B: int, H: int) -> str:
+    """Which kernels run bf16 ``gru_layer_scan_x`` at batch B and width H,
+    decided by shape before any launch: 'persistent' (the input-gate GEMM,
+    the persistent recurrence and sweep, the dx and dW GEMMs) wherever
+    ``stack_plan`` lays the persistent kernels out on the card, else
+    'in_kernel' (``csrc/gru_layer.cu``'s bf16 instance)."""
+    try:
+        gru_stack.stack_plan(B, H)
+    except ValueError:
+        return "in_kernel"
+    return "persistent"
+
+
+def _persistent(md: torch.dtype, B: int, H: int) -> bool:
+    return md == torch.bfloat16 and layer_route(B, H) == "persistent"
 
 
 def _ptrs(*tensors):
@@ -257,8 +301,96 @@ def _contract_kernel(x, h0s, hseq, dgi, dgh, T, B, I, H, md, with_ih: bool):
     return dwih, dbih, dwhh, dbhh
 
 
+_COUNT = {name: counter(globals(), f"layer_{name}_launches")
+          for name in ("gi", "rec", "sweep", "dx", "gemm_dw", "dw_sum")}
+
+
+def dw_parts(T: int, I: int, H: int) -> int:
+    """The parts (of whole time steps) that the dW GEMM of one layer splits
+    its T B rows into: its 128 x 128 output tiles of dW_ih | db_ih and
+    dW_hh | db_hh, times the parts, take the fewest waves of the card's
+    ``gru_stack.SMS`` SMs per part (ties to fewer parts; at most 4, at most
+    T). At zinc250k width 84 tiles leave 48 of 132 SMs idle; in 3 parts 252
+    tiles of a third of the rows fill two waves."""
+    tiles = -(-3 * H // 128) * (-(-(I + 1) // 128) + -(-(H + 1) // 128))
+    return min(range(1, min(4, T) + 1), key=lambda k: -(-tiles * k // gru_stack.SMS) / k)
+
+
+def _sum_parts(parts: torch.Tensor, out: torch.Tensor) -> None:
+    """out (n) = parts[0] + parts[1] + ... of parts (k, n), fp32, in that
+    order: the second pass of the split dW GEMM, one launch."""
+    fn = _build.function("molvax_sum_parts", [ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p,
+                                              ctypes.c_void_p])
+    _build.check(fn(parts.data_ptr(), parts.shape[0], parts.shape[1], out.data_ptr(), _stream(out)),
+                 "gru_layer_scan_x dW parts")
+    _COUNT["dw_sum"]()
+
+
 def layer_forward(x, w_ih, b_ih, w_hh, b_hh, h0, md: torch.dtype) -> Residuals:
-    """``layer_forward_ref`` on the card: one launch of the forward kernel."""
+    """``layer_forward_ref`` on the card. bf16 on the persistent route
+    (``layer_route``): the stack's input-gate GEMM over all T B rows, fp32
+    gi with b_ih, then its persistent recurrence (one launch per batch
+    slice of ``stack_plan``), counted on this module's counters; hseq comes
+    back as a view of a buffer whose rows are padded to a multiple of 8. A
+    bf16 x already so laid out (``_padded``) is read in place. Else
+    ``layer_forward_in_kernel``."""
+    what = "gru_layer_scan_x forward"
+    _check_cuda(what, x, w_ih, b_ih, w_hh, b_hh, h0)
+    T, B, I, H = _layer_dims(what, x, w_ih, w_hh, h0)
+    if not _persistent(md, B, H):
+        return layer_forward_in_kernel(x, w_ih, b_ih, w_hh, b_hh, h0, md)
+    gi = gru_stack.gemm("gi", x, w_ih, b_ih, count=_COUNT["gi"])
+    return gru_stack.layer_recurrence(gi, w_hh, b_hh, h0, count=_COUNT["rec"])
+
+
+def layer_backward(res: Residuals, dY: torch.Tensor):
+    """``layer_backward_ref`` on the card. bf16 on the persistent route: the
+    stack's persistent reverse sweep (ext = dY, no h_final cotangent: on the
+    per-layer route it arrives inside dY[-1]), one GEMM of dx stored in
+    bf16, one GEMM launch of dW_ih / db_ih over x and dW_hh / db_hh over h
+    one step behind (bf16(h0) first), two jobs for each of ``dw_parts``
+    spans of time steps, and one launch that sums the parts. It reads hseq
+    in place, padded or not, and x in place where it is laid out as
+    ``_padded`` leaves it (the autograd wrapper saves the forward's copy).
+    Deterministic: every output is summed in a fixed order. Else
+    ``layer_backward_in_kernel``."""
+    hseq, rzn, ghn, x, h0, w_ih, w_hh = res
+    what = "gru_layer_scan_x backward"
+    _check_cuda(what, hseq, rzn, ghn, x, h0, w_ih, w_hh, dY)
+    T, B, I, H = _layer_dims(what, x, w_ih, w_hh, h0)
+    if not _persistent(hseq.dtype, B, H):
+        return layer_backward_in_kernel(res, dY)
+    _check_residuals(what, (T, B, H), hseq.dtype, hseq, rzn, ghn, dY, padded=True)
+    bf, dev, G = torch.bfloat16, x.device, 3 * H
+    dgi, dgh, dh0 = gru_stack.layer_sweep(hseq, h0, rzn, ghn, w_hh, dY, torch.zeros(B, H, device=dev),
+                                          count=_COUNT["sweep"])
+    with torch.no_grad():
+        hs, xp, h0b, wihp = (_padded(t) for t in (hseq, x, h0, w_ih))
+    dx = torch.empty(T, B, I, dtype=bf, device=dev)
+    _gemm("dx", [_dx_job(dgi, wihp, dx)], x, _COUNT["dx"])
+    # each part: dW_ih | db_ih, then dW_hh | db_hh, of its span of steps
+    k, n_ih, n_hh = dw_parts(T, I, H), G * I + G, G * H + G
+    parts = torch.empty(k, n_ih + n_hh, device=dev)
+    jobs = []
+    for p in range(k):
+        t0, t1 = p * T // k, (p + 1) * T // k
+        ih, hh = parts[p, :n_ih], parts[p, n_ih:]
+        jobs.append(_dw_job(dgi[t0:t1], xp[t0:t1], ih[: G * I].view(G, I), ih[G * I :]))
+        first = dict(first=h0b) if t0 == 0 else {}  # h one step behind: bf16(h0), then hseq
+        jobs.append(_dw_job(dgh[t0:t1], hs[max(t0 - 1, 0) : t1], hh[: G * H].view(G, H), hh[G * H :], **first))
+    _gemm("dw", jobs, x, _COUNT["gemm_dw"])
+    out = torch.empty(n_ih + n_hh, device=dev)
+    _sum_parts(parts, out)
+    dwih, dbih = out[: G * I].view(G, I), out[G * I : n_ih]
+    dwhh, dbhh = out[n_ih : n_ih + G * H].view(G, H), out[n_ih + G * H :]
+    return dx.float(), dwih, dbih, dwhh, dbhh, dh0
+
+
+def layer_forward_in_kernel(x, w_ih, b_ih, w_hh, b_hh, h0, md: torch.dtype) -> Residuals:
+    """``layer_forward_ref`` on the card through ``csrc/gru_layer.cu``: one
+    launch of the forward kernel that computes ``x[t] @ W_ih`` inside the
+    recurrence. Strict fp32, bf16 where ``layer_route`` says 'in_kernel',
+    and the ``fwd_gi`` probe."""
     global layer_fwd_launches
     what = "gru_layer_scan_x forward"
     _check_cuda(what, x, w_ih, b_ih, w_hh, b_hh, h0)
@@ -281,9 +413,10 @@ def layer_forward(x, w_ih, b_ih, w_hh, b_hh, h0, md: torch.dtype) -> Residuals:
     return hseq, rzn, ghn
 
 
-def layer_backward(res: Residuals, dY: torch.Tensor):
-    """``layer_backward_ref`` on the card: the reverse-sweep kernel, then
-    the dW / db contraction kernel."""
+def layer_backward_in_kernel(res: Residuals, dY: torch.Tensor):
+    """``layer_backward_ref`` on the card through ``csrc/gru_layer.cu``: the
+    reverse-sweep kernel (dx inside it), then the dW / db contraction
+    kernel. Contiguous residuals only."""
     global layer_bwd_launches
     hseq, rzn, ghn, x, h0, w_ih, w_hh = res
     what = "gru_layer_scan_x backward"
@@ -402,18 +535,24 @@ def scan_backward(res: Residuals, dY: torch.Tensor):
 
 
 class _GRULayerX(torch.autograd.Function):
+    """route: 'kernel' (``layer_forward`` / ``layer_backward``), 'in_kernel'
+    (the ``csrc/gru_layer.cu`` instance) or 'plain'; tensors on the CPU
+    always take the plain versions."""
+
     @staticmethod
-    def forward(ctx, plain, md, x, w_ih, b_ih, w_hh, b_hh, h0):
-        ctx.plain = plain or _plain_here(x)
-        fwd = layer_forward_ref if ctx.plain else layer_forward
-        hseq, rzn, ghn = fwd(x, w_ih, b_ih, w_hh, b_hh, h0, md)
+    def forward(ctx, route, md, x, w_ih, b_ih, w_hh, b_hh, h0):
+        ctx.route = "plain" if _plain_here(x) else route
+        if ctx.route == "kernel" and x.is_cuda and _persistent(md, x.shape[1], h0.shape[-1]):
+            x = _padded(x)  # the bf16 operand of the gi GEMM, kept for the dW GEMM
+        fwd = {"plain": layer_forward_ref, "kernel": layer_forward, "in_kernel": layer_forward_in_kernel}
+        hseq, rzn, ghn = fwd[ctx.route](x, w_ih, b_ih, w_hh, b_hh, h0, md)
         ctx.save_for_backward(hseq, rzn, ghn, x, h0, w_ih, w_hh)
         return hseq.float()
 
     @staticmethod
     def backward(ctx, dY):
-        bwd = layer_backward_ref if ctx.plain else layer_backward
-        return (None, None, *bwd(ctx.saved_tensors, dY))
+        bwd = {"plain": layer_backward_ref, "kernel": layer_backward, "in_kernel": layer_backward_in_kernel}
+        return (None, None, *bwd[ctx.route](ctx.saved_tensors, dY))
 
 
 class _GRULayerScan(torch.autograd.Function):
@@ -438,17 +577,25 @@ def _matmul_dtype(name: str) -> torch.dtype:
 
 
 def gru_layer_scan_x(x, w_ih, b_ih, w_hh, b_hh, h0, matmul_dtype: str = "bfloat16") -> torch.Tensor:
-    """One GRU layer, differentiable, input gates computed in the kernel:
-    x (T, B, I), w_ih (3H, I), w_hh (3H, H), h0 (B, H) -> h_seq (T, B, H)
-    fp32, the values of the stored h. ``matmul_dtype`` 'bfloat16' or
-    'float32' (strict mode), as the reference's. Kernels for CUDA tensors,
-    the plain versions for CPU tensors."""
-    return _GRULayerX.apply(False, _matmul_dtype(matmul_dtype), x, w_ih, b_ih, w_hh, b_hh, h0)
+    """One GRU layer, differentiable, input gates included: x (T, B, I),
+    w_ih (3H, I), w_hh (3H, H), h0 (B, H) -> h_seq (T, B, H) fp32, the values
+    of the stored h. ``matmul_dtype`` 'bfloat16' or 'float32' (strict mode),
+    as the reference's. Kernels for CUDA tensors (bf16 on the route
+    ``layer_route`` picks), the plain versions for CPU tensors."""
+    return _GRULayerX.apply("kernel", _matmul_dtype(matmul_dtype), x, w_ih, b_ih, w_hh, b_hh, h0)
+
+
+def gru_layer_scan_x_in_kernel(x, w_ih, b_ih, w_hh, b_hh, h0, matmul_dtype: str = "bfloat16") -> torch.Tensor:
+    """``gru_layer_scan_x`` through the in-kernel instance of
+    ``csrc/gru_layer.cu`` (``x[t] @ W_ih`` inside the recurrence) for CUDA
+    tensors at any shape it fits: the kernel the ``fwd_gi`` probe times. The
+    plain versions for CPU tensors."""
+    return _GRULayerX.apply("in_kernel", _matmul_dtype(matmul_dtype), x, w_ih, b_ih, w_hh, b_hh, h0)
 
 
 def gru_layer_scan_x_ref(x, w_ih, b_ih, w_hh, b_hh, h0, matmul_dtype: str = "bfloat16") -> torch.Tensor:
     """``gru_layer_scan_x`` through the plain versions on any device."""
-    return _GRULayerX.apply(True, _matmul_dtype(matmul_dtype), x, w_ih, b_ih, w_hh, b_hh, h0)
+    return _GRULayerX.apply("plain", _matmul_dtype(matmul_dtype), x, w_ih, b_ih, w_hh, b_hh, h0)
 
 
 def gru_layer_scan(gi, w_hh, b_hh, h0) -> torch.Tensor:

@@ -10,7 +10,9 @@ top: one persistent launch of the reverse sweep, which writes the bf16 gate
 cotangents dgi / dgh, then the GEMM that passes the cotangent to the layer
 below (dx0, rounded to bf16, for layer 0); then one GEMM launch contracts
 every dW and db of the stack. ``stack_plan`` lays the persistent kernels
-out on the card's SMs.
+out on the card's SMs. The bf16 per-layer route (``kernels/gru.py``) runs
+``gemm``, ``layer_recurrence`` and ``layer_sweep`` for one layer, counted
+on its own counters.
 
 Every kernel has its plain version here, the same math in plain torch ops,
 rounding where the kernel rounds: ``gemm_ref`` (each of the GEMM's three
@@ -39,7 +41,8 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import List, Optional, Sequence, Tuple
+import functools
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -53,6 +56,19 @@ sweep_launches = 0  # reverse sweep, one per layer (and batch slice)
 gemm_dx_launches = 0  # cotangent for the layer below, one per layer
 dw_launches = 0  # dW / db of the whole stack, one per backward
 fused3_launches = 0  # gru_fused3_scan
+
+
+def counter(space: dict, name: str) -> Callable[[], None]:
+    """A function that adds one to the launch counter ``name`` of the module
+    whose globals are ``space``: the launch helpers below count into the
+    stack's counters, or into the caller's (``kernels/gru.py``'s bf16
+    per-layer route runs the same kernels)."""
+
+    def count() -> None:
+        space[name] += 1
+
+    return count
+
 
 _MAX_LAYERS = 8  # the dW launch holds two products per layer (csrc/gemm.cuh)
 
@@ -129,6 +145,7 @@ def _chunk(resident: int, rows: int, K: int, smem: int) -> Optional[int]:
     return min(chunk, K) if chunk >= 16 else None
 
 
+@functools.lru_cache(maxsize=64)
 def stack_plan(B: int, H: int, sms: int = SMS, smem: int = SMEM) -> StackPlan:
     """Lay out the recurrence and the sweep for batch B and width H on a
     card of ``sms`` SMs with ``smem`` bytes of shared memory per block, one
@@ -341,17 +358,23 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def _padded(t: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:
-    """t as ``dtype`` with the same shape, its last dimension contiguous and
-    its rows a multiple of 8 elements apart from a 16-byte aligned start, as
-    the kernels' cp.async copies need: t itself where it is so already,
-    else a view of a padded copy."""
+def _is_padded(t: torch.Tensor, dtype=torch.bfloat16) -> bool:
+    """True if t is ``dtype`` with its last dimension contiguous and its
+    rows a multiple of 8 elements apart from a 16-byte aligned start, as the
+    kernels' cp.async copies need."""
     n = t.shape[-1]
     ld = t.stride(-2) if t.dim() > 1 else _up(n, 8)
     dense = t.dim() < 2 or all(t.stride(i) == t.stride(i + 1) * t.shape[i + 1] for i in range(t.dim() - 2))
-    if (t.dtype == dtype and t.stride(-1) == 1 and ld % 8 == 0 and ld >= n and dense
-            and t.data_ptr() % 16 == 0):
+    return (t.dtype == dtype and t.stride(-1) == 1 and ld % 8 == 0 and ld >= n and dense
+            and t.data_ptr() % 16 == 0)
+
+
+def _padded(t: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:
+    """t as ``dtype`` with the same shape, laid out as ``_is_padded``
+    demands: t itself where it is so already, else a view of a padded copy."""
+    if _is_padded(t, dtype):
         return t
+    n = t.shape[-1]
     buf = torch.empty(*t.shape[:-1], _up(n, 8), dtype=dtype, device=t.device)
     out = buf[..., :n]
     with torch.no_grad():
@@ -372,21 +395,22 @@ class _Job(ctypes.Structure):
 
 
 _GEMM_KINDS = {"gi": 0, "dx": 1, "dw": 2}
+Count = Optional[Callable[[], None]]
+# the stack's counters: what each launch helper counts into unless its
+# caller passes its own ``count``
+_COUNTS = {"gi": counter(globals(), "gemm_gi_launches"), "dx": counter(globals(), "gemm_dx_launches"),
+           "dw": counter(globals(), "dw_launches"), "rec": counter(globals(), "rec_launches"),
+           "sweep": counter(globals(), "sweep_launches")}
 
 
-def _gemm(kind: str, jobs: List[_Job], dev_tensor: torch.Tensor) -> None:
-    """One launch of the GEMM kernel over ``jobs``."""
-    global gemm_gi_launches, gemm_dx_launches, dw_launches
+def _gemm(kind: str, jobs: List[_Job], dev_tensor: torch.Tensor, count: Count = None) -> None:
+    """One launch of the GEMM kernel over ``jobs``, counted by ``count``
+    (the stack's counter of the kind by default)."""
     table = (_Job * len(jobs))(*jobs)
     fn = _build.function("molvax_gemm", [ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
     _build.check(fn(_GEMM_KINDS[kind], ctypes.addressof(table), len(jobs), _stream(dev_tensor)),
                  f"gru_stack GEMM ({kind})")
-    if kind == "gi":
-        gemm_gi_launches += 1
-    elif kind == "dx":
-        gemm_dx_launches += 1
-    else:
-        dw_launches += 1
+    (count or _COUNTS[kind])()
 
 
 def _gi_job(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, out: torch.Tensor) -> _Job:
@@ -415,11 +439,11 @@ def _dw_job(d, x, dw, db, first=None) -> _Job:
                 nfirst, 0)
 
 
-def _recurrence(gi, whh, bhh, h0, h0b, hseq, rzn, ghn, plan: StackPlan) -> None:
-    """The persistent recurrence of one layer, one launch per batch slice:
-    gi (T, B, 3H) fp32, whh (3H, H) and h0b (B, H) padded bf16, bhh (3H),
-    h0 (B, H) fp32 -> hseq (T, B, H) padded, rzn, ghn."""
-    global rec_launches
+def _recurrence(gi, whh, bhh, h0, h0b, hseq, rzn, ghn, plan: StackPlan, count: Count = None) -> None:
+    """The persistent recurrence of one layer, one launch per batch slice,
+    each counted by ``count`` (the stack's counter by default): gi
+    (T, B, 3H) fp32, whh (3H, H) and h0b (B, H) padded bf16, bhh (3H), h0
+    (B, H) fp32 -> hseq (T, B, H) padded, rzn, ghn."""
     T, B, H = hseq.shape
     fn = _build.function("molvax_gru_rec", [ctypes.c_void_p] * 9 + [ctypes.c_int] * 12 + [ctypes.c_void_p])
     span = plan.g * plan.rows
@@ -429,15 +453,15 @@ def _recurrence(gi, whh, bhh, h0, h0b, hseq, rzn, ghn, plan: StackPlan) -> None:
                  T, B, H, _ld(whh), _ld(hseq), plan.units, plan.rows, plan.q, plan.g, plan.fwd_chunk,
                  base, min(B, base + span), _stream(gi))
         _build.check(err, "gru_stack recurrence")
-        rec_launches += 1
+        (count or _COUNTS["rec"])()
 
 
-def _sweep(hseq, h0b, rzn, ghn, ext, dhf, whhT, dgi, dgh, dh0, plan: StackPlan) -> None:
+def _sweep(hseq, h0b, rzn, ghn, ext, dhf, whhT, dgi, dgh, dh0, plan: StackPlan, count: Count = None) -> None:
     """The persistent reverse sweep of one layer, one launch per batch
-    slice: hseq (T, B, H), h0b (B, H), whhT (H, 3H), dgi / dgh (T, B, 3H)
-    padded bf16; rzn, ghn bf16; ext (T, B, H), dhf (B, H) fp32 -> dgi, dgh,
-    dh0 (B, H) fp32."""
-    global sweep_launches
+    slice, each counted by ``count`` (the stack's counter by default): hseq
+    (T, B, H), h0b (B, H), whhT (H, 3H), dgi / dgh (T, B, 3H) padded bf16;
+    rzn, ghn contiguous bf16; ext (T, B, H), dhf (B, H) contiguous fp32 ->
+    dgi, dgh, dh0 (B, H) fp32."""
     T, B, H = hseq.shape
     fn = _build.function("molvax_gru_sweep", [ctypes.c_void_p] * 11 + [ctypes.c_int] * 13 + [ctypes.c_void_p])
     span = plan.g * plan.rows
@@ -447,14 +471,14 @@ def _sweep(hseq, h0b, rzn, ghn, ext, dhf, whhT, dgi, dgh, dh0, plan: StackPlan) 
                  T, B, H, _ld(hseq), _ld(whhT), _ld(dgi), plan.units, plan.rows, plan.q, plan.g,
                  plan.bwd_chunk, base, min(B, base + span), _stream(hseq))
         _build.check(err, "gru_stack reverse sweep")
-        sweep_launches += 1
+        (count or _COUNTS["sweep"])()
 
 
 def gemm(kind: str, a: torch.Tensor, b: torch.Tensor, bias: Optional[torch.Tensor] = None,
-         first: Optional[torch.Tensor] = None):
+         first: Optional[torch.Tensor] = None, count: Count = None):
     """``gemm_ref`` on the card: one launch of the GEMM kernel with the
-    epilogue ``kind`` ('gi', 'dx', 'dw'; 'dx' returns fp32). CUDA tensors
-    only."""
+    epilogue ``kind`` ('gi', 'dx', 'dw'; 'dx' returns fp32), counted by
+    ``count`` (the stack's counter by default). CUDA tensors only."""
     _check_cuda(f"gru_stack GEMM ({kind})", a, b, *(t for t in (bias, first) if t is not None))
     dev = a.device
     with torch.no_grad():
@@ -474,13 +498,15 @@ def gemm(kind: str, a: torch.Tensor, b: torch.Tensor, bias: Optional[torch.Tenso
             job = _dw_job(ap, bp, *out, first=None if first is None else fp)
         else:
             raise ValueError(f"gemm: unknown epilogue {kind!r}")
-    _gemm(kind, [job], a)
+    _gemm(kind, [job], a, count)
     return out
 
 
-def layer_recurrence(gi, w_hh, b_hh, h0, plan: Optional[StackPlan] = None) -> Residuals:
+def layer_recurrence(gi, w_hh, b_hh, h0, plan: Optional[StackPlan] = None, count: Count = None) -> Residuals:
     """``layer_recurrence_ref`` on the card: one persistent launch (per
-    batch slice of the plan). CUDA tensors only."""
+    batch slice of the plan), each counted by ``count``. hseq comes back as
+    a view of a buffer whose rows are padded to a multiple of 8. CUDA
+    tensors only."""
     _check_cuda("gru_stack recurrence", gi, w_hh, b_hh, h0)
     T, B, G = gi.shape
     H = G // 3
@@ -492,13 +518,15 @@ def layer_recurrence(gi, w_hh, b_hh, h0, plan: Optional[StackPlan] = None) -> Re
     hseq = torch.empty(T, B, _up(H, 8), dtype=bf, device=dev)[..., :H]
     rzn = torch.empty(T, B, G, dtype=bf, device=dev)
     ghn = torch.empty(T, B, H, dtype=bf, device=dev)
-    _recurrence(*args, hseq, rzn, ghn, plan)
+    _recurrence(*args, hseq, rzn, ghn, plan, count)
     return hseq, rzn, ghn
 
 
-def layer_sweep(hseq, h0, rzn, ghn, w_hh, ext, dhf, plan: Optional[StackPlan] = None):
+def layer_sweep(hseq, h0, rzn, ghn, w_hh, ext, dhf, plan: Optional[StackPlan] = None, count: Count = None):
     """``layer_sweep_ref`` on the card: one persistent launch (per batch
-    slice of the plan). CUDA tensors only."""
+    slice of the plan), each counted by ``count``; hseq is read in place
+    where it is padded as the recurrence leaves it. dgi and dgh come back
+    as views of padded buffers. CUDA tensors only."""
     _check_cuda("gru_stack reverse sweep", hseq, h0, rzn, ghn, w_hh, ext, dhf)
     T, B, H = hseq.shape
     plan = plan or stack_plan(B, H)
@@ -509,7 +537,7 @@ def layer_sweep(hseq, h0, rzn, ghn, w_hh, ext, dhf, plan: Optional[StackPlan] = 
     dgi = torch.empty(T, B, _up(3 * H, 8), dtype=bf, device=dev)[..., : 3 * H]
     dgh = torch.empty(T, B, _up(3 * H, 8), dtype=bf, device=dev)[..., : 3 * H]
     dh0 = torch.empty(B, H, device=dev)
-    _sweep(*args, dgi, dgh, dh0, plan)
+    _sweep(*args, dgi, dgh, dh0, plan, count)
     return dgi, dgh, dh0
 
 

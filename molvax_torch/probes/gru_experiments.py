@@ -17,9 +17,10 @@ per step:
                   forward, the production kernel;
 
 then the production 3-layer forward on both routes of
-``gru_forward_pallas`` (three per-layer ``gru_layer_scan_x`` launches; the
-stack route, per layer an input-gate GEMM and a persistent recurrence) and
-``fused3`` (``gru_fused3_scan``: the previous design's one-launch stack
+``gru_forward_pallas``, each per layer an input-gate GEMM and a persistent
+recurrence (the per-layer route, three ``gru_layer_scan_x`` calls, takes
+each layer's h through fp32 between them; the stack route passes the bf16
+h sequence on) and ``fused3`` (``gru_fused3_scan``: the previous design's one-launch stack
 kernel with layer 0's gates given and no residuals). Each row carries its bound (the
 least time the card could take, ``train.profiling.bound_ms``); the
 products count 2 FLOPs per multiply-add at the bf16 tensor-core peak.
@@ -127,8 +128,8 @@ def bounds(inp: dict) -> Dict[str, tuple]:
 
 
 def measure(inp: dict) -> Dict[str, dict]:
-    """Each row's time (CUDA events for one launch, median of 5; step_timer
-    for the three launches of the per-layer route) and bound."""
+    """Each row's time (CUDA events for one call, median of 5; step_timer
+    for the per-layer route's three layers) and bound."""
     T_ = inp["T"]
     b = bounds(inp)
     rows = {}

@@ -2,14 +2,15 @@
 
 Port of the entry point of ``bench/proto_gi_kernel.py``. Its TPU kernel
 ``fwd_gi`` computes ``gru_layer_scan_x``'s bf16 forward (x @ W_ih inside the
-recurrence; hseq, r|z|n and gh_n stored), so its counterpart is that
-kernel's x-forward in ``csrc/gru_layer.cu``; no new kernel. Run on a CUDA
-card:
+recurrence; hseq, r|z|n and gh_n stored), so its counterpart is the
+in-kernel instance of ``csrc/gru_layer.cu``, called by its name
+(``gru_layer_scan_x_in_kernel``): the production ``gru_layer_scan_x`` hoists
+its input gates since the per-layer redesign. Run on a CUDA card:
 
     python -m molvax_torch.probes.proto_gi_kernel
 
 At B=256, T=120, I=330, H=501: one layer (layer 0), in-kernel gi
-(``gru_layer_scan_x``) against hoisted gi (one bf16 ``F.linear`` on the
+(``gru_layer_scan_x_in_kernel``) against hoisted gi (one bf16 ``F.linear`` on the
 tensor cores, then ``gru_layer_scan``), and the 3-layer version of both.
 """
 
@@ -50,10 +51,11 @@ def make_inputs(B: int = B, T: int = T, I: int = I, H: int = H, L: int = L, devi
 
 
 def in_kernel(inp: dict, layers: int) -> torch.Tensor:
-    """The first ``layers`` layers, each one ``gru_layer_scan_x`` launch."""
+    """The first ``layers`` layers, each one launch of the in-kernel
+    instance."""
     out = inp["x"]
     for lay in inp["layers"][:layers]:
-        out = kgru.gru_layer_scan_x(out, lay["w_ih"], lay["b_ih"], lay["w_hh"], lay["b_hh"], inp["h0"])
+        out = kgru.gru_layer_scan_x_in_kernel(out, lay["w_ih"], lay["b_ih"], lay["w_hh"], lay["b_hh"], inp["h0"])
     return out
 
 

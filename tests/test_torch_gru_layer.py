@@ -277,5 +277,20 @@ def test_kernel_wrappers_never_fall_back_off_the_cpu():
                               "float32")
     with pytest.raises(ValueError, match="unsupported device"):
         kgru.gru_layer_scan(meta(T, B, 3 * H), meta(3 * H, H), meta(3 * H), meta(B, H))
+    # the bf16 persistent route's wrappers, and the in-kernel instance by name
+    cpu = [torch.zeros(s) for s in ((T, B, I), (3 * H, I), (3 * H,), (3 * H, H), (3 * H,), (B, H))]
+    assert kgru.layer_route(B, H) == "persistent"
+    counts = (kgru.layer_gi_launches, kgru.layer_rec_launches, kgru.layer_sweep_launches,
+              kgru.layer_dx_launches, kgru.layer_gemm_dw_launches, kgru.layer_fwd_launches)
+    with pytest.raises(ValueError, match="unsupported device cpu"):
+        kgru.layer_forward(*cpu, torch.bfloat16)
+    res = (*kgru.layer_forward_ref(*cpu, torch.bfloat16), cpu[0], cpu[5], cpu[1], cpu[3])
+    with pytest.raises(ValueError, match="unsupported device cpu"):
+        kgru.layer_backward(res, torch.zeros(T, B, H))
+    with pytest.raises(ValueError, match="unsupported device"):
+        kgru.gru_layer_scan_x_in_kernel(meta(T, B, I), meta(3 * H, I), meta(3 * H), meta(3 * H, H), meta(3 * H),
+                                        meta(B, H))
+    assert counts == (kgru.layer_gi_launches, kgru.layer_rec_launches, kgru.layer_sweep_launches,
+                      kgru.layer_dx_launches, kgru.layer_gemm_dw_launches, kgru.layer_fwd_launches)
     with pytest.raises(ValueError, match="matmul_dtype"):
         kgru.gru_layer_scan_x(*(torch.zeros(1) for _ in range(6)), "float16")
