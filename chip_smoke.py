@@ -44,15 +44,16 @@ each printed on its own lines:
      step (torch.profiler), and peak device memory;
  12. the per-layer GRU kernels against their plain versions on the same
      inputs, layer 0 (I=329) and layer 1 (I=501), also at a ragged batch of
-     6: gru_layer_scan_x forward and backward in bf16 (the persistent route:
-     input-gate GEMM and recurrence; sweep, dx GEMM, one dW GEMM over spans
-     of steps and the sum of the spans)
-     and in strict fp32 (the in-kernel instance), each with its exact
-     launches, residual dtypes and two backward runs bit for bit; the bf16
-     in-kernel instance at a width no layout takes (H=2304, B=16);
-     gru_layer_scan forward and backward; then gru_layer_scan's own path, a
-     3-layer hoisted-gi decode through its autograd wrapper, counting
-     launches;
+     6: gru_layer_scan_x forward and backward in bf16 and in strict fp32,
+     both on the persistent route (input-gate GEMM and recurrence; sweep, dx
+     GEMM, one dW GEMM over spans of steps and the sum of the spans), each
+     with its exact launches, residual dtypes and two backward runs bit for
+     bit, the fp32 kernels' errors printed beside the in-kernel instance's
+     on the same inputs; the in-kernel instance at a width no layout takes
+     (bf16 H=2304, fp32 H=1536, B=16); fp32 where the sweep keeps its warp
+     tiles (B=64, H=200); gru_layer_scan forward and backward;
+     then gru_layer_scan's own path, a 3-layer hoisted-gi decode through its
+     autograd wrapper, counting launches;
  13. the zinc250k_quality training step (per-layer kernels, two-pass
      scheduled sampling) through the public functions: 20 steps on the
      kernel route with exact launch counts per step (per layer and forward
@@ -61,15 +62,16 @@ each printed on its own lines:
      instance and the stack 0), loss falls, 3 steps on the plain route, one
      make_eval_step (3 GEMMs and recurrences, no sweep);
  14. the strict-fp32 zinc250k step (compute_dtype='float32'): 20 steps on
-     the per-layer kernels in fp32 mode (forward 3, backward 3, encoder and
-     sampler 0), loss falls, 3 plain-route steps within 1e-4, with the TF32
-     switches;
+     the per-layer kernels in fp32 (per layer an input-gate GEMM, a
+     recurrence, a sweep, a dx GEMM, a dW GEMM and the sum of its parts, 3
+     each; the in-kernel instance, encoder and sampler 0), loss falls, 3
+     plain-route steps within 1e-4, with the TF32 switches;
  15. times: both new train steps on both routes, each per-layer kernel
-     against its plain version in bf16 and fp32, the bf16 forward's and
-     backward's device time by kernel, the library yardsticks
-     (torch.nn.GRU on cuDNN, torch.matmul for the dW contraction) in the
-     same call, the device-time split of one step of each, and peak device
-     memory;
+     against its plain version in bf16 and fp32 (and fp32's in-kernel
+     instance), the forward's and backward's device time by kernel in both,
+     the library yardsticks (torch.nn.GRU on cuDNN, torch.matmul for the dW
+     contraction) in the same call, the device-time split of one step of
+     each, and peak device memory;
  16. the automaton kernel (csrc/automaton.cu) against its plain version at
      zinc250k_quality width, B=256: a 120-step greedy walk from seeded
      scores (codes and packed state identical at every step), the same walk
@@ -166,6 +168,7 @@ BEAM = 5
 PEAKS = profiling.H100_SXM
 PEAK_BF16 = PEAKS.bf16_tflops * 1e12  # dense bf16 tensor-core FLOP/s
 PEAK_FP32 = PEAKS.fp32_tflops * 1e12  # fp32 FLOP/s outside the tensor cores (strict fp32)
+PEAK_TF32X3 = PEAKS.tf32_tflops * 1e12 / 3  # fp32 products as 3xTF32 split products
 PEAK_INT32 = PEAKS.int32_tops * 1e12  # int32 op/s: half the fp32 lane rate
 DEVICE = "cuda:0"
 TRAIN_STEPS = 20
@@ -434,7 +437,9 @@ def moses_width_check(dev, gpu: str) -> dict:
     """The stack at moses_scaled width (H=1024, L=4, 256 rows per card),
     seeded weights (uniform +-1/sqrt(H)) and inputs: forward and backward
     against the plain compositions, each kernel against its plain version,
-    and their times beside the per-layer route's forward."""
+    and their times beside the per-layer route's forward; strict-fp32
+    gru_layer_scan_x at layer 0 against its plain versions (its plan takes
+    two launches per layer), and the fp32 per-layer route's forward."""
     mcfg = get_preset("moses_scaled").model
     T, H, L = mcfg.max_len, mcfg.gru_hidden, mcfg.gru_layers
     I0 = mcfg.latent_dim + mcfg.charset_size
@@ -456,24 +461,32 @@ def moses_width_check(dev, gpu: str) -> dict:
     res = (*res_k, x0, h0, wih0, wih, whh)
     layers = [{"w_ih": wih0 if l == 0 else wih[l - 1], "b_ih": bih0 if l == 0 else bih[l - 1],
                "w_hh": whh[l], "b_hh": bhh[l]} for l in range(L)]
+    f32 = torch.float32
+    say("phase8", preset="moses_scaled", md="float32",
+        plan=json.dumps(dataclasses.asdict(gru_stack.stack_plan(B, H, esize=4))).replace(" ", ""))
+    check_layer_x(layer_args(s_args, 0, x0), f32, dY, layer=0, preset="moses_scaled")
     with torch.no_grad():
         ms = {"fwd": time_ms(lambda: gru_stack.stack_forward(*s_args)),
-              "bwd": time_ms(lambda: gru_stack.stack_backward(res, dY, dhf)),
-              "per_layer_fwd": 1e3 * profiling.step_timer(
-                  lambda: kgru.gru_forward_pallas(layers, x0.transpose(0, 1), h0, kernel="per_layer"),
-                  steps=1, rounds=6)}
+              "bwd": time_ms(lambda: gru_stack.stack_backward(res, dY, dhf))}
+        for name, md in (("per_layer_fwd", torch.bfloat16), ("per_layer_fwd_fp32", f32)):
+            ms[name] = 1e3 * profiling.step_timer(
+                lambda: kgru.gru_forward_pallas(layers, x0.transpose(0, 1), h0, md, kernel="per_layer"),
+                steps=1, rounds=6)
     say("phase8", preset="moses_scaled", stack_fwd_ms=f"{ms['fwd']:.4f}", stack_bwd_ms=f"{ms['bwd']:.4f}",
-        per_layer_route_fwd_ms=f"{ms['per_layer_fwd']:.4f}", card=json.dumps(gpu))
+        per_layer_route_fwd_ms=f"{ms['per_layer_fwd']:.4f}",
+        per_layer_route_fwd_fp32_ms=f"{ms['per_layer_fwd_fp32']:.4f}", card=json.dumps(gpu))
     return {"fwd_err": fwd_err, "bwd_err": bwd_err, "ms": ms}
 
 
 STACK_SOURCES = ["molvax_torch/kernels/csrc/gru_stack.cu", "molvax_torch/kernels/csrc/gemm.cuh"]
-# bf16 gru_layer_scan_x runs the stack's kernels; strict fp32 the in-kernel instance
+# gru_layer_scan_x runs the stack's kernels, bf16 and strict fp32; the
+# in-kernel instance where no layout fits
 LAYER_SOURCES = STACK_SOURCES + ["molvax_torch/kernels/csrc/gru_layer.cu"]
-# the stack's kernels as torch.profiler names them (demangled or not)
-STACK_KERNELS = (("gemm_kernel<true, true, 0>", "gemm_gi"), ("gemm_kernelILb1ELb1ELi0E", "gemm_gi"),
-                 ("gemm_kernel<true, false, 1>", "gemm_dx"), ("gemm_kernelILb1ELb0ELi1E", "gemm_dx"),
-                 ("gemm_kernel<false, false, 2>", "gemm_dw"), ("gemm_kernelILb0ELb0ELi2E", "gemm_dw"),
+# the stack's kernels as torch.profiler names them (demangled or not), of
+# either storage type
+STACK_KERNELS = (("gemm_kernel<true, true, 0,", "gemm_gi"), ("gemm_kernelILb1ELb1ELi0E", "gemm_gi"),
+                 ("gemm_kernel<true, false, 1,", "gemm_dx"), ("gemm_kernelILb1ELb0ELi1E", "gemm_dx"),
+                 ("gemm_kernel<false, false, 2,", "gemm_dw"), ("gemm_kernelILb0ELb0ELi2E", "gemm_dw"),
                  ("gru_rec_kernel", "recurrence"), ("gru_sweep_kernel", "sweep"), ("sum_parts_kernel", "dw_sum"))
 
 
@@ -571,10 +584,10 @@ def _check_grads(what, names, grads_k, grads_r, rel_tol, **kv):
 
 def saved_x(args, md):
     """gru_layer_scan_x's input x as its autograd wrapper saves it for the
-    backward: on the bf16 persistent route the padded bf16 copy that the
+    backward: on the persistent route the padded copy in md that the
     forward's GEMM read and the dW GEMM reads again, else x."""
     x, h0 = args[0], args[5]
-    return gru_stack._padded(x) if kgru._persistent(md, x.shape[1], h0.shape[-1]) else x
+    return gru_stack._padded(x, md) if kgru._persistent(md, x.shape[1], h0.shape[-1]) else x
 
 
 def layer_launches(md, B: int, H: int, fwd: int, bwd: int) -> dict:
@@ -583,10 +596,13 @@ def layer_launches(md, B: int, H: int, fwd: int, bwd: int) -> dict:
     the plan a recurrence and a sweep, the GEMMs and the dW parts' sum; or
     the in-kernel instance's forward, sweep and dW contraction."""
     if kgru._persistent(md, B, H):
-        n = gru_stack.stack_plan(B, H).slices
+        n = gru_stack.stack_plan(B, H, esize=md.itemsize).slices
         return {"gru_layer_gemm_gi": fwd, "gru_layer_rec": n * fwd, "gru_layer_sweep": n * bwd,
                 "gru_layer_gemm_dx": bwd, "gru_layer_gemm_dw": bwd, "gru_layer_dw_sum": bwd}
     return {"gru_layer_scan_x_fwd": fwd, "gru_layer_scan_x_bwd_sweep": bwd, "gru_layer_bwd_dw": bwd}
+
+
+IN_KERNEL_ERR = [0.0, 0.0]  # check_layer_x's largest in-kernel errors, forward and gradients
 
 
 def check_layer_x(args, md, dY, **kv):
@@ -594,6 +610,8 @@ def check_layer_x(args, md, dY, **kv):
     shape takes, against their plain versions on the same inputs: residual
     dtypes, exact launches, two backward runs bit for bit. Returns (forward
     max abs error, gradient max abs error, the kernel's residuals)."""
+    kv = dict(kv)
+    compare = kv.pop("compare_in_kernel", False)
     fwd_tol, bwd_rel = _gates(md)
     T, B, I = args[0].shape
     H = args[5].shape[-1]
@@ -627,18 +645,27 @@ def check_layer_x(args, md, dY, **kv):
     if got != layer_launches(md, B, H, 1, 2) or not twice:
         raise AssertionError(f"gru_layer_scan_x ({kv}): launches {got}, two backward runs identical {twice}")
     bwd_err = _check_grads("gru_layer_scan_x_bwd", GRAD_NAMES, grads_k, grads_r, bwd_rel, **kv)
+    if compare:  # the in-kernel instance's errors on the same inputs, beside them
+        with torch.no_grad():
+            res_i = kgru.layer_forward_in_kernel(*args, md)
+            in_res = (*res_i, x, h0, w_ih, w_hh)
+            grads_i, grads_ir = kgru.layer_backward_in_kernel(in_res, dY), kgru.layer_backward_ref(in_res, dY)
+        torch.cuda.synchronize()
+        in_fwd = max_abs(res_i[0], res_r[0])
+        in_bwd = max(max_abs(a, b) for a, b in zip(grads_i, grads_ir))
+        say("phase12", kernel="gru_layer_scan_x", route_errors="persistent_beside_in_kernel",
+            fwd_max_abs_err=f"{max(out_err, hf_err):.3e}", fwd_max_abs_err_in_kernel=f"{in_fwd:.3e}",
+            grad_max_abs_err=f"{bwd_err:.3e}", grad_max_abs_err_in_kernel=f"{in_bwd:.3e}", **kv)
+        IN_KERNEL_ERR[0] = max(IN_KERNEL_ERR[0], in_fwd)
+        IN_KERNEL_ERR[1] = max(IN_KERNEL_ERR[1], in_bwd)
     return max(out_err, hf_err), bwd_err, res_k
 
 
-def wide_layer_check(dev):
-    """bf16 gru_layer_scan_x at a width no layout of the persistent kernels
-    takes (H=2304, B=16; I=329, T=16, seeded weights uniform +-1/sqrt(H)):
-    the in-kernel instance of csrc/gru_layer.cu, against its plain versions.
+def seeded_layer_check(dev, md, T_, B_, I_, H_, label, seed):
+    """gru_layer_scan_x in md at (T, B, I, H), seeded weights uniform
+    +-1/sqrt(H), against its plain versions on the route the shape takes.
     Returns (forward error, gradient error)."""
-    T_, B_, I_, H_ = 16, 16, 329, 2304
-    if kgru.layer_route(B_, H_) != "in_kernel":
-        raise AssertionError(f"layer_route({B_}, {H_}) found a persistent layout")
-    g = torch.Generator(device=dev).manual_seed(SEED + 5)
+    g = torch.Generator(device=dev).manual_seed(seed)
     k = 1.0 / np.sqrt(H_)
 
     def u(*shape):
@@ -647,7 +674,17 @@ def wide_layer_check(dev):
     args = (torch.randn(T_, B_, I_, generator=g, device=dev), u(3 * H_, I_), u(3 * H_), u(3 * H_, H_), u(3 * H_),
             0.1 * torch.randn(B_, H_, generator=g, device=dev))
     dY = 1e-2 * torch.randn(T_, B_, H_, generator=g, device=dev)
-    return check_layer_x(args, torch.bfloat16, dY, layer="wide")[:2]
+    return check_layer_x(args, md, dY, layer=label)[:2]
+
+
+def wide_layer_check(dev, md=torch.bfloat16):
+    """gru_layer_scan_x at a width no layout of the persistent kernels takes
+    in md (bf16 H=2304, fp32 H=1536; B=16, I=329, T=16): the in-kernel
+    instance of csrc/gru_layer.cu. Returns (forward error, gradient error)."""
+    H_ = 2304 if md == torch.bfloat16 else 1536
+    if kgru.layer_route(16, H_, md) != "in_kernel":
+        raise AssertionError(f"layer_route(16, {H_}, {md}) found a persistent layout")
+    return seeded_layer_check(dev, md, 16, 16, 329, H_, "wide", SEED + 5)
 
 
 def check_scan(gi, w_hh, b_hh, h0, dY, **kv):
@@ -1367,7 +1404,7 @@ def main() -> int:
     L = cfg.gru_layers
     plan = gru_stack.stack_plan(B, cfg.gru_hidden)
     say("phase7", preset="zinc250k", plan=json.dumps(dataclasses.asdict(plan)).replace(" ", ""),
-        blocks=plan.blocks, threads=plan.threads)
+        blocks=plan.blocks)
     g = torch.Generator(device=dev).manual_seed(SEED + 2)
     dY = 1e-2 * torch.randn(cfg.max_len, B, cfg.gru_hidden, device=dev, generator=g)
     dhf = 1e-2 * torch.randn(L, B, cfg.gru_hidden, device=dev, generator=g)
@@ -1466,14 +1503,21 @@ def main() -> int:
     layer_err = {torch.bfloat16: [0.0, 0.0], torch.float32: [0.0, 0.0]}
     layer_res = {}
     for md in (torch.bfloat16, torch.float32):
+        cmp = md == torch.float32  # beside the in-kernel instance's errors
         for l, x_l in ((0, s_args[0]), (1, x1)):
             args = layer_args(s_args, l, x_l)
-            fwd_e, bwd_e, layer_res[md, l] = check_layer_x(args, md, dY_l, layer=l)
+            fwd_e, bwd_e, layer_res[md, l] = check_layer_x(args, md, dY_l, layer=l, compare_in_kernel=cmp)
             ragged = tuple(a[:, :6].contiguous() if i == 0 else a for i, a in enumerate(args[:-1])) + (args[-1][:6],)
-            fwd_r, bwd_r, _ = check_layer_x(ragged, md, dY_l[:, :6].contiguous(), layer=l, ragged_batch=6)
+            fwd_r, bwd_r, _ = check_layer_x(ragged, md, dY_l[:, :6].contiguous(), layer=l, ragged_batch=6,
+                                            compare_in_kernel=cmp)
             layer_err[md][0] = max(layer_err[md][0], fwd_e, fwd_r)
             layer_err[md][1] = max(layer_err[md][1], bwd_e, bwd_r)
     wide_err = wide_layer_check(dev)
+    wide_err_fp32 = wide_layer_check(dev, torch.float32)
+    # strict fp32 where the sweep keeps its warp tiles: the plan's 1 x 8
+    # tiles a block (B=64, H=200) have no K-split instance
+    tiles_err = seeded_layer_check(dev, torch.float32, 32, 64, 100, 200, "warp_tiles", SEED + 6)
+    layer_err[torch.float32] = [max(a, b) for a, b in zip(layer_err[torch.float32], tiles_err)]
     x0, wih0, bih0, _, _, whh, bhh, h0 = s_args
     with torch.no_grad():
         gi = x0 @ wih0.T + bih0  # the hoisted input GEMM of layer 0
@@ -1515,10 +1559,10 @@ def main() -> int:
     # -- 14. the strict-fp32 zinc250k training step --------------------------
     ffull = dataclasses.replace(full, name="zinc250k_fp32",
                                 model=dataclasses.replace(cfg, compute_dtype="float32"))
-    _, f_step, f_counts = train_phase(
-        "phase14", ffull, weights, codes,
-        {"gru_layer_scan_x_fwd": L, "gru_layer_scan_x_bwd_sweep": L, "gru_layer_bwd_dw": L},
-        FP32_ROUTE_REL)
+    f_layer = {k: L * v for k, v in layer_launches(torch.float32, B, H, 1, 1).items()}
+    if "gru_layer_rec" not in f_layer:
+        raise AssertionError(f"the strict-fp32 step at B={B}, H={H} is not on the persistent route")
+    _, f_step, f_counts = train_phase("phase14", ffull, weights, codes, f_layer, FP32_ROUTE_REL)
     say("phase14", matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32,
         cudnn_allow_tf32=torch.backends.cudnn.allow_tf32,
         float32_matmul_precision=torch.get_float32_matmul_precision())
@@ -1548,24 +1592,34 @@ def main() -> int:
                     fwd_ms=f"{layer_ms[md, l][0]:.4f}", fwd_plain_ms=f"{layer_ms[md, l][1]:.4f}",
                     bwd_ms=f"{layer_ms[md, l][2]:.4f}", bwd_plain_ms=f"{layer_ms[md, l][3]:.4f}",
                     card=json.dumps(gpu))
+        # the earlier strict-fp32 design, the in-kernel instance, on the same inputs
+        args0 = layer_args(s_args, 0, s_args[0])
+        res0_in = (*kgru.layer_forward_in_kernel(*args0, f32), args0[0], args0[5], args0[1], args0[3])
+        in_kernel_ms = (time_ms(lambda: kgru.layer_forward_in_kernel(*args0, f32)),
+                        time_ms(lambda: kgru.layer_backward_in_kernel(res0_in, dY_l)))
+        say("phase15", kernel="gru_layer_scan_x", md="float32", layer=0, route="in_kernel",
+            fwd_ms=f"{in_kernel_ms[0]:.4f}", bwd_ms=f"{in_kernel_ms[1]:.4f}", card=json.dumps(gpu))
         s_res = (*kgru.scan_forward(*scan_args), h0[0], whh[0])
         scan_ms = (time_ms(lambda: kgru.scan_forward(*scan_args)), time_ms(lambda: kgru.scan_forward_ref(*scan_args)),
                    time_ms(lambda: kgru.scan_backward(s_res, dY_l)),
                    time_ms(lambda: kgru.scan_backward_ref(s_res, dY_l)))
-        # the bf16 kernels' device time by kernel at layer 0 (I=329)
-        args0 = layer_args(s_args, 0, s_args[0])
-        res0_bf = (*layer_res[bf, 0], saved_x(args0, bf), args0[5], args0[1], args0[3])
-        layer_split = {"fwd": stack_split(lambda: kgru.layer_forward(*args0, bf)),
-                       "bwd": stack_split(lambda: kgru.layer_backward(res0_bf, dY_l))}
-        for name, parts in layer_split.items():
-            say("phase15", layer_split=name, layer=0, **{f"{k}_ms": f"{v:.4f}" for k, v in sorted(parts.items())},
-                card=json.dumps(gpu))
-        # bounds of the per-layer kernels at layer 0 (I=329)
-        for md, peak in ((bf, PEAK_BF16), (f32, PEAK_FP32)):
-            args = layer_args(s_args, 0, s_args[0])
-            res0 = (*layer_res[md, 0], s_args[0], args[5], args[1], args[3])
-            ops0 = 2 * B * T * gru_macs(I0, H)
-            bounds["layer_fwd", md] = bound(ops0, nbytes(*args) + nbytes(*layer_res[md, 0]), peak)
+        # the kernels' device time by kernel at layer 0 (I=329), bf16 and fp32
+        layer_split = {}
+        for md in (bf, f32):
+            res0_md = (*layer_res[md, 0], saved_x(args0, md), args0[5], args0[1], args0[3])
+            layer_split["fwd", md] = stack_split(lambda: kgru.layer_forward(*args0, md))
+            layer_split["bwd", md] = stack_split(lambda: kgru.layer_backward(res0_md, dY_l))
+        for (name, md), parts in layer_split.items():
+            say("phase15", layer_split=name, md=str(md).split(".")[-1], layer=0,
+                **{f"{k}_ms": f"{v:.4f}" for k, v in sorted(parts.items())}, card=json.dumps(gpu))
+        # bounds of the per-layer kernels at layer 0 (I=329); strict fp32
+        # against the FMA peak, and as 3xTF32 split products at a third of
+        # the TF32 peak
+        ops0 = 2 * B * T * gru_macs(I0, H)
+        for md, peak in ((bf, PEAK_BF16), (f32, PEAK_FP32), ("tf32x3", PEAK_TF32X3)):
+            mdt = f32 if md == "tf32x3" else md
+            res0 = (*layer_res[mdt, 0], s_args[0], args0[5], args0[1], args0[3])
+            bounds["layer_fwd", md] = bound(ops0, nbytes(*args0) + nbytes(*layer_res[mdt, 0]), peak)
             bounds["layer_bwd", md] = bound(2 * ops0, nbytes(*res0, dY_l) + nbytes(*kgru.layer_backward(res0, dY_l)),
                                             peak)
         bounds["scan_fwd"] = bound(2 * B * T * H * 3 * H, nbytes(*scan_args) + nbytes(*s_res[:3]), PEAK_BF16)
@@ -1631,33 +1685,44 @@ def main() -> int:
               launches_by_kernel={k: train_counts[f"gru_stack_{k}"] for k in ("sweep", "gemm_dx", "gemm_dw")},
               ms_split=split["bwd"]),
         # per-layer times at layer 0 (I=329); layer 1's are on the phase15 lines.
-        # bf16: the stack's GEMM and persistent kernels for one layer
-        # (zinc250k_quality's steps); fp32: the in-kernel instance (the
-        # strict-fp32 steps). ``launches`` counts what it counted before the
-        # bf16 redesign: the serial recurrence's launches forward and the
+        # Both dtypes on the stack's GEMM and persistent kernels for one layer:
+        # bf16 (zinc250k_quality's steps) and strict fp32 (the fp32 steps).
+        # ``launches`` counts the serial recurrence's launches forward and the
         # reverse sweep's backward, of both steps; the GEMMs and the dW sum
-        # are in launches_by_kernel.
+        # are in launches_by_kernel, with the in-kernel instance's (0 on both
+        # steps). The fp32 fields: its errors beside the in-kernel instance's
+        # on the same inputs, its times beside the in-kernel instance's, its
+        # bound at the FMA peak and as 3xTF32 at a third of the TF32 peak.
         entry("gru_layer_scan_x_fwd", "gru_stack.cu", "molvax/kernels/gru.py:527",
-              q_counts["gru_layer_rec"] + f_counts["gru_layer_scan_x_fwd"], layer_err[bf][0], layer_ms[bf, 0][0], layer_ms[bf, 0][1], bounds["layer_fwd", bf], lib["layer_bf16"][0],
-              library_dtype=lib["layer_bf16"][2], sources=LAYER_SOURCES, source_fp32=LAYER_SOURCES[-1],
+              q_counts["gru_layer_rec"] + f_counts["gru_layer_rec"], layer_err[bf][0], layer_ms[bf, 0][0],
+              layer_ms[bf, 0][1], bounds["layer_fwd", bf], lib["layer_bf16"][0],
+              library_dtype=lib["layer_bf16"][2], sources=LAYER_SOURCES, source_fp32=STACK_SOURCES,
               launches_by_kernel={"gemm_gi": q_counts["gru_layer_gemm_gi"], "rec": q_counts["gru_layer_rec"],
-                                  "in_kernel_fp32": f_counts["gru_layer_scan_x_fwd"]},
-              ms_split=layer_split["fwd"], max_abs_err_in_kernel_bf16_H2304=wide_err[0],
-              max_abs_err_fp32=layer_err[f32][0], ms_fp32=layer_ms[f32, 0][0],
-              plain_ms_fp32=layer_ms[f32, 0][1], bound_ms_fp32=bounds["layer_fwd", f32][0],
+                                  "gemm_gi_fp32": f_counts["gru_layer_gemm_gi"], "rec_fp32": f_counts["gru_layer_rec"],
+                                  "in_kernel": q_counts["gru_layer_scan_x_fwd"] + f_counts["gru_layer_scan_x_fwd"]},
+              ms_split=layer_split["fwd", bf], ms_split_fp32=layer_split["fwd", f32],
+              max_abs_err_in_kernel_bf16_H2304=wide_err[0], max_abs_err_in_kernel_fp32_H1536=wide_err_fp32[0],
+              max_abs_err_fp32=layer_err[f32][0], max_abs_err_fp32_in_kernel=IN_KERNEL_ERR[0],
+              ms_fp32=layer_ms[f32, 0][0], ms_fp32_in_kernel=in_kernel_ms[0], plain_ms_fp32=layer_ms[f32, 0][1],
+              bound_ms_fp32=bounds["layer_fwd", f32][0], bound_ms_fp32_tf32x3=bounds["layer_fwd", "tf32x3"][0],
               library_ms_fp32=lib["layer_fp32"][0]),
         entry("gru_layer_scan_x_bwd", "gru_stack.cu", "molvax/kernels/gru.py:689",
-              q_counts["gru_layer_sweep"] + f_counts["gru_layer_scan_x_bwd_sweep"], layer_err[bf][1],
+              q_counts["gru_layer_sweep"] + f_counts["gru_layer_sweep"], layer_err[bf][1],
               layer_ms[bf, 0][2], layer_ms[bf, 0][3], bounds["layer_bwd", bf], lib["layer_bf16"][1],
               library_dtype=lib["layer_bf16"][2], library_ms_dw_matmul=lib["dw_layer0"], sources=LAYER_SOURCES,
-              source_fp32=LAYER_SOURCES[-1],
-              launches_by_kernel={"sweep": q_counts["gru_layer_sweep"], "gemm_dx": q_counts["gru_layer_gemm_dx"],
-                                  "gemm_dw": q_counts["gru_layer_gemm_dw"], "dw_sum": q_counts["gru_layer_dw_sum"],
-                                  "in_kernel_fp32_sweep": f_counts["gru_layer_scan_x_bwd_sweep"],
-                                  "in_kernel_fp32_dw": f_counts["gru_layer_bwd_dw"]},
-              ms_split=layer_split["bwd"], max_abs_err_in_kernel_bf16_H2304=wide_err[1],
-              max_abs_err_fp32=layer_err[f32][1], ms_fp32=layer_ms[f32, 0][2], plain_ms_fp32=layer_ms[f32, 0][3],
-              bound_ms_fp32=bounds["layer_bwd", f32][0], library_ms_fp32=lib["layer_fp32"][1]),
+              source_fp32=STACK_SOURCES,
+              launches_by_kernel={**{k: q_counts[f"gru_layer_{k}"] for k in ("sweep", "gemm_dx", "gemm_dw", "dw_sum")},
+                                  **{f"{k}_fp32": f_counts[f"gru_layer_{k}"]
+                                     for k in ("sweep", "gemm_dx", "gemm_dw", "dw_sum")},
+                                  "in_kernel_sweep": q_counts["gru_layer_scan_x_bwd_sweep"]
+                                  + f_counts["gru_layer_scan_x_bwd_sweep"],
+                                  "in_kernel_dw": q_counts["gru_layer_bwd_dw"] + f_counts["gru_layer_bwd_dw"]},
+              ms_split=layer_split["bwd", bf], ms_split_fp32=layer_split["bwd", f32],
+              max_abs_err_in_kernel_bf16_H2304=wide_err[1], max_abs_err_in_kernel_fp32_H1536=wide_err_fp32[1],
+              max_abs_err_fp32=layer_err[f32][1], max_abs_err_fp32_in_kernel=IN_KERNEL_ERR[1],
+              ms_fp32=layer_ms[f32, 0][2], ms_fp32_in_kernel=in_kernel_ms[1], plain_ms_fp32=layer_ms[f32, 0][3],
+              bound_ms_fp32=bounds["layer_bwd", f32][0], bound_ms_fp32_tf32x3=bounds["layer_bwd", "tf32x3"][0],
+              library_ms_fp32=lib["layer_fp32"][1]),
         entry("gru_layer_scan_fwd", "gru_layer.cu", "molvax/kernels/gru.py:237", scan_counts["gru_layer_scan_fwd"],
               scan_fwd_err, scan_ms[0], scan_ms[1], bounds["scan_fwd"], None),
         entry("gru_layer_scan_bwd", "gru_layer.cu", "molvax/kernels/gru.py:348",

@@ -1,19 +1,23 @@
-// A bf16 tensor-core GEMM with fp32 accumulation, and the PTX helpers the
-// persistent GRU recurrences share with it.
+// A tensor-core GEMM with fp32 accumulation, in bf16 and in strict fp32,
+// and the PTX helpers the persistent GRU recurrences share with it.
 //
-// C (M, N) = A (M, K) . B (K, N), bf16 operands, fp32 sums, on
-// mma.sync.m16n8k16. Each operand lies in device memory in one of two
-// layouts, a template flag each:
+// C (M, N) = A (M, K) . B (K, N), fp32 sums, operands of type E: bf16 on
+// mma.sync.m16n8k16; or fp32 (the strict mode), as 3xTF32 split products
+// on mma.sync.m16n8k8.tf32 (fp32_k8 below). Each operand lies in device
+// memory in one of two layouts, a template flag each:
 //   A_KMAJOR: A[m][k] at a[m * lda + k] (else A[m][k] at a[k * lda + m])
 //   B_KMAJOR: B[k][n] at b[n * ldb + k] (else B[k][n] at b[k * ldb + n])
-// Leading dimensions are multiples of 8 elements and bases 16-byte aligned,
-// so every tile row is copied in 16-byte cp.async chunks; a chunk that
-// crosses the ragged edge of M, N or K copies only its valid bytes and
-// zero-fills the rest (cp.async's src-size), so padding columns are never
-// read. Tiles of 128 x 128 x 32 pass through a 3-stage ring in shared
-// memory, rows padded by 16 bytes so that ldmatrix reads are free of bank
-// conflicts; ldmatrix.trans turns an M- or N-contiguous tile into the
-// fragment mma.sync expects. 8 warps, 64 x 32 outputs each.
+// Leading dimensions are multiples of 16 bytes (8 bf16, 4 fp32) and bases
+// 16-byte aligned, so every tile row is copied in 16-byte cp.async chunks; a
+// chunk that crosses the ragged edge of M, N or K copies only its valid
+// bytes and zero-fills the rest (cp.async's src-size), so padding columns
+// are never read. Tiles of 128 x 128 x 32 pass through a 3-stage ring in
+// shared memory. bf16 rows are padded by 16 bytes so that ldmatrix reads
+// are free of bank conflicts; ldmatrix.trans turns an M- or N-contiguous
+// tile into the fragment mma.sync expects. fp32 fragments are read one
+// 32-bit word a thread, K-contiguous rows padded by 4 words and M- or
+// N-contiguous ones by 8, which keeps those reads free of conflicts too.
+// 8 warps, 64 x 32 outputs each.
 //
 // Epilogues (GemmEpi):
 //   EPI_BIAS: C fp32 = acc + bias[n]              the hoisted input gates
@@ -33,6 +37,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "common.cuh"
 
 namespace {
 
@@ -87,11 +93,75 @@ __device__ __forceinline__ void mma_bf16(float d[4], const uint32_t a[4], const 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// Bytes of a 16-byte chunk at element `at` of a row whose valid elements
-// end at `limit`: 16, a partial count, or 0.
+// Bytes of a 16-byte chunk at element `at` of a row of E whose valid
+// elements end at `limit`: 16, a partial count, or 0.
+template <typename E = __nv_bfloat16>
 __device__ __forceinline__ int chunk_bytes(int at, int limit) {
   const int n = limit - at;
-  return n >= 8 ? 16 : (n > 0 ? 2 * n : 0);
+  return n >= 16 / (int)sizeof(E) ? 16 : (n > 0 ? (int)sizeof(E) * n : 0);
+}
+
+// -- strict fp32 products ----------------------------------------------------
+//
+// The fp32 kernels (this GEMM's fp32 instance, the persistent recurrence
+// and sweep's) multiply as 3xTF32: each fp32 operand x is split on the fly
+// into hi = tf32(x) and lo = tf32(x - hi), and lo.hi + hi.lo + hi.hi run on
+// mma.sync.m16n8k8.tf32 with fp32 sums. Nothing is rounded to TF32 or bf16
+// alone: the dropped lo.lo term lies below fp32's last bit. The tensor core
+// truncates as it adds a product into its fp32 accumulator, so a long chain
+// of products into one accumulator drifts toward zero by up to an ulp a
+// product; the GEMM therefore sums each k-tile apart and adds it to its
+// total in fp32 registers (round to nearest), as the FMA pipes would.
+// (probes/stack_probe.py --steps times this form against FFMA, the cvt
+// split and the GEMM without that flush, and measures each one's error.)
+
+// hi: x rounded to TF32, to nearest with ties away from zero (the rounding
+// of cvt.rna.tf32.f32, here on the integer pipe: cvt is the slower path);
+// lo = x - hi, exact in fp32, of which the tensor core reads the TF32 part
+// (its top 19 bits)
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// d += a . b on one 16 x 8 x 8 tile: tf32 operands, fp32 accumulators
+__device__ __forceinline__ void mma_tf32(float d[4], const uint32_t a[4], const uint32_t b[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// acc[i][j] + corr[i][j] += A (16 MT x 8) . B (8 x 8 NT) of fp32 operands
+// read as a(m, k) and b(k, n), in the accumulator layout of mma.sync:
+// element e of tile (i, j) is (row 16 i + lane / 4 + 8 (e / 2), column 8 j +
+// 2 (lane % 4) + e % 2), so the epilogues and the gate math read the same
+// registers in bf16 and fp32. hi.hi sums into acc and the cross terms into
+// corr: two chains of dependent products where the caller keeps corr apart
+// (and adds it to acc at the end), one where it passes acc twice.
+template <int MT, int NT, typename AF, typename BF>
+__device__ __forceinline__ void fp32_k8(float (&acc)[MT][NT][4], float (&corr)[MT][NT][4], AF a, BF b,
+                                        int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  uint32_t bh[NT][2], bl[NT][2];
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    split_tf32(b(t, 8 * j + g), bh[j][0], bl[j][0]);
+    split_tf32(b(t + 4, 8 * j + g), bh[j][1], bl[j][1]);
+  }
+#pragma unroll
+  for (int i = 0; i < MT; ++i) {
+    uint32_t ah[4], al[4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) split_tf32(a(16 * i + g + 8 * (r & 1), t + 4 * (r >> 1)), ah[r], al[r]);
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      mma_tf32(corr[i][j], al, bh[j]);
+      mma_tf32(corr[i][j], ah, bl[j]);
+      mma_tf32(acc[i][j], ah, bh[j]);
+    }
+  }
 }
 
 // -- the GEMM ----------------------------------------------------------------
@@ -110,7 +180,7 @@ struct GemmJob {
   int M, N, K;        // N excludes EPI_DW's column of ones
   int lda, ldb, ldc;
   int b_nfirst;
-  int out_bf16;       // EPI_OUT: store bf16
+  int out_bf16;       // EPI_OUT: store bf16 (bf16 operands only)
 };
 
 constexpr int GEMM_MAX_JOBS = 16;
@@ -122,48 +192,64 @@ struct GemmJobs {
 constexpr int GBM = 128, GBN = 128, GBK = 32, GSTAGES = 3, GTHREADS = 256;
 constexpr int GPAD = 8;  // elements of padding per shared-memory row
 
-// shared-memory elements of one stage of an operand tile
-template <bool KMAJOR>
-__host__ __device__ constexpr int tile_elems(int rows) {
-  return KMAJOR ? rows * (GBK + GPAD) : GBK * (rows + GPAD);
+// elements of padding per shared-memory row of a tile of E
+template <bool KMAJOR, typename E>
+__host__ __device__ constexpr int gpad() {
+  return sizeof(E) == 2 ? GPAD : (KMAJOR ? 4 : 8);
 }
 
+// shared-memory elements of one stage of an operand tile
+template <bool KMAJOR, typename E = __nv_bfloat16>
+__host__ __device__ constexpr int tile_elems(int rows) {
+  return KMAJOR ? rows * (GBK + gpad<KMAJOR, E>()) : GBK * (rows + gpad<KMAJOR, E>());
+}
+
+template <typename E = __nv_bfloat16>
 constexpr size_t gemm_smem_bytes() {
-  return (size_t)GSTAGES * (tile_elems<true>(GBM) + tile_elems<true>(GBN)) *
-         sizeof(__nv_bfloat16);
+  if constexpr (sizeof(E) == 2)
+    return (size_t)GSTAGES * (tile_elems<true>(GBM) + tile_elems<true>(GBN)) *
+           sizeof(__nv_bfloat16);
+  else  // the larger of the two layouts, for either operand
+    return (size_t)GSTAGES * 2 * tile_elems<true, E>(GBM) * sizeof(E);
 }
 
 // Copy one BK-deep tile of an operand into shared memory. `rows` is the
 // tile's extent along M (or N) from `r0`, valid below `rlim`; k from k0,
 // valid below klim.
-template <bool KMAJOR>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* s, const __nv_bfloat16* g,
-                                          const __nv_bfloat16* g_first, int nfirst, int ld,
+template <bool KMAJOR, typename E = __nv_bfloat16>
+__device__ __forceinline__ void load_tile(E* s, const E* g, const E* g_first, int nfirst, int ld,
                                           int r0, int rlim, int k0, int klim, int tid) {
-  if constexpr (KMAJOR) {  // GBM rows of GBK: 4 chunks a row
-    constexpr int CH = GBK / 8;
+  constexpr int EPC = 16 / sizeof(E);  // elements per 16-byte chunk
+  if constexpr (KMAJOR) {  // GBM rows of GBK: 4 (bf16) or 8 (fp32) chunks a row
+    constexpr int CH = GBK / EPC;
 #pragma unroll
     for (int i = 0; i < GBM * CH / GTHREADS; ++i) {
       const int c = tid + i * GTHREADS;
-      const int row = c / CH, kc = (c % CH) * 8;
+      const int row = c / CH, kc = (c % CH) * EPC;
       const int r = r0 + row, k = k0 + kc;
-      const int bytes = r < rlim ? chunk_bytes(k, klim) : 0;
-      const __nv_bfloat16* src = bytes ? g + (size_t)r * ld + k : g;
-      cp_async16(s + row * (GBK + GPAD) + kc, src, bytes);
+      const int bytes = r < rlim ? chunk_bytes<E>(k, klim) : 0;
+      const E* src = bytes ? g + (size_t)r * ld + k : g;
+      cp_async16(s + row * (GBK + gpad<KMAJOR, E>()) + kc, src, bytes);
     }
-  } else {  // GBK rows (k) of GBM: 16 chunks a row
-    constexpr int CH = GBM / 8;
+  } else {  // GBK rows (k) of GBM: 16 (bf16) or 32 (fp32) chunks a row
+    constexpr int CH = GBM / EPC;
 #pragma unroll
     for (int i = 0; i < GBK * CH / GTHREADS; ++i) {
       const int c = tid + i * GTHREADS;
-      const int row = c / CH, mc = (c % CH) * 8;
+      const int row = c / CH, mc = (c % CH) * EPC;
       const int k = k0 + row, r = r0 + mc;
-      const int bytes = k < klim ? chunk_bytes(r, rlim) : 0;
-      const __nv_bfloat16* src = g;
+      const int bytes = k < klim ? chunk_bytes<E>(r, rlim) : 0;
+      const E* src = g;
       if (bytes) src = k < nfirst ? g_first + (size_t)k * ld + r : g + (size_t)(k - nfirst) * ld + r;
-      cp_async16(s + row * (GBM + GPAD) + mc, src, bytes);
+      cp_async16(s + row * (GBM + gpad<KMAJOR, E>()) + mc, src, bytes);
     }
   }
+}
+
+// Element (r, k) of an fp32 operand tile in shared memory, r along M (or N)
+template <bool KMAJOR>
+__device__ __forceinline__ float tile_at(const float* s, int r, int k) {
+  return KMAJOR ? s[r * (GBK + gpad<true, float>()) + k] : s[k * (GBM + gpad<false, float>()) + r];
 }
 
 // A fragment of the 16 x 16 tile at (m, kk) of an A tile in shared memory
@@ -191,7 +277,7 @@ __device__ __forceinline__ void frag_b2(uint32_t b[4], const __nv_bfloat16* s, i
   }
 }
 
-template <bool A_KMAJOR, bool B_KMAJOR, int EPI>
+template <bool A_KMAJOR, bool B_KMAJOR, int EPI, typename E = __nv_bfloat16>
 __global__ void __launch_bounds__(GTHREADS)
 gemm_kernel(GemmJobs jobs) {
   const GemmJob& jb = jobs.job[blockIdx.z];
@@ -203,12 +289,12 @@ gemm_kernel(GemmJobs jobs) {
   const int n0 = (blockIdx.x % tiles_n) * GBN;
 
   extern __shared__ __align__(16) unsigned char gsmem[];
-  constexpr int A_ST = tile_elems<A_KMAJOR>(GBM), B_ST = tile_elems<B_KMAJOR>(GBN);
-  __nv_bfloat16* sA = reinterpret_cast<__nv_bfloat16*>(gsmem);
-  __nv_bfloat16* sB = sA + GSTAGES * A_ST;
-  const __nv_bfloat16* ga = static_cast<const __nv_bfloat16*>(jb.a);
-  const __nv_bfloat16* gb = static_cast<const __nv_bfloat16*>(jb.b);
-  const __nv_bfloat16* gbf = static_cast<const __nv_bfloat16*>(jb.b_first);
+  constexpr int A_ST = tile_elems<A_KMAJOR, E>(GBM), B_ST = tile_elems<B_KMAJOR, E>(GBN);
+  E* sA = reinterpret_cast<E*>(gsmem);
+  E* sB = sA + GSTAGES * A_ST;
+  const E* ga = static_cast<const E*>(jb.a);
+  const E* gb = static_cast<const E*>(jb.b);
+  const E* gbf = static_cast<const E*>(jb.b_first);
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wm = (warp >> 2) * 64, wn = (warp & 3) * 32;
@@ -224,9 +310,9 @@ gemm_kernel(GemmJobs jobs) {
   auto issue = [&](int kt) {
     if (kt < KT) {
       const int st = kt % GSTAGES;
-      load_tile<A_KMAJOR>(sA + st * A_ST, ga, ga, 0, jb.lda, m0, jb.M, kt * GBK, jb.K, tid);
-      load_tile<B_KMAJOR>(sB + st * B_ST, gb, gbf, jb.b_nfirst, jb.ldb, n0, jb.N, kt * GBK,
-                          jb.K, tid);
+      load_tile<A_KMAJOR, E>(sA + st * A_ST, ga, ga, 0, jb.lda, m0, jb.M, kt * GBK, jb.K, tid);
+      load_tile<B_KMAJOR, E>(sB + st * B_ST, gb, gbf, jb.b_nfirst, jb.ldb, n0, jb.N, kt * GBK,
+                             jb.K, tid);
     }
     cp_async_commit();  // empty groups keep the count uniform
   };
@@ -242,31 +328,42 @@ gemm_kernel(GemmJobs jobs) {
       static_assert(!B_KMAJOR, "the column of ones needs B in (K, N) layout");
       const int cn = jb.N - n0;
       if (cn >= 0 && cn < GBN) {
-        constexpr int CH = GBN / 8;
+        constexpr int EPC = 16 / sizeof(E);
+        constexpr int CH = GBN / EPC;
 #pragma unroll
         for (int i = 0; i < GBK * CH / GTHREADS; ++i) {
           const int c = tid + i * GTHREADS;
           const int row = c / CH;
-          if ((c % CH) == cn / 8 && kt * GBK + row < jb.K)
-            sB[st * B_ST + row * (GBN + GPAD) + cn] = __float2bfloat16_rn(1.0f);
+          if ((c % CH) == cn / EPC && kt * GBK + row < jb.K)
+            sB[st * B_ST + row * (GBN + gpad<false, E>()) + cn] = from_f<E>(1.0f);
         }
       }
     }
     __syncthreads();
     issue(kt + GSTAGES - 1);
-    const __nv_bfloat16* a_s = sA + st * A_ST;
-    const __nv_bfloat16* b_s = sB + st * B_ST;
+    const E* a_s = sA + st * A_ST;
+    const E* b_s = sB + st * B_ST;
+    if constexpr (sizeof(E) == 2) {
 #pragma unroll
-    for (int kk = 0; kk < GBK; kk += 16) {
-      uint32_t af[4][4], bfr[2][4];
+      for (int kk = 0; kk < GBK; kk += 16) {
+        uint32_t af[4][4], bfr[2][4];
 #pragma unroll
-      for (int mi = 0; mi < 4; ++mi) frag_a<A_KMAJOR>(af[mi], a_s, wm + mi * 16, kk, lane);
+        for (int mi = 0; mi < 4; ++mi) frag_a<A_KMAJOR>(af[mi], a_s, wm + mi * 16, kk, lane);
 #pragma unroll
-      for (int np = 0; np < 2; ++np) frag_b2<B_KMAJOR>(bfr[np], b_s, wn + np * 16, kk, lane);
+        for (int np = 0; np < 2; ++np) frag_b2<B_KMAJOR>(bfr[np], b_s, wn + np * 16, kk, lane);
 #pragma unroll
-      for (int mi = 0; mi < 4; ++mi)
+        for (int mi = 0; mi < 4; ++mi)
 #pragma unroll
-        for (int ni = 0; ni < 4; ++ni) mma_bf16(acc[mi][ni], af[mi], &bfr[ni >> 1][(ni & 1) * 2]);
+          for (int ni = 0; ni < 4; ++ni) mma_bf16(acc[mi][ni], af[mi], &bfr[ni >> 1][(ni & 1) * 2]);
+      }
+    } else {  // the k-tile sums apart, then adds to acc in fp32 (see fp32_k8)
+      float part[4][4][4] = {};
+#pragma unroll
+      for (int kk = 0; kk < GBK; kk += 8)
+        fp32_k8(part, part, [&](int m, int k) { return tile_at<A_KMAJOR>(a_s, wm + m, kk + k); },
+                [&](int k, int n) { return tile_at<B_KMAJOR>(b_s, wn + n, kk + k); }, lane);
+#pragma unroll
+      for (int i = 0; i < 64; ++i) (&acc[0][0][0])[i] += (&part[0][0][0])[i];
     }
   }
   cp_async_wait<0>();
@@ -286,7 +383,7 @@ gemm_kernel(GemmJobs jobs) {
           if (n < jb.N) static_cast<float*>(jb.c)[(size_t)m * jb.ldc + n] = v + jb.bias[n];
         } else if constexpr (EPI == EPI_OUT) {
           if (n < jb.N) {
-            if (jb.out_bf16)
+            if (sizeof(E) == 2 && jb.out_bf16)
               static_cast<__nv_bfloat16*>(jb.c)[(size_t)m * jb.ldc + n] = __float2bfloat16_rn(v);
             else
               static_cast<float*>(jb.c)[(size_t)m * jb.ldc + n] = v;
@@ -315,19 +412,20 @@ __global__ void sum_parts_kernel(const float* __restrict__ parts, int k, long lo
 }
 
 // Launch n jobs of one product kind in one grid.
-template <bool A_KMAJOR, bool B_KMAJOR, int EPI>
+template <bool A_KMAJOR, bool B_KMAJOR, int EPI, typename E = __nv_bfloat16>
 cudaError_t launch_gemm(const GemmJobs& jobs, int n, cudaStream_t stream) {
   if (n <= 0 || n > GEMM_MAX_JOBS) return cudaErrorInvalidValue;
+  constexpr int EPC = 16 / sizeof(E);
   int max_tiles = 0;
   for (int i = 0; i < n; ++i) {
     const GemmJob& j = jobs.job[i];
-    if (j.M <= 0 || j.N <= 0 || j.K <= 0 || j.lda % 8 || j.ldb % 8) return cudaErrorInvalidValue;
+    if (j.M <= 0 || j.N <= 0 || j.K <= 0 || j.lda % EPC || j.ldb % EPC) return cudaErrorInvalidValue;
     const int Nc = EPI == EPI_DW ? j.N + 1 : j.N;
     const int tiles = ((j.M + GBM - 1) / GBM) * ((Nc + GBN - 1) / GBN);
     if (tiles > max_tiles) max_tiles = tiles;
   }
-  auto kernel = gemm_kernel<A_KMAJOR, B_KMAJOR, EPI>;
-  const size_t smem = gemm_smem_bytes();
+  auto kernel = gemm_kernel<A_KMAJOR, B_KMAJOR, EPI, E>;
+  const size_t smem = gemm_smem_bytes<E>();
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;

@@ -68,6 +68,24 @@
 // the rest the per-step loads, gate math and stores. Latency, not the
 // tensor cores or bandwidth, bounds all three.
 //
+// Strict fp32 (the per-layer route's compute_dtype='float32') runs the same
+// kernels with E = float: every operand, residual and cotangent fp32, the
+// products fp32, or 3xTF32 split products of fp32 accuracy (csrc/gemm.cuh,
+// fp32_k8), never a single-pass TF32 or bf16 product. An fp32 W_hh slice
+// takes twice the shared memory, so the plan (stack_plan with 4-byte
+// elements) gives a block half the units and twice the rows (zinc250k,
+// B=256: 8 groups x 16 blocks of 32 units and 32 rows) and streams the row
+// block in chunks (128 columns forward, 144 in the sweep). A 3xTF32 k-step
+// is three products and six operand splits where bf16 has one product, so
+// the fp32 warps of a block split its rows as well as its units
+// (warp_tile, up to 8 warps), the cross terms sum into accumulators of
+// their own (two chains in flight a k-step), and the main loops carry no
+// branch, so that loads run ahead of the products. The sweep, whose warp
+// tile (16 rows x 8 units) would read and split six operand words per
+// three products, splits its K across 8 warps instead where the plan's
+// tiles fit (gru_sweep_kernel's RT x NG instances). Where a step's time
+// goes: PERF.md (section 6), from stack_probe.py --steps.
+//
 // The fused3 probe (molvax_gru_fused3_fwd, gru_stack_fwd_kernel<true>) is
 // the previous design's stack forward as the design probe
 // bench/gru_experiments.py::run_fused3 (_fused3_kernel) ran it: a block of
@@ -213,7 +231,10 @@ gru_stack_fwd_kernel(const __nv_bfloat16* __restrict__ x0,    // (T, B, I0)
 
 // -- the persistent recurrences ---------------------------------------------
 
-constexpr int SPAD = 8;  // elements of padding per shared-memory row
+// elements of padding per shared-memory row: 16 bytes (8 bf16, 4 fp32), which
+// keeps ldmatrix (bf16) and the fp32 word reads of fp32_k8 free of conflicts
+template <typename E>
+constexpr int SPAD = 16 / (int)sizeof(E);
 
 // The row groups' barrier: every block of the group has stored its part of
 // step t (count reaches `target`) before any reads it.
@@ -231,24 +252,24 @@ __device__ __forceinline__ void group_barrier(int* flag, int target) {
   __syncthreads();
 }
 
-// The group's bf16 row block (rows x K of a (., ld) array, rows from r0,
+// The group's row block of E (rows x K of a (., ld) array, rows from r0,
 // valid below rlim, columns valid below klim) streamed in chunks of
 // `chunk` columns through `stages` (1 or 2) buffers of rows x (chunk +
 // SPAD); body(buf, k0, klen) runs on each chunk once it landed. Earlier
 // cp.async groups of the thread are waited for too.
-template <typename Body>
-__device__ __forceinline__ void stream_rows(__nv_bfloat16* ring, const __nv_bfloat16* src,
-                                            int ld, int rows, int r0, int rlim, int K, int klim,
-                                            int chunk, Body body) {
+template <typename E, typename Body>
+__device__ __forceinline__ void stream_rows(E* ring, const E* src, int ld, int rows, int r0, int rlim,
+                                            int K, int klim, int chunk, Body body) {
+  constexpr int EPC = 16 / (int)sizeof(E);  // elements per 16-byte chunk
   const int nch = (K + chunk - 1) / chunk;
-  const int cpr = chunk / 8;  // 16-byte chunks per row
-  const int stride = chunk + SPAD;
+  const int cpr = chunk / EPC;  // 16-byte chunks per row
+  const int stride = chunk + SPAD<E>;
   auto issue = [&](int c) {
-    __nv_bfloat16* buf = ring + (size_t)(c & 1) * rows * stride;
+    E* buf = ring + (size_t)(c & 1) * rows * stride;
     for (int i = threadIdx.x; i < rows * cpr; i += blockDim.x) {
-      const int row = i / cpr, kc = (i % cpr) * 8;
+      const int row = i / cpr, kc = (i % cpr) * EPC;
       const int r = r0 + row, k = c * chunk + kc;
-      const int bytes = r < rlim ? chunk_bytes(k, klim) : 0;
+      const int bytes = r < rlim ? chunk_bytes<E>(k, klim) : 0;
       cp_async16(buf + row * stride + kc, bytes ? src + (size_t)r * ld + k : src, bytes);
     }
     cp_async_commit();
@@ -270,44 +291,47 @@ __device__ __forceinline__ void stream_rows(__nv_bfloat16* ring, const __nv_bflo
 // Copy `n` rows of K valid columns (of Kp) into shared memory rows of
 // Kp + SPAD; row i comes from src_row(i) or is zero where that is null
 // (`base`, any valid global address, stands in for it).
-template <typename RowPtr>
-__device__ __forceinline__ void load_resident(__nv_bfloat16* s, int n, int K, int Kp,
-                                              const __nv_bfloat16* base, RowPtr src_row) {
-  const int cpr = Kp / 8;
+template <typename E, typename RowPtr>
+__device__ __forceinline__ void load_resident(E* s, int n, int K, int Kp, const E* base, RowPtr src_row) {
+  constexpr int EPC = 16 / (int)sizeof(E);
+  const int cpr = Kp / EPC;
   for (int i = threadIdx.x; i < n * cpr; i += blockDim.x) {
-    const int row = i / cpr, kc = (i % cpr) * 8;
-    const __nv_bfloat16* g = src_row(row);
-    const int bytes = g ? chunk_bytes(kc, K) : 0;
-    cp_async16(s + (size_t)row * (Kp + SPAD) + kc, bytes ? g + kc : base, bytes);
+    const int row = i / cpr, kc = (i % cpr) * EPC;
+    const E* g = src_row(row);
+    const int bytes = g ? chunk_bytes<E>(kc, K) : 0;
+    cp_async16(s + (size_t)row * (Kp + SPAD<E>) + kc, bytes ? g + kc : base, bytes);
   }
   cp_async_commit();
 }
 
+// E: the storage type, __nv_bfloat16 or float (strict fp32)
+template <typename E>
 struct RecArgs {
   const float* gi;            // (T, B, 3H) fp32, bias included
-  const __nv_bfloat16* whh;   // (3H, ldw) bf16, torch layout
+  const E* whh;               // (3H, ldw) torch layout
   const float* bhh;           // (3H)
   const float* h0;            // (B, H) fp32
-  const __nv_bfloat16* h0b;   // (B, ldh) bf16(h0)
-  __nv_bfloat16* hseq;        // (T, B, ldh)
-  __nv_bfloat16* rzn;         // (T, B, 3H)
-  __nv_bfloat16* ghn;         // (T, B, H)
+  const E* h0b;               // (B, ldh) h0 in E
+  E* hseq;                    // (T, B, ldh)
+  E* rzn;                     // (T, B, 3H)
+  E* ghn;                     // (T, B, H)
   int* flags;                 // (g) zeros
   int T, B, H, ldw, ldh;
   int units, rows, q, chunk;  // the plan
   int row_base, row_end;      // the batch rows of this launch
 };
 
+template <typename E>
 struct SweepArgs {
-  const __nv_bfloat16* hseq;  // (T, B, ldh) the layer's h sequence
-  const __nv_bfloat16* h0b;   // (B, ldh)
-  const __nv_bfloat16* rzn;   // (T, B, 3H)
-  const __nv_bfloat16* ghn;   // (T, B, H)
+  const E* hseq;              // (T, B, ldh) the layer's h sequence
+  const E* h0b;               // (B, ldh)
+  const E* rzn;               // (T, B, 3H)
+  const E* ghn;               // (T, B, H)
   const float* ext;           // (T, B, H) fp32 cotangent from above
   const float* dhf;           // (B, H) fp32 cotangent of h_final
-  const __nv_bfloat16* whhT;  // (H, ldw) bf16: W_hh transposed
-  __nv_bfloat16* dgi;         // (T, B, ldd)
-  __nv_bfloat16* dgh;         // (T, B, ldd)
+  const E* whhT;              // (H, ldw): W_hh transposed
+  E* dgi;                     // (T, B, ldd)
+  E* dgh;                     // (T, B, ldd)
   float* dh0;                 // (B, H)
   int* flags;
   int T, B, H, ldh, ldw, ldd;
@@ -318,32 +342,49 @@ struct SweepArgs {
 __host__ __device__ inline int round16(int x) { return (x + 15) / 16 * 16; }
 
 // the resident W_hh slice, then the ring of one or two chunk buffers
+template <typename E>
 size_t rec_smem(int H, int units, int rows, int chunk) {
   const int K = round16(H);
-  return ((size_t)3 * units * (K + SPAD) + (size_t)(chunk >= K ? 1 : 2) * rows * (chunk + SPAD)) *
-         sizeof(__nv_bfloat16);
+  return ((size_t)3 * units * (K + SPAD<E>) + (size_t)(chunk >= K ? 1 : 2) * rows * (chunk + SPAD<E>)) *
+         sizeof(E);
 }
 
+template <typename E>
 size_t sweep_smem(int H, int units, int rows, int chunk) {
   const int K = round16(3 * H);
-  return ((size_t)units * (K + SPAD) + (size_t)(chunk >= K ? 1 : 2) * rows * (chunk + SPAD)) *
-         sizeof(__nv_bfloat16);
+  return ((size_t)units * (K + SPAD<E>) + (size_t)(chunk >= K ? 1 : 2) * rows * (chunk + SPAD<E>)) *
+         sizeof(E);
 }
 
-// Forward recurrence of one layer. MT = rows / 16 m16 tiles; warp w owns
-// units [8w, 8w + 8) of the block's slice, their r, z and n columns.
-template <int MT>
-__global__ void __launch_bounds__(256) gru_rec_kernel(const RecArgs a) {
+// Which of the block's (row, unit) pairs warp w holds: units [8 wu, 8 wu +
+// 8) of the slice, for MT m16 row tiles from row wr of the group's block of
+// rows. bf16: all of them (wu = w, wr = 0, MT = rows / 16). fp32, whose
+// products take 4-6 times as long: the warps of a block split the rows too
+// (warp_rows), so that up to 8 warps share a step.
+template <typename E, int MT>
+__device__ __forceinline__ void warp_tile(int warp, int units, int& wu, int& wr) {
+  wu = sizeof(E) == 2 ? warp : warp % (units / 8);
+  wr = sizeof(E) == 2 ? 0 : warp / (units / 8) * 16 * MT;
+}
+
+// Forward recurrence of one layer, MT m16 row tiles a warp (warp_tile):
+// warp w owns 8 units of the block's slice, their r, z and n columns. bf16
+// products on mma.sync.m16n8k16, fp32 ones through fp32_k8: the same
+// accumulator fragments either way.
+template <typename E, int MT>
+__global__ void __launch_bounds__(256) gru_rec_kernel(const RecArgs<E> a) {
   extern __shared__ __align__(16) unsigned char rsmem[];
   const int H = a.H, G = 3 * H, K = round16(H);
   const int grp = blockIdx.x / a.q, u0 = (blockIdx.x % a.q) * a.units;
   const int r0 = a.row_base + grp * a.rows;
-  __nv_bfloat16* sW = reinterpret_cast<__nv_bfloat16*>(rsmem);
-  __nv_bfloat16* ring = sW + (size_t)3 * a.units * (K + SPAD);
+  E* sW = reinterpret_cast<E*>(rsmem);
+  E* ring = sW + (size_t)3 * a.units * (K + SPAD<E>);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int wu, wr;
+  warp_tile<E, MT>(warp, a.units, wu, wr);
 
   // W_hh rows gate * H + u0 + u, resident for the whole sweep
-  load_resident(sW, 3 * a.units, H, K, a.whh, [&](int row) -> const __nv_bfloat16* {
+  load_resident(sW, 3 * a.units, H, K, a.whh, [&](int row) -> const E* {
     const int gate = row / a.units, u = u0 + row % a.units;
     return u < H ? a.whh + (size_t)(gate * H + u) * a.ldw : nullptr;
   });
@@ -353,12 +394,12 @@ __global__ void __launch_bounds__(256) gru_rec_kernel(const RecArgs a) {
   bool ok[MT][4];
   float h[MT][4];
 #pragma unroll
-  for (int e = 0; e < 4; ++e) unit[e] = u0 + warp * 8 + (lane & 3) * 2 + (e & 1);
+  for (int e = 0; e < 4; ++e) unit[e] = u0 + wu * 8 + (lane & 3) * 2 + (e & 1);
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      rowof[mt][e] = r0 + mt * 16 + (lane >> 2) + (e >> 1) * 8;
+      rowof[mt][e] = r0 + wr + mt * 16 + (lane >> 2) + (e >> 1) * 8;
       ok[mt][e] = rowof[mt][e] < a.row_end && unit[e] < H && unit[e] < u0 + a.units;
       h[mt][e] = ok[mt][e] ? a.h0[(size_t)rowof[mt][e] * H + unit[e]] : 0.0f;
     }
@@ -368,8 +409,8 @@ __global__ void __launch_bounds__(256) gru_rec_kernel(const RecArgs a) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) bh[gte][e] = unit[e] < H ? a.bhh[gte * H + unit[e]] : 0.0f;
 
-  const __nv_bfloat16* wrow = sW + (size_t)(warp * 8 + (lane & 7)) * (K + SPAD) + ((lane >> 3) & 1) * 8;
-  const size_t wgate = (size_t)a.units * (K + SPAD);
+  const E* wrow = sW + (size_t)(wu * 8 + (lane & 7)) * (K + SPAD<E>) + ((lane >> 3) & 1) * 8;
+  const size_t wgate = (size_t)a.units * (K + SPAD<E>);
   for (int t = 0; t < a.T; ++t) {
     // the input gates do not wait for h: load them first
     float gi[MT][4][3];
@@ -381,31 +422,54 @@ __global__ void __launch_bounds__(256) gru_rec_kernel(const RecArgs a) {
 #pragma unroll
         for (int gte = 0; gte < 3; ++gte) gi[mt][e][gte] = ok[mt][e] ? p[gte * H] : 0.0f;
       }
-    float acc[MT][3][4];
+    float acc[MT][3][4], corr[MT][3][4];  // corr: fp32's cross terms
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
       for (int gte = 0; gte < 3; ++gte)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) acc[mt][gte][e] = 0.0f;
-    const __nv_bfloat16* src = t == 0 ? a.h0b : a.hseq + (size_t)(t - 1) * a.B * a.ldh;
+        for (int e = 0; e < 4; ++e) acc[mt][gte][e] = corr[mt][gte][e] = 0.0f;
+    const E* src = t == 0 ? a.h0b : a.hseq + (size_t)(t - 1) * a.B * a.ldh;
     stream_rows(ring, src, a.ldh, a.rows, r0, a.row_end, K, H, a.chunk,
-                [&](const __nv_bfloat16* buf, int k0, int klen) {
-                  const int stride = a.chunk + SPAD;
+                [&](const E* buf, int k0, int klen) {
+                  const int stride = a.chunk + SPAD<E>;
+                  if constexpr (sizeof(E) == 2) {
 #pragma unroll 4
-                  for (int kk = 0; kk < klen; kk += 16) {
-                    uint32_t bw[3][2];
+                    for (int kk = 0; kk < klen; kk += 16) {
+                      uint32_t bw[3][2];
 #pragma unroll
-                    for (int gte = 0; gte < 3; ++gte) ldmatrix_x2(bw[gte], wrow + gte * wgate + k0 + kk);
+                      for (int gte = 0; gte < 3; ++gte) ldmatrix_x2(bw[gte], wrow + gte * wgate + k0 + kk);
 #pragma unroll
-                    for (int mt = 0; mt < MT; ++mt) {
-                      uint32_t af[4];
-                      ldmatrix_x4(af, buf + (mt * 16 + (lane & 15)) * stride + kk + (lane >> 4) * 8);
+                      for (int mt = 0; mt < MT; ++mt) {
+                        uint32_t af[4];
+                        ldmatrix_x4(af, buf + (mt * 16 + (lane & 15)) * stride + kk + (lane >> 4) * 8);
 #pragma unroll
-                      for (int gte = 0; gte < 3; ++gte) mma_bf16(acc[mt][gte], af, bw[gte]);
+                        for (int gte = 0; gte < 3; ++gte) mma_bf16(acc[mt][gte], af, bw[gte]);
+                      }
                     }
+                  } else {  // column n of the warp's tile: gate n / 8, unit n % 8
+                    const E* w = sW + (size_t)wu * 8 * (K + SPAD<E>) + k0;
+                    auto k8 = [&](int kk) {
+                      fp32_k8(acc, corr, [&](int m, int k) { return buf[(wr + m) * stride + kk + k]; },
+                              [&](int k, int n) { return w[(n >> 3) * wgate + (n & 7) * (K + SPAD<E>) + kk + k]; },
+                              lane);
+                    };
+                    int kk = 0;
+                    for (; kk + 32 <= klen; kk += 32) {  // no branch inside: loads run ahead
+#pragma unroll
+                      for (int s = 0; s < 4; ++s) k8(kk + 8 * s);
+                    }
+                    for (; kk < klen; kk += 8) k8(kk);
                   }
                 });
+    if constexpr (sizeof(E) == 4) {
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int gte = 0; gte < 3; ++gte)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[mt][gte][e] += corr[mt][gte][e];
+    }
     // the gate math on the fragments
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt)
@@ -420,33 +484,43 @@ __global__ void __launch_bounds__(256) gru_rec_kernel(const RecArgs a) {
         if (ok[mt][e]) {
           const size_t o = (size_t)t * a.B + rowof[mt][e];
           const int j = unit[e];
-          a.hseq[o * a.ldh + j] = __float2bfloat16_rn(hv);
-          a.rzn[o * G + j] = __float2bfloat16_rn(rg);
-          a.rzn[o * G + H + j] = __float2bfloat16_rn(zg);
-          a.rzn[o * G + 2 * H + j] = __float2bfloat16_rn(n);
-          a.ghn[o * H + j] = __float2bfloat16_rn(gn);
+          a.hseq[o * a.ldh + j] = from_f<E>(hv);
+          a.rzn[o * G + j] = from_f<E>(rg);
+          a.rzn[o * G + H + j] = from_f<E>(zg);
+          a.rzn[o * G + 2 * H + j] = from_f<E>(n);
+          a.ghn[o * H + j] = from_f<E>(gn);
         }
       }
     if (t + 1 < a.T) group_barrier(a.flags + grp, a.q * (t + 1));
   }
 }
 
-// Reverse sweep of one layer. Warp w owns units [8w, 8w + 8) of the slice:
-// phase A's gate cotangents and dh for them, and their columns of phase B's
-// product (two accumulator sets over alternate k steps, for two chains in
-// flight).
-template <int MT>
-__global__ void __launch_bounds__(256) gru_sweep_kernel(const SweepArgs a) {
+// Reverse sweep of one layer. Warp w owns 8 units of the slice for MT row
+// tiles (warp_tile): phase A's gate cotangents and dh for them, and their
+// columns of phase B's product (accumulator sets over alternate k steps, for
+// chains in flight: two in bf16, four in fp32, whose 3xTF32 k-step is three
+// dependent products). The fp32 instances with RT x NG > 0 split phase B's
+// K instead (8 warps, MT = 1): every warp computes all RT x NG tiles (RT =
+// rows / 16, NG = units / 8) for every 8th k-step, so that a k-step's
+// operand reads and splits serve NG (A) and RT (B) tiles, not one; the 8
+// partial sums meet in the ring, free after the last chunk, and the warp
+// that owns a tile in phase A adds them up in warp order (deterministic).
+template <typename E, int MT, int RT = 0, int NG = 0>
+__global__ void __launch_bounds__(256) gru_sweep_kernel(const SweepArgs<E> a) {
+  constexpr bool KSPLIT = RT > 0;
+  static_assert(!KSPLIT || (MT == 1 && sizeof(E) == 4 && RT * NG <= 8), "the K split: fp32, 8 warps");
   extern __shared__ __align__(16) unsigned char ssmem[];
   const int H = a.H, G = 3 * H, K = round16(G);
   const int grp = blockIdx.x / a.q, u0 = (blockIdx.x % a.q) * a.units;
   const int r0 = a.row_base + grp * a.rows;
-  __nv_bfloat16* sW = reinterpret_cast<__nv_bfloat16*>(ssmem);
-  __nv_bfloat16* ring = sW + (size_t)a.units * (K + SPAD);
+  E* sW = reinterpret_cast<E*>(ssmem);
+  E* ring = sW + (size_t)a.units * (K + SPAD<E>);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int wu, wr;
+  warp_tile<E, MT>(warp, a.units, wu, wr);
 
   // W_hh[:, u0 + u] as shared row u, resident for the whole sweep
-  load_resident(sW, a.units, G, K, a.whhT, [&](int row) -> const __nv_bfloat16* {
+  load_resident(sW, a.units, G, K, a.whhT, [&](int row) -> const E* {
     const int u = u0 + row;
     return u < H ? a.whhT + (size_t)u * a.ldw : nullptr;
   });
@@ -455,13 +529,14 @@ __global__ void __launch_bounds__(256) gru_sweep_kernel(const SweepArgs a) {
   bool ok[MT][4];
   float dh[MT][4];
 #pragma unroll
-  for (int e = 0; e < 4; ++e) unit[e] = u0 + warp * 8 + (lane & 3) * 2 + (e & 1);
+  for (int e = 0; e < 4; ++e) unit[e] = u0 + wu * 8 + (lane & 3) * 2 + (e & 1);
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      rowof[mt][e] = r0 + mt * 16 + (lane >> 2) + (e >> 1) * 8;
-      ok[mt][e] = rowof[mt][e] < a.row_end && unit[e] < H && unit[e] < u0 + a.units;
+      rowof[mt][e] = r0 + wr + mt * 16 + (lane >> 2) + (e >> 1) * 8;
+      ok[mt][e] = rowof[mt][e] < a.row_end && unit[e] < H && unit[e] < u0 + a.units &&
+                  (!KSPLIT || warp < RT * NG);
       dh[mt][e] = ok[mt][e] ? a.dhf[(size_t)rowof[mt][e] * H + unit[e]] : 0.0f;
     }
 
@@ -476,17 +551,17 @@ __global__ void __launch_bounds__(256) gru_sweep_kernel(const SweepArgs a) {
         if (!ok[mt][e]) continue;
         const int j = unit[e], row = rowof[mt][e];
         const size_t o = (size_t)t * a.B + row;
-        in[mt][e][0] = __bfloat162float(a.rzn[o * G + j]);
-        in[mt][e][1] = __bfloat162float(a.rzn[o * G + H + j]);
-        in[mt][e][2] = __bfloat162float(a.rzn[o * G + 2 * H + j]);
-        in[mt][e][3] = __bfloat162float(a.ghn[o * H + j]);
-        in[mt][e][4] = __bfloat162float(t > 0 ? a.hseq[(o - a.B) * a.ldh + j] : a.h0b[(size_t)row * a.ldh + j]);
+        in[mt][e][0] = to_f(a.rzn[o * G + j]);
+        in[mt][e][1] = to_f(a.rzn[o * G + H + j]);
+        in[mt][e][2] = to_f(a.rzn[o * G + 2 * H + j]);
+        in[mt][e][3] = to_f(a.ghn[o * H + j]);
+        in[mt][e][4] = to_f(t > 0 ? a.hseq[(o - a.B) * a.ldh + j] : a.h0b[(size_t)row * a.ldh + j]);
         in[mt][e][5] = a.ext[o * H + j];
       }
   };
   load_in(a.T - 1);
 
-  const __nv_bfloat16* wrow = sW + (size_t)(warp * 8 + (lane & 7)) * (K + SPAD) + ((lane >> 3) & 1) * 8;
+  const E* wrow = sW + (size_t)(wu * 8 + (lane & 7)) * (K + SPAD<E>) + ((lane >> 3) & 1) * 8;
   for (int t = a.T - 1, s = 1; t >= 0; --t, ++s) {
     // phase A: the gate cotangents of the block's own units
 #pragma unroll
@@ -503,52 +578,113 @@ __global__ void __launch_bounds__(256) gru_sweep_kernel(const SweepArgs a) {
         const float dn = dout * (1.0f - zg) * (1.0f - n * n);
         const float dghn = dn * rg;
         const float dr = dn * gn * rg * (1.0f - rg);
-        const __nv_bfloat16 b_r = __float2bfloat16_rn(dr);
-        const __nv_bfloat16 b_z = __float2bfloat16_rn(dz);
-        __nv_bfloat16* pi = a.dgi + o * a.ldd + j;
-        __nv_bfloat16* ph = a.dgh + o * a.ldd + j;
+        const E b_r = from_f<E>(dr);
+        const E b_z = from_f<E>(dz);
+        E* pi = a.dgi + o * a.ldd + j;
+        E* ph = a.dgh + o * a.ldd + j;
         pi[0] = b_r;
         pi[H] = b_z;
-        pi[2 * H] = __float2bfloat16_rn(dn);
+        pi[2 * H] = from_f<E>(dn);
         ph[0] = b_r;
         ph[H] = b_z;
-        ph[2 * H] = __float2bfloat16_rn(dghn);
+        ph[2 * H] = from_f<E>(dghn);
         dh[mt][e] = dout * zg;
       }
     group_barrier(a.flags + grp, a.q * s);
     if (t > 0) load_in(t - 1);
 
     // phase B: dh[:, units] += dgh[t] @ W_hh[:, units]
-    float acc[2][MT][4];
+    if constexpr (KSPLIT) {
+      float kacc[RT][NG][4], kcorr[RT][NG][4];
 #pragma unroll
-    for (int p = 0; p < 2; ++p)
+      for (int i = 0; i < RT; ++i)
+#pragma unroll
+        for (int u = 0; u < NG; ++u)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) kacc[i][u][e] = kcorr[i][u][e] = 0.0f;
+      stream_rows(ring, a.dgh + (size_t)t * a.B * a.ldd, a.ldd, a.rows, r0, a.row_end, K, G, a.chunk,
+                  [&](const E* buf, int k0, int klen) {
+                    const int stride = a.chunk + SPAD<E>;
+                    // this warp's k-steps: those j = warp (mod 8) of the row
+                    for (int kk = 8 * ((warp - k0 / 8 % 8 + 8) % 8); kk < klen; kk += 64)
+                      fp32_k8(kacc, kcorr, [&](int m, int k) { return buf[m * stride + kk + k]; },
+                              [&](int k, int n) { return sW[n * (K + SPAD<E>) + k0 + kk + k]; }, lane);
+                  });
+      // the partial sums in the ring: (warp, tile, element, lane)
+      float* red = reinterpret_cast<float*>(ring);
+#pragma unroll
+      for (int i = 0; i < RT; ++i)
+#pragma unroll
+        for (int u = 0; u < NG; ++u)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            red[((warp * RT * NG + i * NG + u) * 4 + e) * 32 + lane] = kacc[i][u][e] + kcorr[i][u][e];
+      __syncthreads();
+      if (warp < RT * NG) {  // tile `warp` is this warp's in phase A (warp_tile)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float sum = 0.0f;
+          for (int w = 0; w < 8; ++w) sum += red[((w * RT * NG + warp) * 4 + e) * 32 + lane];
+          dh[0][e] += sum;
+        }
+      }
+      continue;  // the next step's ring copy follows phase A's barrier
+    }
+    constexpr int NP = sizeof(E) == 2 ? 2 : 4;
+    float acc[NP][MT][4], corr[NP][MT][4];  // corr: fp32's cross terms
+#pragma unroll
+    for (int p = 0; p < NP; ++p)
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) acc[p][mt][e] = 0.0f;
+        for (int e = 0; e < 4; ++e) acc[p][mt][e] = corr[p][mt][e] = 0.0f;
     stream_rows(ring, a.dgh + (size_t)t * a.B * a.ldd, a.ldd, a.rows, r0, a.row_end, K, G, a.chunk,
-                [&](const __nv_bfloat16* buf, int k0, int klen) {
-                  const int stride = a.chunk + SPAD;
+                [&](const E* buf, int k0, int klen) {
+                  const int stride = a.chunk + SPAD<E>;
+                  if constexpr (sizeof(E) == 2) {
 #pragma unroll 2
-                  for (int kk = 0; kk < klen; kk += 32) {
+                    for (int kk = 0; kk < klen; kk += 32) {
 #pragma unroll
-                    for (int p = 0; p < 2; ++p) {
-                      if (kk + 16 * p >= klen) break;
-                      uint32_t bw[2];
-                      ldmatrix_x2(bw, wrow + k0 + kk + 16 * p);
+                      for (int p = 0; p < 2; ++p) {
+                        if (kk + 16 * p >= klen) break;
+                        uint32_t bw[2];
+                        ldmatrix_x2(bw, wrow + k0 + kk + 16 * p);
 #pragma unroll
-                      for (int mt = 0; mt < MT; ++mt) {
-                        uint32_t af[4];
-                        ldmatrix_x4(af, buf + (mt * 16 + (lane & 15)) * stride + kk + 16 * p + (lane >> 4) * 8);
-                        mma_bf16(acc[p][mt], af, bw);
+                        for (int mt = 0; mt < MT; ++mt) {
+                          uint32_t af[4];
+                          ldmatrix_x4(af, buf + (mt * 16 + (lane & 15)) * stride + kk + 16 * p + (lane >> 4) * 8);
+                          mma_bf16(acc[p][mt], af, bw);
+                        }
                       }
                     }
+                  } else {  // the warp's 8 units are the tile's 8 columns
+                    const E* w = sW + (size_t)wu * 8 * (K + SPAD<E>) + k0;
+                    auto k8 = [&](float(&c)[MT][4], float(&r)[MT][4], int kk) {
+                      using Tile = float(&)[MT][1][4];
+                      fp32_k8(reinterpret_cast<Tile>(c), reinterpret_cast<Tile>(r),
+                              [&](int m, int k) { return buf[(wr + m) * stride + kk + k]; },
+                              [&](int k, int n) { return w[n * (K + SPAD<E>) + kk + k]; }, lane);
+                    };
+                    int kk = 0;
+                    for (; kk + 8 * NP <= klen; kk += 8 * NP) {  // no branch inside: loads run ahead
+#pragma unroll
+                      for (int p = 0; p < NP; ++p) k8(acc[p], corr[p], kk + 8 * p);
+                    }
+#pragma unroll
+                    for (int p = 0; p < NP - 1; ++p)
+                      if (kk + 8 * p < klen) k8(acc[p], corr[p], kk + 8 * p);
                   }
                 });
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) dh[mt][e] += acc[0][mt][e] + acc[1][mt][e];
+      for (int e = 0; e < 4; ++e) {
+        if constexpr (NP == 2)
+          dh[mt][e] += acc[0][mt][e] + acc[1][mt][e];
+        else
+          dh[mt][e] += ((acc[0][mt][e] + corr[0][mt][e]) + (acc[1][mt][e] + corr[1][mt][e])) +
+                       ((acc[2][mt][e] + corr[2][mt][e]) + (acc[3][mt][e] + corr[3][mt][e]));
+      }
   }
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt)
@@ -579,6 +715,83 @@ bool bad_plan(int units, int rows, int q, int g, int chunk) {
          q <= 0 || g <= 0 || chunk <= 0 || chunk % 16;
 }
 
+// Row tiles that the warps of a block split between them (warp_tile): 1 for
+// bf16; for fp32 the most that divides the block's rows / 16 with at most 8
+// warps a block. A warp then holds rows / 16 / warp_rows tiles.
+template <typename E>
+int warp_rows(int units, int rows) {
+  if (sizeof(E) == 2) return 1;
+  int rt = min(rows / 16, 8 / (units / 8));
+  while ((rows / 16) % rt) --rt;
+  return rt;
+}
+
+template <typename E>
+int gru_rec(const float* gi, const void* whh, const float* bhh, const float* h0, const void* h0b,
+            void* hseq, void* rzn, void* ghn, int* flags, int T, int B, int H, int ldw, int ldh,
+            int units, int rows, int q, int g, int chunk, int row_base, int row_end, void* stream) {
+  constexpr int EPC = 16 / (int)sizeof(E);
+  if (bad_plan(units, rows, q, g, chunk) || T <= 0 || H <= 0 || ldw % EPC || ldh % EPC ||
+      row_base < 0 || row_end > B || row_end <= row_base)
+    return (int)cudaErrorInvalidValue;
+  const RecArgs<E> a{gi, static_cast<const E*>(whh), bhh, h0, static_cast<const E*>(h0b),
+                     static_cast<E*>(hseq), static_cast<E*>(rzn), static_cast<E*>(ghn), flags,
+                     T, B, H, ldw, ldh, units, rows, q, chunk, row_base, row_end};
+  const size_t smem = rec_smem<E>(H, units, rows, chunk);
+  const int rt = warp_rows<E>(units, rows), threads = units / 8 * 32 * rt;
+  switch (rows / 16 / rt) {
+    case 1: return launch_persistent(gru_rec_kernel<E, 1>, a, g * q, threads, smem, stream);
+    case 2: return launch_persistent(gru_rec_kernel<E, 2>, a, g * q, threads, smem, stream);
+    case 3: return launch_persistent(gru_rec_kernel<E, 3>, a, g * q, threads, smem, stream);
+    default: return launch_persistent(gru_rec_kernel<E, 4>, a, g * q, threads, smem, stream);
+  }
+}
+
+// The fp32 sweep's K-split instance for RT row tiles and NG unit tiles a
+// block, or null where none is built (those plans take the warp tiles)
+template <typename E>
+void (*ksplit_sweep(int rt, int ng))(SweepArgs<E>) {
+  if constexpr (sizeof(E) == 4) {
+    switch (rt * 16 + ng) {
+      case 1 * 16 + 2: return gru_sweep_kernel<E, 1, 1, 2>;
+      case 1 * 16 + 4: return gru_sweep_kernel<E, 1, 1, 4>;
+      case 2 * 16 + 2: return gru_sweep_kernel<E, 1, 2, 2>;
+      case 2 * 16 + 4: return gru_sweep_kernel<E, 1, 2, 4>;
+      case 4 * 16 + 2: return gru_sweep_kernel<E, 1, 4, 2>;
+    }
+  }
+  return nullptr;
+}
+
+template <typename E>
+int gru_sweep(const void* hseq, const void* h0b, const void* rzn, const void* ghn, const float* ext,
+              const float* dhf, const void* whhT, void* dgi, void* dgh, float* dh0, int* flags, int T,
+              int B, int H, int ldh, int ldw, int ldd, int units, int rows, int q, int g, int chunk,
+              int row_base, int row_end, void* stream) {
+  constexpr int EPC = 16 / (int)sizeof(E);
+  if (bad_plan(units, rows, q, g, chunk) || T <= 0 || H <= 0 || ldh % EPC || ldw % EPC || ldd % EPC ||
+      row_base < 0 || row_end > B || row_end <= row_base)
+    return (int)cudaErrorInvalidValue;
+  const SweepArgs<E> a{static_cast<const E*>(hseq), static_cast<const E*>(h0b), static_cast<const E*>(rzn),
+                       static_cast<const E*>(ghn), ext, dhf, static_cast<const E*>(whhT),
+                       static_cast<E*>(dgi), static_cast<E*>(dgh), dh0, flags, T, B, H, ldh, ldw, ldd,
+                       units, rows, q, chunk, row_base, row_end};
+  const size_t smem = sweep_smem<E>(H, units, rows, chunk);
+  // the K split where an instance exists and the ring holds the 8 warps'
+  // partial sums
+  const size_t ring = smem - (size_t)units * (round16(3 * H) + SPAD<E>) * sizeof(E);
+  auto ksplit = ksplit_sweep<E>(rows / 16, units / 8);
+  if (ksplit && ring >= (size_t)8 * (rows / 16) * (units / 8) * 4 * 32 * sizeof(float))
+    return launch_persistent(ksplit, a, g * q, 256, smem, stream);
+  const int rt = warp_rows<E>(units, rows), threads = units / 8 * 32 * rt;
+  switch (rows / 16 / rt) {
+    case 1: return launch_persistent(gru_sweep_kernel<E, 1>, a, g * q, threads, smem, stream);
+    case 2: return launch_persistent(gru_sweep_kernel<E, 2>, a, g * q, threads, smem, stream);
+    case 3: return launch_persistent(gru_sweep_kernel<E, 3>, a, g * q, threads, smem, stream);
+    default: return launch_persistent(gru_sweep_kernel<E, 4>, a, g * q, threads, smem, stream);
+  }
+}
+
 }  // namespace
 
 // Each entry point launches on `stream` and returns the launch's
@@ -586,7 +799,8 @@ bool bad_plan(int units, int rows, int q, int g, int chunk) {
 
 // The products of csrc/gemm.cuh: kind 0 the input gates (EPI_BIAS, A and B
 // K-major), 1 the cotangent passed down (EPI_OUT, B (K, N)), 2 dW and db
-// (EPI_DW, A and B (K, .)); n jobs in one launch.
+// (EPI_DW, A and B (K, .)), bf16 operands; kinds 3, 4, 5 the same in
+// strict fp32; n jobs in one launch.
 extern "C" int molvax_gemm(int kind, const void* jobs, int n, void* stream) {
   if (n <= 0 || n > GEMM_MAX_JOBS) return (int)cudaErrorInvalidValue;
   GemmJobs js;
@@ -596,6 +810,9 @@ extern "C" int molvax_gemm(int kind, const void* jobs, int n, void* stream) {
     case 0: return (int)launch_gemm<true, true, EPI_BIAS>(js, n, s);
     case 1: return (int)launch_gemm<true, false, EPI_OUT>(js, n, s);
     case 2: return (int)launch_gemm<false, false, EPI_DW>(js, n, s);
+    case 3: return (int)launch_gemm<true, true, EPI_BIAS, float>(js, n, s);
+    case 4: return (int)launch_gemm<true, false, EPI_OUT, float>(js, n, s);
+    case 5: return (int)launch_gemm<false, false, EPI_DW, float>(js, n, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -609,26 +826,22 @@ extern "C" int molvax_sum_parts(const float* parts, int k, long long n, float* o
   return (int)cudaGetLastError();
 }
 
+// The persistent recurrence and sweep of one layer: bf16 storage, and
+// (_f32) strict fp32, the same arguments.
 extern "C" int molvax_gru_rec(const float* gi, const void* whh, const float* bhh, const float* h0,
                               const void* h0b, void* hseq, void* rzn, void* ghn, int* flags, int T,
                               int B, int H, int ldw, int ldh, int units, int rows, int q, int g,
                               int chunk, int row_base, int row_end, void* stream) {
-  if (bad_plan(units, rows, q, g, chunk) || T <= 0 || H <= 0 || ldw % 8 || ldh % 8 ||
-      row_base < 0 || row_end > B || row_end <= row_base)
-    return (int)cudaErrorInvalidValue;
-  typedef const __nv_bfloat16* cbf;
-  typedef __nv_bfloat16* bf;
-  const RecArgs a{gi, static_cast<cbf>(whh), bhh, h0, static_cast<cbf>(h0b), static_cast<bf>(hseq),
-                  static_cast<bf>(rzn), static_cast<bf>(ghn), flags, T, B, H, ldw, ldh,
-                  units, rows, q, chunk, row_base, row_end};
-  const size_t smem = rec_smem(H, units, rows, chunk);
-  const int threads = units / 8 * 32;
-  switch (rows / 16) {
-    case 1: return launch_persistent(gru_rec_kernel<1>, a, g * q, threads, smem, stream);
-    case 2: return launch_persistent(gru_rec_kernel<2>, a, g * q, threads, smem, stream);
-    case 3: return launch_persistent(gru_rec_kernel<3>, a, g * q, threads, smem, stream);
-    default: return launch_persistent(gru_rec_kernel<4>, a, g * q, threads, smem, stream);
-  }
+  return gru_rec<__nv_bfloat16>(gi, whh, bhh, h0, h0b, hseq, rzn, ghn, flags, T, B, H, ldw, ldh, units,
+                                rows, q, g, chunk, row_base, row_end, stream);
+}
+
+extern "C" int molvax_gru_rec_f32(const float* gi, const void* whh, const float* bhh, const float* h0,
+                                  const void* h0b, void* hseq, void* rzn, void* ghn, int* flags, int T,
+                                  int B, int H, int ldw, int ldh, int units, int rows, int q, int g,
+                                  int chunk, int row_base, int row_end, void* stream) {
+  return gru_rec<float>(gi, whh, bhh, h0, h0b, hseq, rzn, ghn, flags, T, B, H, ldw, ldh, units, rows, q,
+                        g, chunk, row_base, row_end, stream);
 }
 
 extern "C" int molvax_gru_sweep(const void* hseq, const void* h0b, const void* rzn, const void* ghn,
@@ -636,23 +849,17 @@ extern "C" int molvax_gru_sweep(const void* hseq, const void* h0b, const void* r
                                 void* dgh, float* dh0, int* flags, int T, int B, int H, int ldh,
                                 int ldw, int ldd, int units, int rows, int q, int g, int chunk,
                                 int row_base, int row_end, void* stream) {
-  if (bad_plan(units, rows, q, g, chunk) || T <= 0 || H <= 0 || ldh % 8 || ldw % 8 || ldd % 8 ||
-      row_base < 0 || row_end > B || row_end <= row_base)
-    return (int)cudaErrorInvalidValue;
-  typedef const __nv_bfloat16* cbf;
-  typedef __nv_bfloat16* bf;
-  const SweepArgs a{static_cast<cbf>(hseq), static_cast<cbf>(h0b), static_cast<cbf>(rzn),
-                    static_cast<cbf>(ghn), ext, dhf, static_cast<cbf>(whhT), static_cast<bf>(dgi),
-                    static_cast<bf>(dgh), dh0, flags, T, B, H, ldh, ldw, ldd,
-                    units, rows, q, chunk, row_base, row_end};
-  const size_t smem = sweep_smem(H, units, rows, chunk);
-  const int threads = units / 8 * 32;
-  switch (rows / 16) {
-    case 1: return launch_persistent(gru_sweep_kernel<1>, a, g * q, threads, smem, stream);
-    case 2: return launch_persistent(gru_sweep_kernel<2>, a, g * q, threads, smem, stream);
-    case 3: return launch_persistent(gru_sweep_kernel<3>, a, g * q, threads, smem, stream);
-    default: return launch_persistent(gru_sweep_kernel<4>, a, g * q, threads, smem, stream);
-  }
+  return gru_sweep<__nv_bfloat16>(hseq, h0b, rzn, ghn, ext, dhf, whhT, dgi, dgh, dh0, flags, T, B, H, ldh,
+                                  ldw, ldd, units, rows, q, g, chunk, row_base, row_end, stream);
+}
+
+extern "C" int molvax_gru_sweep_f32(const void* hseq, const void* h0b, const void* rzn, const void* ghn,
+                                    const float* ext, const float* dhf, const void* whhT, void* dgi,
+                                    void* dgh, float* dh0, int* flags, int T, int B, int H, int ldh,
+                                    int ldw, int ldd, int units, int rows, int q, int g, int chunk,
+                                    int row_base, int row_end, void* stream) {
+  return gru_sweep<float>(hseq, h0b, rzn, ghn, ext, dhf, whhT, dgi, dgh, dh0, flags, T, B, H, ldh, ldw,
+                          ldd, units, rows, q, g, chunk, row_base, row_end, stream);
 }
 
 // run_fused3's probe: gi0 (T, B, 3H) bf16 in place of x0 and W_ih0, hseq

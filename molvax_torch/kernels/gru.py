@@ -8,29 +8,31 @@ non-uniform stacks, and pinned configs, runs one per-layer kernel per layer:
 
 - ``gru_layer_scan_x`` (``:748``): one layer, input gates ``x @ W_ih``
   included, bf16 operands (``matmul_dtype='bfloat16'``) or strict fp32
-  (``'float32'``: every operand, residual and cotangent fp32, no TF32).
-  In bf16, wherever ``layer_route`` finds a layout (``stack_plan``), it runs
-  the stack's pieces for one layer: forward, one tensor-core GEMM of the
-  input gates over all T B rows (``csrc/gemm.cuh``), then the persistent
-  recurrence with W_hh resident in shared memory (``csrc/gru_stack.cu``);
-  backward, the persistent reverse sweep, one GEMM of dx (bf16 out) and one
-  GEMM launch of dW_ih / db_ih and dW_hh / db_hh. Unlike the stack, every
-  layer rounds the cotangent it passes down to bf16 (``gru.py:636-638``).
-  Strict fp32, and bf16 shapes the plan cannot lay out, run the in-kernel
-  instance of ``csrc/gru_layer.cu``: ``x[t] @ W_ih`` inside the recurrence
-  on the FMA pipes, weights re-read from L2 each step; its backward is a
-  reverse-sweep kernel that writes dx and the gate cotangents, then a dW
-  contraction kernel. ``gru_layer_scan_x_in_kernel`` names that instance
-  (the ``fwd_gi`` probe's kernel).
+  (``'float32'``: every operand, residual and cotangent fp32, no single-pass
+  TF32 or bf16 product: fp32, or 3xTF32 split products of fp32 accuracy).
+  Wherever ``layer_route`` finds a layout (``stack_plan`` for the storage
+  type's element size), it runs the stack's pieces for one layer in that
+  type: forward, one tensor-core GEMM of the input gates over all T B rows
+  (``csrc/gemm.cuh``), then the persistent recurrence with W_hh resident in
+  shared memory (``csrc/gru_stack.cu``); backward, the persistent reverse
+  sweep, one GEMM of dx (stored in the storage type) and one GEMM launch of
+  dW_ih / db_ih and dW_hh / db_hh. Unlike the stack, every bf16 layer rounds
+  the cotangent it passes down to bf16 (``gru.py:636-638``). Shapes the plan
+  cannot lay out (bf16 H > 2,112, fp32 H > 1,152 at B=256) run the
+  in-kernel instance of ``csrc/gru_layer.cu``: ``x[t] @ W_ih`` inside the
+  recurrence on the FMA pipes, weights re-read from L2 each step; its
+  backward is a reverse-sweep kernel that writes dx and the gate
+  cotangents, then a dW contraction kernel. ``gru_layer_scan_x_in_kernel``
+  names that instance (the ``fwd_gi`` probe's kernel).
 - ``gru_layer_scan`` (``:390``): the same recurrence with precomputed input
   gates, rounded to bf16 at the boundary; its backward returns dgi
   (``csrc/gru_layer.cu``).
 
 ``layer_forward_ref`` / ``layer_backward_ref`` and ``scan_forward_ref`` /
 ``scan_backward_ref`` are the same math in plain torch ops, rounding where
-the kernels round; the bf16 persistent route also composes to them from
-the stack's plain pieces (``gemm_ref``, ``layer_recurrence_ref``,
-``layer_sweep_ref``), bit for bit. ``gru_probe_scan`` runs
+the kernels round; the persistent route also composes to them from the
+stack's plain pieces (``gemm_ref``, ``layer_recurrence_ref``,
+``layer_sweep_ref``, in either storage type), bit for bit. ``gru_probe_scan`` runs
 ``gru_layer_scan``'s forward kernel in the two modes of the design probe
 ``bench/gru_experiments.py::run_variant`` (forward only, no autograd; plain
 version ``gru_probe_scan_ref``). For CUDA tensors the wrappers launch the
@@ -60,9 +62,9 @@ from . import _build, gru_stack
 from .gru_stack import _check_cuda, _contract, _dw_job, _dx_job, _gemm, _is_padded, _padded, _stream, counter
 
 # kernel launches made by the wrappers (not by the plain versions)
-layer_gi_launches = 0  # bf16 gru_layer_scan_x forward: the input-gate GEMM
+layer_gi_launches = 0  # gru_layer_scan_x forward, bf16 or fp32: the input-gate GEMM
 layer_rec_launches = 0  # ... and the persistent recurrence (per batch slice)
-layer_sweep_launches = 0  # bf16 backward: the persistent reverse sweep (per slice)
+layer_sweep_launches = 0  # backward: the persistent reverse sweep (per slice)
 layer_dx_launches = 0  # ... the GEMM of dx
 layer_gemm_dw_launches = 0  # ... the GEMM of dW_ih, db_ih, dW_hh and db_hh (two jobs per part)
 layer_dw_sum_launches = 0  # ... the sum of its parts
@@ -263,21 +265,22 @@ def _check_residuals(what, shape, md, hseq, rzn, ghn, dY, padded: bool = False) 
         raise ValueError(f"{what}: dY {tuple(dY.shape)}, expected {shape}")
 
 
-def layer_route(B: int, H: int) -> str:
-    """Which kernels run bf16 ``gru_layer_scan_x`` at batch B and width H,
-    decided by shape before any launch: 'persistent' (the input-gate GEMM,
-    the persistent recurrence and sweep, the dx and dW GEMMs) wherever
-    ``stack_plan`` lays the persistent kernels out on the card, else
-    'in_kernel' (``csrc/gru_layer.cu``'s bf16 instance)."""
+def layer_route(B: int, H: int, md: torch.dtype = torch.bfloat16) -> str:
+    """Which kernels run ``gru_layer_scan_x`` in storage type ``md`` at batch
+    B and width H, decided by shape before any launch: 'persistent' (the
+    input-gate GEMM, the persistent recurrence and sweep, the dx and dW
+    GEMMs) wherever ``stack_plan`` lays the persistent kernels out on the
+    card with md's elements, else 'in_kernel' (``csrc/gru_layer.cu``'s
+    instance of md)."""
     try:
-        gru_stack.stack_plan(B, H)
+        gru_stack.stack_plan(B, H, esize=md.itemsize)
     except ValueError:
         return "in_kernel"
     return "persistent"
 
 
 def _persistent(md: torch.dtype, B: int, H: int) -> bool:
-    return md == torch.bfloat16 and layer_route(B, H) == "persistent"
+    return layer_route(B, H, md) == "persistent"
 
 
 def _ptrs(*tensors):
@@ -311,7 +314,8 @@ def dw_parts(T: int, I: int, H: int) -> int:
     dW_hh | db_hh, times the parts, take the fewest waves of the card's
     ``gru_stack.SMS`` SMs per part (ties to fewer parts; at most 4, at most
     T). At zinc250k width 84 tiles leave 48 of 132 SMs idle; in 3 parts 252
-    tiles of a third of the rows fill two waves."""
+    tiles of a third of the rows fill two waves. The strict-fp32 GEMM has
+    the same 128 x 128 output tile, so its parts are the same."""
     tiles = -(-3 * H // 128) * (-(-(I + 1) // 128) + -(-(H + 1) // 128))
     return min(range(1, min(4, T) + 1), key=lambda k: -(-tiles * k // gru_stack.SMS) / k)
 
@@ -327,47 +331,48 @@ def _sum_parts(parts: torch.Tensor, out: torch.Tensor) -> None:
 
 
 def layer_forward(x, w_ih, b_ih, w_hh, b_hh, h0, md: torch.dtype) -> Residuals:
-    """``layer_forward_ref`` on the card. bf16 on the persistent route
-    (``layer_route``): the stack's input-gate GEMM over all T B rows, fp32
-    gi with b_ih, then its persistent recurrence (one launch per batch
-    slice of ``stack_plan``), counted on this module's counters; hseq comes
-    back as a view of a buffer whose rows are padded to a multiple of 8. A
-    bf16 x already so laid out (``_padded``) is read in place. Else
-    ``layer_forward_in_kernel``."""
+    """``layer_forward_ref`` on the card. On the persistent route
+    (``layer_route``), in the storage type md: the stack's input-gate GEMM
+    over all T B rows, fp32 gi with b_ih, then its persistent recurrence
+    (one launch per batch slice of ``stack_plan``), counted on this module's
+    counters; hseq comes back as a view of a buffer whose rows are padded to
+    a multiple of 16 bytes. An x already so laid out in md (``_padded``) is
+    read in place. Else ``layer_forward_in_kernel``."""
     what = "gru_layer_scan_x forward"
     _check_cuda(what, x, w_ih, b_ih, w_hh, b_hh, h0)
     T, B, I, H = _layer_dims(what, x, w_ih, w_hh, h0)
     if not _persistent(md, B, H):
         return layer_forward_in_kernel(x, w_ih, b_ih, w_hh, b_hh, h0, md)
-    gi = gru_stack.gemm("gi", x, w_ih, b_ih, count=_COUNT["gi"])
-    return gru_stack.layer_recurrence(gi, w_hh, b_hh, h0, count=_COUNT["rec"])
+    gi = gru_stack.gemm("gi", x, w_ih, b_ih, count=_COUNT["gi"], md=md)
+    return gru_stack.layer_recurrence(gi, w_hh, b_hh, h0, count=_COUNT["rec"], md=md)
 
 
 def layer_backward(res: Residuals, dY: torch.Tensor):
-    """``layer_backward_ref`` on the card. bf16 on the persistent route: the
-    stack's persistent reverse sweep (ext = dY, no h_final cotangent: on the
-    per-layer route it arrives inside dY[-1]), one GEMM of dx stored in
-    bf16, one GEMM launch of dW_ih / db_ih over x and dW_hh / db_hh over h
-    one step behind (bf16(h0) first), two jobs for each of ``dw_parts``
-    spans of time steps, and one launch that sums the parts. It reads hseq
-    in place, padded or not, and x in place where it is laid out as
-    ``_padded`` leaves it (the autograd wrapper saves the forward's copy).
-    Deterministic: every output is summed in a fixed order. Else
-    ``layer_backward_in_kernel``."""
+    """``layer_backward_ref`` on the card. On the persistent route, in the
+    residuals' storage type md: the stack's persistent reverse sweep (ext =
+    dY, no h_final cotangent: on the per-layer route it arrives inside
+    dY[-1]), one GEMM of dx stored in md, one GEMM launch of dW_ih / db_ih
+    over x and dW_hh / db_hh over h one step behind (h0 in md first), two
+    jobs for each of ``dw_parts`` spans of time steps, and one launch that
+    sums the parts. It reads hseq in place, padded or not, and x in place
+    where it is laid out as ``_padded`` leaves it (the autograd wrapper
+    saves the forward's copy). Deterministic: every output is summed in a
+    fixed order. Else ``layer_backward_in_kernel``."""
     hseq, rzn, ghn, x, h0, w_ih, w_hh = res
     what = "gru_layer_scan_x backward"
     _check_cuda(what, hseq, rzn, ghn, x, h0, w_ih, w_hh, dY)
     T, B, I, H = _layer_dims(what, x, w_ih, w_hh, h0)
-    if not _persistent(hseq.dtype, B, H):
+    md = hseq.dtype
+    if not _persistent(md, B, H):
         return layer_backward_in_kernel(res, dY)
-    _check_residuals(what, (T, B, H), hseq.dtype, hseq, rzn, ghn, dY, padded=True)
-    bf, dev, G = torch.bfloat16, x.device, 3 * H
+    _check_residuals(what, (T, B, H), md, hseq, rzn, ghn, dY, padded=True)
+    dev, G = x.device, 3 * H
     dgi, dgh, dh0 = gru_stack.layer_sweep(hseq, h0, rzn, ghn, w_hh, dY, torch.zeros(B, H, device=dev),
-                                          count=_COUNT["sweep"])
+                                          count=_COUNT["sweep"], md=md)
     with torch.no_grad():
-        hs, xp, h0b, wihp = (_padded(t) for t in (hseq, x, h0, w_ih))
-    dx = torch.empty(T, B, I, dtype=bf, device=dev)
-    _gemm("dx", [_dx_job(dgi, wihp, dx)], x, _COUNT["dx"])
+        hs, xp, h0b, wihp = (_padded(t, md) for t in (hseq, x, h0, w_ih))
+    dx = torch.empty(T, B, I, dtype=md, device=dev)
+    _gemm("dx", [_dx_job(dgi, wihp, dx)], x, _COUNT["dx"], md)
     # each part: dW_ih | db_ih, then dW_hh | db_hh, of its span of steps
     k, n_ih, n_hh = dw_parts(T, I, H), G * I + G, G * H + G
     parts = torch.empty(k, n_ih + n_hh, device=dev)
@@ -376,9 +381,9 @@ def layer_backward(res: Residuals, dY: torch.Tensor):
         t0, t1 = p * T // k, (p + 1) * T // k
         ih, hh = parts[p, :n_ih], parts[p, n_ih:]
         jobs.append(_dw_job(dgi[t0:t1], xp[t0:t1], ih[: G * I].view(G, I), ih[G * I :]))
-        first = dict(first=h0b) if t0 == 0 else {}  # h one step behind: bf16(h0), then hseq
+        first = dict(first=h0b) if t0 == 0 else {}  # h one step behind: h0 in md, then hseq
         jobs.append(_dw_job(dgh[t0:t1], hs[max(t0 - 1, 0) : t1], hh[: G * H].view(G, H), hh[G * H :], **first))
-    _gemm("dw", jobs, x, _COUNT["gemm_dw"])
+    _gemm("dw", jobs, x, _COUNT["gemm_dw"], md)
     out = torch.empty(n_ih + n_hh, device=dev)
     _sum_parts(parts, out)
     dwih, dbih = out[: G * I].view(G, I), out[G * I : n_ih]
@@ -389,7 +394,7 @@ def layer_backward(res: Residuals, dY: torch.Tensor):
 def layer_forward_in_kernel(x, w_ih, b_ih, w_hh, b_hh, h0, md: torch.dtype) -> Residuals:
     """``layer_forward_ref`` on the card through ``csrc/gru_layer.cu``: one
     launch of the forward kernel that computes ``x[t] @ W_ih`` inside the
-    recurrence. Strict fp32, bf16 where ``layer_route`` says 'in_kernel',
+    recurrence. bf16 or strict fp32 where ``layer_route`` says 'in_kernel',
     and the ``fwd_gi`` probe."""
     global layer_fwd_launches
     what = "gru_layer_scan_x forward"
@@ -543,7 +548,7 @@ class _GRULayerX(torch.autograd.Function):
     def forward(ctx, route, md, x, w_ih, b_ih, w_hh, b_hh, h0):
         ctx.route = "plain" if _plain_here(x) else route
         if ctx.route == "kernel" and x.is_cuda and _persistent(md, x.shape[1], h0.shape[-1]):
-            x = _padded(x)  # the bf16 operand of the gi GEMM, kept for the dW GEMM
+            x = _padded(x, md)  # the operand of the gi GEMM, kept for the dW GEMM
         fwd = {"plain": layer_forward_ref, "kernel": layer_forward, "in_kernel": layer_forward_in_kernel}
         hseq, rzn, ghn = fwd[ctx.route](x, w_ih, b_ih, w_hh, b_hh, h0, md)
         ctx.save_for_backward(hseq, rzn, ghn, x, h0, w_ih, w_hh)
@@ -580,8 +585,9 @@ def gru_layer_scan_x(x, w_ih, b_ih, w_hh, b_hh, h0, matmul_dtype: str = "bfloat1
     """One GRU layer, differentiable, input gates included: x (T, B, I),
     w_ih (3H, I), w_hh (3H, H), h0 (B, H) -> h_seq (T, B, H) fp32, the values
     of the stored h. ``matmul_dtype`` 'bfloat16' or 'float32' (strict mode),
-    as the reference's. Kernels for CUDA tensors (bf16 on the route
-    ``layer_route`` picks), the plain versions for CPU tensors."""
+    as the reference's. Kernels for CUDA tensors (on the route
+    ``layer_route`` picks for the shape and dtype), the plain versions for
+    CPU tensors."""
     return _GRULayerX.apply("kernel", _matmul_dtype(matmul_dtype), x, w_ih, b_ih, w_hh, b_hh, h0)
 
 

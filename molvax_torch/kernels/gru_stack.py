@@ -12,7 +12,10 @@ below (dx0, rounded to bf16, for layer 0); then one GEMM launch contracts
 every dW and db of the stack. ``stack_plan`` lays the persistent kernels
 out on the card's SMs. The bf16 per-layer route (``kernels/gru.py``) runs
 ``gemm``, ``layer_recurrence`` and ``layer_sweep`` for one layer, counted
-on its own counters.
+on its own counters; its strict-fp32 instance runs the same pieces with
+fp32 operands and residuals (``md=torch.float32``: fp32, or 3xTF32 split
+products of fp32 accuracy, ``csrc/gemm.cuh``), planned with 4-byte
+elements.
 
 Every kernel has its plain version here, the same math in plain torch ops,
 rounding where the kernel rounds: ``gemm_ref`` (each of the GEMM's three
@@ -31,10 +34,10 @@ it is the TPU kernel's gradient, not the exact one.
 Weights are in torch layout: ``wih0`` (3H, I0), ``wih`` (L-1, 3H, H),
 ``whh`` (L, 3H, H), the transposes of the JAX arguments. The TPU's VMEM
 planner (``_plan_blocks``, ``_bwd_bytes``) and its per-gate padding of H to
-a multiple of 128 have no counterpart; the kernels' bf16 operands have rows
-a multiple of 8 elements apart (16 bytes), so the wrappers copy an operand
-into a padded buffer where it is not so already (``_padded``), and the
-forward returns the h sequence as a view of such a buffer.
+a multiple of 128 have no counterpart; the kernels' operands have rows a
+multiple of 16 bytes apart (8 bf16, 4 fp32), so the wrappers copy an
+operand into a padded buffer where it is not so already (``_padded``), and
+the forward returns the h sequence as a view of such a buffer.
 """
 
 from __future__ import annotations
@@ -76,7 +79,7 @@ _MAX_LAYERS = 8  # the dW launch holds two products per layer (csrc/gemm.cuh)
 SMS, SMEM = 132, 232448
 _MAX_UNITS = 64  # hidden units per block: one warp per 8, at most 8 warps
 _MAX_ROWS = 64  # batch rows per group: 1 to 4 m16 tiles (kernel instances)
-_PAD = 8  # elements of padding per shared-memory row (csrc/gru_stack.cu SPAD)
+_PAD_BYTES = 16  # padding per shared-memory row (csrc/gru_stack.cu SPAD)
 
 Residuals = Tuple[torch.Tensor, ...]
 
@@ -127,38 +130,35 @@ class StackPlan:
     def blocks(self) -> int:
         return self.g * self.q
 
-    @property
-    def threads(self) -> int:
-        return self.units // 8 * 32
+
+def _ring(rows: int, chunk: int, K: int, esize: int = 2) -> int:
+    return (1 if chunk >= K else 2) * rows * (chunk * esize + _PAD_BYTES)
 
 
-def _ring(rows: int, chunk: int, K: int) -> int:
-    return (1 if chunk >= K else 2) * rows * (chunk + _PAD) * 2
-
-
-def _chunk(resident: int, rows: int, K: int, smem: int) -> Optional[int]:
-    """The widest chunk of K (a multiple of 16) whose ring fits beside the
-    resident weights, or None."""
-    if resident + _ring(rows, K, K) <= smem:
+def _chunk(resident: int, rows: int, K: int, smem: int, esize: int = 2) -> Optional[int]:
+    """The widest chunk of K (a multiple of 16) whose ring of ``esize``-byte
+    elements fits beside the resident weights, or None."""
+    if resident + _ring(rows, K, K, esize) <= smem:
         return K
-    chunk = ((smem - resident) // (4 * rows) - _PAD) // 16 * 16
+    chunk = ((smem - resident) // (2 * rows) - _PAD_BYTES) // esize // 16 * 16
     return min(chunk, K) if chunk >= 16 else None
 
 
 @functools.lru_cache(maxsize=64)
-def stack_plan(B: int, H: int, sms: int = SMS, smem: int = SMEM) -> StackPlan:
+def stack_plan(B: int, H: int, sms: int = SMS, smem: int = SMEM, esize: int = 2) -> StackPlan:
     """Lay out the recurrence and the sweep for batch B and width H on a
     card of ``sms`` SMs with ``smem`` bytes of shared memory per block, one
-    block per SM. Each candidate slice width (units, a multiple of 8) gives
+    block per SM, for operands of ``esize`` bytes (2: bf16, 4: strict
+    fp32). Each candidate slice width (units, a multiple of 8) gives
     q = ceil(H / units) blocks per group and as many row groups as the SMs
     hold (g q <= sms, rows >= 16); it fits if both kernels' resident W_hh
-    slices (3 units x H forward, units x 3H backward, bf16) leave room for
+    slices (3 units x H forward, units x 3H backward) leave room for
     their rings. Among those that fit, the plan takes the fewest launches
     per layer, then the least estimated step time: a warp's serial
     product (m16 tiles x k16 steps, forward and backward) plus a
     synchronisation per chunk."""
-    if B < 1 or H < 1:
-        raise ValueError(f"stack_plan: B={B}, H={H}")
+    if B < 1 or H < 1 or esize not in (2, 4):
+        raise ValueError(f"stack_plan: B={B}, H={H}, esize={esize}")
     Kf, Kb = _up(H, 16), _up(3 * H, 16)
     best = None
     for units in range(min(_MAX_UNITS, _up(H, 8)), 7, -8):
@@ -170,17 +170,19 @@ def stack_plan(B: int, H: int, sms: int = SMS, smem: int = SMEM) -> StackPlan:
         slices = -(-B // (g * rows))
         if slices == 1:
             g = -(-B // rows)
-        wf, wb = 3 * units * (Kf + _PAD) * 2, units * (Kb + _PAD) * 2
-        cf, cb = _chunk(wf, rows, Kf, smem), _chunk(wb, rows, Kb, smem)
+        wf, wb = 3 * units * (Kf * esize + _PAD_BYTES), units * (Kb * esize + _PAD_BYTES)
+        cf, cb = _chunk(wf, rows, Kf, smem, esize), _chunk(wb, rows, Kb, smem, esize)
         if cf is None or cb is None:
             continue
-        plan = StackPlan(g, q, units, rows, slices, cf, cb, wf + _ring(rows, cf, Kf), wb + _ring(rows, cb, Kb))
+        plan = StackPlan(g, q, units, rows, slices, cf, cb, wf + _ring(rows, cf, Kf, esize),
+                         wb + _ring(rows, cb, Kb, esize))
         steps = rows // 16 * (Kf + Kb) // 16 * 10 + (-(-Kf // cf) + -(-Kb // cb)) * 200
         key = (slices, steps, -units)
         if best is None or key < best[0]:
             best = (key, plan)
     if best is None:
-        raise ValueError(f"stack_plan: no layout fits H={H} in {smem} bytes of shared memory")
+        raise ValueError(f"stack_plan: no layout fits H={H} ({esize}-byte elements) in {smem} bytes of "
+                         "shared memory")
     return best[1]
 
 
@@ -193,9 +195,9 @@ def _contract(d: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 
 
 def gemm_ref(kind: str, a: torch.Tensor, b: torch.Tensor, bias: Optional[torch.Tensor] = None,
-             first: Optional[torch.Tensor] = None):
-    """The GEMM kernel's three epilogues; operands rounded to bf16, products
-    summed in fp32:
+             first: Optional[torch.Tensor] = None, md: torch.dtype = torch.bfloat16):
+    """The GEMM kernel's three epilogues; operands rounded to the storage
+    type ``md`` (bf16, or fp32 in strict mode), products summed in fp32:
 
     - ``'gi'``: a (..., K) @ b (N, K)^T + bias (N) -> fp32 (..., N), the
       input gates of every step;
@@ -204,35 +206,34 @@ def gemm_ref(kind: str, a: torch.Tensor, b: torch.Tensor, bias: Optional[torch.T
     - ``'dw'``: a (T, B, M), b (T, B, N) -> (sum over (t, b) of a^T b (M, N),
       sum of a (M)), fp32. With ``first`` (B, N), b is (T-1, B, N) and
       ``first`` is its step 0: the h one step behind."""
-    bf = torch.bfloat16
     if kind == "gi":
-        return round_to(a, bf) @ round_to(b, bf).T + bias
+        return round_to(a, md) @ round_to(b, md).T + bias
     if kind == "dx":
-        return round_to(a, bf) @ round_to(b, bf)
+        return round_to(a, md) @ round_to(b, md)
     if kind == "dw":
-        x = b if first is None else torch.cat([first.to(bf)[None], b.to(bf)], dim=0)
-        ab = round_to(a, bf)
-        return _contract(ab, round_to(x, bf)), ab.sum(tuple(range(a.dim() - 1)))
+        x = b if first is None else torch.cat([first.to(md)[None], b.to(md)], dim=0)
+        ab = round_to(a, md)
+        return _contract(ab, round_to(x, md)), ab.sum(tuple(range(a.dim() - 1)))
     raise ValueError(f"gemm_ref: unknown epilogue {kind!r}")
 
 
-def layer_recurrence_ref(gi, w_hh, b_hh, h0) -> Residuals:
+def layer_recurrence_ref(gi, w_hh, b_hh, h0, md: torch.dtype = torch.bfloat16) -> Residuals:
     """The recurrence kernel's math, one layer: the fp32 input gates gi
     (T, B, 3H), bias included, w_hh (3H, H), b_hh (3H), h0 (B, H) ->
-    (hseq (T, B, H), rzn (T, B, 3H), ghn (T, B, H)), bf16. h is rounded to
-    bf16 as the product's operand; gates and the carry are fp32."""
-    bf = torch.bfloat16
+    (hseq (T, B, H), rzn (T, B, 3H), ghn (T, B, H)) in the storage type
+    ``md``. h is rounded to md as the product's operand; gates and the
+    carry are fp32."""
     T, B, G = gi.shape
     H = G // 3
     dev = gi.device
-    hseq = torch.empty(T, B, H, dtype=bf, device=dev)
-    rzn = torch.empty(T, B, G, dtype=bf, device=dev)
-    ghn = torch.empty(T, B, H, dtype=bf, device=dev)
-    w = round_to(w_hh, bf).T
+    hseq = torch.empty(T, B, H, dtype=md, device=dev)
+    rzn = torch.empty(T, B, G, dtype=md, device=dev)
+    ghn = torch.empty(T, B, H, dtype=md, device=dev)
+    w = round_to(w_hh, md).T
     h = h0.float()
     for t in range(T):
         g_in = gi[t]
-        gh = round_to(h, bf) @ w + b_hh
+        gh = round_to(h, md) @ w + b_hh
         r = torch.sigmoid(g_in[:, :H] + gh[:, :H])
         z = torch.sigmoid(g_in[:, H : 2 * H] + gh[:, H : 2 * H])
         gn = gh[:, 2 * H :]
@@ -270,21 +271,21 @@ def gru_fused3_scan_ref(gi0, wih, bih, whh, bhh, h0) -> torch.Tensor:
     return _stack_ref(round_to(gi0, torch.bfloat16), wih, bih, whh, bhh, h0)[0]
 
 
-def layer_sweep_ref(hseq, h0, rzn, ghn, w_hh, ext, dhf):
+def layer_sweep_ref(hseq, h0, rzn, ghn, w_hh, ext, dhf, md: torch.dtype = torch.bfloat16):
     """The reverse-sweep kernel's math, one layer: its residuals hseq
     (T, B, H), rzn, ghn, its h0 (B, H), w_hh (3H, H), ext (T, B, H) the fp32
     cotangent of its outputs (dY, or the layer above's), dhf (B, H) that of
-    its h_final -> (dgi, dgh (T, B, 3H) bf16, dh0 (B, H) fp32)."""
-    bf = torch.bfloat16
+    its h_final -> (dgi, dgh (T, B, 3H) in the storage type ``md``, dh0
+    (B, H) fp32)."""
     T, B, H = hseq.shape
-    dgi = torch.empty(T, B, 3 * H, dtype=bf, device=hseq.device)
+    dgi = torch.empty(T, B, 3 * H, dtype=md, device=hseq.device)
     dgh = torch.empty_like(dgi)
-    w = round_to(w_hh, bf)
+    w = round_to(w_hh, md)
     dh = dhf.float()
     for t in reversed(range(T)):
         r, z, n = rzn[t].float().split(H, dim=-1)
         gn = ghn[t].float()
-        hp = (hseq[t - 1] if t > 0 else h0.to(bf)).float()
+        hp = (hseq[t - 1] if t > 0 else h0.to(md)).float()
         dout = dh + ext[t]
         dz = dout * (hp - n) * z * (1.0 - z)
         dn = dout * (1.0 - z) * (1.0 - n * n)
@@ -358,14 +359,19 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def _row_align(dtype: torch.dtype) -> int:
+    """Elements of ``dtype`` in 16 bytes: 8 bf16, 4 fp32."""
+    return 16 // dtype.itemsize
+
+
 def _is_padded(t: torch.Tensor, dtype=torch.bfloat16) -> bool:
     """True if t is ``dtype`` with its last dimension contiguous and its
-    rows a multiple of 8 elements apart from a 16-byte aligned start, as the
-    kernels' cp.async copies need."""
-    n = t.shape[-1]
-    ld = t.stride(-2) if t.dim() > 1 else _up(n, 8)
+    rows a multiple of 16 bytes apart (8 bf16, 4 fp32) from a 16-byte
+    aligned start, as the kernels' cp.async copies need."""
+    n, a = t.shape[-1], _row_align(dtype)
+    ld = t.stride(-2) if t.dim() > 1 else _up(n, a)
     dense = t.dim() < 2 or all(t.stride(i) == t.stride(i + 1) * t.shape[i + 1] for i in range(t.dim() - 2))
-    return (t.dtype == dtype and t.stride(-1) == 1 and ld % 8 == 0 and ld >= n and dense
+    return (t.dtype == dtype and t.stride(-1) == 1 and ld % a == 0 and ld >= n and dense
             and t.data_ptr() % 16 == 0)
 
 
@@ -375,7 +381,7 @@ def _padded(t: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:
     if _is_padded(t, dtype):
         return t
     n = t.shape[-1]
-    buf = torch.empty(*t.shape[:-1], _up(n, 8), dtype=dtype, device=t.device)
+    buf = torch.empty(*t.shape[:-1], _up(n, _row_align(dtype)), dtype=dtype, device=t.device)
     out = buf[..., :n]
     with torch.no_grad():
         out.copy_(t)
@@ -394,7 +400,7 @@ class _Job(ctypes.Structure):
                 *((name, ctypes.c_int) for name in ("M", "N", "K", "lda", "ldb", "ldc", "b_nfirst", "out_bf16"))]
 
 
-_GEMM_KINDS = {"gi": 0, "dx": 1, "dw": 2}
+_GEMM_KINDS = {"gi": 0, "dx": 1, "dw": 2}  # + 3: the strict-fp32 instances
 Count = Optional[Callable[[], None]]
 # the stack's counters: what each launch helper counts into unless its
 # caller passes its own ``count``
@@ -403,13 +409,14 @@ _COUNTS = {"gi": counter(globals(), "gemm_gi_launches"), "dx": counter(globals()
            "sweep": counter(globals(), "sweep_launches")}
 
 
-def _gemm(kind: str, jobs: List[_Job], dev_tensor: torch.Tensor, count: Count = None) -> None:
-    """One launch of the GEMM kernel over ``jobs``, counted by ``count``
-    (the stack's counter of the kind by default)."""
+def _gemm(kind: str, jobs: List[_Job], dev_tensor: torch.Tensor, count: Count = None,
+          md: torch.dtype = torch.bfloat16) -> None:
+    """One launch of the GEMM kernel over ``jobs`` of ``md`` operands,
+    counted by ``count`` (the stack's counter of the kind by default)."""
     table = (_Job * len(jobs))(*jobs)
     fn = _build.function("molvax_gemm", [ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
-    _build.check(fn(_GEMM_KINDS[kind], ctypes.addressof(table), len(jobs), _stream(dev_tensor)),
-                 f"gru_stack GEMM ({kind})")
+    code = _GEMM_KINDS[kind] + (3 if md == torch.float32 else 0)
+    _build.check(fn(code, ctypes.addressof(table), len(jobs), _stream(dev_tensor)), f"gru_stack GEMM ({kind}, {md})")
     (count or _COUNTS[kind])()
 
 
@@ -442,10 +449,12 @@ def _dw_job(d, x, dw, db, first=None) -> _Job:
 def _recurrence(gi, whh, bhh, h0, h0b, hseq, rzn, ghn, plan: StackPlan, count: Count = None) -> None:
     """The persistent recurrence of one layer, one launch per batch slice,
     each counted by ``count`` (the stack's counter by default): gi
-    (T, B, 3H) fp32, whh (3H, H) and h0b (B, H) padded bf16, bhh (3H), h0
-    (B, H) fp32 -> hseq (T, B, H) padded, rzn, ghn."""
+    (T, B, 3H) fp32, whh (3H, H) and h0b (B, H) padded in the storage type
+    (bf16, or fp32: the _f32 entry), bhh (3H), h0 (B, H) fp32 -> hseq
+    (T, B, H) padded, rzn, ghn."""
     T, B, H = hseq.shape
-    fn = _build.function("molvax_gru_rec", [ctypes.c_void_p] * 9 + [ctypes.c_int] * 12 + [ctypes.c_void_p])
+    name = "molvax_gru_rec_f32" if whh.dtype == torch.float32 else "molvax_gru_rec"
+    fn = _build.function(name, [ctypes.c_void_p] * 9 + [ctypes.c_int] * 12 + [ctypes.c_void_p])
     span = plan.g * plan.rows
     for base in range(0, B, span):
         flags = torch.zeros(plan.g, dtype=torch.int32, device=gi.device)
@@ -459,11 +468,12 @@ def _recurrence(gi, whh, bhh, h0, h0b, hseq, rzn, ghn, plan: StackPlan, count: C
 def _sweep(hseq, h0b, rzn, ghn, ext, dhf, whhT, dgi, dgh, dh0, plan: StackPlan, count: Count = None) -> None:
     """The persistent reverse sweep of one layer, one launch per batch
     slice, each counted by ``count`` (the stack's counter by default): hseq
-    (T, B, H), h0b (B, H), whhT (H, 3H), dgi / dgh (T, B, 3H) padded bf16;
-    rzn, ghn contiguous bf16; ext (T, B, H), dhf (B, H) contiguous fp32 ->
-    dgi, dgh, dh0 (B, H) fp32."""
+    (T, B, H), h0b (B, H), whhT (H, 3H), dgi / dgh (T, B, 3H) padded in the
+    storage type (bf16, or fp32: the _f32 entry); rzn, ghn contiguous in it;
+    ext (T, B, H), dhf (B, H) contiguous fp32 -> dgi, dgh, dh0 (B, H) fp32."""
     T, B, H = hseq.shape
-    fn = _build.function("molvax_gru_sweep", [ctypes.c_void_p] * 11 + [ctypes.c_int] * 13 + [ctypes.c_void_p])
+    name = "molvax_gru_sweep_f32" if whhT.dtype == torch.float32 else "molvax_gru_sweep"
+    fn = _build.function(name, [ctypes.c_void_p] * 11 + [ctypes.c_int] * 13 + [ctypes.c_void_p])
     span = plan.g * plan.rows
     for base in range(0, B, span):
         flags = torch.zeros(plan.g, dtype=torch.int32, device=hseq.device)
@@ -475,14 +485,15 @@ def _sweep(hseq, h0b, rzn, ghn, ext, dhf, whhT, dgi, dgh, dh0, plan: StackPlan, 
 
 
 def gemm(kind: str, a: torch.Tensor, b: torch.Tensor, bias: Optional[torch.Tensor] = None,
-         first: Optional[torch.Tensor] = None, count: Count = None):
+         first: Optional[torch.Tensor] = None, count: Count = None, md: torch.dtype = torch.bfloat16):
     """``gemm_ref`` on the card: one launch of the GEMM kernel with the
-    epilogue ``kind`` ('gi', 'dx', 'dw'; 'dx' returns fp32), counted by
-    ``count`` (the stack's counter by default). CUDA tensors only."""
+    epilogue ``kind`` ('gi', 'dx', 'dw'; 'dx' returns fp32) on operands in
+    ``md``, counted by ``count`` (the stack's counter by default). CUDA
+    tensors only."""
     _check_cuda(f"gru_stack GEMM ({kind})", a, b, *(t for t in (bias, first) if t is not None))
     dev = a.device
     with torch.no_grad():
-        ap, bp = _padded(a), _padded(b)
+        ap, bp = _padded(a, md), _padded(b, md)
         if kind == "gi":
             out = torch.empty(*a.shape[:-1], b.shape[0], device=dev)
             job = _gi_job(ap, bp, bias.float().contiguous(), out)
@@ -493,49 +504,52 @@ def gemm(kind: str, a: torch.Tensor, b: torch.Tensor, bias: Optional[torch.Tenso
             M, N = a.shape[-1], b.shape[-1]
             out = (torch.empty(M, N, device=dev), torch.empty(M, device=dev))
             if first is not None:  # one buffer, so that both have one row stride
-                both = _padded(torch.cat([first.to(torch.bfloat16)[None], b.to(torch.bfloat16)]))
+                both = _padded(torch.cat([first.to(md)[None], b.to(md)]), md)
                 fp, bp = both[0], both[1:]
             job = _dw_job(ap, bp, *out, first=None if first is None else fp)
         else:
             raise ValueError(f"gemm: unknown epilogue {kind!r}")
-    _gemm(kind, [job], a, count)
+    _gemm(kind, [job], a, count, md)
     return out
 
 
-def layer_recurrence(gi, w_hh, b_hh, h0, plan: Optional[StackPlan] = None, count: Count = None) -> Residuals:
-    """``layer_recurrence_ref`` on the card: one persistent launch (per
-    batch slice of the plan), each counted by ``count``. hseq comes back as
-    a view of a buffer whose rows are padded to a multiple of 8. CUDA
-    tensors only."""
+def layer_recurrence(gi, w_hh, b_hh, h0, plan: Optional[StackPlan] = None, count: Count = None,
+                     md: torch.dtype = torch.bfloat16) -> Residuals:
+    """``layer_recurrence_ref`` on the card, storage type ``md``: one
+    persistent launch (per batch slice of the plan), each counted by
+    ``count``. hseq comes back as a view of a buffer whose rows are padded
+    to a multiple of 16 bytes. CUDA tensors only."""
     _check_cuda("gru_stack recurrence", gi, w_hh, b_hh, h0)
     T, B, G = gi.shape
     H = G // 3
-    plan = plan or stack_plan(B, H)
-    bf, dev = torch.bfloat16, gi.device
+    plan = plan or stack_plan(B, H, esize=md.itemsize)
+    dev = gi.device
     with torch.no_grad():
-        args = (gi.float().contiguous(), _padded(w_hh), b_hh.float().contiguous(), h0.float().contiguous(),
-                _padded(h0))
-    hseq = torch.empty(T, B, _up(H, 8), dtype=bf, device=dev)[..., :H]
-    rzn = torch.empty(T, B, G, dtype=bf, device=dev)
-    ghn = torch.empty(T, B, H, dtype=bf, device=dev)
+        args = (gi.float().contiguous(), _padded(w_hh, md), b_hh.float().contiguous(), h0.float().contiguous(),
+                _padded(h0, md))
+    hseq = torch.empty(T, B, _up(H, _row_align(md)), dtype=md, device=dev)[..., :H]
+    rzn = torch.empty(T, B, G, dtype=md, device=dev)
+    ghn = torch.empty(T, B, H, dtype=md, device=dev)
     _recurrence(*args, hseq, rzn, ghn, plan, count)
     return hseq, rzn, ghn
 
 
-def layer_sweep(hseq, h0, rzn, ghn, w_hh, ext, dhf, plan: Optional[StackPlan] = None, count: Count = None):
-    """``layer_sweep_ref`` on the card: one persistent launch (per batch
-    slice of the plan), each counted by ``count``; hseq is read in place
-    where it is padded as the recurrence leaves it. dgi and dgh come back
-    as views of padded buffers. CUDA tensors only."""
+def layer_sweep(hseq, h0, rzn, ghn, w_hh, ext, dhf, plan: Optional[StackPlan] = None, count: Count = None,
+                md: torch.dtype = torch.bfloat16):
+    """``layer_sweep_ref`` on the card, storage type ``md``: one persistent
+    launch (per batch slice of the plan), each counted by ``count``; hseq is
+    read in place where it is padded as the recurrence leaves it. dgi and
+    dgh come back as views of padded buffers. CUDA tensors only."""
     _check_cuda("gru_stack reverse sweep", hseq, h0, rzn, ghn, w_hh, ext, dhf)
     T, B, H = hseq.shape
-    plan = plan or stack_plan(B, H)
-    bf, dev = torch.bfloat16, hseq.device
+    plan = plan or stack_plan(B, H, esize=md.itemsize)
+    dev = hseq.device
     with torch.no_grad():
-        args = (_padded(hseq), _padded(h0), rzn.to(bf).contiguous(), ghn.to(bf).contiguous(),
-                ext.float().contiguous(), dhf.float().contiguous(), _padded(w_hh.t()))
-    dgi = torch.empty(T, B, _up(3 * H, 8), dtype=bf, device=dev)[..., : 3 * H]
-    dgh = torch.empty(T, B, _up(3 * H, 8), dtype=bf, device=dev)[..., : 3 * H]
+        args = (_padded(hseq, md), _padded(h0, md), rzn.to(md).contiguous(), ghn.to(md).contiguous(),
+                ext.float().contiguous(), dhf.float().contiguous(), _padded(w_hh.t(), md))
+    G = _up(3 * H, _row_align(md))
+    dgi = torch.empty(T, B, G, dtype=md, device=dev)[..., : 3 * H]
+    dgh = torch.empty(T, B, G, dtype=md, device=dev)[..., : 3 * H]
     dh0 = torch.empty(B, H, device=dev)
     _sweep(*args, dgi, dgh, dh0, plan, count)
     return dgi, dgh, dh0

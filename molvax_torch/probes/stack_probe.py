@@ -6,6 +6,7 @@ Run by path from the root of a checkout, on a CUDA card:
     python3 molvax_torch/probes/stack_probe.py             # times at zinc250k width
     python3 molvax_torch/probes/stack_probe.py --steps     # a recurrence step decomposed
     python3 molvax_torch/probes/stack_probe.py --root DIR  # the times of the checkout at DIR
+    python3 molvax_torch/probes/stack_probe.py --sass DIR  # the bf16 kernels' SASS against DIR's
 
 Every mode prints one JSON line per run, with the card's name and power
 limit. Times are CUDA events, median of 5 after 2 warm-ups, at B=256,
@@ -13,27 +14,41 @@ T=120, I0=329, H=501, L=3, seeded weights (uniform +-1/sqrt(H)):
 
 - default and ``--root``: the stack's forward and backward
   (``kernels.gru_stack.stack_forward`` / ``stack_backward``), and the GRU
-  kernels beside it: ``gru_layer_scan_x`` bf16 forward and backward at
-  layer 0, ``gru_layer_scan`` forward and backward, ``gru_probe_scan``
-  (``matmul_only``) and ``gru_fused3_scan``. With ``--root`` the package is
-  imported from DIR, so a parent commit unpacked there (``git archive``)
-  and this checkout can be timed in turns on one card (parent, change,
-  change, parent). The default mode adds the redesigned stack's own pieces
-  (one layer's recurrence and sweep, the layer-0 input-gate GEMM) and the
-  host time to enqueue a forward and a backward.
-- ``--steps``: the recurrence and the sweep of one layer, rebuilt with parts
-  of their step taken out (results wrong, times only): the group barrier
-  (``nobarrier``), the per-step product with its h / dgh copy
-  (``noproduct``), both, and then the per-step loads or stores as well.
-  Differences between the variants' times are the parts' costs. A variant
-  may let the compiler drop more than was taken out (without stores, the
-  forward's gate math has no use), which the reading must allow for.
+  kernels beside it: ``gru_layer_scan_x`` forward and backward at layer 0,
+  bf16 and strict fp32, ``gru_layer_scan`` forward and backward,
+  ``gru_probe_scan`` (``matmul_only``) and ``gru_fused3_scan``. With
+  ``--root`` the package is imported from DIR, so a parent commit unpacked
+  there (``git archive``) and this checkout can be timed in turns on one
+  card (parent, change, change, parent). The default mode adds the
+  redesigned stack's own pieces (one layer's recurrence and sweep, the
+  layer-0 input-gate GEMM) and the host time to enqueue a forward and a
+  backward.
+- ``--steps``: the recurrence and the sweep of one layer, bf16 and strict
+  fp32, rebuilt with parts of their step taken out (results wrong, times
+  only): the group barrier (``nobarrier``), the per-step product with its
+  h / dgh copy (``noproduct``), both, and then the per-step loads or stores
+  as well. Differences between the variants' times are the parts' costs. A
+  variant may let the compiler drop more than was taken out (without
+  stores, the forward's gate math has no use), which the reading must allow
+  for. Two variants take apart the strict-fp32 product and its ring copy
+  (the bf16 columns of those rows are the base kernels'). Then the
+  strict-fp32 pieces (recurrence, sweep and the input-gate, dx and dW
+  GEMMs) in each product form of ``csrc/gemm.cuh`` (``FORMS``: 3xTF32
+  split products, split on the integer pipe or by ``cvt.rna.tf32.f32``,
+  the GEMM's k-tiles summed apart or all in one tensor-core accumulator;
+  or FFMA), each with its GEMMs' errors against a float64 product.
+- ``--sass DIR``: every kernel of the library built from DIR's sources
+  (the parent, unpacked as above) has a kernel of this checkout's library
+  with the same SASS (``cuobjdump -sass``, addresses and encodings set
+  aside; names differ where a template gained a parameter).
 """
 
 from __future__ import annotations
 
 import json
+import re
 import shutil
+import subprocess
 import sys
 import time
 from pathlib import Path
@@ -52,6 +67,60 @@ _NOLOADS = [("gi[mt][e][gte] = ok[mt][e] ? p[gte * H] : 0.0f;", "gi[mt][e][gte] 
 _NOSTORES = [("        if (ok[mt][e]) {\n          const size_t o = (size_t)t * a.B + rowof[mt][e];",
               "        if (ok[mt][e] && t < 0) {\n          const size_t o = (size_t)t * a.B + rowof[mt][e];")] + [
     (f"        {p}[{i}] = ", f"        if (t < 0) {p}[{i}] = ") for p in ("pi", "ph") for i in ("0", "H", "2 * H")]
+# strict fp32 only: the product without its ring copy, the copy without
+# the product
+_FP32_NOMATH = [("      fp32_k8(acc, corr,", "      if (kk < 0) fp32_k8(acc, corr,"),
+                ("      fp32_k8(reinterpret_cast<Tile>(c)", "      if (kk < 0) fp32_k8(reinterpret_cast<Tile>(c)"),
+                ("      fp32_k8(kacc, kcorr,", "      if (kk < 0) fp32_k8(kacc, kcorr,")]
+_FP32_NOCOPY = [("      cp_async16(buf + row * stride + kc,", "      if (sizeof(E) == 2) cp_async16(buf + row * stride + kc,")]
+# csrc/gemm.cuh's product forms of strict fp32, as (text, replacement):
+# the one it holds (3xTF32, split on the integer pipe, the GEMM's k-tiles
+# summed apart), the split by cvt.rna.tf32.f32, the GEMM summing every
+# k-tile into one tensor-core accumulator, and FFMA
+_SPLIT_INT = """  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));"""
+_SPLIT_CVT = """  asm("cvt.rna.tf32.f32 %0, %1;\\n" : "=r"(hi) : "f"(x));
+  asm("cvt.rna.tf32.f32 %0, %1;\\n" : "=r"(lo) : "f"(x - __uint_as_float(hi)));"""
+_NOFLUSH = [("      float part[4][4][4] = {};\n", ""), ("fp32_k8(part, part,", "fp32_k8(acc, acc,"),
+            ("#pragma unroll\n      for (int i = 0; i < 64; ++i) (&acc[0][0][0])[i] += (&part[0][0][0])[i];\n", "")]
+_TF32_BODY = """  uint32_t bh[NT][2], bl[NT][2];
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    split_tf32(b(t, 8 * j + g), bh[j][0], bl[j][0]);
+    split_tf32(b(t + 4, 8 * j + g), bh[j][1], bl[j][1]);
+  }
+#pragma unroll
+  for (int i = 0; i < MT; ++i) {
+    uint32_t ah[4], al[4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) split_tf32(a(16 * i + g + 8 * (r & 1), t + 4 * (r >> 1)), ah[r], al[r]);
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      mma_tf32(corr[i][j], al, bh[j]);
+      mma_tf32(corr[i][j], ah, bl[j]);
+      mma_tf32(acc[i][j], ah, bh[j]);
+    }
+  }
+"""
+_FFMA_BODY = """#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+#pragma unroll
+    for (int i = 0; i < MT; ++i) {
+      const float a0 = a(16 * i + g, k), a1 = a(16 * i + g + 8, k);
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const float b0 = b(k, 8 * j + 2 * t), b1 = b(k, 8 * j + 2 * t + 1);
+        acc[i][j][0] = fmaf(a0, b0, acc[i][j][0]);
+        acc[i][j][1] = fmaf(a0, b1, acc[i][j][1]);
+        acc[i][j][2] = fmaf(a1, b0, acc[i][j][2]);
+        acc[i][j][3] = fmaf(a1, b1, acc[i][j][3]);
+      }
+    }
+  }
+"""
+KEPT = "split_tf32"
+FORMS = {KEPT: [], "split_tf32_cvt": [(_SPLIT_INT, _SPLIT_CVT)], "split_tf32_noflush": _NOFLUSH,
+         "ffma": [(_TF32_BODY, _FFMA_BODY)]}
 VARIANTS = {
     "base": [],
     "nobarrier": _NOBARRIER,
@@ -60,12 +129,15 @@ VARIANTS = {
     "neither_noloads": _NOBARRIER + _NOPRODUCT + _NOLOADS,
     "neither_nostores": _NOBARRIER + _NOPRODUCT + _NOSTORES,
     "empty": _NOBARRIER + _NOPRODUCT + _NOLOADS + _NOSTORES,
+    "fp32_copy_only": _FP32_NOMATH,
+    "fp32_product_only": _FP32_NOCOPY,
 }
 
 
-def variant_source(text: str, name: str) -> str:
-    """csrc/gru_stack.cu's text with variant ``name``'s parts taken out."""
-    for old, new in VARIANTS[name]:
+def variant_source(text: str, name: str, table: dict = VARIANTS) -> str:
+    """csrc/gru_stack.cu's text with variant ``name``'s parts taken out (or,
+    with table=FORMS, csrc/gemm.cuh's in product form ``name``)."""
+    for old, new in table[name]:
         if old not in text:
             raise ValueError(f"variant {name}: {old!r} is not in the source")
         text = text.replace(old, new)
@@ -101,9 +173,10 @@ def kernel_times(inp: dict, own: bool) -> dict:
         out["stack_fwd"] = event_ms(lambda: ks.stack_forward(*args))
         out["stack_bwd"] = event_ms(lambda: ks.stack_backward(res, dY, dhf))
         layer = (x0, wih0, bih0, whh[0], bhh[0], h0[0])
-        lres = (*kgru.layer_forward(*layer, bf), x0, h0[0], wih0, whh[0])
-        out["layer_x_fwd_bf16"] = event_ms(lambda: kgru.layer_forward(*layer, bf))
-        out["layer_x_bwd_bf16"] = event_ms(lambda: kgru.layer_backward(lres, dY))
+        for md, name in ((bf, "bf16"), (torch.float32, "fp32")):
+            lres = (*kgru.layer_forward(*layer, md), x0, h0[0], wih0, whh[0])
+            out[f"layer_x_fwd_{name}"] = event_ms(lambda: kgru.layer_forward(*layer, md))
+            out[f"layer_x_bwd_{name}"] = event_ms(lambda: kgru.layer_backward(lres, dY))
         gi = x0 @ wih0.T + bih0
         sres = (*kgru.scan_forward(gi, whh[0], bhh[0], h0[0]), h0[0], whh[0])
         out["scan_fwd"] = event_ms(lambda: kgru.scan_forward(gi, whh[0], bhh[0], h0[0]))
@@ -126,31 +199,88 @@ def kernel_times(inp: dict, own: bool) -> dict:
 
 
 def step_times(inp: dict, root: Path) -> list:
-    """One layer's recurrence and sweep in every variant of VARIANTS, each
-    built from a copy of csrc/ under build/stack_probe/."""
+    """One layer's recurrence and sweep, bf16 and strict fp32, in every
+    variant of VARIANTS; then the strict-fp32 pieces in the other product
+    forms of FORMS. Each build from a copy of csrc/ under
+    build/stack_probe/. Each form's row also holds its fp32 GEMMs' errors,
+    max abs over the largest magnitude of a float64 product."""
     from molvax_torch.kernels import _build
     from molvax_torch.kernels import gru_stack as ks
     from molvax_torch.train.profiling import event_ms
 
     x0, wih0, bih0, _, _, whh, bhh, h0 = inp["args"]
+    f32 = torch.float32
     with torch.no_grad():
         gi = x0 @ wih0.T + bih0
-        hseq, rzn, ghn = ks.layer_recurrence_ref(gi, whh[0], bhh[0], h0[0])
+        res = {md: ks.layer_recurrence_ref(gi, whh[0], bhh[0], h0[0], md) for md in (torch.bfloat16, f32)}
+        dgi, dgh, _ = ks.layer_sweep_ref(*res[f32][:1], h0[0], *res[f32][1:], whh[0], inp["dY"], h0[0], f32)
+        f64 = torch.float64
+        hprev = torch.cat([h0[0][None], res[f32][0][:-1]]).to(f64)
+        exact = {"gi": x0.to(f64) @ wih0.to(f64).T + bih0.to(f64), "dx": dgi.to(f64) @ wih0.to(f64),
+                 "dw": torch.einsum("tbm,tbn->mn", dgh.to(f64), hprev), "db": dgh.to(f64).sum((0, 1))}
     src = Path(ks.__file__).resolve().parent / "csrc"
     rows = []
-    for name in VARIANTS:
-        d = root / "build" / "stack_probe" / name / "csrc"
+    for name, form in [(v, KEPT) for v in VARIANTS] + [("base", f) for f in FORMS if f != KEPT]:
+        d = root / "build" / "stack_probe" / f"{name}_{form}" / "csrc"
         shutil.rmtree(d.parent, ignore_errors=True)
         shutil.copytree(src, d)
         (d / "gru_stack.cu").write_text(variant_source((src / "gru_stack.cu").read_text(), name))
+        (d / "gemm.cuh").write_text(variant_source((src / "gemm.cuh").read_text(), form, FORMS))
         _build.CSRC, _build.BUILD_DIR, _build._lib = d, d.parent / "lib", None
         _build.load()
+        row = {"variant": name, "fp32_form": form}
         with torch.no_grad():
-            rec = event_ms(lambda: ks.layer_recurrence(gi, whh[0], bhh[0], h0[0]))
-            sweep = event_ms(lambda: ks.layer_sweep(hseq, h0[0], rzn, ghn, whh[0], inp["dY"], h0[0]))
-        rows.append({"variant": name, "recurrence_ms": rec, "recurrence_us_per_step": rec * 1e3 / T,
-                     "sweep_ms": sweep, "sweep_us_per_step": sweep * 1e3 / T})
+            for md, tag in ((torch.bfloat16, ""), (f32, "_fp32")):
+                hseq, rzn, ghn = res[md]
+                rec = event_ms(lambda: ks.layer_recurrence(gi, whh[0], bhh[0], h0[0], md=md))
+                sweep = event_ms(lambda: ks.layer_sweep(hseq, h0[0], rzn, ghn, whh[0], inp["dY"], h0[0], md=md))
+                row.update({f"recurrence{tag}_ms": rec, f"recurrence{tag}_us_per_step": rec * 1e3 / T,
+                            f"sweep{tag}_ms": sweep, f"sweep{tag}_us_per_step": sweep * 1e3 / T})
+            if name == "base":  # the strict-fp32 GEMMs of one layer, the dW one job
+                row["gemm_gi_fp32_ms"] = event_ms(lambda: ks.gemm("gi", x0, wih0, bih0, md=f32))
+                row["gemm_dx_fp32_ms"] = event_ms(lambda: ks.gemm("dx", dgi, wih0, md=f32))
+                row["gemm_dw_hh_fp32_ms"] = event_ms(lambda: ks.gemm("dw", dgh, res[f32][0][:-1], first=h0[0], md=f32))
+                got = {"gi": ks.gemm("gi", x0, wih0, bih0, md=f32), "dx": ks.gemm("dx", dgi, wih0, md=f32)}
+                got["dw"], got["db"] = ks.gemm("dw", dgh, res[f32][0][:-1], first=h0[0], md=f32)
+                for k, v in exact.items():
+                    row[f"gemm_{k}_fp32_rel_err"] = float((got[k] - v).abs().max() / v.abs().max())
+        rows.append(row)
     return rows
+
+
+def _sass(lib: Path) -> dict:
+    """{kernel name: its SASS instructions}, addresses and encodings set aside."""
+    nvcc = Path(shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc")
+    text = subprocess.run([str(nvcc.parent / "cuobjdump"), "-sass", str(lib)], capture_output=True, text=True,
+                          check=True).stdout
+    funcs, name = {}, None
+    for line in text.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            funcs[name] = []
+        elif name and re.match(r"\s*/\*[0-9a-f]{4,}\*/", line):
+            funcs[name].append(" ".join(re.sub(r"^\s*/\*[0-9a-f]+\*/", "", line).split(";")[0].split()))
+    return funcs
+
+
+def sass_check(parent: Path) -> dict:
+    """Every kernel of the library built from ``parent``'s csrc/ against
+    this checkout's: kernels of the parent with no kernel of the same SASS
+    here, by name."""
+    from molvax_torch.kernels import _build
+
+    _build.load()
+    here = _build.library_path()
+    code = "import sys; sys.path.insert(0, sys.argv[1]); from molvax_torch.kernels import _build; " \
+           "_build.load(); print(_build.library_path())"
+    there = Path(subprocess.run([sys.executable, "-c", code, str(parent)], capture_output=True, text=True,
+                                check=True).stdout.split()[-1])
+    old, new = _sass(there), _sass(here)
+    bodies = {tuple(v) for v in new.values()}
+    missing = sorted(k for k, v in old.items() if tuple(v) not in bodies)
+    return {"parent_kernels": len(old), "kernels": len(new), "parent_kernels_with_same_sass": len(old) - len(missing),
+            "parent_kernels_without": missing}
 
 
 def main(argv) -> int:
@@ -161,8 +291,11 @@ def main(argv) -> int:
     sys.path.insert(0, str(root))
     from molvax_torch.train.profiling import card_line
 
-    inp = make_inputs()
     card = card_line()
+    if "--sass" in argv:
+        print(json.dumps({**sass_check(Path(argv[argv.index("--sass") + 1]).resolve()), "card": card}), flush=True)
+        return 0
+    inp = make_inputs()
     if "--steps" in argv:
         for row in step_times(inp, root):
             print(json.dumps({**row, "card": card}), flush=True)

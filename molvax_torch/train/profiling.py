@@ -42,10 +42,11 @@ class Peaks:
     fp32_tflops: float  # fp32 outside the tensor cores
     int32_tops: float  # int32 operations: half the fp32 lane rate
     hbm_tb_s: float  # device memory bandwidth
+    tf32_tflops: float  # tensor cores, TF32 (a 3xTF32 product runs three of them)
 
 
 # NVIDIA's data sheet for the H100 SXM (dense rates without sparsity, 700 W)
-H100_SXM = Peaks(bf16_tflops=989.0, fp32_tflops=67.0, int32_tops=33.5, hbm_tb_s=3.35)
+H100_SXM = Peaks(bf16_tflops=989.0, fp32_tflops=67.0, int32_tops=33.5, hbm_tb_s=3.35, tf32_tflops=494.7)
 
 # by the name torch.cuda.get_device_name reports
 PEAKS = {

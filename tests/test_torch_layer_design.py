@@ -1,16 +1,18 @@
-"""The bf16 per-layer GRU route on the stack's pieces, on the CPU.
+"""The per-layer GRU route on the stack's pieces, bf16 and strict fp32, on
+the CPU.
 
-Since the per-layer redesign, bf16 ``gru_layer_scan_x`` runs, wherever
-``layer_route`` finds a layout, the kernels of the stack for one layer: the
+``gru_layer_scan_x`` runs, wherever ``layer_route`` finds a layout for its
+storage type, the kernels of the stack for one layer in that type: the
 input-gate GEMM and the persistent recurrence forward; the persistent sweep,
 a dx GEMM and one dW GEMM backward. Those run only on a card
 (``chip_smoke.py`` holds them against their plain versions there). Here: the
 stack's plain pieces composed by hand against the per-layer plain versions,
-bit for bit; the per-layer router against the reference's per-layer Pallas
-kernels in interpret mode, and its gradients against the stack route's,
-which differ by the cotangent the per-layer route rounds to bf16 at every
-layer; the route decision; the residual check of the persistent sweep; and
-the wrappers' refusal of CPU tensors.
+bit for bit, in both storage types; the per-layer router against the
+reference's per-layer Pallas kernels in interpret mode, and its gradients
+against the stack route's, which differ by the cotangent the per-layer route
+rounds to bf16 at every layer; the route decision; the residual check of the
+persistent sweep; the wrappers run with each launch replaced by its plain
+piece; and the wrappers' refusal of CPU tensors.
 """
 
 import jax
@@ -18,6 +20,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_leaves
 
 from molvax.kernels.gru import gru_forward_pallas as j_gru_forward_pallas
 from molvax_torch.config import get_preset
@@ -29,6 +33,7 @@ from test_torch_gru_stack import _jax_layers, _layers_np, _torch_layers
 from test_torch_support import normal
 
 BF = torch.bfloat16
+F32 = torch.float32
 SHAPES = [(5, 3, 10, 24), (4, 6, 9, 130)]  # (T, B, I, H)
 
 
@@ -47,32 +52,44 @@ def _layer_args(T, B, I, H, seed):
 # -- the plain pieces ------------------------------------------------------------
 
 
+@pytest.mark.parametrize("md", [BF, F32])
 @pytest.mark.parametrize("T,B,I,H", SHAPES)
-def test_plain_pieces_compose_to_the_layer_forward_bit_for_bit(T, B, I, H):
+def test_plain_pieces_compose_to_the_layer_forward_bit_for_bit(T, B, I, H, md):
     """The persistent route's forward, the gi GEMM then the recurrence, is
-    layer_forward_ref in bf16."""
+    layer_forward_ref in the storage type (bf16, strict fp32); bf16 is the
+    plain pieces' default."""
     x, w_ih, b_ih, w_hh, b_hh, h0 = _layer_args(T, B, I, H, seed=H)
-    by_hand = ks.layer_recurrence_ref(ks.gemm_ref("gi", x, w_ih, b_ih), w_hh, b_hh, h0)
-    for got, want in zip(by_hand, kgru.layer_forward_ref(x, w_ih, b_ih, w_hh, b_hh, h0, BF)):
-        assert got.dtype == BF and torch.equal(got, want)
+    by_hand = ks.layer_recurrence_ref(ks.gemm_ref("gi", x, w_ih, b_ih, md=md), w_hh, b_hh, h0, md)
+    for got, want in zip(by_hand, kgru.layer_forward_ref(x, w_ih, b_ih, w_hh, b_hh, h0, md)):
+        assert got.dtype == md and torch.equal(got, want)
+    if md == BF:
+        defaults = ks.layer_recurrence_ref(ks.gemm_ref("gi", x, w_ih, b_ih), w_hh, b_hh, h0)
+        assert all(torch.equal(a, b) for a, b in zip(defaults, by_hand))
 
 
+@pytest.mark.parametrize("md", [BF, F32])
 @pytest.mark.parametrize("T,B,I,H", SHAPES)
-def test_plain_pieces_compose_to_the_layer_backward_bit_for_bit(T, B, I, H):
+def test_plain_pieces_compose_to_the_layer_backward_bit_for_bit(T, B, I, H, md):
     """The persistent route's backward: the sweep with ext = dY and no
-    h_final cotangent, the dx GEMM rounded to bf16 at the layer, and the two
-    dW jobs (x; h one step behind with bf16(h0) first) are
-    layer_backward_ref. Without the rounding, dx is another function."""
+    h_final cotangent, the dx GEMM rounded to the storage type at the layer,
+    and the two dW jobs (x; h one step behind with h0 first) are
+    layer_backward_ref. In bf16, without the rounding, dx is another
+    function; in strict fp32 nothing is rounded."""
     x, w_ih, b_ih, w_hh, b_hh, h0 = _layer_args(T, B, I, H, seed=H + 1)
-    hseq, rzn, ghn = kgru.layer_forward_ref(x, w_ih, b_ih, w_hh, b_hh, h0, BF)
+    hseq, rzn, ghn = kgru.layer_forward_ref(x, w_ih, b_ih, w_hh, b_hh, h0, md)
     dY = torch.from_numpy(normal((T, B, H), seed=3))
-    dgi, dgh, dh0 = ks.layer_sweep_ref(hseq, h0, rzn, ghn, w_hh, dY, torch.zeros(B, H))
-    dx = ks.gemm_ref("dx", dgi, w_ih)
-    by_hand = (round_to(dx, BF), *ks.gemm_ref("dw", dgi, x), *ks.gemm_ref("dw", dgh, hseq[:-1], first=h0), dh0)
+    dgi, dgh, dh0 = ks.layer_sweep_ref(hseq, h0, rzn, ghn, w_hh, dY, torch.zeros(B, H), md)
+    assert dgi.dtype == md and dgh.dtype == md
+    dx = ks.gemm_ref("dx", dgi, w_ih, md=md)
+    by_hand = (round_to(dx, md), *ks.gemm_ref("dw", dgi, x, md=md),
+               *ks.gemm_ref("dw", dgh, hseq[:-1], first=h0, md=md), dh0)
     want = kgru.layer_backward_ref((hseq, rzn, ghn, x, h0, w_ih, w_hh), dY)
     for name, got, ref in zip(["dx", "dw_ih", "db_ih", "dw_hh", "db_hh", "dh0"], by_hand, want):
         assert got.dtype == torch.float32 and torch.equal(got, ref), name
-    assert torch.equal(want[0], want[0].to(BF).float()) and not torch.equal(dx, want[0])
+    if md == BF:
+        assert torch.equal(want[0], want[0].to(BF).float()) and not torch.equal(dx, want[0])
+    else:
+        assert torch.equal(dx, want[0])
 
 
 # -- the router ------------------------------------------------------------------
@@ -139,9 +156,26 @@ def test_per_layer_route_matches_reference_and_keeps_its_own_cotangent_rounding(
 @pytest.mark.parametrize("preset", ["zinc250k", "moses_scaled"])
 @pytest.mark.parametrize("B", [6, 256])
 def test_layer_route_is_persistent_at_the_presets_widths(preset, B):
+    """Both storage types take the persistent route at the presets' widths;
+    strict fp32 on its own plan of 4-byte elements."""
     H = get_preset(preset).model.gru_hidden
+    assert kgru.layer_route(B, H) == "persistent" == kgru.layer_route(B, H, F32)
+    assert kgru._persistent(BF, B, H) and kgru._persistent(F32, B, H)
+    assert ks.stack_plan(B, H, esize=4) != ks.stack_plan(B, H)
+
+
+@pytest.mark.parametrize("B,H", [(256, 1153), (256, 1536), (16, 1536), (6, 2048)])
+def test_fp32_layer_route_takes_the_in_kernel_instance_where_no_fp32_layout_fits(B, H):
+    """An fp32 W_hh slice takes twice the shared memory of a bf16 one: the
+    fp32 plan lays out every H up to 1,152 at B=256 and raises beyond, where
+    bf16 still has a layout; there the fp32 in-kernel instance's shared
+    memory (112 H bytes) still takes the layer."""
+    with pytest.raises(ValueError, match="no layout fits"):
+        ks.stack_plan(B, H, esize=4)
+    assert kgru.layer_route(B, H, F32) == "in_kernel" and not kgru._persistent(F32, B, H)
     assert kgru.layer_route(B, H) == "persistent"
-    assert kgru._persistent(BF, B, H) and not kgru._persistent(torch.float32, B, H)
+    kgru._check_fits("gru_layer_scan_x", 329, H, F32)
+    assert kgru.layer_route(256, 1152, F32) == "persistent"
 
 
 @pytest.mark.parametrize("B,H", [(256, 2144), (16, 2304), (256, 3072)])
@@ -215,13 +249,15 @@ def test_in_kernel_wrapper_takes_the_plain_versions_on_the_cpu():
     assert _counts() == before
 
 
-def _plain_launches(monkeypatch):
+def _plain_launches(monkeypatch, md=BF):
     """Run the persistent route's wrappers on the CPU with each launch
     replaced by its plain version on the tensors the wrapper hands it: the
     jobs carry tensors instead of pointers, and every stand-in counts as
     the launch would. The route launches through the stack's wrappers
     (``gru_stack.gemm``, ``layer_recurrence``, ``layer_sweep``) and its own
-    dx, dW and sum launches, so both modules' launch helpers are replaced."""
+    dx, dW and sum launches, so both modules' launch helpers are replaced.
+    Each stand-in asserts that its operands and outputs lie in the storage
+    type ``md``, and that its plan is md's."""
     for mod in (ks, kgru):
         monkeypatch.setattr(mod, "_check_cuda", lambda what, *tensors: None)
     monkeypatch.setattr(ks, "_gi_job", lambda x, w, b, out: ("gi", out, (x, w, b), {}))
@@ -229,22 +265,32 @@ def _plain_launches(monkeypatch):
     monkeypatch.setattr(kgru, "_dw_job", lambda d, x, dw, db, first=None: (
         "dw", (dw, db), (d, x[: d.shape[0] - (first is not None)]), {"first": first}))
 
-    def gemm(kind, jobs, dev_tensor, count):
+    def stored(*tensors):
+        assert all(t.dtype == md for t in tensors), [t.dtype for t in tensors]
+
+    def gemm(kind, jobs, dev_tensor, count, md_=BF):
+        assert md_ == md
         for job_kind, out, args, kw in jobs:
             assert job_kind == kind
-            got = ks.gemm_ref(kind, *args, **kw)
+            stored(*args[:2], *(t for t in kw.values() if t is not None))
+            got = ks.gemm_ref(kind, *args, **kw, md=md)
             for o, g in zip(out if kind == "dw" else (out,), got if kind == "dw" else (got,)):
                 o.copy_(g)
         count()
 
     def recurrence(gi, whh, bhh, h0, h0b, hseq, rzn, ghn, plan, count):
-        for o, g in zip((hseq, rzn, ghn), ks.layer_recurrence_ref(gi, whh, bhh, h0)):
+        stored(whh, h0b, hseq, rzn, ghn)
+        assert plan == ks.stack_plan(h0.shape[0], h0.shape[1], esize=md.itemsize)
+        for o, g in zip((hseq, rzn, ghn), ks.layer_recurrence_ref(gi, whh, bhh, h0, md)):
             o.copy_(g)
         for _ in range(plan.slices):
             count()
 
     def sweep(hseq, h0b, rzn, ghn, ext, dhf, whhT, dgi, dgh, dh0, plan, count):
-        for o, g in zip((dgi, dgh, dh0), ks.layer_sweep_ref(hseq, h0b, rzn, ghn, whhT.t().contiguous(), ext, dhf)):
+        stored(hseq, h0b, rzn, ghn, whhT, dgi, dgh)
+        assert plan == ks.stack_plan(h0b.shape[0], h0b.shape[1], esize=md.itemsize)
+        for o, g in zip((dgi, dgh, dh0), ks.layer_sweep_ref(hseq, h0b, rzn, ghn, whhT.t().contiguous(), ext, dhf,
+                                                             md)):
             o.copy_(g)
         for _ in range(plan.slices):
             count()
@@ -262,31 +308,49 @@ def _plain_launches(monkeypatch):
     monkeypatch.setattr(ks, "_sweep", sweep)
 
 
+class _MadeDtypes(TorchDispatchMode):
+    """Records the dtype of every tensor that an operation makes."""
+
+    def __init__(self):
+        super().__init__()
+        self.made = set()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        self.made.update(t.dtype for t in tree_leaves(out) if isinstance(t, torch.Tensor))
+        return out
+
+
+@pytest.mark.parametrize("md", [BF, F32])
 @pytest.mark.parametrize("T,B,I,H", SHAPES)
-def test_persistent_route_hands_each_launch_the_right_operands(T, B, I, H, monkeypatch):
-    """layer_forward / layer_backward on the persistent route, their launches
-    replaced by the plain pieces on the operands they are given, equal the
-    per-layer plain versions, with hseq read in place as the padded view the
-    recurrence writes and x as the padded bf16 copy the autograd wrapper
-    keeps: bit for bit, but for dW and db, which the split GEMM sums over
-    spans of steps and then over the spans (fp32, another order: measured
-    <= 2.7e-8 relative); each launch counted once on the route's own
+def test_persistent_route_hands_each_launch_the_right_operands(T, B, I, H, md, monkeypatch):
+    """layer_forward / layer_backward on the persistent route, bf16 and
+    strict fp32, their launches replaced by the plain pieces on the operands
+    they are given, equal the per-layer plain versions, with hseq read in
+    place as the padded view the recurrence writes and x as the padded copy
+    in the storage type that the autograd wrapper keeps: bit for bit, but
+    for dW and db, which the split GEMM sums over spans of steps and then
+    over the spans (fp32, another order: measured <= 2.7e-8 relative);
+    every operand and residual in the storage type, and in strict fp32 no
+    bf16 tensor made at all; each launch counted once on the route's own
     counters, none on the stack's or the in-kernel instance's."""
-    _plain_launches(monkeypatch)
+    _plain_launches(monkeypatch, md)
     args = _layer_args(T, B, I, H, seed=H + 2)
     x, w_ih, _, w_hh, _, h0 = args
     dY = torch.from_numpy(normal((T, B, H), seed=5))
     before = _counts()
-    res = kgru.layer_forward(*args, BF)
-    want = kgru.layer_forward_ref(*args, BF)
-    assert all(torch.equal(a, b) for a, b in zip(res, want))
-    assert res[0].stride(-2) == -(-H // 8) * 8  # hseq: a view of rows padded to a multiple of 8
-    xp = ks._padded(x)
-    grads = kgru.layer_backward((*res, xp, h0, w_ih, w_hh), dY)
+    with _MadeDtypes() as made:
+        res = kgru.layer_forward(*args, md)
+        xp = ks._padded(x, md)
+        grads = kgru.layer_backward((*res, xp, h0, w_ih, w_hh), dY)
+    assert (BF in made.made) == (md == BF)
+    want = kgru.layer_forward_ref(*args, md)
+    assert all(a.dtype == md and torch.equal(a, b) for a, b in zip(res, want))
+    assert res[0].stride(-2) == -(-H * md.itemsize // 16) * 16 // md.itemsize  # rows padded to 16 bytes
     for name, a, b in zip(["dx", "dw_ih", "db_ih", "dw_hh", "db_hh", "dh0"], grads,
                           kgru.layer_backward_ref((*want, x, h0, w_ih, w_hh), dY)):
         assert torch.equal(a, b) if name in ("dx", "dh0") else _rel(a, b) <= 1e-6, name
-    n = ks.stack_plan(B, H).slices
+    n = ks.stack_plan(B, H, esize=md.itemsize).slices
     added = tuple(a - b for a, b in zip(_counts(), before))
     assert added == (1, n, n, 1, 1, 1) + (0,) * 8
 

@@ -50,6 +50,7 @@ def test_peak_table_and_override(monkeypatch):
     h100 = prof.PEAKS["NVIDIA H100 80GB HBM3"]
     assert h100 is prof.H100_SXM
     assert (h100.bf16_tflops, h100.fp32_tflops, h100.int32_tops, h100.hbm_tb_s) == (989.0, 67.0, 33.5, 3.35)
+    assert h100.tf32_tflops == 494.7
     assert "NVIDIA A100-SXM4-80GB" not in prof.PEAKS
     assert prof.device_peak_tflops("cpu") is None
     if not torch.cuda.is_available():

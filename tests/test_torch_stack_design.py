@@ -11,6 +11,7 @@ table against its C declaration, and the wrappers' refusal of CPU tensors.
 """
 
 import ctypes
+import dataclasses
 import re
 from pathlib import Path
 
@@ -125,23 +126,26 @@ def _blocks(plan, B, H):
     return out
 
 
+@pytest.mark.parametrize("esize", [2, 4])
 @pytest.mark.parametrize("B", [1, 6, 256])
 @pytest.mark.parametrize("preset", ["zinc250k", "chemvae_5k", "moses_scaled"])
-def test_stack_plan_fits_the_card_and_covers_every_unit_and_row_once(preset, B):
+def test_stack_plan_fits_the_card_and_covers_every_unit_and_row_once(preset, B, esize):
+    """The plan for bf16 (2-byte) and strict-fp32 (4-byte) operands."""
     H = get_preset(preset).model.gru_hidden
-    plan = ks.stack_plan(B, H)
+    plan = ks.stack_plan(B, H, esize=esize)
     assert plan.fwd_smem <= 232448 and plan.bwd_smem <= 232448
     assert plan.g * plan.q <= 132 and plan.blocks == plan.g * plan.q
-    assert plan.units % 8 == 0 and plan.units <= 64 and plan.threads == plan.units // 8 * 32
+    assert plan.units % 8 == 0 and plan.units <= 64
     assert plan.rows % 16 == 0 and 16 <= plan.rows <= 64
     assert plan.fwd_chunk % 16 == 0 and plan.bwd_chunk % 16 == 0
     # shared memory as the kernels lay it out (csrc/gru_stack.cu rec_smem,
-    # sweep_smem): the resident W_hh slice, then a ring of 1 or 2 chunks
+    # sweep_smem): the resident W_hh slice, then a ring of 1 or 2 chunks,
+    # every row padded by 16 bytes
     for K, chunk, resident, got in ((-(-H // 16) * 16, plan.fwd_chunk, 3 * plan.units, plan.fwd_smem),
                                     (-(-3 * H // 16) * 16, plan.bwd_chunk, plan.units, plan.bwd_smem)):
         assert chunk <= K
         stages = 1 if chunk >= K else 2
-        assert got == 2 * (resident * (K + 8) + stages * plan.rows * (chunk + 8))
+        assert got == resident * (K * esize + 16) + stages * plan.rows * (chunk * esize + 16)
     # every (row, unit) exactly once, no empty block
     seen = np.zeros((B, H), dtype=np.int32)
     for rows, units in _blocks(plan, B, H):
@@ -150,15 +154,44 @@ def test_stack_plan_fits_the_card_and_covers_every_unit_and_row_once(preset, B):
     assert (seen == 1).all()
     if preset == "moses_scaled":
         assert plan.q >= 32  # a 3H x H/q W_hh slice of H=1024 fits in 227 KB from q = 32 on
-    if preset == "zinc250k" and B == 256:  # the main path: 128 blocks, one per SM, 16 rows each
-        assert (plan.g, plan.q, plan.units, plan.rows, plan.slices) == (16, 8, 64, 16, 1)
+    if preset == "moses_scaled" and B == 256 and esize == 4:  # 2 launches of 2 groups x 64 blocks of 16 units
+        assert (plan.g, plan.q, plan.units, plan.rows, plan.slices) == (2, 64, 16, 64, 2)
+    if preset == "zinc250k" and B == 256:  # the main path: 128 blocks, one per SM
+        want = (16, 8, 64, 16, 1) if esize == 2 else (8, 16, 32, 32, 1)  # 16 rows each; fp32 32
+        assert (plan.g, plan.q, plan.units, plan.rows, plan.slices) == want
+    if preset == "zinc250k" and B == 6 and esize == 4:  # one group of 32 blocks of 16 units
+        assert (plan.g, plan.q, plan.units, plan.rows, plan.slices) == (1, 32, 16, 16, 1)
+
+
+# every bf16 plan of the test above (and of 2,048 rows), as the planner
+# laid them out before it took the element size: (g, q, units, rows,
+# slices, fwd_chunk, bwd_chunk, fwd_smem, bwd_smem)
+_BF16_PLANS = {
+    (1, 501): (1, 9, 56, 16, 1, 512, 1504, 191360, 217728),
+    (6, 501): (1, 9, 56, 16, 1, 512, 1504, 191360, 217728),
+    (256, 501): (16, 8, 64, 16, 1, 512, 592, 216320, 231936),
+    (1, 1024): (1, 64, 16, 16, 1, 1024, 3072, 132096, 197120),
+    (6, 1024): (1, 64, 16, 16, 1, 1024, 3072, 132096, 197120),
+    (256, 1024): (4, 32, 32, 64, 1, 112, 128, 228864, 231936),
+    (2048, 501): (16, 8, 64, 64, 2, 112, 144, 230400, 232448),
+}
+
+
+@pytest.mark.parametrize("B,H", sorted(_BF16_PLANS))
+def test_bf16_plans_are_the_plans_before_the_element_size(B, H):
+    for plan in (ks.stack_plan(B, H), ks.stack_plan(B, H, esize=2)):
+        assert dataclasses.astuple(plan) == _BF16_PLANS[B, H]
 
 
 def test_stack_plan_rejects_what_no_layout_takes():
     with pytest.raises(ValueError):
         ks.stack_plan(0, 501)
     with pytest.raises(ValueError):
+        ks.stack_plan(256, 501, esize=3)
+    with pytest.raises(ValueError):
         ks.stack_plan(256, 20000)  # 8 units x 3H of W_hh alone exceed a block's shared memory
+    with pytest.raises(ValueError, match="4-byte"):
+        ks.stack_plan(256, 1153, esize=4)  # fp32: 16 units need 3 x 16 x 1,168 x 4 bytes; 8 units, q > 132
     big = ks.stack_plan(2048, 501)  # more rows than the SMs' groups hold: several launches
     assert big.slices > 1 and big.g * big.rows * big.slices >= 2048
 
@@ -209,26 +242,30 @@ def test_plain_pieces_compose_to_the_stack_backward_bit_for_bit(T, B, I, H, L):
 GEMM_F64_REL = 1e-5
 
 
+@pytest.mark.parametrize("md", [BF, torch.float32])
 @pytest.mark.parametrize("kind", ["gi", "dx", "dw"])
-def test_gemm_ref_epilogues_against_float64_and_contract(kind):
+def test_gemm_ref_epilogues_against_float64_and_contract(kind, md):
+    """bf16 operands (the default), and strict fp32 ones, rounded to nothing."""
     T, B, K, N = 3, 4, 40, 24
     a = torch.from_numpy(normal((T, B, K), seed=20))
-    ab = a.to(BF).double()
+    ab = a.to(md).double()
     if kind == "gi":
         w, bias = torch.from_numpy(normal((N, K), seed=21)), torch.from_numpy(normal((N,), seed=22))
-        got = ks.gemm_ref(kind, a, w, bias)
-        want = ab @ w.to(BF).double().T + bias.double()
+        got = ks.gemm_ref(kind, a, w, bias, md=md)
+        want = ab @ w.to(md).double().T + bias.double()
         assert got.dtype == torch.float32 and got.shape == (T, B, N)
+        if md == BF:
+            assert torch.equal(got, ks.gemm_ref(kind, a, w, bias))
     elif kind == "dx":
         w = torch.from_numpy(normal((K, N), seed=23))
-        got = ks.gemm_ref(kind, a, w)
-        want = ab @ w.to(BF).double()
+        got = ks.gemm_ref(kind, a, w, md=md)
+        want = ab @ w.to(md).double()
     else:
         x = torch.from_numpy(normal((T - 1, B, N), seed=24))
         first = torch.from_numpy(normal((B, N), seed=25))
-        got, db = ks.gemm_ref(kind, a, x, first=first)
-        xs = torch.cat([first[None], x]).to(BF)
-        assert torch.equal(got, ks._contract(a.to(BF), xs))  # the h one step behind, h0 first
+        got, db = ks.gemm_ref(kind, a, x, first=first, md=md)
+        xs = torch.cat([first[None], x]).to(md)
+        assert torch.equal(got, ks._contract(a.to(md), xs))  # the h one step behind, h0 first
         want = ab.reshape(-1, K).T @ xs.double().reshape(-1, N)
         np.testing.assert_allclose(db.numpy(), ab.sum((0, 1)).numpy(), rtol=GEMM_F64_REL, atol=1e-6)
     rel = (got.double() - want).norm() / want.norm()
@@ -250,6 +287,13 @@ def test_padded_keeps_aligned_rows_and_pads_the_rest():
     assert ks._padded(p) is p  # a padded view is taken as it is
     t = ks._padded(torch.randn(6, 21).t())  # a transposed operand is copied
     assert t.shape == (21, 6) and t.stride() == (8, 1)
+    # fp32 rows pad to a multiple of 4 elements: 16 bytes
+    f = torch.randn(4, 5, 12)
+    assert ks._padded(f, torch.float32) is f and not ks._is_padded(f)
+    q = ks._padded(y, torch.float32)
+    assert q.dtype == torch.float32 and q.stride(-2) == 24 and torch.equal(q, y)
+    r = ks._padded(torch.randn(3, 501), torch.float32)
+    assert r.stride() == (504, 1) and ks._is_padded(r, torch.float32) and not ks._is_padded(r)
 
 
 def test_gemm_job_table_is_the_c_struct():
@@ -307,7 +351,9 @@ def test_loss_metrics_lie_on_the_loss_device():
 
 def test_stack_probe_variants_apply_to_the_kernel_source():
     """Each decomposition variant of probes/stack_probe.py finds the parts
-    it takes out in csrc/gru_stack.cu, and takes out only those."""
+    it takes out in csrc/gru_stack.cu, and takes out only those; each
+    strict-fp32 product form of csrc/gemm.cuh applies, the one built by
+    default leaving the source as it is."""
     from molvax_torch.probes import stack_probe
 
     text = (CSRC / "gru_stack.cu").read_text()
@@ -318,3 +364,8 @@ def test_stack_probe_variants_apply_to_the_kernel_source():
                                                      and name != "empty"), name
     with pytest.raises(ValueError, match="not in the source"):
         stack_probe.variant_source("int main() {}", "nobarrier")
+    gemm = (CSRC / "gemm.cuh").read_text()
+    forms = {name: stack_probe.variant_source(gemm, name, stack_probe.FORMS) for name in stack_probe.FORMS}
+    assert forms[stack_probe.KEPT] == gemm and len(set(forms.values())) == len(forms)
+    assert "mma_tf32" not in forms["ffma"].split("__device__ __forceinline__ void fp32_k8")[1].split("// -- the GEMM")[0]
+    assert 'asm("cvt.rna.tf32' in forms["split_tf32_cvt"] and "fp32_k8(acc, acc," in forms["split_tf32_noflush"]
