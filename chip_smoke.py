@@ -13,15 +13,23 @@ each printed on its own lines:
      global TF32 switches (left at their defaults), kernel build time and
      ptxas report;
   2. weights: numpy-seeded JAX-layout params, loaded through io/convert.py;
-  3. generation kernel against plain version, greedy, B=256, T=120: share
-     of identical codes, and a margin check: replaying the kernel's codes
-     through the plain version, every code the kernel chose scores within
-     MARGIN of the plain maximum;
-  4. the same check sampled at temperature 1.0 and 0.7, identical noise;
+  3. the generation kernel against its plain version, greedy, T=120, at
+     B=256, a ragged 6 and 528 (three slices): share of identical codes,
+     and a margin check: replaying the kernel's codes through the plain
+     version, every code the kernel chose scores within MARGIN of the
+     plain maximum; two decodes give identical codes; each decode takes
+     the persistent instance (its launches per decode counted exactly);
+  4. the same checks sampled at temperature 1.0 and 0.7, identical noise;
+     then the row-block instance at moses_scaled width (4 x GRU-1024, no
+     plan), B=16, greedy and sampled, its launches counted;
   5. the serving path through the public functions: sample_prior(256) and
      reconstruct of 256 SMILES (deterministic and stochastic), counting
-     kernel launches and checking the strings and the encoder;
-  6. decode times of the generation kernel and its plain version;
+     kernel launches by instance (the persistent decode once per call, the
+     row-block decode never) and checking the strings and the encoder;
+  6. decode times: the persistent instance, the row-block instance at the
+     same width, the plain version, the wrapper's set-up (giz1's GEMM and
+     the packed weights) apart from the launch, and one decode's device
+     time by kernel (torch.profiler);
   7. the GRU stack (per layer: the input-gate GEMM and the persistent
      recurrence forward; the persistent reverse sweep and the GEMM of the
      cotangent passed down backward; one dW GEMM) against its plain
@@ -218,13 +226,29 @@ def random_params(cfg, seed: int) -> dict:
     }
 
 
-def check_kernel(model, z_emb, greedy: bool, temperature: float, seed: int) -> float:
-    """Kernel against plain version on the same inputs and noise. Returns
-    the largest gap between the plain maximum score and the score of the
-    kernel's code; raises if it exceeds MARGIN."""
+def check_kernel(model, z_emb, greedy: bool, temperature: float, seed: int, instance: str = "persistent",
+                 **kv) -> float:
+    """Kernel against plain version on the same inputs and noise, on the
+    instance ``instance`` (its launches per decode counted exactly; two
+    decodes must give identical codes). Returns the largest gap between
+    the plain maximum score and the score of the kernel's code; raises if
+    it exceeds MARGIN."""
+    B, C, H, L = z_emb.shape[0], model.cfg.charset_size, model.cfg.gru_hidden, model.cfg.gru_layers
+    plan = kg.generate_plan(B, C, H, L, *kg.card_limits(z_emb.device))
+    if (plan is not None) != (instance == "persistent"):
+        raise AssertionError(f"B={B}, H={H}, L={L}: the plan {plan} does not route to the {instance} instance")
+    per_decode = {"persistent": plan.slices if plan else 0, "row_block": 0 if plan else 1}
+    before = (kg.persistent_launches, kg.row_block_launches)
     codes_k = kg.fused_generate(model, model.cfg, z_emb, seed, greedy=greedy, temperature=temperature)
+    again = kg.fused_generate(model, model.cfg, z_emb, seed, greedy=greedy, temperature=temperature)
     codes_r = kg.fused_generate_ref(model, model.cfg, z_emb, seed, greedy=greedy, temperature=temperature)
     torch.cuda.synchronize()
+    got = {"persistent": (kg.persistent_launches - before[0]) / 2, "row_block": (kg.row_block_launches - before[1]) / 2}
+    if got != per_decode:
+        raise AssertionError(f"launches per decode {got}, expected {per_decode}")
+    twice = torch.equal(codes_k, again)
+    if not twice:
+        raise AssertionError(f"B={B}: two decodes gave different codes")
     C = model.cfg.charset_size
     if codes_k.shape != codes_r.shape or codes_k.min() < 0 or codes_k.max() >= C:
         raise AssertionError(f"kernel codes out of range or misshapen: {tuple(codes_k.shape)}")
@@ -238,11 +262,34 @@ def check_kernel(model, z_emb, greedy: bool, temperature: float, seed: int) -> f
     chosen = scores.gather(-1, codes_k.long()[..., None])[..., 0]
     gap = (scores.max(-1).values - chosen).max().item()
     mode = "greedy" if greedy else f"sampled_T{temperature}"
-    say("phase3" if greedy else "phase4", mode=mode, B=z_emb.shape[0], T=codes_k.shape[1],
-        identical_codes=f"{same:.6f}", max_margin_gap=f"{gap:.3e}", margin=MARGIN)
+    say("phase3" if greedy else "phase4", mode=mode, B=B, T=codes_k.shape[1], instance=instance,
+        launches_per_decode=json.dumps(per_decode).replace(" ", ""), identical_codes=f"{same:.6f}",
+        max_margin_gap=f"{gap:.3e}", margin=MARGIN, two_decodes_identical=twice, **kv)
     if gap > MARGIN:
         raise AssertionError(f"{mode}: kernel chose a code {gap:.3e} below the plain maximum")
     return gap
+
+
+def row_block_check(dev) -> dict:
+    """The row-block instance, which takes the widths no plan does, at
+    moses_scaled width (4 x GRU-1024, seeded weights), B=16: greedy and
+    sampled against the plain version, its launches and its time."""
+    mcfg = get_preset("moses_scaled").model
+    mmodel = MolecularVAE(mcfg, device=dev)
+    mmodel.load_state_dict(state_dict_from_jax(random_params(mcfg, SEED + 7)), strict=True)
+    mmodel.eval()
+    rows = 16
+    z = np.random.default_rng(SEED + 8).standard_normal((rows, mcfg.latent_dim)).astype(np.float32)
+    with torch.no_grad():
+        z_emb = latent_embed(mmodel, mcfg, torch.from_numpy(z).to(dev))
+    before = kg.row_block_launches
+    gap = max(check_kernel(mmodel, z_emb, greedy, temp, seed, "row_block", preset="moses_scaled")
+              for greedy, temp, seed in ((True, 1.0, 0), (False, 1.0, 11)))
+    launches = kg.row_block_launches - before
+    ms = time_ms(lambda: kg.fused_generate(mmodel, mcfg, z_emb, 0))
+    say("phase4", preset="moses_scaled", instance="row_block", B=rows, gru=f"{mcfg.gru_layers}x{mcfg.gru_hidden}",
+        row_block_launches=launches, ms=f"{ms:.4f}")
+    return {"B": rows, "launches": launches, "max_margin_gap": gap, "ms": ms}
 
 
 def time_on_copies(fn, state: torch.Tensor, warmup: int = 2, reps: int = 5) -> float:
@@ -253,7 +300,7 @@ def time_on_copies(fn, state: torch.Tensor, warmup: int = 2, reps: int = 5) -> f
 
 
 def reset_counts() -> None:
-    kg.launches = conv_enc.launches = sampler.launches = 0
+    kg.launches = kg.persistent_launches = kg.row_block_launches = conv_enc.launches = sampler.launches = 0
     gru_stack.gemm_gi_launches = gru_stack.rec_launches = gru_stack.sweep_launches = 0
     gru_stack.gemm_dx_launches = gru_stack.dw_launches = 0
     kgru.layer_fwd_launches = kgru.layer_bwd_launches = kgru.layer_dw_launches = 0
@@ -268,6 +315,8 @@ def reset_counts() -> None:
 def counts() -> dict:
     return {
         "fused_generate": kg.launches,
+        "fused_generate_persistent": kg.persistent_launches,
+        "fused_generate_row_block": kg.row_block_launches,
         "fused_encode": conv_enc.launches,
         "fused_sample_kl": sampler.launches,
         "gru_stack_gemm_gi": gru_stack.gemm_gi_launches,
@@ -1347,9 +1396,17 @@ def main() -> int:
     z = torch.from_numpy(rng.standard_normal((B, cfg.latent_dim)).astype(np.float32)).to(dev)
     with torch.no_grad():
         z_emb = latent_embed(model, cfg, z)
-    gaps = [check_kernel(model, z_emb, True, 1.0, 0)]
-    for temp, seed in ((1.0, 11), (0.7, 12)):
-        gaps.append(check_kernel(model, z_emb, False, temp, seed))
+    gaps = {}
+    for rows in (B, 6, 528):  # 528: three slices of the plan
+        if rows == B:
+            z_rows = z_emb
+        else:
+            with torch.no_grad():
+                z_rows = latent_embed(model, cfg, torch.from_numpy(
+                    rng.standard_normal((rows, cfg.latent_dim)).astype(np.float32)).to(dev))
+        gaps[rows] = [check_kernel(model, z_rows, True, 1.0, 0)] + [
+            check_kernel(model, z_rows, False, temp, seed) for temp, seed in ((1.0, 11), (0.7, 12))]
+    gen_moses = row_block_check(dev)
 
     # -- 5. the serving path through the public functions --------------------
     gen = torch.Generator().manual_seed(SEED)
@@ -1360,8 +1417,9 @@ def main() -> int:
     torch.cuda.synchronize()
     serve_counts = counts()
     say("phase5", **serve_counts)
-    if serve_counts["fused_generate"] != 3:
-        raise AssertionError(f"expected 3 generation launches on the serving path, got {serve_counts}")
+    if (serve_counts["fused_generate"], serve_counts["fused_generate_persistent"],
+            serve_counts["fused_generate_row_block"]) != (3, 3, 0):
+        raise AssertionError(f"expected 3 persistent generation launches on the serving path, got {serve_counts}")
     for name, strings in (("sample_prior", prior), ("reconstruct", recon),
                           ("reconstruct_stochastic", recon_s)):
         if len(strings) != B or not all(
@@ -1394,10 +1452,21 @@ def main() -> int:
 
     # -- 6. generation times -------------------------------------------------
     ms_gen = time_ms(lambda: kg.fused_generate(model, cfg, z_emb, 0))
+    ms_gen_row_block = time_ms(lambda: kg._decode(model, cfg, z_emb, 0, True, 1.0, row_block=True))
     ms_gen_plain = time_ms(lambda: kg.fused_generate_ref(model, cfg, z_emb, 0))
-    for name, ms in (("kernel_greedy", ms_gen), ("plain_greedy", ms_gen_plain)):
+    for name, ms in (("kernel_greedy", ms_gen), ("row_block_greedy", ms_gen_row_block),
+                     ("plain_greedy", ms_gen_plain)):
         say("phase6", path=name, B=B, T=cfg.max_len, ms=f"{ms:.4f}",
             smiles_per_s=f"{B / (ms / 1e3):.1f}", card=json.dumps(gpu))
+    sms, smem = kg.card_limits(z_emb.device)
+    gen_plan = kg.generate_plan(B, cfg.charset_size, cfg.gru_hidden, cfg.gru_layers, sms, smem)
+    ms_gen_setup = time_ms(lambda: kg._setup(model, z_emb, gen_plan))
+    say("phase6", sms=sms, smem_optin=smem, plan=json.dumps(dataclasses.asdict(gen_plan)).replace(" ", ""),
+        blocks=gen_plan.blocks,
+        setup_ms=f"{ms_gen_setup:.4f}", setup_share=f"{ms_gen_setup / ms_gen:.4f}",
+        us_per_step=f"{ms_gen * 1e3 / cfg.max_len:.3f}")
+    gen_prof = profile_step(lambda: kg.fused_generate(model, cfg, z_emb, 0))
+    say_profile("phase6", gen_prof, ms_gen)
 
     # -- 7, 8. the stack's kernels against their plain versions ------------------
     s_args = stack_inputs(model, cfg, codes)
@@ -1483,7 +1552,8 @@ def main() -> int:
     stack_ops = 2 * B * T * (gru_macs(I0, H) + (L - 1) * gru_macs(H, H))
     w_gen, b_gen = kg._pack(model, dev)
     bounds = {
-        "fused_generate": bound(2 * B * T * (C * 3 * H + H * 3 * H + (L - 1) * 2 * H * 3 * H + H * C),
+        # after t = 0 the one-hot product is a gather of W_c's row: no operations
+        "fused_generate": bound(2 * B * (C * 3 * H + T * (H * 3 * H + (L - 1) * 2 * H * 3 * H + H * C)),
                                 nbytes(w_gen, b_gen) + B * 3 * H * 4 + B * T * 4 + C * 4, PEAK_BF16),
         "fused_encode": bound(2 * B * encoder_macs(cfg),
                               nbytes(codes) + nbytes(*enc_params) // 2 + nbytes(mu_k, lv_k), PEAK_BF16),
@@ -1662,8 +1732,14 @@ def main() -> int:
 
     beam_counts = decodes["beam"]
     print(json.dumps({"kernels": [
+        # launches of the serving path (phase 5); errors: the largest margin
+        # gap of phase 3-4's decodes at each B
         entry("fused_generate", "generate.cu", "molvax/kernels/generate.py:169", serve_counts["fused_generate"],
-              max(gaps), ms_gen, ms_gen_plain, bounds["fused_generate"], None),
+              max(max(v) for v in gaps.values()), ms_gen, ms_gen_plain, bounds["fused_generate"], None,
+              launches_by_instance={"persistent": serve_counts["fused_generate_persistent"],
+                                    "row_block": serve_counts["fused_generate_row_block"]},
+              ms_row_block=ms_gen_row_block, setup_ms=ms_gen_setup, plan=dataclasses.asdict(gen_plan),
+              max_margin_gap_by_batch={str(k): max(v) for k, v in gaps.items()}, row_block_moses_scaled=gen_moses),
         entry("fused_encode", "conv_enc.cu", "molvax/kernels/conv_enc.py:181", train_counts["fused_encode"],
               enc_kernel_err, times["fused_encode"][0], times["fused_encode"][1], bounds["fused_encode"], None),
         entry("fused_sample_kl", "sampler.cu", "molvax/kernels/sampler.py:91", train_counts["fused_sample_kl"],

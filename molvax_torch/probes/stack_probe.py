@@ -16,7 +16,9 @@ T=120, I0=329, H=501, L=3, seeded weights (uniform +-1/sqrt(H)):
   (``kernels.gru_stack.stack_forward`` / ``stack_backward``), and the GRU
   kernels beside it: ``gru_layer_scan_x`` forward and backward at layer 0,
   bf16 and strict fp32, ``gru_layer_scan`` forward and backward,
-  ``gru_probe_scan`` (``matmul_only``) and ``gru_fused3_scan``. With
+  ``gru_probe_scan`` (``matmul_only``) and ``gru_fused3_scan``; and one
+  greedy ``fused_generate`` decode at ``zinc250k`` width (B=256, seeded
+  weights: ``make_decoder``), whichever instance the checkout takes. With
   ``--root`` the package is imported from DIR, so a parent commit unpacked
   there (``git archive``) and this checkout can be timed in turns on one
   card (parent, change, change, parent). The default mode adds the
@@ -144,6 +146,16 @@ def variant_source(text: str, name: str, table: dict = VARIANTS) -> str:
     return text
 
 
+def build_variant(csrc: Path) -> None:
+    """Build the kernels' library from the sources in ``csrc`` (a variant's
+    copy of csrc/) into ``csrc``'s sibling ``lib/``, and load it in place of
+    the checkout's for the rest of the process."""
+    from molvax_torch.kernels import _build
+
+    _build.CSRC, _build.BUILD_DIR, _build._lib = csrc, csrc.parent / "lib", None
+    _build.load()
+
+
 def make_inputs(device: str = "cuda:0", seed: int = 0) -> dict:
     g = torch.Generator(device=device).manual_seed(seed)
     k = 1.0 / H ** 0.5
@@ -157,9 +169,29 @@ def make_inputs(device: str = "cuda:0", seed: int = 0) -> dict:
             "dhf": 1e-2 * torch.randn(L, B, H, generator=g, device=device)}
 
 
+def make_decoder(device: str = "cuda:0", seed: int = 0):
+    """(model, cfg, z_emb): ``zinc250k`` weights from torch's seeded
+    default init, a random start token, B rows of z."""
+    from molvax_torch.config import get_preset
+    from molvax_torch.nn.decoder import latent_embed
+    from molvax_torch.nn.vae import MolecularVAE
+
+    cfg = get_preset("zinc250k").model
+    torch.manual_seed(seed)
+    model = MolecularVAE(cfg, device=device)
+    g = torch.Generator(device=device).manual_seed(seed + 1)
+    with torch.no_grad():
+        if model.start_token is not None:
+            model.start_token.copy_(torch.randn(cfg.charset_size, generator=g, device=device))
+        z_emb = latent_embed(model, cfg, torch.randn(B, cfg.latent_dim, generator=g, device=device))
+    model.eval()
+    return model, cfg, z_emb
+
+
 def kernel_times(inp: dict, own: bool) -> dict:
     """The GRU kernels' times, ms, with the package on sys.path; ``own``
     adds the redesigned stack's pieces and the host's enqueue times."""
+    from molvax_torch.kernels import generate as kg
     from molvax_torch.kernels import gru as kgru
     from molvax_torch.kernels import gru_stack as ks
     from molvax_torch.train.profiling import event_ms
@@ -183,6 +215,8 @@ def kernel_times(inp: dict, own: bool) -> dict:
         out["scan_bwd"] = event_ms(lambda: kgru.scan_backward(sres, dY))
         out["matmul_only"] = event_ms(lambda: kgru.gru_probe_scan(gi, whh[0], bhh[0], h0[0], "matmul_only"))
         out["fused3"] = event_ms(lambda: ks.gru_fused3_scan(gi.to(bf), wih, bih, whh, bhh, h0))
+        model, cfg, z_emb = make_decoder()
+        out["fused_generate_greedy"] = event_ms(lambda: kg.fused_generate(model, cfg, z_emb, 0))
         if own:
             top = res[0][L - 1], h0[L - 1], res[1][L - 1], res[2][L - 1], whh[L - 1], dY, dhf[L - 1]
             out["recurrence_layer"] = event_ms(lambda: ks.layer_recurrence(gi, whh[0], bhh[0], h0[0]))
@@ -204,7 +238,6 @@ def step_times(inp: dict, root: Path) -> list:
     forms of FORMS. Each build from a copy of csrc/ under
     build/stack_probe/. Each form's row also holds its fp32 GEMMs' errors,
     max abs over the largest magnitude of a float64 product."""
-    from molvax_torch.kernels import _build
     from molvax_torch.kernels import gru_stack as ks
     from molvax_torch.train.profiling import event_ms
 
@@ -226,8 +259,7 @@ def step_times(inp: dict, root: Path) -> list:
         shutil.copytree(src, d)
         (d / "gru_stack.cu").write_text(variant_source((src / "gru_stack.cu").read_text(), name))
         (d / "gemm.cuh").write_text(variant_source((src / "gemm.cuh").read_text(), form, FORMS))
-        _build.CSRC, _build.BUILD_DIR, _build._lib = d, d.parent / "lib", None
-        _build.load()
+        build_variant(d)
         row = {"variant": name, "fp32_form": form}
         with torch.no_grad():
             for md, tag in ((torch.bfloat16, ""), (f32, "_fp32")):
