@@ -11,7 +11,8 @@ each printed on its own lines:
 
   1. environment: card name and power limit, torch and CUDA versions, the
      global TF32 switches (left at their defaults), kernel build time and
-     ptxas report;
+     ptxas report; the automaton kernels' registers, stack frame and spills
+     (a stack frame or a spill fails the run);
   2. weights: numpy-seeded JAX-layout params, loaded through io/convert.py;
   3. the generation kernel against its plain version, greedy, T=120, at
      B=256, a ragged 6 and 528 (three slices): share of identical codes,
@@ -30,7 +31,10 @@ each printed on its own lines:
      same width, the plain version, the wrapper's set-up (giz1's GEMM and
      the packed weights) apart from the launch, and one decode's device
      time by kernel (torch.profiler);
-  7. the GRU stack (per layer: the input-gate GEMM and the persistent
+  7. the training kernels' planner: the card's SMs and shared memory from
+     the CUDA runtime, the stack's plan and one layer's routes and fp32
+     plan on them, and whether they are the H100 SXM constants' plans;
+     then the GRU stack (per layer: the input-gate GEMM and the persistent
      recurrence forward; the persistent reverse sweep and the GEMM of the
      cotangent passed down backward; one dW GEMM) against its plain
      composition on the training inputs of the 256 SMILES: max abs error
@@ -86,7 +90,8 @@ each printed on its own lines:
      as one n=120 launch, the 256 SMILES as teacher codes through auto_mask
      / auto_advance (masks and states identical; every parser-valid row
      threads the automaton, closes and never escapes), a ragged batch of 6
-     with a NaN row;
+     with a NaN row; the 120-step walk again at B = 1, 33 (a partial last
+     block) and 1,280 (the beam's rows);
  17. constrained decoding through the public functions: sample_prior
      greedy and at temperature 1.0 and 0.7 (auto_step launched 120 times
      per decode, fused_generate 0, every string chem-valid),
@@ -95,8 +100,10 @@ each printed on its own lines:
      (greedy codes and logits, beam codes and scores identical);
  18. times: the constrained decode on both routes, the automaton per step
      as n=1 launches, one n=120 launch and its plain version, auto_mask and
-     auto_advance, beam 5, the device-time split of one constrained decode,
-     and each kernel's bound;
+     auto_advance, beam 5, each automaton entry point's device time per
+     launch (its launches queued behind a sleep kernel, and torch.profiler's
+     kernel time where it records them), the device-time split of one
+     constrained decode and of one beam-5 decode, and each kernel's bound;
  19. the design probes' kernels against their plain versions at full width
      (B=256, T=120, H=501, L=3) and at a ragged batch of 6: the hoisted-gi
      forward's two probe modes (gru_probe_scan, run_variant's) and the
@@ -127,6 +134,7 @@ import contextlib
 import dataclasses
 import json
 import os
+import re
 import sys
 import time
 
@@ -151,6 +159,7 @@ from molvax_torch.nn.encoder import conv_input_channels, encoder_params, flat_co
 from molvax_torch.nn.gru import gru_layers
 from molvax_torch.nn.vae import MolecularVAE, encode
 from molvax_torch.probes import auto_loop_probe, gru_experiments, proto_gi_kernel
+from molvax_torch.probes.stack_probe import device_ms, queued_ms
 from molvax_torch.train import init_state, make_eval_step, make_train_step
 from molvax_torch.train import profiling
 from molvax_torch.train.profiling import card_line as card
@@ -502,7 +511,7 @@ def moses_width_check(dev, gpu: str) -> dict:
               u(L - 1, 3 * H), u(L, 3 * H, H), u(L, 3 * H), 0.1 * torch.randn(L, B, H, generator=g, device=dev))
     dY = 1e-2 * torch.randn(T, B, H, generator=g, device=dev)
     dhf = 1e-2 * torch.randn(L, B, H, generator=g, device=dev)
-    plan = gru_stack.stack_plan(B, H)
+    plan = gru_stack.stack_plan(B, H, *gru_stack.card_limits(dev))
     say("phase8", preset="moses_scaled", plan=json.dumps(dataclasses.asdict(plan)).replace(" ", ""))
     fwd_err, bwd_err, res_k, _ = check_stack(s_args, dY, dhf, "phase8", preset="moses_scaled")
     stack_piece_checks(s_args, res_k, dY, dhf, "phase8", preset="moses_scaled")
@@ -512,7 +521,8 @@ def moses_width_check(dev, gpu: str) -> dict:
                "w_hh": whh[l], "b_hh": bhh[l]} for l in range(L)]
     f32 = torch.float32
     say("phase8", preset="moses_scaled", md="float32",
-        plan=json.dumps(dataclasses.asdict(gru_stack.stack_plan(B, H, esize=4))).replace(" ", ""))
+        plan=json.dumps(dataclasses.asdict(gru_stack.stack_plan(B, H, *gru_stack.card_limits(dev), esize=4)))
+        .replace(" ", ""))
     check_layer_x(layer_args(s_args, 0, x0), f32, dY, layer=0, preset="moses_scaled")
     with torch.no_grad():
         ms = {"fwd": time_ms(lambda: gru_stack.stack_forward(*s_args)),
@@ -636,7 +646,8 @@ def saved_x(args, md):
     backward: on the persistent route the padded copy in md that the
     forward's GEMM read and the dW GEMM reads again, else x."""
     x, h0 = args[0], args[5]
-    return gru_stack._padded(x, md) if kgru._persistent(md, x.shape[1], h0.shape[-1]) else x
+    persistent = kgru._persistent(md, x.shape[1], h0.shape[-1], gru_stack.card_limits(x.device))
+    return gru_stack._padded(x, md) if persistent else x
 
 
 def layer_launches(md, B: int, H: int, fwd: int, bwd: int) -> dict:
@@ -644,8 +655,9 @@ def layer_launches(md, B: int, H: int, fwd: int, bwd: int) -> dict:
     gru_layer_scan_x layer on the route its shape takes: per batch slice of
     the plan a recurrence and a sweep, the GEMMs and the dW parts' sum; or
     the in-kernel instance's forward, sweep and dW contraction."""
-    if kgru._persistent(md, B, H):
-        n = gru_stack.stack_plan(B, H, esize=md.itemsize).slices
+    limits = gru_stack.card_limits(DEVICE)
+    if kgru._persistent(md, B, H, limits):
+        n = gru_stack.stack_plan(B, H, *limits, esize=md.itemsize).slices
         return {"gru_layer_gemm_gi": fwd, "gru_layer_rec": n * fwd, "gru_layer_sweep": n * bwd,
                 "gru_layer_gemm_dx": bwd, "gru_layer_gemm_dw": bwd, "gru_layer_dw_sum": bwd}
     return {"gru_layer_scan_x_fwd": fwd, "gru_layer_scan_x_bwd_sweep": bwd, "gru_layer_bwd_dw": bwd}
@@ -674,7 +686,7 @@ def check_layer_x(args, md, dY, **kv):
     out_err = max_abs(res_k[0], res_r[0])
     hf_err = max_abs(res_k[0][-1], res_r[0][-1])
     same = (res_k[0] == res_r[0]).float().mean().item()
-    route = "persistent" if kgru._persistent(md, B, H) else "in_kernel"
+    route = "persistent" if kgru._persistent(md, B, H, gru_stack.card_limits(DEVICE)) else "in_kernel"
     kv = dict(md=str(md).split(".")[-1], B=B, I=I, H=H, route=route, **kv)
     say("phase12", kernel="gru_layer_scan_x_fwd", out_max_abs_err=f"{out_err:.3e}",
         h_final_max_abs_err=f"{hf_err:.3e}", hseq_bit_identical=f"{same:.6f}", tol=fwd_tol, **kv)
@@ -731,7 +743,7 @@ def wide_layer_check(dev, md=torch.bfloat16):
     in md (bf16 H=2304, fp32 H=1536; B=16, I=329, T=16): the in-kernel
     instance of csrc/gru_layer.cu. Returns (forward error, gradient error)."""
     H_ = 2304 if md == torch.bfloat16 else 1536
-    if kgru.layer_route(16, H_, md) != "in_kernel":
+    if kgru.layer_route(16, H_, md, gru_stack.card_limits(dev)) != "in_kernel":
         raise AssertionError(f"layer_route(16, {H_}, {md}) found a persistent layout")
     return seeded_layer_check(dev, md, 16, 16, 329, H_, "wide", SEED + 5)
 
@@ -842,6 +854,26 @@ def say_profile(phase, prof, ms_step) -> None:
         idle_share=f"{1 - total / ms_step:.4f}" if total else "not measured")
     for name, ms in sorted(dev_ms.items(), key=lambda kv: -kv[1])[:12]:
         say(phase, device_kernel=json.dumps(name[:80]), ms=f"{ms:.3f}", share=f"{ms / total:.4f}")
+
+
+# the automaton's kernels, as ptxas and the profiler name them
+AUTO_KERNELS = {"auto_step": "auto_step_kernel", "auto_mask": "auto_mask_kernel",
+                "auto_advance": "auto_advance_kernel"}
+
+
+def ptxas_report(log: str, kernel: str) -> dict:
+    """A kernel's registers, stack frame and spilled bytes, from the ptxas
+    report (-Xptxas -v) of the build."""
+    lines = log.splitlines()
+    for i, line in enumerate(lines):
+        if "Function properties for" in line and kernel in line:
+            frame = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                              " ".join(lines[i + 1 : i + 3]))
+            used = next(x for x in lines[i + 1 : i + 4] if "Used" in x)
+            return {"registers": int(re.search(r"Used (\d+) registers", used).group(1)),
+                    "stack_frame_bytes": int(frame.group(1)), "spill_store_bytes": int(frame.group(2)),
+                    "spill_load_bytes": int(frame.group(3))}
+    raise AssertionError(f"the ptxas report names no {kernel}")
 
 
 # -- bounds ----------------------------------------------------------------------
@@ -1009,7 +1041,14 @@ def phase16(dev, T: int, C: int) -> dict:
         other_rows_esc=int(rst.esc.sum()) - int(rst.esc[2]))
     if int(rt["codes"][2, 5]) != 0:
         raise AssertionError("a NaN among the legal scores must give the pad code")
-    return {"itab": itab, "scores": scores, "step_err": max(traj["max_abs_err"], rt["max_abs_err"]),
+    # one row, 33 (a partial last block), the beam's 1,280 rows
+    errs = [traj["max_abs_err"], rt["max_abs_err"]]
+    for rows in (1, 33, B * BEAM):
+        other = compare_trajectory(itab, trajectory_scores(rows, T, C, dev, SEED + 20 + rows), T, f"B={rows}")
+        say("phase16", check="trajectory_n1_and_n120", B=rows, T=T, codes_and_state_identical=True,
+            max_abs_err=other["max_abs_err"])
+        errs.append(other["max_abs_err"])
+    return {"itab": itab, "scores": scores, "step_err": max(errs),
             "mask_err": tch["mask_max_abs_err"], "advance_err": tch["state_max_abs_err"]}
 
 
@@ -1068,6 +1107,21 @@ def phase17(model, qcfg, dev) -> dict:
         raise AssertionError("constrained decode: the kernel route differs from the plain route")
     out["z"] = z
     return out
+
+
+def device_ms_per_launch(fn, name: str, launches: int) -> tuple:
+    """Device ms per launch of automaton entry point ``name`` in a call of
+    fn that launches it ``launches`` times (counted exactly, each call on
+    copies of its own): (``queued_ms`` of the call over its launches, the
+    profiler's device time over the kernels it recorded, or None where it
+    recorded none)."""
+    before = counts()[name]
+    queued = queued_ms(fn) / launches
+    ms, recorded = device_ms(fn, AUTO_KERNELS[name])
+    got = counts()[name] - before
+    if got % launches or recorded > launches:
+        raise AssertionError(f"{name}: {got} launches in calls of {launches}, the profiler recorded {recorded}")
+    return queued, (ms / recorded if recorded else None)
 
 
 def classify(name: str) -> str:
@@ -1133,6 +1187,28 @@ def phase18(model, qcfg, z, itab, scores, gpu) -> dict:
     say("phase18", automaton="auto_mask, auto_advance", rows=rows, mask_ms=f"{t['mask']:.5f}",
         mask_plain_ms=f"{t['mask_plain']:.5f}", advance_ms=f"{t['advance']:.5f}",
         advance_plain_ms=f"{t['advance_plain']:.5f}", card=json.dumps(gpu))
+    # each entry point's device time per launch (the n=1 event time above
+    # also holds the wrapper's host cost per launch): launches queued behind
+    # a sleep, and the profiler's kernel time; each call on copies made before
+    pool_1 = [s0.clone() for _ in range(12)]
+    pool_120 = [[s0.clone(), s0.clone()] for _ in range(12)]
+    pool_adv = [sb.clone() for _ in range(12)]
+    t["dev_step_n1"] = device_ms_per_launch(lambda: steps(kauto.auto_step)(pool_1.pop()), "auto_step", T)
+    t["dev_step_n120"] = tuple(v / T if v else v for v in device_ms_per_launch(
+        lambda: [kauto.auto_step(itab, s, scores, T - 1) for s in pool_120.pop()], "auto_step", 2))
+    t["dev_mask"] = device_ms_per_launch(lambda: [kauto.auto_mask(itab, sb, T - 41) for _ in range(20)],
+                                         "auto_mask", 20)
+    t["dev_advance"] = device_ms_per_launch(
+        lambda: [kauto.auto_advance(itab, s, tok) for s in [pool_adv.pop()] for _ in range(20)], "auto_advance", 20)
+
+    def us(v):
+        return "not_measured" if v is None else f"{v * 1e3:.3f}"
+
+    for how, i in (("queued_launches", 0), ("profiler", 1)):
+        say("phase18", automaton_device_time=how, B=B, rows=rows,
+            auto_step_n1_us_per_launch=us(t["dev_step_n1"][i]), auto_step_n120_us_per_step=us(t["dev_step_n120"][i]),
+            auto_mask_us_per_launch=us(t["dev_mask"][i]), auto_advance_us_per_launch=us(t["dev_advance"][i]),
+            card=json.dumps(gpu))
     t["rows"], t["sb"], t["tok"] = rows, sb, tok
     prof = profile_step(lambda: generate(model, qcfg, z, constrained=True))
     parts = {}
@@ -1144,6 +1220,14 @@ def phase18(model, qcfg, z, itab, scores, gpu) -> dict:
         **{f"{k}_ms": f"{v:.3f}" for k, v in sorted(parts.items())})
     say_profile("phase18", prof, t["decode"])
     t["split"] = parts
+    bprof = profile_step(lambda: beam_generate(model, qcfg, z, beam=BEAM, constrained=True))
+    bparts = {}
+    for name, ms in bprof["device_ms"].items():
+        bparts[classify(name)] = bparts.get(classify(name), 0.0) + ms
+    bbusy = sum(bparts.values())
+    say("phase18", profiled="beam_decode", beam=BEAM, wall_ms=f"{bprof['wall_ms']:.3f}", device_busy_ms=f"{bbusy:.3f}",
+        idle_share=f"{1 - bbusy / t['beam']:.4f}" if bbusy else "not measured",
+        **{f"{k}_ms": f"{v:.3f}" for k, v in sorted(bparts.items())})
     return t
 
 
@@ -1379,6 +1463,16 @@ def main() -> int:
     for line in _build.info.log.splitlines():
         if line.startswith("==") or ("ptxas info" in line and ("Used" in line or "spill" in line)):
             print("  " + line.strip(), flush=True)
+    # the automaton's warp program keeps every operand in registers and shared memory
+    auto_ptxas = {}
+    for name, kernel in AUTO_KERNELS.items():
+        if not _build.info.compiled:
+            say("phase1", automaton_kernel=name, ptxas="not reported: the library was built by an earlier run")
+            continue
+        auto_ptxas[name] = ptxas_report(_build.info.log, kernel)
+        say("phase1", automaton_kernel=name, **auto_ptxas[name])
+        if auto_ptxas[name]["stack_frame_bytes"] or auto_ptxas[name]["spill_store_bytes"]:
+            raise AssertionError(f"{kernel} uses local memory: {auto_ptxas[name]}")
 
     # -- 2. weights ----------------------------------------------------------
     full = get_preset("zinc250k")
@@ -1471,7 +1565,19 @@ def main() -> int:
     # -- 7, 8. the stack's kernels against their plain versions ------------------
     s_args = stack_inputs(model, cfg, codes)
     L = cfg.gru_layers
-    plan = gru_stack.stack_plan(B, cfg.gru_hidden)
+    limits = gru_stack.card_limits(dev)
+    plan = gru_stack.stack_plan(B, cfg.gru_hidden, *limits)
+    # the training kernels' layouts come from the card's SMs and shared
+    # memory; on an H100 SXM (132, 232,448 B) they are the constants' plans
+    fp32_plan = gru_stack.stack_plan(B, cfg.gru_hidden, *limits, esize=4)
+    say("phase7", planner="card", sms=limits[0], smem=limits[1],
+        same_as_h100_sxm_constants=plan == gru_stack.stack_plan(B, cfg.gru_hidden)
+        and fp32_plan == gru_stack.stack_plan(B, cfg.gru_hidden, esize=4),
+        stack_plan=json.dumps(dataclasses.asdict(plan)).replace(" ", ""),
+        layer_route_bf16=kgru.layer_route(B, cfg.gru_hidden, torch.bfloat16, limits),
+        layer_route_fp32=kgru.layer_route(B, cfg.gru_hidden, torch.float32, limits),
+        layer_plan_fp32=json.dumps(dataclasses.asdict(fp32_plan)).replace(" ", ""),
+        dw_parts_layer0=kgru.dw_parts(cfg.max_len, s_args[0].shape[-1], cfg.gru_hidden, limits[0]))
     say("phase7", preset="zinc250k", plan=json.dumps(dataclasses.asdict(plan)).replace(" ", ""),
         blocks=plan.blocks)
     g = torch.Generator(device=dev).manual_seed(SEED + 2)
@@ -1808,12 +1914,18 @@ def main() -> int:
         entry("auto_step", "automaton.cu", "molvax/kernels/automaton.py:218",
               decodes["greedy"]["auto_step"], auto["step_err"], at["step_n1"],
               at["step_plain"], bounds["auto_step"], None, ms_n120_per_step=at["step_n120"],
-              bound_ms_n120_per_step=bounds["auto_step_n120"][0] / T),
+              bound_ms_n120_per_step=bounds["auto_step_n120"][0] / T, device_ms_per_launch=at["dev_step_n1"][0],
+              device_ms_per_launch_profiler=at["dev_step_n1"][1], device_ms_n120_per_step=at["dev_step_n120"][0],
+              device_ms_n120_per_step_profiler=at["dev_step_n120"][1], ptxas=auto_ptxas.get("auto_step")),
         entry("auto_mask", "automaton.cu", "molvax/kernels/automaton.py:218", beam_counts["auto_mask"], auto["mask_err"],
-              at["mask"], at["mask_plain"], bounds["auto_mask"], None, rows=at["rows"]),
+              at["mask"], at["mask_plain"], bounds["auto_mask"], None, rows=at["rows"],
+              device_ms_per_launch=at["dev_mask"][0], device_ms_per_launch_profiler=at["dev_mask"][1],
+              ptxas=auto_ptxas.get("auto_mask")),
         entry("auto_advance", "automaton.cu", "molvax/kernels/automaton.py:218", beam_counts["auto_advance"],
               auto["advance_err"],
-              at["advance"], at["advance_plain"], bounds["auto_advance"], None, rows=at["rows"]),
+              at["advance"], at["advance_plain"], bounds["auto_advance"], None, rows=at["rows"],
+              device_ms_per_launch=at["dev_advance"][0], device_ms_per_launch_profiler=at["dev_advance"][1],
+              ptxas=auto_ptxas.get("auto_advance")),
         *probe_entries(p19, p20),
     ]}), flush=True)
     print(gpu, flush=True)

@@ -40,7 +40,7 @@ import torch
 
 from ..utils import matmul_dtype, round_to
 from . import _build
-from .gru_stack import SMS, SMEM, _PAD_BYTES, _stream, _up
+from .gru_stack import SMS, SMEM, _PAD_BYTES, _stream, _up, card_limits
 
 # kernel launches made by fused_generate (not by the plain version): all of
 # them, and by instance
@@ -409,26 +409,6 @@ def _pack(model, device) -> Tuple[torch.Tensor, torch.Tensor]:
     w = torch.cat([m.detach().to(torch.bfloat16).reshape(-1) for m in ws])
     b = torch.cat([v.detach().float().reshape(-1) for v in bs])
     return w.to(device).contiguous(), b.to(device).contiguous()
-
-
-@functools.lru_cache(maxsize=None)
-def _card_limits(index: int) -> Tuple[int, int]:
-    fn = _build.function("molvax_card_limits", [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
-    sms, smem = ctypes.c_int(), ctypes.c_int()
-    _build.check(fn(index, ctypes.byref(sms), ctypes.byref(smem)), "molvax_card_limits (attribute query)")
-    return sms.value, smem.value
-
-
-def card_limits(device) -> Tuple[int, int]:
-    """(SMs, shared memory a block may opt in to) of the CUDA card
-    ``device``, from the CUDA runtime: what ``generate_plan`` lays the
-    persistent decode out by, so that its cooperative launch fits the card
-    it runs on (an H100 PCIe's 114 SMs, a MIG slice) and not only an H100
-    SXM's 132."""
-    device = torch.device(device)
-    if device.type != "cuda":
-        raise ValueError(f"card_limits: {device} is not a CUDA device")
-    return _card_limits(torch.cuda.current_device() if device.index is None else device.index)
 
 
 def _count(instance: str) -> None:

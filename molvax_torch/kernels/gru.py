@@ -77,7 +77,6 @@ probe_matmul_only_launches = 0  # gru_probe_scan(mode='matmul_only')
 probe_gates_nostore_launches = 0  # gru_probe_scan(mode='gates_nostore')
 
 _RB = 4  # batch rows per block (csrc/common.cuh)
-_MAX_SMEM = 232448  # an H100 block's dynamic shared memory, bytes
 _MATMUL_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 PROBE_MODES = {"gates_nostore": 1, "matmul_only": 2}  # csrc/gru_layer.cu FwdMode
 _warned_fp32 = False  # one-time note: the fused stack is bf16-only
@@ -226,11 +225,13 @@ def smem_bytes(I: int, H: int, md: torch.dtype) -> int:
     return max(carry + 2 * H * _RB * s + I * _RB * s, carry + 6 * H * _RB * s)
 
 
-def _check_fits(what: str, I: int, H: int, md: torch.dtype) -> None:
+def _check_fits(what: str, I: int, H: int, md: torch.dtype, smem: int = gru_stack.SMEM) -> None:
+    """Raise where the per-layer kernels' shared memory exceeds ``smem``,
+    what a block of the card may opt in to (``gru_stack.plan_limits``)."""
     need = smem_bytes(I, H, md)
-    if need > _MAX_SMEM:
+    if need > smem:
         raise ValueError(f"{what}: I={I}, H={H} in {md} needs {need} bytes of shared memory per block, "
-                         f"more than the {_MAX_SMEM} an H100 block has")
+                         f"more than the {smem} a block of the card has")
 
 
 def _layer_dims(what, x, w_ih, w_hh, h0) -> Tuple[int, int, int, int]:
@@ -244,7 +245,7 @@ def _layer_dims(what, x, w_ih, w_hh, h0) -> Tuple[int, int, int, int]:
 
 def _check_layer(what, x, w_ih, w_hh, h0, md) -> Tuple[int, int, int, int]:
     T, B, I, H = _layer_dims(what, x, w_ih, w_hh, h0)
-    _check_fits(what, I, H, md)
+    _check_fits(what, I, H, md, gru_stack.plan_limits(x.device)[1])
     return T, B, I, H
 
 
@@ -265,22 +266,25 @@ def _check_residuals(what, shape, md, hseq, rzn, ghn, dY, padded: bool = False) 
         raise ValueError(f"{what}: dY {tuple(dY.shape)}, expected {shape}")
 
 
-def layer_route(B: int, H: int, md: torch.dtype = torch.bfloat16) -> str:
+def layer_route(B: int, H: int, md: torch.dtype = torch.bfloat16,
+                limits: Tuple[int, int] = (gru_stack.SMS, gru_stack.SMEM)) -> str:
     """Which kernels run ``gru_layer_scan_x`` in storage type ``md`` at batch
     B and width H, decided by shape before any launch: 'persistent' (the
     input-gate GEMM, the persistent recurrence and sweep, the dx and dW
-    GEMMs) wherever ``stack_plan`` lays the persistent kernels out on the
-    card with md's elements, else 'in_kernel' (``csrc/gru_layer.cu``'s
-    instance of md)."""
+    GEMMs) wherever ``stack_plan`` lays the persistent kernels out with md's
+    elements on a card of ``limits`` (SMs, shared memory of a block: the
+    wrappers pass the card's, ``gru_stack.plan_limits``; the default is an
+    H100 SXM's), else 'in_kernel' (``csrc/gru_layer.cu``'s instance of md)."""
     try:
-        gru_stack.stack_plan(B, H, esize=md.itemsize)
+        gru_stack.stack_plan(B, H, *limits, esize=md.itemsize)
     except ValueError:
         return "in_kernel"
     return "persistent"
 
 
-def _persistent(md: torch.dtype, B: int, H: int) -> bool:
-    return layer_route(B, H, md) == "persistent"
+def _persistent(md: torch.dtype, B: int, H: int,
+                limits: Tuple[int, int] = (gru_stack.SMS, gru_stack.SMEM)) -> bool:
+    return layer_route(B, H, md, limits) == "persistent"
 
 
 def _ptrs(*tensors):
@@ -308,16 +312,17 @@ _COUNT = {name: counter(globals(), f"layer_{name}_launches")
           for name in ("gi", "rec", "sweep", "dx", "gemm_dw", "dw_sum")}
 
 
-def dw_parts(T: int, I: int, H: int) -> int:
+def dw_parts(T: int, I: int, H: int, sms: int = gru_stack.SMS) -> int:
     """The parts (of whole time steps) that the dW GEMM of one layer splits
     its T B rows into: its 128 x 128 output tiles of dW_ih | db_ih and
     dW_hh | db_hh, times the parts, take the fewest waves of the card's
-    ``gru_stack.SMS`` SMs per part (ties to fewer parts; at most 4, at most
-    T). At zinc250k width 84 tiles leave 48 of 132 SMs idle; in 3 parts 252
-    tiles of a third of the rows fill two waves. The strict-fp32 GEMM has
-    the same 128 x 128 output tile, so its parts are the same."""
+    ``sms`` SMs per part (ties to fewer parts; at most 4, at most T; the
+    wrapper passes the card's, the default is an H100 SXM's 132). At
+    zinc250k width 84 tiles leave 48 of 132 SMs idle; in 3 parts 252 tiles
+    of a third of the rows fill two waves. The strict-fp32 GEMM has the
+    same 128 x 128 output tile, so its parts are the same."""
     tiles = -(-3 * H // 128) * (-(-(I + 1) // 128) + -(-(H + 1) // 128))
-    return min(range(1, min(4, T) + 1), key=lambda k: -(-tiles * k // gru_stack.SMS) / k)
+    return min(range(1, min(4, T) + 1), key=lambda k: -(-tiles * k // sms) / k)
 
 
 def _sum_parts(parts: torch.Tensor, out: torch.Tensor) -> None:
@@ -341,7 +346,7 @@ def layer_forward(x, w_ih, b_ih, w_hh, b_hh, h0, md: torch.dtype) -> Residuals:
     what = "gru_layer_scan_x forward"
     _check_cuda(what, x, w_ih, b_ih, w_hh, b_hh, h0)
     T, B, I, H = _layer_dims(what, x, w_ih, w_hh, h0)
-    if not _persistent(md, B, H):
+    if not _persistent(md, B, H, gru_stack.plan_limits(x.device)):
         return layer_forward_in_kernel(x, w_ih, b_ih, w_hh, b_hh, h0, md)
     gi = gru_stack.gemm("gi", x, w_ih, b_ih, count=_COUNT["gi"], md=md)
     return gru_stack.layer_recurrence(gi, w_hh, b_hh, h0, count=_COUNT["rec"], md=md)
@@ -363,7 +368,8 @@ def layer_backward(res: Residuals, dY: torch.Tensor):
     _check_cuda(what, hseq, rzn, ghn, x, h0, w_ih, w_hh, dY)
     T, B, I, H = _layer_dims(what, x, w_ih, w_hh, h0)
     md = hseq.dtype
-    if not _persistent(md, B, H):
+    limits = gru_stack.plan_limits(x.device)
+    if not _persistent(md, B, H, limits):
         return layer_backward_in_kernel(res, dY)
     _check_residuals(what, (T, B, H), md, hseq, rzn, ghn, dY, padded=True)
     dev, G = x.device, 3 * H
@@ -374,7 +380,7 @@ def layer_backward(res: Residuals, dY: torch.Tensor):
     dx = torch.empty(T, B, I, dtype=md, device=dev)
     _gemm("dx", [_dx_job(dgi, wihp, dx)], x, _COUNT["dx"], md)
     # each part: dW_ih | db_ih, then dW_hh | db_hh, of its span of steps
-    k, n_ih, n_hh = dw_parts(T, I, H), G * I + G, G * H + G
+    k, n_ih, n_hh = dw_parts(T, I, H, limits[0]), G * I + G, G * H + G
     parts = torch.empty(k, n_ih + n_hh, device=dev)
     jobs = []
     for p in range(k):
@@ -458,7 +464,7 @@ def _scan_operands(what, gi, w_hh, b_hh, h0):
     H = G // 3
     if tuple(w_hh.shape) != (G, H) or tuple(h0.shape) != (B, H):
         raise ValueError(f"{what}: gi {tuple(gi.shape)}, w_hh {tuple(w_hh.shape)}, h0 {tuple(h0.shape)}")
-    _check_fits(what, 0, H, bf)
+    _check_fits(what, 0, H, bf, gru_stack.plan_limits(gi.device)[1])
     with torch.no_grad():
         gi_ = gi.to(bf).contiguous()  # rounded at the boundary, as gru.py:409
         whh_t = w_hh.t().to(bf).contiguous()
@@ -522,7 +528,7 @@ def scan_backward(res: Residuals, dY: torch.Tensor):
     if tuple(w_hh.shape) != (3 * H, H) or tuple(h0.shape) != (B, H):
         raise ValueError(f"{what}: hseq {tuple(hseq.shape)}, w_hh {tuple(w_hh.shape)}, h0 {tuple(h0.shape)}")
     _check_residuals(what, (T, B, H), bf, hseq, rzn, ghn, dY)
-    _check_fits(what, 0, H, bf)
+    _check_fits(what, 0, H, bf, gru_stack.plan_limits(hseq.device)[1])
     dev = hseq.device
     with torch.no_grad():
         h0s = h0.to(bf).contiguous()
@@ -547,7 +553,8 @@ class _GRULayerX(torch.autograd.Function):
     @staticmethod
     def forward(ctx, route, md, x, w_ih, b_ih, w_hh, b_hh, h0):
         ctx.route = "plain" if _plain_here(x) else route
-        if ctx.route == "kernel" and x.is_cuda and _persistent(md, x.shape[1], h0.shape[-1]):
+        if ctx.route == "kernel" and x.is_cuda and _persistent(md, x.shape[1], h0.shape[-1],
+                                                               gru_stack.plan_limits(x.device)):
             x = _padded(x, md)  # the operand of the gi GEMM, kept for the dW GEMM
         fwd = {"plain": layer_forward_ref, "kernel": layer_forward, "in_kernel": layer_forward_in_kernel}
         hseq, rzn, ghn = fwd[ctx.route](x, w_ih, b_ih, w_hh, b_hh, h0, md)

@@ -75,7 +75,9 @@ def counter(space: dict, name: str) -> Callable[[], None]:
 
 _MAX_LAYERS = 8  # the dW launch holds two products per layer (csrc/gemm.cuh)
 
-# an H100 SXM: SMs, and the dynamic shared memory of one block
+# an H100 SXM: SMs, and the dynamic shared memory of one block. The
+# wrappers plan from the card's own (``card_limits``); these are the plan
+# where nothing is launched (planning on the CPU).
 SMS, SMEM = 132, 232448
 _MAX_UNITS = 64  # hidden units per block: one warp per 8, at most 8 warps
 _MAX_ROWS = 64  # batch rows per group: 1 to 4 m16 tiles (kernel instances)
@@ -100,6 +102,35 @@ def stack_plan_ok(layers: Sequence[dict]) -> bool:
 
 
 # -- the planner ---------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=None)
+def _card_limits(index: int) -> Tuple[int, int]:
+    fn = _build.function("molvax_card_limits", [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
+    sms, smem = ctypes.c_int(), ctypes.c_int()
+    _build.check(fn(index, ctypes.byref(sms), ctypes.byref(smem)), "molvax_card_limits (attribute query)")
+    return sms.value, smem.value
+
+
+def card_limits(device) -> Tuple[int, int]:
+    """(SMs, shared memory a block may opt in to) of the CUDA card
+    ``device``, from the CUDA runtime: what the cooperative kernels (the
+    stack's recurrence and sweep, the persistent decode of
+    ``kernels/generate.py``) are laid out by, so that a launch fits the card
+    it runs on (an H100 PCIe's 114 SMs, a MIG slice) and not only an H100
+    SXM's 132."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"card_limits: {device} is not a CUDA device")
+    return _card_limits(torch.cuda.current_device() if device.index is None else device.index)
+
+
+def plan_limits(device) -> Tuple[int, int]:
+    """The (SMs, shared memory) to plan tensors on ``device`` by: the
+    card's own on a CUDA device (``card_limits``), an H100 SXM's (``SMS``,
+    ``SMEM``) on any other, where nothing is launched."""
+    device = torch.device(device)
+    return card_limits(device) if device.type == "cuda" else (SMS, SMEM)
 
 
 def _up(x: int, m: int) -> int:
@@ -522,7 +553,7 @@ def layer_recurrence(gi, w_hh, b_hh, h0, plan: Optional[StackPlan] = None, count
     _check_cuda("gru_stack recurrence", gi, w_hh, b_hh, h0)
     T, B, G = gi.shape
     H = G // 3
-    plan = plan or stack_plan(B, H, esize=md.itemsize)
+    plan = plan or stack_plan(B, H, *plan_limits(gi.device), esize=md.itemsize)
     dev = gi.device
     with torch.no_grad():
         args = (gi.float().contiguous(), _padded(w_hh, md), b_hh.float().contiguous(), h0.float().contiguous(),
@@ -542,7 +573,7 @@ def layer_sweep(hseq, h0, rzn, ghn, w_hh, ext, dhf, plan: Optional[StackPlan] = 
     dgh come back as views of padded buffers. CUDA tensors only."""
     _check_cuda("gru_stack reverse sweep", hseq, h0, rzn, ghn, w_hh, ext, dhf)
     T, B, H = hseq.shape
-    plan = plan or stack_plan(B, H, esize=md.itemsize)
+    plan = plan or stack_plan(B, H, *plan_limits(hseq.device), esize=md.itemsize)
     dev = hseq.device
     with torch.no_grad():
         args = (_padded(hseq, md), _padded(h0, md), rzn.to(md).contiguous(), ghn.to(md).contiguous(),
@@ -561,7 +592,7 @@ def stack_forward(x0, wih0, bih0, wih, bih, whh, bhh, h0) -> Residuals:
     rows are padded to a multiple of 8."""
     _check_cuda("gru_stack forward", x0, wih0, bih0, wih, bih, whh, bhh, h0)
     T, B, I0, H, L = _check_shapes(x0, wih0, wih, whh, h0)
-    plan = stack_plan(B, H)
+    plan = stack_plan(B, H, *plan_limits(x0.device))
     bf, dev, G = torch.bfloat16, x0.device, 3 * H
     with torch.no_grad():
         x0p, wih0p, wihp, whhp, h0b = (_padded(t) for t in (x0, wih0, wih, whh, h0))
@@ -587,7 +618,7 @@ def stack_backward(res: Residuals, dY: torch.Tensor, dhf: torch.Tensor):
     hseq, rzn, ghn, x0, h0, wih0, wih, whh = res
     _check_cuda("gru_stack backward", hseq, rzn, ghn, x0, h0, wih0, wih, whh, dY, dhf)
     T, B, I0, H, L = _check_shapes(x0, wih0, wih, whh, h0)
-    plan = stack_plan(B, H)
+    plan = stack_plan(B, H, *plan_limits(x0.device))
     bf, dev, G = torch.bfloat16, x0.device, 3 * H
     with torch.no_grad():
         hs, h0b, x0p, wih0p, wihp = (_padded(t) for t in (hseq, h0, x0, wih0, wih))

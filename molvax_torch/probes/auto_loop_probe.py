@@ -8,6 +8,7 @@ CUDA card:
 
     python -m molvax_torch.probes.auto_loop_probe [B [T]]
     python -m molvax_torch.probes.auto_loop_probe --floor
+    python -m molvax_torch.probes.auto_loop_probe --variants
 
 At B=256, T=120, with one seeded score row per batch element for every step
 (as the reference): µs per step of the plain ``select_advance`` loop
@@ -16,12 +17,21 @@ launch of n=T, and the per-step budget the reference set (a constrained
 decode of >= 120,000 SMILES/s) on top of this card's own ``fused_generate``
 time. ``--floor``: ns per int32 op inside a kernel loop, by differencing
 k_ops 64 -> 256 -> 1024 at T=120, at the reference's shapes (128, 16) and
-(16, 128) and at (256, 32), one warp per row at B=256.
+(16, 128) and at (256, 32), one warp per row at B=256. ``--variants``:
+the automaton kernel rebuilt in each variant of ``VARIANTS`` (under
+``build/auto_probe/``): 4 (kept), 2, 8 or 16 rows (warps) a block, each
+checked against the plain version on one n=T walk; and the kept kernel
+without its transition, its pool scan or its closable slots' reductions
+(times only); each timed as ``stack_probe.automaton_times`` times it
+(events and the profiler's device time), with its registers.
 """
 
 from __future__ import annotations
 
+import json
+import shutil
 import sys
+from pathlib import Path
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -42,6 +52,19 @@ TARGET_SMILES_S = 120_000  # the reference's goal for constrained decoding
 FLOOR_SHAPES: Tuple[Tuple[int, int], ...] = ((128, 16), (16, 128), (256, 32))
 FLOOR_K = (64, 256, 1024)
 FLOOR_CHAINS = 4
+# --variants: (csrc file, text, replacement) of each variant of the automaton
+# kernel: the rows (warps) a block, then parts of a step taken out at the
+# kept rows a block (results wrong, times only): the transition (each step
+# masks the same state), the pool scan of _dup_wrt, the closable slots'
+# anc_pc reductions
+_WARPS = "constexpr int AUTO_WARPS = 4;"
+VARIANTS = {
+    "warps4": [],
+    **{f"warps{w}": [("automaton.cu", _WARPS, f"constexpr int AUTO_WARPS = {w};")] for w in (2, 8, 16)},
+    "no_advance": [("automaton.cuh", "      row_advance(t, w, popc(s.open));\n", "")],
+    "no_pool_scan": [("automaton.cuh", "  const int used = imin(imax(pn, 0), P);", "  const int used = 0 * P;")],
+    "no_anc_pc": [("automaton.cuh", "    if ((closing >> j) & 1u) {", "    if (false) {")],
+}
 
 
 def make_inputs(B: int = B, T: int = T, device=None, seed: int = 0) -> dict:
@@ -138,6 +161,43 @@ def floor_bound(shape: Tuple[int, int], T_: int, k_ops: int) -> tuple:
     return profiling.bound_ms(2 * n * T_ * k_ops + n * (FLOOR_CHAINS - 1), 2 * n * 4, peaks.int32_tops * 1e12)
 
 
+def variant_rows(root: Path) -> list:
+    """The automaton kernel in each variant of VARIANTS, each built from a
+    copy of csrc/ under build/auto_probe/: where the variant computes the
+    same function (the rows per block), one n=T walk at B against the plain
+    version (codes and state identical); then its times
+    (``stack_probe.automaton_times``) and its three kernels' registers."""
+    from ..kernels import _build
+    from .generate_probe import registers
+    from .stack_probe import automaton_times, build_variant
+
+    src = Path(kauto.__file__).resolve().parent / "csrc"
+    rows = []
+    for name, edits in VARIANTS.items():
+        d = root / "build" / "auto_probe" / name / "csrc"
+        shutil.rmtree(d.parent, ignore_errors=True)
+        shutil.copytree(src, d)
+        for file, old, new in edits:
+            text = (d / file).read_text()
+            if old not in text:
+                raise ValueError(f"variant {name}: {old!r} is not in csrc/{file}")
+            (d / file).write_text(text.replace(old, new))
+        build_variant(d)
+        if name.startswith("warps"):
+            inp = make_inputs()
+            got, want = inp["state0"].clone(), inp["state0"].clone()
+            codes = kauto.auto_step(inp["itab"], got, inp["scores_T"], inp["T"] - 1)
+            same = torch.equal(codes, kauto.auto_step_plain(inp["itab"], want, inp["scores_T"], inp["T"] - 1))
+            if not (same and torch.equal(got, want)):
+                raise AssertionError(f"variant {name} differs from the plain version")
+        automaton_times()  # the first timing of a build warms the card and the new library
+        row = {"variant": name, **automaton_times()}
+        for kernel in ("auto_step_kernel", "auto_mask_kernel", "auto_advance_kernel"):
+            row[f"{kernel}_registers"] = registers(_build.info.log, kernel).get("registers")
+        rows.append(row)
+    return rows
+
+
 def print_table(r: Dict[str, float], inp: dict, file=sys.stdout) -> None:
     T_ = inp["T"]
     print(f"plain loop : {r['plain_us'] * T_ / 1e3:10.3f} ms total  {r['plain_us']:9.2f} us/step  (B={inp['B']})",
@@ -164,6 +224,10 @@ def main(argv=None) -> int:
     print(profiling.card_line())
     if "--floor" in argv:
         print_floor(floor_measure())
+        return 0
+    if "--variants" in argv:
+        for row in variant_rows(Path.cwd()):
+            print(json.dumps(row), flush=True)
         return 0
     inp = make_inputs(*(int(a) for a in argv))
     out = probe(inp)

@@ -7,6 +7,7 @@ Run by path from the root of a checkout, on a CUDA card:
     python3 molvax_torch/probes/stack_probe.py --steps     # a recurrence step decomposed
     python3 molvax_torch/probes/stack_probe.py --root DIR  # the times of the checkout at DIR
     python3 molvax_torch/probes/stack_probe.py --sass DIR  # the bf16 kernels' SASS against DIR's
+    python3 molvax_torch/probes/stack_probe.py [--root DIR] --decodes  # the automaton and the decodes
 
 Every mode prints one JSON line per run, with the card's name and power
 limit. Times are CUDA events, median of 5 after 2 warm-ups, at B=256,
@@ -16,9 +17,11 @@ T=120, I0=329, H=501, L=3, seeded weights (uniform +-1/sqrt(H)):
   (``kernels.gru_stack.stack_forward`` / ``stack_backward``), and the GRU
   kernels beside it: ``gru_layer_scan_x`` forward and backward at layer 0,
   bf16 and strict fp32, ``gru_layer_scan`` forward and backward,
-  ``gru_probe_scan`` (``matmul_only``) and ``gru_fused3_scan``; and one
+  ``gru_probe_scan`` (``matmul_only``) and ``gru_fused3_scan``; one
   greedy ``fused_generate`` decode at ``zinc250k`` width (B=256, seeded
-  weights: ``make_decoder``), whichever instance the checkout takes. With
+  weights: ``make_decoder``), whichever instance the checkout takes; and
+  the automaton kernel (``automaton_times``: ``auto_step`` per step at
+  B=256, n=1 and n=120, ``auto_mask`` / ``auto_advance`` at 1,280 rows). With
   ``--root`` the package is imported from DIR, so a parent commit unpacked
   there (``git archive``) and this checkout can be timed in turns on one
   card (parent, change, change, parent). The default mode adds the
@@ -39,6 +42,9 @@ T=120, I0=329, H=501, L=3, seeded weights (uniform +-1/sqrt(H)):
   split products, split on the integer pipe or by ``cvt.rna.tf32.f32``,
   the GEMM's k-tiles summed apart or all in one tensor-core accumulator;
   or FFMA), each with its GEMMs' errors against a float64 product.
+- ``--decodes`` (with ``--root DIR`` or without): the automaton kernel's
+  times (``automaton_times``) and the constrained greedy and beam-5
+  decodes' (``decode_times``), events and device-busy time.
 - ``--sass DIR``: every kernel of the library built from DIR's sources
   (the parent, unpacked as above) has a kernel of this checkout's library
   with the same SASS (``cuobjdump -sass``, addresses and encodings set
@@ -188,6 +194,143 @@ def make_decoder(device: str = "cuda:0", seed: int = 0):
     return model, cfg, z_emb
 
 
+def queued_ms(fn, reps: int = 3, sleep_cycles: int = 40_000_000) -> float:
+    """Device ms of what one call of fn enqueues, run back to back (median
+    of ``reps``): fn is enqueued behind a sleep kernel that outlasts the
+    host's enqueueing (checked; the sleep doubles until it does), so the
+    events after the sleep time the device alone, the gaps between
+    launches included, the host's cost per launch not."""
+    times = []
+    while len(times) < reps:
+        torch.cuda.synchronize()
+        e0, a, b = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+        e0.record()
+        torch.cuda._sleep(sleep_cycles)
+        a.record()
+        t0 = time.perf_counter()
+        fn()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        b.record()
+        torch.cuda.synchronize()
+        if host_ms < e0.elapsed_time(a):
+            times.append(a.elapsed_time(b))
+        else:
+            sleep_cycles *= 2
+    return sorted(times)[len(times) // 2]
+
+
+def device_ms(fn, match: str, attempts: int = 3) -> tuple:
+    """(device ms, kernel count) of the kernels whose name holds ``match``
+    in one call of fn, from torch.profiler (its own count of the kernels
+    it recorded); (0.0, 0) where it recorded none in ``attempts`` sessions.
+    The profiler at times records no device activity in a session, or in
+    any session of a process (seen with an H100 80GB HBM3), so such a session
+    is run again."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(attempts):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        ms, n = 0.0, 0
+        for ev in prof.key_averages():
+            if ev.device_type == DeviceType.CUDA and match in ev.key:
+                ms += getattr(ev, "self_device_time_total", getattr(ev, "self_cuda_time_total", 0.0)) / 1e3
+                n += ev.count
+        if n:
+            return ms, n
+    return 0.0, 0
+
+
+def automaton_times(device: str = "cuda:0", seed: int = 0) -> dict:
+    """The automaton kernel's times, ms, with the package on sys.path:
+    ``auto_step`` per step as 120 launches of n=1 and as one n=120 launch at
+    B=256, and ``auto_mask`` / ``auto_advance`` at the beam's 1,280 rows on
+    the state of a 40-step walk; seeded scores tilted toward branches,
+    rings and brackets (chip_smoke.py's walk). Each in-place call on its
+    own copy of the state, made before the timing. CUDA events around
+    each call (``*_per_step``, ``*_1280``: what a caller waits, the
+    wrapper's host cost included), and the device time per launch
+    (``device_*``: ``queued_ms`` of 120 n=1 launches, 3 n=120 launches, 20
+    of each of the others)."""
+    from molvax_torch.data.charset import DEFAULT_CHARSET
+    from molvax_torch.kernels import automaton as ka
+    from molvax_torch.latent.constrain import build_tables
+    from molvax_torch.train.profiling import event_ms
+
+    itab = ka.pack_tables(build_tables(DEFAULT_CHARSET)).to(device)
+    C = itab.shape[1]
+    g = torch.Generator(device=device).manual_seed(seed)
+    tilt = torch.zeros(C, device=device)
+    tilt[DEFAULT_CHARSET.chars.index(" ")] = -4.0
+    for ch in "()123[]=#+-@H":
+        tilt[DEFAULT_CHARSET.chars.index(ch)] = 1.0
+
+    def scores(rows, steps):
+        return (2.0 * torch.randn(rows, steps, C, generator=g, device=device) + tilt).contiguous()
+
+    def on_copies(fn, state):
+        pool = [state.clone() for _ in range(7)]
+        return event_ms(lambda: fn(pool.pop()))
+
+    sc = scores(B, T)
+    per_step = [sc[:, k].contiguous() for k in range(T)]
+
+    def walk(s):
+        for k in range(T):
+            ka.auto_step(itab, s, per_step[k], T - 1 - k)
+
+    s0 = ka.new_state(B, T, device)
+    out = {"auto_step_n1_per_step": on_copies(walk, s0) / T,
+           "auto_step_n120_per_step": on_copies(lambda s: ka.auto_step(itab, s, sc, T - 1), s0) / T}
+    rows = 5 * B
+    sb = ka.new_state(rows, T, device)
+    ka.auto_step(itab, sb, scores(rows, 40), T - 1)
+    tok = ka.auto_mask(itab, sb, T - 41).to(torch.float32).argmax(1).to(torch.int32)
+    out["auto_mask_1280"] = event_ms(lambda: ka.auto_mask(itab, sb, T - 41))
+    out["auto_advance_1280"] = on_copies(lambda s: ka.auto_advance(itab, s, tok), sb)
+
+    # copies for queued_ms's runs, one taken by each (a run it rejects takes one too)
+    n1 = [s0.clone() for _ in range(8)]
+    n120 = [[s0.clone() for _ in range(3)] for _ in range(8)]
+    adv = [sb.clone() for _ in range(8)]
+    out["device_auto_step_n1"] = queued_ms(lambda: walk(n1.pop())) / T
+    out["device_auto_step_n120_per_step"] = queued_ms(
+        lambda: [ka.auto_step(itab, s, sc, T - 1) for s in n120.pop()]) / 3 / T
+    out["device_auto_mask_1280"] = queued_ms(lambda: [ka.auto_mask(itab, sb, T - 41) for _ in range(20)]) / 20
+    out["device_auto_advance_1280"] = queued_ms(lambda: [ka.auto_advance(itab, s, tok)
+                                                          for s in [adv.pop()] for _ in range(20)]) / 20
+    return out
+
+
+def decode_times(device: str = "cuda:0") -> dict:
+    """The constrained decodes' times, with the package on sys.path: the
+    greedy constrained decode (``generate(constrained=True)``, one
+    ``auto_step`` a step) and beam 5 (``beam_generate``, one ``auto_mask``
+    and one ``auto_advance`` a step) of B=256 latents at
+    ``zinc250k_quality``'s width, ``make_decoder``'s weights: CUDA events
+    (ms, what a caller waits) and one decode's device-busy ms from the
+    profiler (every kernel and copy it recorded; 0 where it recorded none)."""
+    from molvax_torch.config import get_preset
+    from molvax_torch.latent.beam import beam_generate
+    from molvax_torch.latent.sample import generate
+    from molvax_torch.train.profiling import event_ms
+
+    model, _, _ = make_decoder(device)
+    qcfg = get_preset("zinc250k_quality").model
+    g = torch.Generator(device=device).manual_seed(7)
+    z = torch.randn(B, qcfg.latent_dim, generator=g, device=device)
+    out = {}
+    with torch.no_grad():
+        for name, fn in (("constrained_greedy", lambda: generate(model, qcfg, z, constrained=True)),
+                         ("beam5", lambda: beam_generate(model, qcfg, z, beam=5, constrained=True))):
+            out[f"{name}_ms"] = event_ms(fn)
+            out[f"{name}_device_busy_ms"] = device_ms(fn, "")[0]
+    return out
+
+
 def kernel_times(inp: dict, own: bool) -> dict:
     """The GRU kernels' times, ms, with the package on sys.path; ``own``
     adds the redesigned stack's pieces and the host's enqueue times."""
@@ -217,6 +360,7 @@ def kernel_times(inp: dict, own: bool) -> dict:
         out["fused3"] = event_ms(lambda: ks.gru_fused3_scan(gi.to(bf), wih, bih, whh, bhh, h0))
         model, cfg, z_emb = make_decoder()
         out["fused_generate_greedy"] = event_ms(lambda: kg.fused_generate(model, cfg, z_emb, 0))
+        out.update(automaton_times())
         if own:
             top = res[0][L - 1], h0[L - 1], res[1][L - 1], res[2][L - 1], whh[L - 1], dY, dhf[L - 1]
             out["recurrence_layer"] = event_ms(lambda: ks.layer_recurrence(gi, whh[0], bhh[0], h0[0]))
@@ -328,7 +472,9 @@ def main(argv) -> int:
         print(json.dumps({**sass_check(Path(argv[argv.index("--sass") + 1]).resolve()), "card": card}), flush=True)
         return 0
     inp = make_inputs()
-    if "--steps" in argv:
+    if "--decodes" in argv:
+        print(json.dumps({"root": str(root), **automaton_times(), **decode_times(), "card": card}), flush=True)
+    elif "--steps" in argv:
         for row in step_times(inp, root):
             print(json.dumps({**row, "card": card}), flush=True)
     else:

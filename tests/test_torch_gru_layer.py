@@ -239,7 +239,7 @@ def test_shared_memory_check():
     cotangents of 4 rows in shared memory: moses_scaled's 1024 wide layers
     fit in both modes; a shape that does not fit raises before a launch."""
     for md in (torch.bfloat16, torch.float32):
-        assert kgru.smem_bytes(1024, 1024, md) <= kgru._MAX_SMEM
+        assert kgru.smem_bytes(1024, 1024, md) <= ks.SMEM
         kgru._check_fits("gru_layer_scan_x", 1024, 1024, md)
     assert kgru.smem_bytes(1024, 1024, torch.float32) == 4 * 1024 * 4 + 6 * 1024 * 4 * 4
     with pytest.raises(ValueError, match="shared memory"):

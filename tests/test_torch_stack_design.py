@@ -20,7 +20,9 @@ import pytest
 import torch
 
 from molvax_torch.config import get_preset
+from molvax_torch.kernels import gru as kgru
 from molvax_torch.kernels import gru_stack as ks
+from molvax_torch.nn.decoder import decoder_input_size
 from molvax_torch.utils import round_to
 from test_torch_support import normal
 
@@ -194,6 +196,97 @@ def test_stack_plan_rejects_what_no_layout_takes():
         ks.stack_plan(256, 1153, esize=4)  # fp32: 16 units need 3 x 16 x 1,168 x 4 bytes; 8 units, q > 132
     big = ks.stack_plan(2048, 501)  # more rows than the SMs' groups hold: several launches
     assert big.slices > 1 and big.g * big.rows * big.slices >= 2048
+
+
+# -- the card the plans are laid out for -------------------------------------------
+
+# (SMs, shared memory a block may opt in to): an H100 SXM, an H100 PCIe, a MIG-like slice
+CARDS = [(132, 232448), (114, 232448), (42, 232448)]
+
+
+def _layer_shapes():
+    """(T, B, I, H, esize) of every GRU layer the training steps run, at B=256
+    and 6: zinc250k and zinc250k_quality (bf16), strict fp32 at zinc250k's
+    width, and moses_scaled's width."""
+    out = set()
+    for preset, esize in (("zinc250k", 2), ("zinc250k_quality", 2), ("zinc250k", 4), ("moses_scaled", 2)):
+        m = get_preset(preset).model
+        for B in (6, 256):
+            for I in (decoder_input_size(m), m.gru_hidden):
+                out.add((m.max_len, B, I, m.gru_hidden, esize))
+    return sorted(out)
+
+
+@pytest.mark.parametrize("card", CARDS)
+def test_plans_fit_the_card_they_run_on(card, monkeypatch):
+    """With the CUDA runtime's limits stood in for (``card_limits``), every
+    layout the training kernels take on a CUDA device fits that card:
+    ``stack_plan``'s group x block count is at most its SMs (the
+    cooperative launch is taken) and its blocks' shared memory within its
+    limit, or ``layer_route`` sends the layer to the in-kernel instance (no
+    cooperative launch), whose shared memory fits too; ``dw_parts`` takes
+    the fewest waves of the card's SMs. On 132 SMs every plan is the one
+    planned without a card, from an H100 SXM's constants, as before."""
+    sms, smem = card
+    monkeypatch.setattr(ks, "card_limits", lambda device: card)
+    cuda = torch.device("cuda", 0)
+    assert ks.plan_limits(cuda) == card and ks.plan_limits("cpu") == (ks.SMS, ks.SMEM) == (132, 232448)
+    for T, B, I, H, esize in _layer_shapes():
+        md = BF if esize == 2 else torch.float32
+        route = kgru.layer_route(B, H, md, ks.plan_limits(cuda))
+        if route == "persistent":
+            plan = ks.stack_plan(B, H, *ks.plan_limits(cuda), esize=esize)
+            assert plan.blocks == plan.g * plan.q <= sms, (B, H, esize, plan)
+            assert max(plan.fwd_smem, plan.bwd_smem) <= smem
+            assert plan.slices * plan.g * plan.rows >= B
+        else:
+            kgru._check_fits("gru_layer_scan_x", I, H, md, smem)
+        tiles = -(-3 * H // 128) * (-(-(I + 1) // 128) + -(-(H + 1) // 128))
+        k = kgru.dw_parts(T, I, H, sms)
+        assert 1 <= k <= 4 and all(-(-tiles * k // sms) / k <= -(-tiles * j // sms) / j for j in range(1, 5))
+        if card == (132, 232448):
+            assert route == "persistent" and plan == ks.stack_plan(B, H, esize=esize)
+            assert k == kgru.dw_parts(T, I, H)
+    # zinc250k's width at B=256, bf16 and fp32 (g, q, units, rows, slices): on
+    # 132 SMs 128 blocks in one launch each; on fewer SMs fewer groups of
+    # more rows, and strict fp32 on 42 SMs two launches
+    want = {132: ((16, 8, 64, 16, 1), (8, 16, 32, 32, 1)), 114: ((8, 13, 40, 32, 1), (4, 21, 24, 64, 1)),
+            42: ((4, 9, 56, 64, 1), (2, 21, 24, 64, 2))}[sms]
+    for esize, w in zip((2, 4), want):
+        plan = ks.stack_plan(256, 501, *ks.plan_limits(cuda), esize=esize)
+        assert (plan.g, plan.q, plan.units, plan.rows, plan.slices) == w
+
+
+def test_the_wrappers_plan_from_their_device(monkeypatch):
+    """The stack's wrappers and the per-layer route lay their launches out
+    by ``plan_limits`` of their tensors' device: a card of 42 SMs stood in,
+    each launch replaced by a stand-in that records its plan."""
+    card = (42, 232448)
+    T, B, I, H, L = 2, 256, 40, 501, 2
+    monkeypatch.setattr(ks, "plan_limits", lambda device: card)
+    for mod in (ks, kgru):
+        monkeypatch.setattr(mod, "_check_cuda", lambda what, *tensors: None)
+        monkeypatch.setattr(mod, "_gemm", lambda *args, **kw: None)
+    plans, sms_seen, limits_seen = [], [], []
+    monkeypatch.setattr(ks, "_recurrence", lambda *a, **kw: plans.append(a[8]))
+    monkeypatch.setattr(ks, "_sweep", lambda *a, **kw: plans.append(a[10]))
+    monkeypatch.setattr(kgru, "_sum_parts", lambda parts, out: None)
+    dw_parts, layer_route = kgru.dw_parts, kgru.layer_route
+    monkeypatch.setattr(kgru, "dw_parts", lambda T_, I_, H_, sms=132: sms_seen.append(sms) or dw_parts(T_, I_, H_, sms))
+    monkeypatch.setattr(kgru, "layer_route", lambda B_, H_, md, limits=(132, 232448): limits_seen.append(limits)
+                        or layer_route(B_, H_, md, limits))
+    args = _stack_args(T, B, I, H, L)
+    x0, wih0, bih0, wih, bih, whh, bhh, h0 = args
+    res = ks.stack_forward(*args)
+    ks.stack_backward((*res, x0, h0, wih0, wih, whh), torch.zeros(T, B, H), torch.zeros(L, B, H))
+    hseq, rzn, ghn = ks.layer_recurrence(torch.zeros(T, B, 3 * H), whh[0], bhh[0], h0[0])
+    ks.layer_sweep(hseq, h0[0], rzn, ghn, whh[0], torch.zeros(T, B, H), h0[0])
+    lres = kgru.layer_forward(x0, wih0, bih0, whh[0], bhh[0], h0[0], BF)
+    kgru.layer_backward((*lres, ks._padded(x0), h0[0], wih0, whh[0]), torch.zeros(T, B, H))
+    want = ks.stack_plan(B, H, *card)
+    assert want != ks.stack_plan(B, H) and want.blocks <= 42
+    assert len(plans) == 2 * L + 2 + 2 and all(p == want for p in plans)
+    assert sms_seen == [42] and limits_seen == [card, card]
 
 
 # -- the plain pieces ------------------------------------------------------------
