@@ -6,8 +6,8 @@ once on one CUDA card.
 
 Run from the root of a checkout. It builds the hand-written kernels from
 ``molvax_torch/kernels/csrc/`` (into ``build/molvax_torch/``), makes
-``zinc250k`` weights at full width from a seed, and runs twenty phases,
-each printed on its own lines:
+``zinc250k`` weights at full width from a seed, and runs twenty-one
+phases, each printed on its own lines:
 
   1. environment: card name and power limit, torch and CUDA versions, the
      global TF32 switches (left at their defaults), kernel build time and
@@ -43,17 +43,23 @@ each printed on its own lines:
   8. each of the stack's kernels against its own plain version (the
      GEMM's three epilogues, the recurrence, the sweep); then the stack at
      moses_scaled width (H=1024, L=4, B=256) the same way, and its times;
-  9. encoder kernel against the plain encoder, sampler kernel against its
-     plain version; every training kernel again at a ragged batch of 6;
+  9. encoder kernel against the plain encoder at every shape the presets
+     give it (zinc250k at B = 256, 1, 6 and 33; chemvae_5k's widths in the
+     'charset' orientation, B=64; moses_scaled's, E = Lz = 512), sampler
+     kernel against its plain version at B = 256 and 6, two calls bit for
+     bit; every training kernel again at a ragged batch of 6;
  10. the training step through the public functions: init_state from the
      seeded weights, 20 steps of make_train_step on the kernel route
      (every kernel launched its exact count per step, loss falls), the
      first 3 steps again on the plain route from the same weights, one
      make_eval_step;
  11. times: the train step on both routes, each new kernel against its
-     plain version (CUDA events, median of 5 after 2 warm-ups), the stack's
-     device time by kernel and the device-time split of one kernel-route
-     step (torch.profiler), and peak device memory;
+     plain version (CUDA events, median of 5 after 2 warm-ups), the
+     encoder's and the sampler's device time a call (calls queued behind a
+     sleep kernel) and the device kernels torch.profiler records for one
+     wrapper call (its counted launches, no preparation kernel), the
+     stack's device time by kernel and the device-time split of one
+     kernel-route step (torch.profiler), and peak device memory;
  12. the per-layer GRU kernels against their plain versions on the same
      inputs, layer 0 (I=329) and layer 1 (I=501), also at a ragged batch of
      6: gru_layer_scan_x forward and backward in bf16 and in strict fp32,
@@ -115,7 +121,11 @@ each printed on its own lines:
      recurrence step decomposed (matmul_only, gates_nostore, full) at H=501
      and 512, the 3-layer forward per layer, on the stack and fused3; the
      in-kernel against the hoisted input GEMM; the automaton per step and
-     its budget; the int32-op floor; each with its bound.
+     its budget; the int32-op floor; each with its bound;
+ 21. one train step of zinc250k, zinc250k_quality, strict fp32 and a bf16
+     step with the property head (three seeded targets, target stats)
+     under torch.cuda.set_sync_debug_mode("error"): no host sync on the
+     step's path; each step's time and idle share.
 
 Any failure raises and exits non-zero. Without CUDA it exits 2 and prints
 no result. The line before the card's is the ``kernels`` JSON: each kernel
@@ -159,7 +169,7 @@ from molvax_torch.nn.encoder import conv_input_channels, encoder_params, flat_co
 from molvax_torch.nn.gru import gru_layers
 from molvax_torch.nn.vae import MolecularVAE, encode
 from molvax_torch.probes import auto_loop_probe, gru_experiments, proto_gi_kernel
-from molvax_torch.probes.stack_probe import device_ms, queued_ms
+from molvax_torch.probes.stack_probe import device_kernels, device_ms, queued_ms
 from molvax_torch.train import init_state, make_eval_step, make_train_step
 from molvax_torch.train import profiling
 from molvax_torch.train.profiling import card_line as card
@@ -575,14 +585,66 @@ def ragged_batch_checks(model, cfg, codes, s_args, rows: int = 6) -> dict:
         enc = max(max_abs(a, b) for a, b in zip(conv_enc._encode_kernel(cfg, codes[:rows], encoder_params(model)),
                                                  conv_enc.fused_encode_ref(model, cfg, codes[:rows])))
         mu, lv = conv_enc.fused_encode_ref(model, cfg, codes[:rows])
-        smp = max(max_abs(a, b) / b.abs().max().item()
-                  for a, b in zip(sampler._sample_kernel(7, mu, lv, 1.0), sampler.fused_sample_kl_ref(7, mu, lv, 1.0)))
-    torch.cuda.synchronize()
+    smp = max(sampler_checks(mu, lv, 7, 1.0)[:2])
     say("phase9", ragged_batch=rows, stack_fwd_max_abs_err=f"{fwd:.3e}", stack_bwd_max_abs_err=f"{bwd:.3e}",
         encoder_max_abs_err=f"{enc:.3e}", sampler_rel_err=f"{smp:.3e}")
     if not (enc <= ENCODER_TOL and smp <= SAMPLER_REL):
         raise AssertionError(f"a training kernel differs from its plain version at B={rows}")
     return {"fwd": fwd, "bwd": bwd, **pieces}
+
+
+def seeded_model(cfg, seed: int, dev):
+    """A MolecularVAE of ``cfg`` with random_params(cfg, seed)."""
+    m = MolecularVAE(cfg, device=dev)
+    m.load_state_dict(state_dict_from_jax(random_params(cfg, seed)), strict=True)
+    m.eval()
+    return m
+
+
+def encoder_shape_checks(model, cfg, codes, dev) -> float:
+    """The encoder kernel against the plain encoder within ENCODER_TOL at
+    every shape the presets give it: zinc250k at B = 256, 1, 6 and 33 (a
+    batch that is not a multiple of the 32-row tiles), chemvae_5k's widths
+    in the 'charset' orientation (B=64, F=110), moses_scaled's (E = Lz =
+    512, B=256). Returns the largest error."""
+    ccfg = dataclasses.replace(get_preset("chemvae_5k").model, conv_orientation="charset")
+    mcfg = get_preset("moses_scaled").model
+    cases = [("zinc250k", model, cfg, codes[:rows]) for rows in (B, 1, 6, 33)]
+    cases += [("chemvae_5k_charset", seeded_model(ccfg, SEED + 11, dev), ccfg, codes[:64]),
+              ("moses_scaled", seeded_model(mcfg, SEED + 12, dev), mcfg, codes)]
+    worst = 0.0
+    for name, m, c, x in cases:
+        with torch.no_grad():
+            got = conv_enc._encode_kernel(c, x, encoder_params(m))
+            want = conv_enc.fused_encode_ref(m, c, x)
+        torch.cuda.synchronize()
+        err = max(max_abs(a, b) for a, b in zip(got, want))
+        say("phase9", encoder=name, B=x.shape[0], orientation=c.conv_orientation, F=flat_conv_dim(c),
+            E=c.enc_hidden, Lz=c.latent_dim, max_abs_err=f"{err:.3e}", tol=ENCODER_TOL)
+        if not err <= ENCODER_TOL:
+            raise AssertionError(f"encoder kernel at {name}, B={x.shape[0]}: {err:.3e} from the plain encoder")
+        worst = max(worst, err)
+    return worst
+
+
+def sampler_checks(mu, lv, seed: int, eps_scale: float) -> tuple:
+    """The sampler kernel against its plain version within SAMPLER_REL, and
+    two calls bit for bit: (z relative error, kl relative error, largest
+    absolute error)."""
+    with torch.no_grad():
+        z_k, kl_k = sampler._sample_kernel(seed, mu, lv, eps_scale)
+        z_2, kl_2 = sampler._sample_kernel(seed, mu, lv, eps_scale)
+        z_r, kl_r = sampler.fused_sample_kl_ref(seed, mu, lv, eps_scale)
+    torch.cuda.synchronize()
+    twice = torch.equal(z_k, z_2) and torch.equal(kl_k, kl_2)
+    z_rel = max_abs(z_k, z_r) / z_r.abs().max().item()
+    kl_rel = max_abs(kl_k, kl_r) / kl_r.abs().max().item()
+    say("phase9", sampler_B=mu.shape[0], z_rel_err=f"{z_rel:.3e}", kl_rel_err=f"{kl_rel:.3e}",
+        z_bit_identical=f"{(z_k == z_r).float().mean().item():.6f}", two_calls_bit_identical=twice,
+        rel_tol=SAMPLER_REL)
+    if not (z_rel <= SAMPLER_REL and kl_rel <= SAMPLER_REL and twice):
+        raise AssertionError(f"sampler kernel at B={mu.shape[0]}: z {z_rel:.3e}, kl {kl_rel:.3e}, repeatable {twice}")
+    return z_rel, kl_rel, max(max_abs(z_k, z_r), max_abs(kl_k, kl_r))
 
 
 def profile_step(step_fn) -> dict:
@@ -904,6 +966,18 @@ def encoder_macs(cfg) -> int:
     return macs + flat_conv_dim(cfg) * cfg.enc_hidden + 2 * cfg.enc_hidden * cfg.latent_dim
 
 
+def encoder_ops(cfg, codes: torch.Tensor) -> int:
+    """Operations of the encoder kernel on these codes ('seq' orientation):
+    the first conv a gather, one add for each tap whose code lies in the
+    charset; 2 a multiply-add for the later convs, the dense layer and the
+    heads."""
+    valid = ((codes >= 0) & (codes < cfg.charset_size)).long()
+    K, W = cfg.conv_kernels[0], cfg.max_len - cfg.conv_kernels[0] + 1
+    taps = sum(int(valid[:, k:k + W].sum()) for k in range(K))
+    first = cfg.conv_channels[0] * W * cfg.charset_size * K  # the dense first conv's multiply-adds
+    return cfg.conv_channels[0] * taps + 2 * codes.shape[0] * (encoder_macs(cfg) - first)
+
+
 def automaton_ops(rows: int, C: int, mask: bool = True, select: bool = True, advance: bool = True) -> int:
     """A lower count of the integer operations of one automaton step over
     ``rows`` rows, from the function's arithmetic: the mask tests each of
@@ -1107,6 +1181,37 @@ def phase17(model, qcfg, dev) -> dict:
         raise AssertionError("constrained decode: the kernel route differs from the plain route")
     out["z"] = z
     return out
+
+
+def profiled_kernels_per_call(name: str, fn, per_call: int, sessions: int = 5) -> float:
+    """Device kernels per call that torch.profiler records of wrapper
+    ``name`` (kernel ``name``_kernel), whose call fn makes ``per_call``
+    counted launches; 0.0 where no session recorded any. Every session must
+    record that kernel and nothing else (no preparation kernel or copy
+    around it) and no more of it than the calls launch. The profiler at
+    times loses a kernel at a session's edge (seen: 9 of 10 in every
+    session of a process on an H100 80GB HBM3), so the count a call is that
+    of a session of 20 calls less that of one of 10, over 10; up to
+    ``sessions`` pairs run until it is ``per_call``, and failing that the
+    check fails."""
+    def session(calls: int) -> int:
+        got = device_kernels(lambda: [fn() for _ in range(calls)])
+        foreign = {k: n for k, n in got.items() if f"{name}_kernel" not in k}
+        n = sum(got.values()) - sum(foreign.values())
+        if foreign or n > calls * per_call:
+            raise AssertionError(f"{name}: the profiler recorded {got} for {calls} calls of {per_call} launches")
+        return n
+
+    seen = []
+    for _ in range(sessions):
+        n10, n20 = session(10), session(20)
+        seen.append((n10, n20))
+        if n10 and n20 and n20 - n10 == 10 * per_call:
+            return (n20 - n10) / 10
+    if not any(n10 or n20 for n10, n20 in seen):
+        return 0.0
+    raise AssertionError(f"{name}: the profiler recorded {seen} device kernels in sessions of (10, 20) calls "
+                         f"of {per_call} launches")
 
 
 def device_ms_per_launch(fn, name: str, launches: int) -> tuple:
@@ -1399,6 +1504,51 @@ def phase20(dev, g, p, ms_gen: float, gpu: str) -> dict:
             "lib_fwd_gi": lib_fwd_gi}
 
 
+def phase21(weights, codes, dev, gpu) -> dict:
+    """One train step of zinc250k, zinc250k_quality, strict-fp32 zinc250k
+    and a bf16 zinc250k step with the property head (n_properties=3, target
+    stats, seeded targets) under torch.cuda.set_sync_debug_mode("error"):
+    nothing on the step's path may block the host on the card (ROADMAP
+    C 1). Each step is first taken once in the default mode (the property
+    stats are made on the card then, once). Then each step's event ms and
+    idle share (one profiled step), the step times to compare with the
+    parent's from probes/stack_probe.py --root."""
+    full = get_preset("zinc250k")
+    prop = dataclasses.replace(full, name="zinc250k_properties", model=dataclasses.replace(
+        full.model, n_properties=3, property_mean=(2.5, 0.6, 3.0), property_std=(1.5, 0.2, 0.9)))
+    fp32 = dataclasses.replace(full, name="zinc250k_fp32", model=dataclasses.replace(full.model, compute_dtype="float32"))
+    props = torch.from_numpy(np.random.default_rng(SEED + 13).standard_normal((B, 3)).astype(np.float32)).to(dev)
+    out = {}
+    for f in (full, get_preset("zinc250k_quality"), fp32, prop):
+        step_fn = make_train_step(f)
+        state = [init_state(f, device=dev, weights=None if f is prop else weights)]
+        target = props if f is prop else None
+
+        def one():
+            state[0], metrics = step_fn(state[0], codes, target)
+            return metrics
+
+        one()
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            metrics = one()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        loss = float(metrics["loss"])
+        if not np.isfinite(loss) or (f is prop and "prop_mse" not in metrics):
+            raise AssertionError(f"{f.name}: the step under sync debug mode gave loss {loss}")
+        ms = time_ms(one)
+        prof = profile_step(one)
+        busy = sum(prof["device_ms"].values())
+        out[f.name] = {"ms": ms, "device_busy_ms": busy, "idle_share": 1 - busy / ms if busy else None}
+        say("phase21", train_step=f.name, sync_debug_mode="error", host_syncs=0, loss=f"{loss:.4f}", ms=f"{ms:.4f}",
+            device_busy_ms=f"{busy:.3f}", idle_share=f"{1 - busy / ms:.4f}" if busy else "not measured",
+            card=json.dumps(gpu))
+    return out
+
+
 def entry(name, source, replaces, launches, err, ms, plain_ms, bnd, library_ms, **extra) -> dict:
     """One kernel of the ``kernels`` line."""
     return {"name": name, "route": "cuda", "source": f"molvax_torch/kernels/csrc/{source}",
@@ -1593,22 +1743,11 @@ def main() -> int:
     with torch.no_grad():
         mu_k, lv_k = conv_enc._encode_kernel(cfg, codes, encoder_params(model))
         mu_r, lv_r = conv_enc.fused_encode_ref(model, cfg, codes)
-        seed9 = 12345
+    enc_kernel_err = encoder_shape_checks(model, cfg, codes, dev)
+    seed9 = 12345
+    _, _, sampler_err = sampler_checks(mu_r, lv_r, seed9, cfg.eps_scale)
+    with torch.no_grad():
         z_k, kl_k = sampler._sample_kernel(seed9, mu_r, lv_r, cfg.eps_scale)
-        z_r, kl_r = sampler.fused_sample_kl_ref(seed9, mu_r, lv_r, cfg.eps_scale)
-    torch.cuda.synchronize()
-    enc_kernel_err = max(max_abs(mu_k, mu_r), max_abs(lv_k, lv_r))
-    z_rel = max_abs(z_k, z_r) / z_r.abs().max().item()
-    kl_rel = max_abs(kl_k, kl_r) / kl_r.abs().max().item()
-    z_same = (z_k == z_r).float().mean().item()
-    say("phase9", encoder_max_abs_err=f"{enc_kernel_err:.3e}", tol=ENCODER_TOL,
-        z_rel_err=f"{z_rel:.3e}", kl_rel_err=f"{kl_rel:.3e}", z_bit_identical=f"{z_same:.6f}",
-        rel_tol=SAMPLER_REL)
-    if not enc_kernel_err <= ENCODER_TOL:
-        raise AssertionError(f"encoder kernel differs from the plain encoder by {enc_kernel_err:.3e}")
-    if not (z_rel <= SAMPLER_REL and kl_rel <= SAMPLER_REL):
-        raise AssertionError(f"sampler kernel differs: z {z_rel:.3e}, kl {kl_rel:.3e}")
-    sampler_err = max(max_abs(z_k, z_r), max_abs(kl_k, kl_r))
     ragged = ragged_batch_checks(model, cfg, codes, s_args)
     fwd_err, bwd_err = max(fwd_err, ragged["fwd"]), max(bwd_err, ragged["bwd"])
     for k in piece_err:
@@ -1646,6 +1785,24 @@ def main() -> int:
         }
     for name, (ms_k, ms_p) in times.items():
         say("phase11", kernel=name, ms=f"{ms_k:.4f}", plain_ms=f"{ms_p:.4f}", card=json.dumps(gpu))
+    # the encoder's and the sampler's device time a call (20 calls queued
+    # behind a sleep kernel: the wrapper's host cost not in it), beside the
+    # event time above; and the device kernels torch.profiler records for
+    # one wrapper call, which must be its counted launches (no preparation
+    # kernel around it)
+    dev_call = {}
+    with torch.no_grad():
+        for name, fn, counter in (
+                ("fused_encode", lambda: conv_enc._encode_kernel(cfg, codes, enc_params), lambda: conv_enc.launches),
+                ("fused_sample_kl", lambda: sampler._sample_kernel(1, mu_r, lv_r, 1.0), lambda: sampler.launches)):
+            us = queued_ms(lambda: [fn() for _ in range(20)]) / 20 * 1e3
+            before = counter()
+            fn()
+            per_call = counter() - before
+            recorded = profiled_kernels_per_call(name, fn, per_call)
+            dev_call[name] = (us, recorded if recorded else "not measured")
+            say("phase11", kernel=name, device_us_per_call=f"{us:.3f}", event_ms=f"{times[name][0]:.4f}",
+                launches_per_call=per_call, profiler_device_kernels_per_call=dev_call[name][1], card=json.dumps(gpu))
     # the stack's device time by kernel, one forward and one backward
     with torch.no_grad():
         split = {"fwd": stack_split(lambda: gru_stack.stack_forward(*s_args)),
@@ -1661,8 +1818,9 @@ def main() -> int:
         # after t = 0 the one-hot product is a gather of W_c's row: no operations
         "fused_generate": bound(2 * B * (C * 3 * H + T * (H * 3 * H + (L - 1) * 2 * H * 3 * H + H * C)),
                                 nbytes(w_gen, b_gen) + B * 3 * H * 4 + B * T * 4 + C * 4, PEAK_BF16),
-        "fused_encode": bound(2 * B * encoder_macs(cfg),
-                              nbytes(codes) + nbytes(*enc_params) // 2 + nbytes(mu_k, lv_k), PEAK_BF16),
+        # the fp32 parameters read once, as the kernel reads them
+        "fused_encode": bound(encoder_ops(cfg, codes), nbytes(codes) + nbytes(*enc_params) + nbytes(mu_k, lv_k),
+                              PEAK_BF16),
         "fused_sample_kl": bound(30 * B * cfg.latent_dim, nbytes(mu_r, lv_r, z_k, kl_k), PEAK_FP32),
         "gru_stack_fwd": bound(stack_ops, nbytes(*s_args) + nbytes(*res_k), PEAK_BF16),
         "gru_stack_bwd": bound(2 * stack_ops, nbytes(*res, dY, dhf) + nbytes(*grads_k), PEAK_BF16),
@@ -1836,6 +1994,9 @@ def main() -> int:
     # -- 20. the probe modules' runs and tables ------------------------------
     p20 = phase20(dev, p19["g"], p19["p"], ms_gen, gpu)
 
+    # -- 21. the train steps block the host nowhere (ROADMAP C 1) -------------
+    phase21(weights, codes, dev, gpu)
+
     beam_counts = decodes["beam"]
     print(json.dumps({"kernels": [
         # launches of the serving path (phase 5); errors: the largest margin
@@ -1846,11 +2007,16 @@ def main() -> int:
                                     "row_block": serve_counts["fused_generate_row_block"]},
               ms_row_block=ms_gen_row_block, setup_ms=ms_gen_setup, plan=dataclasses.asdict(gen_plan),
               max_margin_gap_by_batch={str(k): max(v) for k, v in gaps.items()}, row_block_moses_scaled=gen_moses),
+        # event ms (what a caller waits) beside the device time a call
         entry("fused_encode", "conv_enc.cu", "molvax/kernels/conv_enc.py:181", train_counts["fused_encode"],
-              enc_kernel_err, times["fused_encode"][0], times["fused_encode"][1], bounds["fused_encode"], None),
+              enc_kernel_err, times["fused_encode"][0], times["fused_encode"][1], bounds["fused_encode"], None,
+              sources=["molvax_torch/kernels/csrc/conv_enc.cu", "molvax_torch/kernels/csrc/conv_enc.cuh"],
+              device_ms_per_launch=dev_call["fused_encode"][0] / 1e3,
+              profiler_device_kernels_per_call=dev_call["fused_encode"][1]),
         entry("fused_sample_kl", "sampler.cu", "molvax/kernels/sampler.py:91", train_counts["fused_sample_kl"],
               sampler_err, times["fused_sample_kl"][0], times["fused_sample_kl"][1], bounds["fused_sample_kl"],
-              None),
+              None, device_ms_per_launch=dev_call["fused_sample_kl"][0] / 1e3,
+              profiler_device_kernels_per_call=dev_call["fused_sample_kl"][1]),
         # the stack: per layer the input-gate GEMM and the recurrence forward,
         # the sweep and the GEMM of the cotangent backward, one dW GEMM
         entry("gru_stack_scan_fwd", "gru_stack.cu", "molvax/kernels/gru_stack.py:552",

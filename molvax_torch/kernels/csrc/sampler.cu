@@ -14,31 +14,37 @@
 // stream is seed-deterministic and differs from jax.random's. The backward
 // is closed-form and stays in plain torch, as in the TPU package.
 //
-// Design. One block per batch row; thread d handles latent dims d,
-// d + blockDim, ...; the KL sum is a fixed-order block reduction (warp
-// shuffles, then one warp over the warp sums), so it is deterministic.
+// Design. A warp per batch row, 4 rows a block (B=256 gives 64 blocks):
+// lane l takes latent dims l, l + 32, ..., so a warp's loads of mu and
+// logvar are coalesced; the KL sum is a butterfly of warp shuffles in a
+// fixed order, with no shared memory and no block barrier, so two calls
+// give the same bits. The loop over a lane's dims is unrolled by 4, so
+// their transcendentals overlap.
 //
 // What bounds it on an H100: 2 x B x L fp32 in, B x (L + 1) out (~0.9 MB at
-// B=256, L=292) and four transcendentals per element: a few microseconds,
-// bound by launch latency.
+// B=256, L=292) and four transcendentals per element: a few microseconds.
+// In practice a lane's serial chain of ~10 dims (292 / 32) of hash, log,
+// cos, sqrt and two exp: a block of 128 threads a row, 3 dims a thread,
+// measured ~1.4 us less device time a call (PERF.md).
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int SAMPLER_THREADS = 128;
+constexpr int SAMPLER_ROWS = 4;  // warps (batch rows) a block
 
-__global__ void __launch_bounds__(SAMPLER_THREADS)
+__global__ void __launch_bounds__(SAMPLER_ROWS * 32)
 fused_sample_kl_kernel(const float* __restrict__ mu, const float* __restrict__ logvar,
-                       float* __restrict__ z, float* __restrict__ kl, int Lz,
+                       float* __restrict__ z, float* __restrict__ kl, int B, int Lz,
                        uint32_t seed, float eps_scale) {
-  __shared__ float warp_sums[SAMPLER_THREADS / 32];
-  const int b = blockIdx.x;
-  const int tid = threadIdx.x;
+  const int lane = threadIdx.x & 31;
+  const int b = blockIdx.x * SAMPLER_ROWS + (threadIdx.x >> 5);
+  if (b >= B) return;  // the whole warp: no barrier follows
   const float two_pi = 6.283185307179586f;
   const float scale24 = 1.0f / 16777216.0f;
   float part = 0.0f;
-  for (int d = tid; d < Lz; d += SAMPLER_THREADS) {
+#pragma unroll 4  // four of the lane's dims in flight
+  for (int d = lane; d < Lz; d += 32) {
     const size_t i = (size_t)b * Lz + d;
     const float m = mu[i], lv = logvar[i];
     const uint32_t bits1 = noise_bits(seed, 0u, (uint32_t)b, (uint32_t)d);
@@ -49,14 +55,8 @@ fused_sample_kl_kernel(const float* __restrict__ mu, const float* __restrict__ l
     z[i] = m + eps_scale * expf(0.5f * lv) * eps;
     part += 1.0f + lv - m * m - expf(lv);
   }
-  for (int off = 16; off > 0; off >>= 1) part += __shfl_down_sync(0xffffffffu, part, off);
-  if ((tid & 31) == 0) warp_sums[tid >> 5] = part;
-  __syncthreads();
-  if (tid == 0) {
-    float s = 0.0f;
-    for (int w = 0; w < SAMPLER_THREADS / 32; ++w) s += warp_sums[w];
-    kl[b] = -0.5f * s;
-  }
+  for (int off = 16; off > 0; off >>= 1) part += __shfl_xor_sync(0xffffffffu, part, off);
+  if (lane == 0) kl[b] = -0.5f * part;
 }
 
 }  // namespace
@@ -66,7 +66,8 @@ extern "C" int molvax_fused_sample_kl(const float* mu, const float* logvar, floa
                                       float* kl, int B, int Lz, unsigned int seed,
                                       float eps_scale, void* stream) {
   if (B <= 0 || Lz <= 0) return (int)cudaErrorInvalidValue;
-  fused_sample_kl_kernel<<<B, SAMPLER_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      mu, logvar, z, kl, Lz, seed, eps_scale);
+  const int blocks = (B + SAMPLER_ROWS - 1) / SAMPLER_ROWS;
+  fused_sample_kl_kernel<<<blocks, SAMPLER_ROWS * 32, 0, static_cast<cudaStream_t>(stream)>>>(
+      mu, logvar, z, kl, B, Lz, seed, eps_scale);
   return (int)cudaGetLastError();
 }

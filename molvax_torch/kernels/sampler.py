@@ -19,7 +19,7 @@ from typing import Tuple
 
 import torch
 
-from . import _build
+from . import _build, gru_stack
 from .generate import _MASK32, noise_bits
 
 # kernel launches made by fused_sample_kl (not by the plain version)
@@ -58,24 +58,30 @@ def sample_kl_backward(z, mu, logvar, g_z, g_kl) -> Tuple[torch.Tensor, torch.Te
     return d_mu, d_logvar
 
 
+def _check_device(mu: torch.Tensor, logvar: torch.Tensor) -> None:
+    if mu.device.type != "cuda":
+        raise ValueError(f"fused_sample_kl: unsupported device {mu.device}")
+    if logvar.device != mu.device:
+        raise ValueError("fused_sample_kl: mu and logvar are on different devices")
+
+
 def _sample_kernel(seed: int, mu: torch.Tensor, logvar: torch.Tensor, eps_scale: float):
     global launches
-    dev = mu.device
-    if dev.type != "cuda":
-        raise ValueError(f"fused_sample_kl: unsupported device {dev}")
-    if mu.dim() != 2 or mu.shape != logvar.shape or logvar.device != dev or mu.shape[0] == 0:
+    _check_device(mu, logvar)
+    if mu.dim() != 2 or mu.shape != logvar.shape or mu.shape[0] == 0:
         raise ValueError(f"fused_sample_kl: mu {tuple(mu.shape)} and logvar {tuple(logvar.shape)}")
+    if any(t.dtype != torch.float32 or not t.is_contiguous() for t in (mu, logvar)):
+        raise ValueError("fused_sample_kl: mu and logvar must be contiguous fp32")
     B, L = mu.shape
-    mu_, lv_ = mu.float().contiguous(), logvar.float().contiguous()
-    z = torch.empty(B, L, device=dev)
-    kl = torch.empty(B, device=dev)
+    z = torch.empty(B, L, device=mu.device)
+    kl = torch.empty(B, device=mu.device)
     fn = _build.function(
         "molvax_fused_sample_kl",
         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_uint32, ctypes.c_float, ctypes.c_void_p],
     )
     err = fn(
-        mu_.data_ptr(), lv_.data_ptr(), z.data_ptr(), kl.data_ptr(), B, L, seed & _MASK32,
-        float(eps_scale), torch.cuda.current_stream(dev).cuda_stream,
+        mu.data_ptr(), logvar.data_ptr(), z.data_ptr(), kl.data_ptr(), B, L, seed & _MASK32,
+        float(eps_scale), gru_stack._stream(mu),
     )
     _build.check(err, "fused_sample_kl")
     launches += 1

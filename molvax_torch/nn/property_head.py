@@ -6,6 +6,7 @@ Port of ``molvax/nn/property_head.py``. The head's weights live in
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple, Union
 
 import torch
@@ -32,13 +33,20 @@ def predict_properties(model, cfg, z: torch.Tensor) -> torch.Tensor:
     return linear(h, model.prop_out.weight, model.prop_out.bias)
 
 
+@functools.lru_cache(maxsize=None)
+def _stats(mean: Tuple[float, ...], std: Tuple[float, ...], device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The target stats as fp32 tensors on ``device``, made once: a tensor
+    from host data is a copy that blocks the host on a CUDA device."""
+    return (torch.tensor(mean, dtype=torch.float32, device=device),
+            torch.tensor(std, dtype=torch.float32, device=device))
+
+
 def normalize_targets(cfg, targets: torch.Tensor) -> torch.Tensor:
     """Raw property targets -> standardized training targets; identity when
     the config has no stats."""
     if cfg.property_mean is None or cfg.property_std is None:
         return targets
-    mean = torch.tensor(cfg.property_mean, dtype=torch.float32, device=targets.device)
-    std = torch.tensor(cfg.property_std, dtype=torch.float32, device=targets.device)
+    mean, std = _stats(cfg.property_mean, cfg.property_std, targets.device)
     return (targets.float() - mean) / std
 
 
@@ -46,6 +54,5 @@ def denormalize_properties(cfg, pred: torch.Tensor) -> torch.Tensor:
     """Head outputs -> raw property units; identity without stats."""
     if cfg.property_mean is None or cfg.property_std is None:
         return pred
-    mean = torch.tensor(cfg.property_mean, dtype=torch.float32, device=pred.device)
-    std = torch.tensor(cfg.property_std, dtype=torch.float32, device=pred.device)
+    mean, std = _stats(cfg.property_mean, cfg.property_std, pred.device)
     return pred * std + mean

@@ -8,6 +8,8 @@ Run by path from the root of a checkout, on a CUDA card:
     python3 molvax_torch/probes/stack_probe.py --root DIR  # the times of the checkout at DIR
     python3 molvax_torch/probes/stack_probe.py --sass DIR  # the bf16 kernels' SASS against DIR's
     python3 molvax_torch/probes/stack_probe.py [--root DIR] --decodes  # the automaton and the decodes
+    python3 molvax_torch/probes/stack_probe.py [--root DIR] --encode   # the encoder and the sampler
+    python3 molvax_torch/probes/stack_probe.py --encode-split [A,B,..] # their parts, by variant
 
 Every mode prints one JSON line per run, with the card's name and power
 limit. Times are CUDA events, median of 5 after 2 warm-ups, at B=256,
@@ -21,7 +23,10 @@ T=120, I0=329, H=501, L=3, seeded weights (uniform +-1/sqrt(H)):
   greedy ``fused_generate`` decode at ``zinc250k`` width (B=256, seeded
   weights: ``make_decoder``), whichever instance the checkout takes; and
   the automaton kernel (``automaton_times``: ``auto_step`` per step at
-  B=256, n=1 and n=120, ``auto_mask`` / ``auto_advance`` at 1,280 rows). With
+  B=256, n=1 and n=120, ``auto_mask`` / ``auto_advance`` at 1,280 rows);
+  the encoder and the sampler (``encode_times``) and the three trainers'
+  steps (``train_times``: ``zinc250k``, ``zinc250k_quality``, strict-fp32
+  ``zinc250k``, wall and device-busy ms). With
   ``--root`` the package is imported from DIR, so a parent commit unpacked
   there (``git archive``) and this checkout can be timed in turns on one
   card (parent, change, change, parent). The default mode adds the
@@ -45,6 +50,11 @@ T=120, I0=329, H=501, L=3, seeded weights (uniform +-1/sqrt(H)):
 - ``--decodes`` (with ``--root DIR`` or without): the automaton kernel's
   times (``automaton_times``) and the constrained greedy and beam-5
   decodes' (``decode_times``), events and device-busy time.
+- ``--encode`` (with ``--root DIR`` or without): ``encode_times`` alone.
+- ``--encode-split``: ``encode_times`` of the encoder and the sampler
+  rebuilt in each variant of ``ENC_VARIANTS`` (a phase, a part of the conv
+  stage, the loads of a phase or the grid barriers taken out; the
+  sampler's rows a block and unrolling).
 - ``--sass DIR``: every kernel of the library built from DIR's sources
   (the parent, unpacked as above) has a kernel of this checkout's library
   with the same SASS (``cuobjdump -sass``, addresses and encodings set
@@ -244,6 +254,20 @@ def device_ms(fn, match: str, attempts: int = 3) -> tuple:
     return 0.0, 0
 
 
+def device_kernels(fn) -> dict:
+    """{name: count} of every device activity (kernels, copies, memsets)
+    that torch.profiler records in one session of fn; empty where it
+    recorded none."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {ev.key: ev.count for ev in prof.key_averages() if ev.device_type == DeviceType.CUDA}
+
+
 def automaton_times(device: str = "cuda:0", seed: int = 0) -> dict:
     """The automaton kernel's times, ms, with the package on sys.path:
     ``auto_step`` per step as 120 launches of n=1 and as one n=120 launch at
@@ -331,6 +355,238 @@ def decode_times(device: str = "cuda:0") -> dict:
     return out
 
 
+# (variant, [(file in csrc/, text, its replacement)]): parts of the
+# encoder's phases taken out (results wrong, times only; every bulk copy
+# issued is still waited for, or the launch fails), and the sampler's rows a
+# block and unrolling
+ENC_VARIANTS = {
+    "base": [],
+    "no_rows": [("conv_enc.cu", "row < d.B; row += gridDim.x * L.teams)", "row < 0 * d.B; row += gridDim.x * L.teams)")],
+    "no_first_conv": [("conv_enc.cuh", "  conv_first(d, reinterpret_cast", "  if (d.n < 0) conv_first(d, reinterpret_cast")],
+    "no_conv_mma": [("conv_enc.cuh", "    conv_mma(d, s, reinterpret_cast", "    if (s < 0) conv_mma(d, s, reinterpret_cast")],
+    "no_flush": [("conv_enc.cuh", "  FOR_TEAM(w, wit, ts) flush_row(", "  FOR_TEAM(w, wit, ts) if (d.n < 0) flush_row(")],
+    "no_dense_mma": [("conv_enc.cu", "for (int s = warp; s < Fp / 16; s += WARPS)", "for (int s = warp; s < 0 * Fp; s += WARPS)")],
+    "no_head_mma": [("conv_enc.cu", "for (int s = warp; s < E8 / 8; s += WARPS)", "for (int s = warp; s < 0 * E8; s += WARPS)")],
+    "no_grid_sync": [("conv_enc.cu", "  grid.sync();  // h3 complete", "  __syncthreads();"),
+                     ("conv_enc.cu", "  grid.sync();  // h2 complete", "  __syncthreads();")],
+    # the conv stages' mma.sync replaced by a sum of their operands (loads and
+    # the dependent chain kept, the tensor cores not used)
+    "conv_fake_mma": [("conv_enc.cuh", '  asm volatile(\n      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "',
+                       '  d.v.v[0] += __uint_as_float(a.v.r[0] ^ a.v.r[1] ^ a.v.r[2] ^ a.v.r[3] ^ b.v.r[0] ^ b.v.r[1]);\n'
+                       '  if (d.v.v[0] == 1.2345f) asm volatile(\n      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "')],
+    # (--encode-timeline only) a dependent chain of 200 shared-memory loads
+    # (pointer chasing over the teams' zeroed buffers) timed by the
+    # calibration stamps (24, 25) in place of the FMA chain
+    "smem_chase": [("conv_enc.cu", "  __syncthreads();\n  unsigned char* mine = smem + L.warp_off + team * L.warp_bytes;",
+                    "  __syncthreads();\n  if (threadIdx.x == 0 && blockIdx.x == 0) {\n"
+                    "    volatile int* q = reinterpret_cast<volatile int*>(smem + L.warp_off); int j = 0; STAMP(24);\n"
+                    "    for (int i = 0; i < 200; ++i) j = q[j];\n    STAMP(25); if (j == 77) a.mu[1] = 1.f; }\n"
+                    "  unsigned char* mine = smem + L.warp_off + team * L.warp_bytes;"),
+                   ("conv_enc.cu", "  STAMP(0);\n  { float x", "  STAMP(0);\n  if (0) { float x")],
+    "sampler_rows8": [("sampler.cu", "constexpr int SAMPLER_ROWS = 4;", "constexpr int SAMPLER_ROWS = 8;")],
+    "sampler_rows1": [("sampler.cu", "constexpr int SAMPLER_ROWS = 4;", "constexpr int SAMPLER_ROWS = 1;")],
+    "sampler_no_unroll": [("sampler.cu", "#pragma unroll 4  // four of the lane's dims", "// four of the lane's dims")],
+}
+ENC_SOURCES = ("conv_enc.cu", "conv_enc.cuh", "gemm.cuh", "common.cuh", "sampler.cu")
+
+
+# clock64 stamps of block 0's thread 0 (its first row's team) at the phase
+# and stage boundaries of the encoder, written over mu's first row at the end
+_STAMP = ("__device__ long long enc_stamps[32];\n"
+          "#define STAMP(i) do { if (blockIdx.x == 0 && threadIdx.x == 0) enc_stamps[i] = clock64(); } while (0)\n")
+TIMELINE = [
+    ("conv_enc.cu", '#include "gemm.cuh"\n', _STAMP + '#include "gemm.cuh"\n'),
+    ("conv_enc.cu", "  bars.wait(BAR_CONV);\n", "  STAMP(1);\n  bars.wait(BAR_CONV);\n  STAMP(2);\n"),
+    ("conv_enc.cu", "  __syncthreads();\n  // the teams' buffers", "  __syncthreads();\n  STAMP(3);\n  // the teams' buffers"),
+    ("conv_enc.cu", "  for (int i = threadIdx.x; i < nz; i += THREADS)", "  STAMP(4);\n  for (int i = threadIdx.x; i < nz; i += THREADS)"),
+    ("conv_enc.cuh", "  team_sync(team, ts);\n  FOR_TEAM(w, wit, ts)\n  conv_first(",
+     "  team_sync(team, ts);\n  STAMP(5);\n  FOR_TEAM(w, wit, ts)\n  conv_first("),
+    ("conv_enc.cuh", "  team_sync(team, ts);\n  uint16_t* cur = buf0;", "  team_sync(team, ts);\n  STAMP(6);\n  uint16_t* cur = buf0;"),
+    ("conv_enc.cuh", "    team_sync(team, ts);\n    uint16_t* tmp = cur;", "    team_sync(team, ts);\n    STAMP(6 + s);\n    uint16_t* tmp = cur;"),
+    ("conv_enc.cuh", "  team_sync(team, ts);  // the buffers are the next row's",
+     "  team_sync(team, ts);  // the buffers are the next row's\n  STAMP(10);"),
+    ("conv_enc.cu", "    bars.wait(BAR_H3);\n    bars.wait(BAR_DW);\n", "    bars.wait(BAR_H3);\n    bars.wait(BAR_DW);\n    STAMP(13);\n"),
+    ("conv_enc.cu", "    if (tid == 0 && tile + (int)gridDim.x >= L.tiles_dense",
+     "    STAMP(14);\n    if (tid == 0 && tile + (int)gridDim.x >= L.tiles_dense"),
+    ("conv_enc.cu", "    bars.wait(BAR_H2);\n    bars.wait(BAR_HW);\n", "    bars.wait(BAR_H2);\n    bars.wait(BAR_HW);\n    STAMP(17);\n"),
+    ("conv_enc.cu", "#pragma unroll\n    for (int i = 0; i < 2; ++i)\n#pragma unroll\n      for (int j = 0; j < NT; ++j)",
+     "    STAMP(18);\n#pragma unroll\n    for (int i = 0; i < 2; ++i)\n#pragma unroll\n      for (int j = 0; j < NT; ++j)"),
+    ("conv_enc.cu", "  __syncthreads();\n  phase_conv(a, smem, bars);\n  grid.sync();  // h3 complete\n"
+                    "  phase_dense(a, smem, bars);\n  grid.sync();  // h2 complete\n  phase_heads(a, smem, bars);\n",
+     "  __syncthreads();\n  STAMP(0);\n  phase_conv(a, smem, bars);\n  STAMP(11);\n  grid.sync();  // h3 complete\n  STAMP(12);\n"
+     "  phase_dense(a, smem, bars);\n  STAMP(15);\n  grid.sync();  // h2 complete\n  STAMP(16);\n  phase_heads(a, smem, bars);\n"
+     "  STAMP(19);\n  grid.sync();  // every block's mu written\n  if (blockIdx.x == 0 && threadIdx.x == 0)\n"
+     "    for (int i = 0; i < 32; ++i) reinterpret_cast<long long*>(a.mu)[i] = enc_stamps[i];\n"),
+]
+# extra marks inside the weights' layout and a calibration chain of 1,000
+# dependent FMAs (4 cycles each on an H100)
+TIMELINE += [
+    ("conv_enc.cuh", "        [&](int pr, const float* v) { st32(w1 + 2 * pr, pack2(v[0], v[1])); });\n  }\n",
+     "        [&](int pr, const float* v) { st32(w1 + 2 * pr, pack2(v[0], v[1])); });\n  }\n  STAMP(20);\n"),
+    ("conv_enc.cuh", "        [&](int pr, const float* v) { st32(ws + 2 * pr, pack2(v[0], v[1])); });\n",
+     "        [&](int pr, const float* v) { st32(ws + 2 * pr, pack2(v[0], v[1])); });\n    STAMP(20 + s);\n"),
+    ("conv_enc.cu", "  STAMP(0);\n", "  STAMP(0);\n  { float x = threadIdx.x * 1e-9f; STAMP(24);\n"
+                                    "    for (int i = 0; i < 1000; ++i) x = fmaf(x, 0.999f, 1e-7f);\n"
+                                    "    STAMP(25); if (x == 12345.f) a.mu[0] = x; }\n"),
+]
+# marks inside the conv stages on the tensor cores (conv 2: 26-28, conv 3:
+# 29-31): entry, the first unit's K loop done, its stores done
+TIMELINE += [
+    ("conv_enc.cuh", "  for (int u = w; u < units; u += ts) {\n",
+     "  if (w == 0) STAMP(23 + 3 * s);\n  for (int u = w; u < units; u += ts) {\n"),
+    ("conv_enc.cuh", "        warp_mma(acc[1][1], a1, b1);\n      }\n    }\n",
+     "        warp_mma(acc[1][1], a1, b1);\n      }\n    }\n    if (u == 0) STAMP(24 + 3 * s);\n"),
+    ("conv_enc.cuh", "                                                      relu_bias(acc[i][j][l].v[2 * h + 1], bias, o + 1, cout)));\n          }\n        }\n      }\n    }\n",
+     "                                                      relu_bias(acc[i][j][l].v[2 * h + 1], bias, o + 1, cout)));\n          }\n        }\n      }\n    }\n    if (u == 0) STAMP(25 + 3 * s);\n"),
+]
+TIMELINE_MARKS = ["start", "copies issued", "copies landed", "weights laid out", "synced", "codes", "first conv",
+                  "conv 2", "conv 3", "", "flushed", "phase A done", "barrier 1", "dense loads", "dense products",
+                  "dense done", "barrier 2", "head loads", "head products", "end", "conv 1 table", "conv 2 table",
+                  "conv 3 table", "", "calibration start", "calibration end (+4000 cycles?)", "conv 2 entry",
+                  "conv 2 first unit's K loop", "conv 2 first unit stored", "conv 3 entry", "conv 3 first unit's K loop",
+                  "conv 3 first unit stored"]
+
+
+# the first row's conv stack run twice (the stamps of the second, warm run)
+TIMELINE_WARM = [("conv_enc.cu", "    conv_row(d, L, smem, [&](int s)", "    for (int rep = 0; rep < 2; ++rep) conv_row(d, L, smem, [&](int s)")]
+
+
+def encode_timeline(root: Path, reps: int = 5, warm: bool = False, variant: str = "base") -> dict:
+    """The encoder rebuilt with clock64 stamps (TIMELINE) at zinc250k width,
+    B=256: block 0's cycles from the kernel's start to each mark, median of
+    ``reps`` launches."""
+    from molvax_torch.kernels import conv_enc, gru_stack
+    from molvax_torch.nn.encoder import encoder_params
+
+    src = Path(gru_stack.__file__).resolve().parent / "csrc"
+    gru_stack.plan_limits(torch.device("cuda", 0))
+    d = root / "build" / "stack_probe" / "enc_timeline" / "csrc"
+    shutil.rmtree(d.parent, ignore_errors=True)
+    d.mkdir(parents=True)
+    for f in ENC_SOURCES:
+        text = (src / f).read_text()
+        for file, old, new in TIMELINE + ENC_VARIANTS[variant] + (TIMELINE_WARM if warm else []):
+            if file == f:
+                if old not in text:
+                    raise ValueError(f"timeline: {old!r} is not in {f}")
+                text = text.replace(old, new)
+        (d / f).write_text(text)
+    build_variant(d)
+    model, cfg, _ = make_decoder()
+    g = torch.Generator(device="cuda:0").manual_seed(2)
+    codes = torch.randint(0, cfg.charset_size, (B, cfg.max_len), generator=g, device="cuda:0")
+    runs = []
+    with torch.no_grad():
+        for _ in range(reps + 1):
+            mu, _ = conv_enc._encode_kernel(cfg, codes, encoder_params(model))
+            stamps = mu.reshape(-1)[:64].view(torch.int64).tolist()
+            runs.append([x - stamps[0] for x in stamps])
+    runs = runs[1:]
+    return {name: sorted(r[i] for r in runs)[len(runs) // 2] for i, name in enumerate(TIMELINE_MARKS) if name}
+
+
+def encode_split(root: Path, names=None):
+    """``encode_times`` with the encoder and the sampler rebuilt in each
+    variant of ENC_VARIANTS (or those named; the two sources and their
+    headers alone, under build/stack_probe/enc_<variant>/); differences
+    between the variants' device times are the parts' costs. Yields a row
+    a variant, as it is measured."""
+    from molvax_torch.kernels import gru_stack
+
+    src = Path(gru_stack.__file__).resolve().parent / "csrc"
+    gru_stack.plan_limits(torch.device("cuda", 0))  # the card's limits, cached before the library is swapped
+    for name in names or [v for v in ENC_VARIANTS if v != "smem_chase"]:
+        subs = ENC_VARIANTS[name]
+        d = root / "build" / "stack_probe" / f"enc_{name}" / "csrc"
+        shutil.rmtree(d.parent, ignore_errors=True)
+        d.mkdir(parents=True)
+        for f in ENC_SOURCES:
+            text = (src / f).read_text()
+            for file, old, new in subs:
+                if file == f:
+                    if old not in text:
+                        raise ValueError(f"variant {name}: {old!r} is not in {f}")
+                    text = text.replace(old, new)
+            (d / f).write_text(text)
+        build_variant(d)
+        from molvax_torch.kernels import _build
+
+        ptxas = [" ".join(x.split()) for x in _build.info.log.splitlines()
+                 if "Used" in x or "stack frame" in x]
+        yield {"variant": name, **encode_times(), "ptxas": ptxas[:8]}
+
+
+def encode_times(device: str = "cuda:0", seed: int = 0) -> dict:
+    """``fused_encode`` and ``fused_sample_kl`` at ``zinc250k`` width, B=256,
+    with the package on sys.path: ``make_decoder``'s weights, seeded codes
+    (int64) and the plain encoder's mu and logvar. For each wrapper call:
+    the device ms of what it enqueues (``queued_ms`` of 20 calls, the
+    wrapper's own torch ops included), the event ms (what a caller waits,
+    the host cost included), and the largest error against its plain
+    version (the sampler's relative to the largest plain value)."""
+    from molvax_torch.kernels import conv_enc, sampler
+    from molvax_torch.nn.encoder import encoder_params
+    from molvax_torch.train.profiling import event_ms
+
+    model, cfg, _ = make_decoder(device, seed)
+    g = torch.Generator(device=device).manual_seed(seed + 2)
+    codes = torch.randint(0, cfg.charset_size, (B, cfg.max_len), generator=g, device=device)
+    params = encoder_params(model)
+    out = {}
+    with torch.no_grad():
+        mu, lv = conv_enc.fused_encode_ref(model, cfg, codes)
+
+        def enc():
+            return conv_enc._encode_kernel(cfg, codes, params)
+
+        def smp():
+            return sampler._sample_kernel(7, mu, lv, 1.0)
+
+        got = enc()
+        out["fused_encode_max_abs_err"] = max(float((a - b).abs().max()) for a, b in zip(got, (mu, lv)))
+        z, kl = smp()
+        z_r, kl_r = sampler.fused_sample_kl_ref(7, mu, lv, 1.0)
+        out["fused_sample_kl_rel_err"] = max(float((a - b).abs().max() / b.abs().max()) for a, b in ((z, z_r), (kl, kl_r)))
+        for name, fn in (("fused_encode", enc), ("fused_sample_kl", smp)):
+            out[f"{name}_device_us"] = queued_ms(lambda: [fn() for _ in range(20)]) / 20 * 1e3
+            out[f"{name}_event_ms"] = event_ms(fn)
+    return out
+
+
+def train_times(device: str = "cuda:0", seed: int = 0) -> dict:
+    """One train step of ``zinc250k``, ``zinc250k_quality`` and strict-fp32
+    ``zinc250k`` at B=256, with the package on sys.path: torch's seeded
+    default init, seeded codes; the step's event ms (median of 5 after 2
+    warm-ups: the host's enqueueing included, as a caller waits) and one
+    step's device-busy ms (every kernel and copy the profiler records; 0
+    where it records none), and the idle share they give."""
+    import dataclasses
+
+    from molvax_torch.config import get_preset
+    from molvax_torch.train import init_state, make_train_step
+    from molvax_torch.train.profiling import event_ms
+
+    out = {}
+    zinc = get_preset("zinc250k")
+    fp32 = dataclasses.replace(zinc, name="zinc250k_fp32", model=dataclasses.replace(zinc.model, compute_dtype="float32"))
+    for full in (zinc, get_preset("zinc250k_quality"), fp32):
+        g = torch.Generator(device=device).manual_seed(seed + 3)
+        codes = torch.randint(0, full.model.charset_size, (B, full.model.max_len), generator=g, device=device)
+        step = make_train_step(full)
+        state = [init_state(full, seed=seed, device=device)]
+
+        def one():
+            state[0], _ = step(state[0], codes, None)
+
+        with torch.enable_grad():  # the caller may time kernels under no_grad
+            ms = event_ms(one)
+            busy = device_ms(one, "")[0]
+        out[f"{full.name}_step_ms"] = ms
+        out[f"{full.name}_step_device_busy_ms"] = busy
+        out[f"{full.name}_step_idle_share"] = 1.0 - busy / ms if busy else None
+    return out
+
+
 def kernel_times(inp: dict, own: bool) -> dict:
     """The GRU kernels' times, ms, with the package on sys.path; ``own``
     adds the redesigned stack's pieces and the host's enqueue times."""
@@ -361,6 +617,8 @@ def kernel_times(inp: dict, own: bool) -> dict:
         model, cfg, z_emb = make_decoder()
         out["fused_generate_greedy"] = event_ms(lambda: kg.fused_generate(model, cfg, z_emb, 0))
         out.update(automaton_times())
+        out.update(encode_times())
+        out.update(train_times())
         if own:
             top = res[0][L - 1], h0[L - 1], res[1][L - 1], res[2][L - 1], whh[L - 1], dY, dhf[L - 1]
             out["recurrence_layer"] = event_ms(lambda: ks.layer_recurrence(gi, whh[0], bhh[0], h0[0]))
@@ -472,7 +730,19 @@ def main(argv) -> int:
         print(json.dumps({**sass_check(Path(argv[argv.index("--sass") + 1]).resolve()), "card": card}), flush=True)
         return 0
     inp = make_inputs()
-    if "--decodes" in argv:
+    if "--encode-timeline" in argv:
+        at = argv.index("--encode-timeline") + 1
+        variant = argv[at] if at < len(argv) and not argv[at].startswith("--") else "base"
+        print(json.dumps({"variant": variant, **encode_timeline(root, warm="--warm" in argv, variant=variant),
+                          "card": card}), flush=True)
+    elif "--encode-split" in argv:
+        at = argv.index("--encode-split") + 1
+        names = argv[at].split(",") if at < len(argv) and not argv[at].startswith("--") else None
+        for row in encode_split(root, names):
+            print(json.dumps({**row, "card": card}), flush=True)
+    elif "--encode" in argv:
+        print(json.dumps({"root": str(root), **encode_times(), "card": card}), flush=True)
+    elif "--decodes" in argv:
         print(json.dumps({"root": str(root), **automaton_times(), **decode_times(), "card": card}), flush=True)
     elif "--steps" in argv:
         for row in step_times(inp, root):
