@@ -1,12 +1,12 @@
 #!/usr/bin/env python3
-"""Drive molvax_torch's serving path, training step and constrained decoding
-once on one CUDA card.
+"""Drive molvax_torch's serving path, training step, chunked trainer and
+constrained decoding once on one CUDA card.
 
     python3 chip_smoke.py
 
 Run from the root of a checkout. It builds the hand-written kernels from
 ``molvax_torch/kernels/csrc/`` (into ``build/molvax_torch/``), makes
-``zinc250k`` weights at full width from a seed, and runs twenty-one
+``zinc250k`` weights at full width from a seed, and runs twenty-two
 phases, each printed on its own lines:
 
   1. environment: card name and power limit, torch and CUDA versions, the
@@ -125,7 +125,20 @@ phases, each printed on its own lines:
  21. one train step of zinc250k, zinc250k_quality, strict fp32 and a bf16
      step with the property head (three seeded targets, target stats)
      under torch.cuda.set_sync_debug_mode("error"): no host sync on the
-     step's path; each step's time and idle share.
+     step's path; each step's time and idle share;
+ 22. the reference's headline training path: synthetic_dataset(4096,
+     max_len=120, seed=0) (tokenizer path and seconds), BatchIterator(ds,
+     256, seed=0).next_stack(16) on the card, and a K=16 make_train_chunk
+     (one CUDA Graph) at zinc250k, zinc250k_quality and moses_scaled width
+     and property_joint with EMA: against 16 eager steps from a deep copy
+     of the same state on the same stack (weights, Adam moments and steps,
+     EMA, stacked metrics; bit for bit where two eager runs are, else the
+     non-deterministic gradients named and CHUNK_REL), the next stack and
+     replay under sync debug mode "error", one replay's device activity
+     against 16 eager steps' (the counters move at capture, not at a
+     replay), ms per step eager and chunked, SMILES/s, next_stack's host
+     ms, capture seconds, the graph's memory and the idle share of one
+     profiled chunk.
 
 Any failure raises and exits non-zero. Without CUDA it exits 2 and prints
 no result. The line before the card's is the ``kernels`` JSON: each kernel
@@ -141,6 +154,7 @@ JSON.
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
 import json
 import os
@@ -152,6 +166,8 @@ import numpy as np
 import torch
 
 from molvax_torch.config import get_preset
+from molvax_torch.data import BatchIterator, synthetic_dataset
+from molvax_torch.data import native as tokenizer
 from molvax_torch.data.charset import DEFAULT_CHARSET
 from molvax_torch.data.featurize import decode_codes, encode_smiles, one_hot
 from molvax_torch.data.smiles_check import chem_valid
@@ -170,7 +186,7 @@ from molvax_torch.nn.gru import gru_layers
 from molvax_torch.nn.vae import MolecularVAE, encode
 from molvax_torch.probes import auto_loop_probe, gru_experiments, proto_gi_kernel
 from molvax_torch.probes.stack_probe import device_kernels, device_ms, queued_ms
-from molvax_torch.train import init_state, make_eval_step, make_train_step
+from molvax_torch.train import effective_config, init_state, make_eval_step, make_train_chunk, make_train_step
 from molvax_torch.train import profiling
 from molvax_torch.train.profiling import card_line as card
 from molvax_torch.train.profiling import event_ms as time_ms
@@ -187,6 +203,11 @@ GEMM_REL = 1e-4  # ||GEMM - gemm_ref|| / ||gemm_ref||: the same bf16 operands, f
 FP32_FWD_TOL = 1e-4  # strict fp32: only the sum order differs; a bf16 or TF32
 FP32_BWD_REL = 1e-3  # cast would show as ~1e-2
 FP32_ROUTE_REL = 1e-4  # per-step loss of the strict-fp32 routes
+# a K=16 chunk against 16 eager steps: bit for bit where two eager runs are;
+# where a library kernel of the step is not deterministic (its gradients
+# named by first_nondeterministic), ||chunk - eager|| / ||eager|| per tensor
+CHUNK = 16
+CHUNK_REL = 1e-5
 B = 256
 SEED = 0
 BEAM = 5
@@ -630,13 +651,18 @@ def encoder_shape_checks(model, cfg, codes, dev) -> float:
 def sampler_checks(mu, lv, seed: int, eps_scale: float) -> tuple:
     """The sampler kernel against its plain version within SAMPLER_REL, and
     two calls bit for bit: (z relative error, kl relative error, largest
-    absolute error)."""
+    absolute error). The kernel reads the seed from the card; the plain
+    version takes the same tensor and gives the bits of the int seed."""
+    seed_t = torch.full((), seed, dtype=torch.int32, device=mu.device)
     with torch.no_grad():
-        z_k, kl_k = sampler._sample_kernel(seed, mu, lv, eps_scale)
-        z_2, kl_2 = sampler._sample_kernel(seed, mu, lv, eps_scale)
-        z_r, kl_r = sampler.fused_sample_kl_ref(seed, mu, lv, eps_scale)
+        z_k, kl_k = sampler._sample_kernel(seed_t, mu, lv, eps_scale)
+        z_2, kl_2 = sampler._sample_kernel(seed_t, mu, lv, eps_scale)
+        z_r, kl_r = sampler.fused_sample_kl_ref(seed_t, mu, lv, eps_scale)
+        z_i, kl_i = sampler.fused_sample_kl_ref(seed, mu, lv, eps_scale)
     torch.cuda.synchronize()
     twice = torch.equal(z_k, z_2) and torch.equal(kl_k, kl_2)
+    if not (torch.equal(z_r, z_i) and torch.equal(kl_r, kl_i)):
+        raise AssertionError("the plain sampler gives other bits for a device seed than for the same int seed")
     z_rel = max_abs(z_k, z_r) / z_r.abs().max().item()
     kl_rel = max_abs(kl_k, kl_r) / kl_r.abs().max().item()
     say("phase9", sampler_B=mu.shape[0], z_rel_err=f"{z_rel:.3e}", kl_rel_err=f"{kl_rel:.3e}",
@@ -1549,6 +1575,240 @@ def phase21(weights, codes, dev, gpu) -> dict:
     return out
 
 
+# -- the chunk (phase 22) ---------------------------------------------------------
+
+
+def state_diffs(a, b) -> dict:
+    """Largest absolute and relative-norm differences of two train states:
+    weights, Adam moments and step counts, EMA."""
+    out = {}
+
+    def put(kind, x, y):
+        d = (x.float() - y.float()).abs().max().item() if x.numel() else 0.0
+        rel = ((x.float() - y.float()).norm() / x.float().norm().clamp_min(1e-30)).item()
+        a_max, r_max = out.get(kind, (0.0, 0.0))
+        out[kind] = (max(a_max, d), max(r_max, rel))
+
+    for p, q in zip(a.params.parameters(), b.params.parameters()):
+        put("weights", p.detach(), q.detach())
+        sa, sb = a.opt_state.adam.state[p], b.opt_state.adam.state[q]
+        put("adam_moments", torch.stack([sa["exp_avg"], sa["exp_avg_sq"]]), torch.stack([sb["exp_avg"], sb["exp_avg_sq"]]))
+        put("adam_steps", sa["step"], sb["step"])
+    for name in a.ema_params or {}:
+        put("ema", a.ema_params[name], b.ema_params[name])
+    return out
+
+
+def metric_diffs(per_step: list, stacked: dict) -> tuple:
+    """(largest absolute, largest relative-norm) difference of the stacked
+    metrics of a chunk and of per-step metrics."""
+    pairs = [(torch.stack([m[k] for m in per_step]).float(), stacked[k].float()) for k in stacked]
+    return (max((x - y).abs().max().item() for x, y in pairs),
+            max(((x - y).norm() / x.norm().clamp_min(1e-30)).item() for x, y in pairs))
+
+
+def eager_run(step, base, stack, props) -> tuple:
+    """16 eager steps from a deep copy of ``base``: (state, per-step
+    metrics, per-step gradients by parameter name)."""
+    s = copy.deepcopy(base)
+    per_step, grads = [], []
+    for i in range(CHUNK):
+        s, m = step(s, stack[i], None if props is None else props[i])
+        per_step.append(m)
+        grads.append({n: p.grad.clone() for n, p in s.params.named_parameters() if p.grad is not None})
+    return s, per_step, grads
+
+
+def first_nondeterministic(grads_a: list, grads_b: list) -> tuple:
+    """(step, parameter names) of the first step whose gradients differ
+    between two eager runs from one state on one stack; the weights before
+    it are equal (Adam and the EMA are deterministic), so these are the
+    gradients that a library kernel of the step computes in a varying
+    order. (None, []) where every step agrees."""
+    for i, (ga, gb) in enumerate(zip(grads_a, grads_b)):
+        names = [n for n in ga if not torch.equal(ga[n], gb[n])]
+        if names:
+            return i, names
+    return None, []
+
+
+def replay_kernels(eager_step, chunk_fn, n_metrics: int, attempts: int = 3) -> dict:
+    """Device activity of one chunk call against 16 times that of one
+    eager step, by name (torch.profiler): every kernel and memset of the
+    step must be in the replay 16 times, and the replay adds only the
+    stacking of its n_metrics metrics. Copies are left out (an eager step
+    copies its values, the chunk its stack and values once; a graph's copy
+    nodes run as "memcpy32" kernels), and so are annotations (names the
+    host side has too); memsets count under one name. The profiler can
+    lose a kernel at a session's edge, so each count is that of a session
+    of two calls less that of one call; up to ``attempts`` rounds run
+    until the counts agree."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def session(fn, calls):
+        torch.cuda.synchronize()
+        # device activity and the CUDA runtime's calls, not torch's host ops
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        host = {e.key: e.count for e in events if e.device_type != DeviceType.CUDA}
+        dev = {}
+        for e in events:
+            if e.device_type != DeviceType.CUDA or e.key in host or e.key.lower().startswith("memcpy"):
+                continue
+            # a graph's memset nodes run as kernels ("memset32") that the profiler names apart
+            key = "memset" if e.key.lower().startswith("memset") else e.key
+            dev[key] = dev.get(key, 0) + e.count
+        return dev, host
+
+    def per_call(fn):
+        (d1, h1), (d2, h2) = session(fn, 1), session(fn, 2)
+        return ({k: d2.get(k, 0) - d1.get(k, 0) for k in set(d1) | set(d2)},
+                h2.get("cudaGraphLaunch", 0) - h1.get("cudaGraphLaunch", 0))
+
+    def split(counts, times=1):
+        stacks = sum(n for k, n in counts.items() if "CatArrayBatchedCopy" in k)
+        return stacks * times, {k: n * times for k, n in counts.items() if n and "CatArrayBatchedCopy" not in k}
+
+    for _ in range(attempts):
+        (eager, _), (chunk, graphs) = per_call(eager_step), per_call(chunk_fn)
+        (e_stacks, e_rest), (c_stacks, c_rest) = split(eager, CHUNK), split(chunk)
+        equal = bool(e_rest) and e_rest == c_rest and c_stacks - e_stacks == n_metrics
+        if equal:
+            break
+    ours = sum(n for k, n in c_rest.items()
+               if re.search(r"(fused_encode|fused_sample_kl|gemm|gru_rec|gru_sweep|sum_parts)_kernel", k))
+    return {"equal": equal, "eager": eager, "chunk": chunk, "graph_launches": graphs, "our_kernels": ours,
+            "device_activities": sum(chunk.values()), "eager_device_activities": sum(eager.values())}
+
+
+def phase22(dev, gpu) -> dict:
+    """The reference's headline training path on the card: the synthetic
+    corpus, BatchIterator.next_stack(16), a K=16 chunk (one CUDA Graph),
+    at zinc250k, zinc250k_quality and moses_scaled width (B=256) and the
+    property_joint preset with EMA; each against 16 eager steps from the
+    same state on the same stack, then the next stack and replay under
+    sync debug mode "error", the graph's kernels, memory and times."""
+    t0 = time.perf_counter()
+    ds = synthetic_dataset(4096, max_len=120, seed=0)
+    corpus_s = time.perf_counter() - t0
+    say("phase22", corpus="synthetic_dataset(4096, max_len=120, seed=0)", shape=list(ds.codes.shape),
+        dtype=str(ds.codes.dtype), tokenizer="native" if tokenizer.native_available() else "numpy",
+        seconds=f"{corpus_s:.3f}")
+    t0 = time.perf_counter()
+    chem = synthetic_dataset(4096, max_len=120, seed=0, chem=True, with_properties=True)
+    say("phase22", corpus="synthetic_dataset(4096, max_len=120, seed=0, chem=True, with_properties=True)",
+        properties=list(chem.properties.shape), seconds=f"{time.perf_counter() - t0:.3f}")
+    prop = get_preset("property_joint")
+    prop = dataclasses.replace(prop, name="property_joint_ema", train=dataclasses.replace(prop.train, ema_decay=0.999))
+    out = {}
+    for preset, data in ((get_preset("zinc250k"), ds), (get_preset("zinc250k_quality"), ds),
+                         (get_preset("moses_scaled"), ds), (prop, chem)):
+        cfg = effective_config(preset, data)
+        with_props = cfg.model.n_properties > 0
+        it = BatchIterator(data, B, seed=0, device=dev, with_properties=with_props)
+        stack, props = it.next_stack(CHUNK)
+        if stack.shape != (CHUNK, B, cfg.model.max_len) or stack.dtype != torch.uint8 or stack.device != dev:
+            raise AssertionError(f"next_stack gave {tuple(stack.shape)} {stack.dtype} on {stack.device}")
+        step, chunk = make_train_step(cfg), make_train_chunk(cfg, CHUNK)
+        base = init_state(cfg, seed=SEED, device=dev)
+        t_case = time.perf_counter()
+        runs = [eager_run(step, base, stack, props) for _ in range(2)]
+        c = copy.deepcopy(base)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held_before = torch.cuda.memory_allocated()
+        reset_counts()
+        t0 = time.perf_counter()
+        c, stacked = chunk(c, stack, props)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        captured_counts = {k: v for k, v in counts().items() if v}
+        captured = chunk.graphs[c.params]
+        peak_gb = (torch.cuda.max_memory_allocated() - held_before) / 1e9
+        held_gb = (torch.cuda.memory_allocated() - held_before) / 1e9
+        (a, a_steps, a_grads), (b, b_steps, b_grads) = runs
+        b_stacked = {k: torch.stack([m[k] for m in b_steps]) for k in b_steps[0]}
+        eager_twice = {**state_diffs(a, b), "metrics": metric_diffs(a_steps, b_stacked)}
+        chunk_vs = {**state_diffs(a, c), "metrics": metric_diffs(a_steps, stacked)}
+        deterministic = all(v[0] == 0.0 for v in eager_twice.values())
+        first, named = first_nondeterministic(a_grads, b_grads)
+        del a_grads, b_grads
+        say("phase22", preset=cfg.name, K=CHUNK, B=B, capture_s=f"{captured.capture_seconds:.3f}",
+            first_call_s=f"{first_s:.3f}", launches_at_capture=json.dumps(captured_counts).replace(" ", ""),
+            graph_peak_GB=f"{peak_gb:.3f}", graph_held_GB=f"{held_gb:.3f}", card=json.dumps(gpu))
+        say("phase22", preset=cfg.name, eager_twice_max_abs=json.dumps({k: v[0] for k, v in eager_twice.items()}),
+            chunk_vs_eager_max_abs=json.dumps({k: v[0] for k, v in chunk_vs.items()}),
+            chunk_vs_eager_max_rel=json.dumps({k: v[1] for k, v in chunk_vs.items()}),
+            deterministic=deterministic, first_differing_step=first, nondeterministic_gradients=json.dumps(named))
+        if deterministic:
+            if any(v[0] for v in chunk_vs.values()):
+                raise AssertionError(f"{cfg.name}: the chunk differs from 16 eager steps: {chunk_vs}")
+        else:
+            if not named:
+                raise AssertionError(f"{cfg.name}: two eager runs differ, but no step's gradients: {eager_twice}")
+            bad = {k: v for k, v in chunk_vs.items() if not v[1] <= CHUNK_REL}
+            if bad or chunk_vs["adam_steps"][0]:
+                raise AssertionError(f"{cfg.name}: the chunk differs from 16 eager steps by {chunk_vs}")
+        # the next chunk's host work and replay under sync debug mode "error"
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            stack2, props2 = it.next_stack(CHUNK)
+            c, stacked2 = chunk(c, stack2, props2)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        losses = stacked2["loss"].tolist()
+        if not all(np.isfinite(losses)) or c.step != 2 * CHUNK:
+            raise AssertionError(f"{cfg.name}: the replay under sync debug mode gave {losses} at step {c.step}")
+
+        def eager_step(i=0):
+            nonlocal a
+            a, _ = step(a, stack[i], None if props is None else props[i])
+
+        def eager_steps():
+            for i in range(CHUNK):
+                eager_step(i)
+
+        def chunk_call():
+            nonlocal c
+            c, _ = chunk(c, stack, props)
+
+        t_parts = {"compare": time.perf_counter() - t_case}
+        t0 = time.perf_counter()
+        kern = replay_kernels(eager_step, chunk_call, len(stacked2))
+        t_parts["kernels"] = time.perf_counter() - t0
+        if not kern["equal"] or kern["graph_launches"] not in (0, 1) or not kern["our_kernels"]:
+            raise AssertionError(f"{cfg.name}: a replay's device activity {kern['chunk']} is not 16 times that of "
+                                 f"an eager step {kern['eager']} (graph launches {kern['graph_launches']})")
+        t0 = time.perf_counter()
+        ms_eager, ms_chunk = time_ms(eager_steps) / CHUNK, time_ms(chunk_call) / CHUNK
+        t1 = time.perf_counter()
+        it.next_stack(CHUNK)  # the host's part of a stack: gather, wait on its buffer's event, queue the copy
+        stack_ms = (time.perf_counter() - t1) * 1e3
+        prof = profile_step(chunk_call)
+        busy = sum(prof["device_ms"].values()) / CHUNK
+        t_parts["times"] = time.perf_counter() - t0
+        out[cfg.name] = {"ms_eager": ms_eager, "ms_chunk": ms_chunk, "busy": busy, "stack_ms": stack_ms,
+                         "capture_s": captured.capture_seconds, "peak_gb": peak_gb, "deterministic": deterministic}
+        say("phase22", preset=cfg.name, replay="sync_debug_mode=error", host_syncs=0,
+            loss=json.dumps([round(x, 4) for x in losses[:3]]), graph_launches_per_chunk=kern["graph_launches"],
+            our_kernels_per_chunk=kern["our_kernels"], our_kernels_per_step=kern["our_kernels"] / CHUNK,
+            device_activities_per_chunk=kern["device_activities"],
+            eager_device_activities_per_step=kern["eager_device_activities"])
+        say("phase22", preset=cfg.name, eager_ms_per_step=f"{ms_eager:.4f}", chunk_ms_per_step=f"{ms_chunk:.4f}",
+            chunk_smiles_per_s=f"{B / (ms_chunk / 1e3):.1f}", eager_smiles_per_s=f"{B / (ms_eager / 1e3):.1f}",
+            next_stack_host_ms=f"{stack_ms:.3f}", device_busy_ms_per_step=f"{busy:.3f}",
+            idle_share=f"{1 - busy / ms_chunk:.4f}" if busy else "not measured", card=json.dumps(gpu))
+        say("phase22", preset=cfg.name, seconds=json.dumps({k: round(v, 2) for k, v in t_parts.items()}))
+        del a, b, c, base, runs, stacked, stacked2, b_stacked, chunk, step
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    return out
+
+
 def entry(name, source, replaces, launches, err, ms, plain_ms, bnd, library_ms, **extra) -> dict:
     """One kernel of the ``kernels`` line."""
     return {"name": name, "route": "cuda", "source": f"molvax_torch/kernels/csrc/{source}",
@@ -1746,8 +2006,9 @@ def main() -> int:
     enc_kernel_err = encoder_shape_checks(model, cfg, codes, dev)
     seed9 = 12345
     _, _, sampler_err = sampler_checks(mu_r, lv_r, seed9, cfg.eps_scale)
+    seed9_t = torch.full((), seed9, dtype=torch.int32, device=dev)
     with torch.no_grad():
-        z_k, kl_k = sampler._sample_kernel(seed9, mu_r, lv_r, cfg.eps_scale)
+        z_k, kl_k = sampler._sample_kernel(seed9_t, mu_r, lv_r, cfg.eps_scale)
     ragged = ragged_batch_checks(model, cfg, codes, s_args)
     fwd_err, bwd_err = max(fwd_err, ragged["fwd"]), max(bwd_err, ragged["bwd"])
     for k in piece_err:
@@ -1772,12 +2033,13 @@ def main() -> int:
     say("phase11", peak_device_memory_GB=f"{peak_gb:.3f}", card=json.dumps(gpu))
 
     enc_params = encoder_params(model)
+    seed1 = torch.full((), 1, dtype=torch.int32, device=dev)  # the sampler reads its seed on the card
     with torch.no_grad():
         times = {
             "fused_encode": (time_ms(lambda: conv_enc._encode_kernel(cfg, codes, enc_params)),
                              time_ms(lambda: conv_enc.fused_encode_ref(model, cfg, codes))),
-            "fused_sample_kl": (time_ms(lambda: sampler._sample_kernel(1, mu_r, lv_r, 1.0)),
-                                time_ms(lambda: sampler.fused_sample_kl_ref(1, mu_r, lv_r, 1.0))),
+            "fused_sample_kl": (time_ms(lambda: sampler._sample_kernel(seed1, mu_r, lv_r, 1.0)),
+                                time_ms(lambda: sampler.fused_sample_kl_ref(seed1, mu_r, lv_r, 1.0))),
             "gru_stack_fwd": (time_ms(lambda: gru_stack.stack_forward(*s_args)),
                               time_ms(lambda: gru_stack.stack_forward_ref(*s_args))),
             "gru_stack_bwd": (time_ms(lambda: gru_stack.stack_backward(res, dY, dhf)),
@@ -1794,7 +2056,7 @@ def main() -> int:
     with torch.no_grad():
         for name, fn, counter in (
                 ("fused_encode", lambda: conv_enc._encode_kernel(cfg, codes, enc_params), lambda: conv_enc.launches),
-                ("fused_sample_kl", lambda: sampler._sample_kernel(1, mu_r, lv_r, 1.0), lambda: sampler.launches)):
+                ("fused_sample_kl", lambda: sampler._sample_kernel(seed1, mu_r, lv_r, 1.0), lambda: sampler.launches)):
             us = queued_ms(lambda: [fn() for _ in range(20)]) / 20 * 1e3
             before = counter()
             fn()
@@ -1996,6 +2258,9 @@ def main() -> int:
 
     # -- 21. the train steps block the host nowhere (ROADMAP C 1) -------------
     phase21(weights, codes, dev, gpu)
+
+    # -- 22. the chunk: corpus -> next_stack -> one CUDA Graph of 16 steps ------
+    phase22(dev, gpu)
 
     beam_counts = decodes["beam"]
     print(json.dumps({"kernels": [

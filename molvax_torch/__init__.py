@@ -17,7 +17,10 @@ kernels for the encoder (``conv_enc.cu``), the sampler (``sampler.cu``),
 the GRU stack's forward and backward (``gru_stack.cu``) and the per-layer
 GRU (``gru_layer.cu``); and constrained decoding and beam search
 (``latent.sample.generate(constrained=True)``, ``latent.beam``), with the
-hand-written valence-automaton kernel ``automaton.cu``.
+hand-written valence-automaton kernel ``automaton.cu``; and the data layer
+(``data``: the corpora, the native tokenizer, property targets and the
+``BatchIterator``) with the chunked trainer (``train.make_train_chunk``: K
+steps as one CUDA Graph on the card).
 """
 
 __version__ = "0.1.0"

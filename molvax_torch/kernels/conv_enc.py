@@ -10,7 +10,9 @@ type, so the wrapper prepares nothing: it allocates the outputs and the
 scratch and launches. Its plain version is the port's encoder on the
 one-hot (``fused_encode_ref``), which rounds where the kernel rounds: bf16
 operands, bf16 between the conv stages, fp32 heads. The gradient, as in the
-reference, is autograd of the plain encoder, recomputed in the backward.
+reference, is autograd of the plain encoder, recomputed in the backward on
+cuDNN's deterministic algorithms, so a train step gives the same bits
+every run.
 For CUDA tensors the forward launches the kernel or raises; the plain
 version runs for CPU tensors.
 """
@@ -119,7 +121,13 @@ class _FusedEncode(torch.autograd.Function):
     def backward(ctx, g_mu, g_logvar):
         codes, *params = ctx.saved_tensors
         cfg = ctx.cfg
-        with torch.enable_grad():
+        # cuDNN's deterministic algorithms only: its default conv weight
+        # gradient sums in an order that varies from run to run, so two
+        # runs of a step (or a step and its CUDA Graph replay) would differ
+        cudnn = torch.backends.cudnn
+        with torch.enable_grad(), cudnn.flags(enabled=True, benchmark=cudnn.benchmark,
+                                              benchmark_limit=cudnn.benchmark_limit, deterministic=True,
+                                              allow_tf32=cudnn.allow_tf32):
             leaves = [p.detach().requires_grad_(True) for p in params]
             mu, logvar = encode_with(
                 cfg, one_hot(codes, cfg.charset_size), leaves, matmul_dtype(cfg, codes.device)

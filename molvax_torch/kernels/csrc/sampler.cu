@@ -14,6 +14,11 @@
 // stream is seed-deterministic and differs from jax.random's. The backward
 // is closed-form and stays in plain torch, as in the TPU package.
 //
+// The seed is read from device memory (the low 32 bits of a one-element
+// int32 or int64 tensor), not passed by value: a train step takes it from a
+// vector of per-step seeds on the card, so a CUDA Graph of K steps replays
+// with the seeds of each new chunk.
+//
 // Design. A warp per batch row, 4 rows a block (B=256 gives 64 blocks):
 // lane l takes latent dims l, l + 32, ..., so a warp's loads of mu and
 // logvar are coalesced; the KL sum is a butterfly of warp shuffles in a
@@ -36,10 +41,11 @@ constexpr int SAMPLER_ROWS = 4;  // warps (batch rows) a block
 __global__ void __launch_bounds__(SAMPLER_ROWS * 32)
 fused_sample_kl_kernel(const float* __restrict__ mu, const float* __restrict__ logvar,
                        float* __restrict__ z, float* __restrict__ kl, int B, int Lz,
-                       uint32_t seed, float eps_scale) {
+                       const uint32_t* __restrict__ seed_ptr, float eps_scale) {
   const int lane = threadIdx.x & 31;
   const int b = blockIdx.x * SAMPLER_ROWS + (threadIdx.x >> 5);
   if (b >= B) return;  // the whole warp: no barrier follows
+  const uint32_t seed = __ldg(seed_ptr);
   const float two_pi = 6.283185307179586f;
   const float scale24 = 1.0f / 16777216.0f;
   float part = 0.0f;
@@ -62,10 +68,11 @@ fused_sample_kl_kernel(const float* __restrict__ mu, const float* __restrict__ l
 }  // namespace
 
 // Launches on `stream` and returns the launch's cudaError_t (0 = success).
+// `seed` points at the seed's low 32-bit word on the device.
 extern "C" int molvax_fused_sample_kl(const float* mu, const float* logvar, float* z,
-                                      float* kl, int B, int Lz, unsigned int seed,
+                                      float* kl, int B, int Lz, const unsigned int* seed,
                                       float eps_scale, void* stream) {
-  if (B <= 0 || Lz <= 0) return (int)cudaErrorInvalidValue;
+  if (B <= 0 || Lz <= 0 || seed == nullptr) return (int)cudaErrorInvalidValue;
   const int blocks = (B + SAMPLER_ROWS - 1) / SAMPLER_ROWS;
   fused_sample_kl_kernel<<<blocks, SAMPLER_ROWS * 32, 0, static_cast<cudaStream_t>(stream)>>>(
       mu, logvar, z, kl, B, Lz, seed, eps_scale);

@@ -34,8 +34,9 @@ import ctypes
 import dataclasses
 import functools
 import weakref
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
+import numpy as np
 import torch
 
 from ..utils import matmul_dtype, round_to
@@ -82,10 +83,22 @@ def _mix32(x: torch.Tensor) -> torch.Tensor:
     return x ^ (x >> 16)
 
 
-def noise_bits(seed: int, t: int, rows: torch.Tensor, classes: torch.Tensor) -> torch.Tensor:
+def seed_word(seed: Union[int, torch.Tensor], device) -> torch.Tensor:
+    """A 32-bit seed as a 0-d int64 tensor on ``device``: a Python int is
+    made there (a fill, no copy from the host); a one-element integer tensor
+    on that device (int32 bit patterns included) is read as its low 32 bits,
+    with no host read."""
+    if isinstance(seed, torch.Tensor):
+        return seed.reshape(()).to(torch.int64) & _MASK32
+    return torch.full((), seed & _MASK32, dtype=torch.int64, device=device)
+
+
+def noise_bits(seed: Union[int, torch.Tensor], t: int, rows: torch.Tensor, classes: torch.Tensor) -> torch.Tensor:
     """uint32 bits (in int64) for every (row, class) pair of step t, as the
-    kernel's ``noise_bits``. ``rows`` (B, 1) and ``classes`` (1, C) broadcast."""
-    h = _mix32(torch.full((), seed & _MASK32, dtype=torch.int64, device=rows.device))
+    kernel's ``noise_bits``. ``rows`` (B, 1) and ``classes`` (1, C) broadcast.
+    ``seed`` is a Python int or a one-element integer tensor on the rows'
+    device (``seed_word``)."""
+    h = _mix32(seed_word(seed, rows.device))
     h = _mix32((h + rows) & _MASK32)
     h = _mix32((h + t) & _MASK32)
     return _mix32((h + classes) & _MASK32)
@@ -94,8 +107,15 @@ def noise_bits(seed: int, t: int, rows: torch.Tensor, classes: torch.Tensor) -> 
 def fold_in(seed: int, data: int) -> int:
     """A new 32-bit seed from (seed, data), mix32(mix32(seed) + data): the
     counterpart of ``jax.random.fold_in`` for the port's counter hash."""
-    h = _mix32(torch.tensor(seed & _MASK32, dtype=torch.int64))
-    return int(_mix32((h + (data & _MASK32)) & _MASK32))
+    return int(fold_in_range(seed, data, 1)[0])
+
+
+def fold_in_range(seed: int, start: int, count: int) -> np.ndarray:
+    """(count,) uint32: ``fold_in(seed, start + i)`` for i < count, in one
+    pass of the counter hash over a host vector."""
+    h = _mix32(torch.full((), seed & _MASK32, dtype=torch.int64))
+    data = torch.arange(start, start + count, dtype=torch.int64) & _MASK32
+    return _mix32((h + data) & _MASK32).numpy().astype(np.uint32)
 
 
 def gumbel_noise(seed: int, t: int, batch: int, classes: int, device) -> torch.Tensor:

@@ -12,7 +12,11 @@ a property head, and ``start_token`` when it learns one. A state dict from
 Where the reference threads a JAX key, the port threads a 32-bit seed: the
 fused sampler and the scheduled-sampling and word-dropout masks draw from
 the counter hash of ``kernels.generate.noise_bits`` keyed by it, so a step
-is deterministic and resumable on any device.
+is deterministic and resumable on any device. The seed, and the
+scheduled-sampling probability, may be Python numbers or one-element
+tensors on the model's device: a train step reads them from vectors on
+the card, so nothing in it waits for the host (and a CUDA Graph of steps
+replays with new values).
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ import torch.nn as nn
 from ..data.featurize import one_hot
 from ..kernels import conv_enc, sampler
 from ..kernels.generate import noise_bits
+from ..kernels.sampler import Seed
 from ..utils import matmul_dtype, resolve_device
 from .decoder import decode as _decode, decoder_input_size
 from .encoder import conv_input_channels, encode as _encode, flat_conv_dim
@@ -103,10 +108,14 @@ _SS_SALT = 0x5C4ED
 _WD_SALT = 0xD409
 
 
-def bernoulli_mask(seed: int, salt: int, p: float, shape, device) -> torch.Tensor:
+Prob = Union[float, torch.Tensor]
+
+
+def bernoulli_mask(seed: Seed, salt: int, p: Prob, shape, device) -> torch.Tensor:
     """(B, T) bool mask, True with probability ``p``, from the counter hash:
     u = top24(noise_bits(seed, salt, row, t)) / 2**24 in [0, 1), mask = u < p.
-    Exactly all False at p = 0 and all True at p = 1."""
+    Exactly all False at p = 0 and all True at p = 1. ``p`` a float or a 0-d
+    fp32 tensor (compared in fp32 either way)."""
     rows = torch.arange(shape[0], dtype=torch.int64, device=device)[:, None]
     cols = torch.arange(shape[1], dtype=torch.int64, device=device)[None, :]
     u = (noise_bits(seed, salt, rows, cols) >> 8).to(torch.float32) * (1.0 / (1 << 24))
@@ -125,9 +134,9 @@ def decode(
 def forward(
     model: MolecularVAE,
     cfg,
-    seed: int,
+    seed: Seed,
     codes: torch.Tensor,
-    ss_prob: Optional[float] = None,
+    ss_prob: Optional[Prob] = None,
     wd_prob: Optional[float] = None,
 ) -> VAEOutput:
     """The training forward: codes (B, T) -> VAEOutput.
@@ -136,7 +145,8 @@ def forward(
     encoder kernel and z / KL come from the fused sampler (each takes its
     plain version for CPU tensors). Otherwise the plain encoder runs and z
     is reparameterized with torch.randn noise from a generator seeded with
-    ``seed``.
+    ``seed``, which must then be a Python int (a generator's seed is read on
+    the host).
 
     ``ss_prob`` turns on two-pass scheduled sampling: a first teacher-forced
     decode (no gradient) predicts each character, and each teacher input is
@@ -149,6 +159,8 @@ def forward(
         z, kl = sampler.fused_sample_kl(seed, mu, logvar, cfg.eps_scale)
     else:
         mu, logvar = encode(model, cfg, codes)
+        if isinstance(seed, torch.Tensor):
+            raise ValueError("forward: the plain sampler seeds a torch.Generator on the host; pass an int seed")
         gen = torch.Generator(device=mu.device).manual_seed(seed)
         z = reparameterize(mu, logvar, cfg.eps_scale, gen)
     teacher = codes if cfg.decoder_conditioning == "teacher_forced" else None

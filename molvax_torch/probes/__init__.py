@@ -14,7 +14,10 @@ as ``python -m molvax_torch.probes.<name>`` on a CUDA card and callable from
     n=T launch, the per-step budget, and (``--floor``) the int32-op floor;
   * ``stack_probe`` (this port's own, run by path): the redesigned stack's
     kernels timed and a recurrence step decomposed, and the GRU kernels of
-    another checkout (``--root``) for a parent-against-change comparison.
+    another checkout (``--root``) for a parent-against-change comparison;
+  * ``capture_probe`` (this port's own): whether each cooperative launch
+    captures into a CUDA Graph and replays bit for bit, as the chunked
+    trainer needs.
 
 Each probe module has ``make_inputs`` (seeded, on the card), ``probe``
 (one run of each probe kernel, which ``chip_smoke.py`` counts) and

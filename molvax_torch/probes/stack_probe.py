@@ -9,6 +9,7 @@ Run by path from the root of a checkout, on a CUDA card:
     python3 molvax_torch/probes/stack_probe.py --sass DIR  # the bf16 kernels' SASS against DIR's
     python3 molvax_torch/probes/stack_probe.py [--root DIR] --decodes  # the automaton and the decodes
     python3 molvax_torch/probes/stack_probe.py [--root DIR] --encode   # the encoder and the sampler
+    python3 molvax_torch/probes/stack_probe.py [--root DIR] --train    # those and the three trainers' steps
     python3 molvax_torch/probes/stack_probe.py --encode-split [A,B,..] # their parts, by variant
 
 Every mode prints one JSON line per run, with the card's name and power
@@ -50,7 +51,8 @@ T=120, I0=329, H=501, L=3, seeded weights (uniform +-1/sqrt(H)):
 - ``--decodes`` (with ``--root DIR`` or without): the automaton kernel's
   times (``automaton_times``) and the constrained greedy and beam-5
   decodes' (``decode_times``), events and device-busy time.
-- ``--encode`` (with ``--root DIR`` or without): ``encode_times`` alone.
+- ``--encode`` (with ``--root DIR`` or without): ``encode_times`` alone;
+  ``--train``: ``encode_times`` and ``train_times``.
 - ``--encode-split``: ``encode_times`` of the encoder and the sampler
   rebuilt in each variant of ``ENC_VARIANTS`` (a phase, a part of the conv
   stage, the loads of a phase or the grid barriers taken out; the
@@ -63,6 +65,7 @@ T=120, I0=329, H=501, L=3, seeded weights (uniform +-1/sqrt(H)):
 
 from __future__ import annotations
 
+import inspect
 import json
 import re
 import shutil
@@ -516,6 +519,16 @@ def encode_split(root: Path, names=None):
         yield {"variant": name, **encode_times(), "ptxas": ptxas[:8]}
 
 
+def _sampler_seed(sampler, seed: int, device):
+    """The seed in the form the checkout's sampler kernel takes: a
+    one-element tensor on the card where the kernel reads it from device
+    memory, the int itself where the kernel takes it by value (older
+    checkouts timed with ``--root``)."""
+    if "ctypes.c_uint32" in inspect.getsource(sampler._sample_kernel):
+        return seed
+    return torch.full((), seed, dtype=torch.int32, device=device)
+
+
 def encode_times(device: str = "cuda:0", seed: int = 0) -> dict:
     """``fused_encode`` and ``fused_sample_kl`` at ``zinc250k`` width, B=256,
     with the package on sys.path: ``make_decoder``'s weights, seeded codes
@@ -539,13 +552,15 @@ def encode_times(device: str = "cuda:0", seed: int = 0) -> dict:
         def enc():
             return conv_enc._encode_kernel(cfg, codes, params)
 
+        seed = _sampler_seed(sampler, 7, device)
+
         def smp():
-            return sampler._sample_kernel(7, mu, lv, 1.0)
+            return sampler._sample_kernel(seed, mu, lv, 1.0)
 
         got = enc()
         out["fused_encode_max_abs_err"] = max(float((a - b).abs().max()) for a, b in zip(got, (mu, lv)))
         z, kl = smp()
-        z_r, kl_r = sampler.fused_sample_kl_ref(7, mu, lv, 1.0)
+        z_r, kl_r = sampler.fused_sample_kl_ref(seed, mu, lv, 1.0)
         out["fused_sample_kl_rel_err"] = max(float((a - b).abs().max() / b.abs().max()) for a, b in ((z, z_r), (kl, kl_r)))
         for name, fn in (("fused_encode", enc), ("fused_sample_kl", smp)):
             out[f"{name}_device_us"] = queued_ms(lambda: [fn() for _ in range(20)]) / 20 * 1e3
@@ -742,6 +757,8 @@ def main(argv) -> int:
             print(json.dumps({**row, "card": card}), flush=True)
     elif "--encode" in argv:
         print(json.dumps({"root": str(root), **encode_times(), "card": card}), flush=True)
+    elif "--train" in argv:
+        print(json.dumps({"root": str(root), **encode_times(), **train_times(), "card": card}), flush=True)
     elif "--decodes" in argv:
         print(json.dumps({"root": str(root), **automaton_times(), **decode_times(), "card": card}), flush=True)
     elif "--steps" in argv:

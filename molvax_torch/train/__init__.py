@@ -1,9 +1,11 @@
 from .loop import (
     TrainState,
+    effective_config,
     ema_eval_state,
     init_state,
     make_eval_step,
     make_optimizer,
+    make_train_chunk,
     make_train_step,
 )
 from .loss import gaussian_kl, recon_accuracy, recon_bce, recon_ce, vae_loss
@@ -11,10 +13,12 @@ from .schedules import beta_at
 
 __all__ = [
     "TrainState",
+    "effective_config",
     "ema_eval_state",
     "init_state",
     "make_eval_step",
     "make_optimizer",
+    "make_train_chunk",
     "make_train_step",
     "gaussian_kl",
     "recon_accuracy",

@@ -8,7 +8,7 @@ of the softmax against the one-hot.
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 
@@ -67,7 +67,7 @@ def vae_loss(
     codes: torch.Tensor,
     mu: torch.Tensor,
     logvar: torch.Tensor,
-    beta: float,
+    beta: Union[float, torch.Tensor],
     properties_pred: Optional[torch.Tensor] = None,
     properties_true: Optional[torch.Tensor] = None,
     property_loss_weight: float = 1.0,
@@ -76,7 +76,9 @@ def vae_loss(
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """(scalar loss, metrics of batch means). ``kl`` may come precomputed
     (the fused sampler). ``kl_free_bits`` > 0 floors each latent dim's KL at
-    that many nats in the loss only; the 'kl' metric stays the true KL."""
+    that many nats in the loss only; the 'kl' metric stays the true KL.
+    ``beta``: a float, or a 0-d fp32 tensor on the loss device (a train
+    step's, read from its schedule vector on the card)."""
     if cfg.recon_loss == "ce":
         recon = recon_ce(logits, codes)
     else:
@@ -94,7 +96,7 @@ def vae_loss(
         "kl": kl.mean(),
         "elbo": (recon + kl).mean(),  # beta = 1 ELBO, comparable across schedules
         # made on the device: a tensor from host data is a blocking copy
-        "beta": torch.full((), float(beta), device=loss.device),
+        "beta": beta if isinstance(beta, torch.Tensor) else torch.full((), float(beta), device=loss.device),
     }
     metrics["acc"], metrics["acc_nonpad"] = recon_accuracy(logits, codes)
     metrics["post_std_batch"] = post_std_batch(mu, logvar, cfg.eps_scale)

@@ -37,3 +37,42 @@ def round_to(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     if dtype == torch.float32:
         return x.float()
     return x.to(dtype).float()
+
+
+class PinnedStaging:
+    """Host-to-device copies through a ring of pinned host buffers.
+
+    ``copy(shape, dtype, fill)`` waits until the ring's next buffer is free
+    (the CUDA event recorded after the last copy out of it), lets ``fill``
+    write the host data straight into it (a numpy view), and queues a
+    non-blocking copy to the device, into ``out`` or a new device tensor,
+    on the current stream. With two buffers the host prepares the next
+    batch while the card still copies the last one, and never rewrites a
+    buffer that a copy is still reading. Waiting on an event is not a
+    stream or device synchronisation (``torch.cuda.set_sync_debug_mode``
+    lets it pass); in steady state the event has long completed."""
+
+    def __init__(self, device: Union[str, torch.device], slots: int = 2):
+        self.device = torch.device(device)
+        if self.device.type != "cuda":
+            raise ValueError(f"PinnedStaging: {self.device} is not a CUDA device")
+        self._bufs = [None] * slots
+        self._events = [None] * slots
+        self._next = 0
+
+    def copy(self, shape, dtype: torch.dtype, fill, out: Optional[torch.Tensor] = None) -> torch.Tensor:
+        i = self._next
+        self._next = (i + 1) % len(self._bufs)
+        if self._events[i] is not None:
+            self._events[i].synchronize()
+        buf = self._bufs[i]
+        if buf is None or tuple(buf.shape) != tuple(shape) or buf.dtype != dtype:
+            buf = self._bufs[i] = torch.empty(tuple(shape), dtype=dtype, pin_memory=True)
+        fill(buf.numpy())
+        if out is None:
+            out = torch.empty(tuple(shape), dtype=dtype, device=self.device)
+        out.copy_(buf, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(self.device))
+        self._events[i] = event
+        return out

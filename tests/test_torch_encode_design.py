@@ -335,23 +335,33 @@ def test_encoder_wrapper_refuses_what_the_kernel_does_not_take(monkeypatch):
 
 
 def test_sampler_wrapper_hands_the_kernel_its_inputs(monkeypatch):
-    """The sampler's wrapper hands the kernel mu and logvar themselves and
-    allocates z and kl, nothing else; it refuses what is not contiguous
-    fp32 rather than copying it."""
+    """The sampler's wrapper hands the kernel mu and logvar themselves, the
+    address of the seed on the device (the kernel reads its low 32 bits:
+    2**33 + 5 is seed 5 to it and to the plain version), and allocates z
+    and kl, nothing else; it refuses what is not contiguous fp32 rather
+    than copying it, and a seed that is not a one-element integer tensor."""
     calls = _record_launch(monkeypatch)
     mu, lv = torch.randn(6, 292), torch.randn(6, 292)
+    seed = torch.full((), 2 ** 33 + 5, dtype=torch.int64)
     before = sampler.launches
     with _Ops() as ops:
-        z, kl = sampler._sample_kernel(2 ** 33 + 5, mu, lv, 0.5)
+        z, kl = sampler._sample_kernel(seed, mu, lv, 0.5)
     assert ops.ops == ["aten.empty.memory_format"] * 2
     name, args = calls[0]
     assert name == "molvax_fused_sample_kl" and sampler.launches == before + 1
-    assert args == (mu.data_ptr(), lv.data_ptr(), z.data_ptr(), kl.data_ptr(), 6, 292, 5, 0.5, 1234)
+    assert args == (mu.data_ptr(), lv.data_ptr(), z.data_ptr(), kl.data_ptr(), 6, 292, seed.data_ptr(), 0.5, 1234)
     assert z.shape == (6, 292) and kl.shape == (6,)
+    for a, b in zip(sampler.fused_sample_kl_ref(seed, mu, lv, 0.5), sampler.fused_sample_kl_ref(5, mu, lv, 0.5)):
+        assert torch.equal(a, b)
+    one = torch.ones((), dtype=torch.int32)
     with pytest.raises(ValueError, match="contiguous fp32"):
-        sampler._sample_kernel(1, mu.t(), lv.t(), 1.0)
+        sampler._sample_kernel(one, mu.t(), lv.t(), 1.0)
     with pytest.raises(ValueError, match="contiguous fp32"):
-        sampler._sample_kernel(1, mu.double(), lv.double(), 1.0)
+        sampler._sample_kernel(one, mu.double(), lv.double(), 1.0)
+    for bad in (1, torch.ones(()), torch.ones(2, dtype=torch.int32)):
+        with pytest.raises(ValueError, match="one-element int32 or int64 tensor"):
+            sampler._sample_kernel(bad, mu, lv, 1.0)
+    assert sampler.launches == before + 1
 
 
 def test_sampler_kernel_is_a_warp_per_row():

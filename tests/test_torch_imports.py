@@ -32,7 +32,10 @@ def test_import_pulls_in_no_jax():
         "import molvax_torch.latent.constrain, molvax_torch.latent.beam, molvax_torch.kernels.automaton\n"
         "import molvax_torch.train.profiling, molvax_torch.kernels.floor, molvax_torch.probes\n"
         "import molvax_torch.probes.gru_experiments, molvax_torch.probes.proto_gi_kernel\n"
-        "import molvax_torch.probes.auto_loop_probe\n"
+        "import molvax_torch.probes.auto_loop_probe, molvax_torch.probes.capture_probe\n"
+        "import molvax_torch.data, molvax_torch.data.native, molvax_torch.data.zinc, molvax_torch.data.molgen\n"
+        "import molvax_torch.data.properties, molvax_torch.data.pipeline, molvax_torch.data.featurize\n"
+        "from molvax_torch.train import make_train_chunk, effective_config\n"
         "bad = [m for m in sys.modules if m in ('jax', 'molvax', 'bench') "
         "or m.startswith(('jax.', 'molvax.', 'bench.'))]\n"
         "assert not bad, bad\n"

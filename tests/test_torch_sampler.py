@@ -88,3 +88,33 @@ def test_kernel_wrapper_never_falls_back_off_the_cpu():
     mu = torch.empty(2, 4, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         sampler.fused_sample_kl(0, mu, mu)
+
+
+@pytest.mark.parametrize("seed", [0, 5, 12345, 2**31 + 7, 2**32 - 1])
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+def test_plain_version_with_a_tensor_seed_is_bit_for_bit_the_int_seed(seed, dtype):
+    """The kernel reads its seed from device memory (the low 32 bits of a
+    one-element int32 or int64 tensor): the plain version fed that tensor
+    gives the bits of the int seed, z and kl, and so does the wrapper and
+    sample_eps. An int32 holds a seed past 2**31 as its bit pattern."""
+    mu = torch.from_numpy(normal((12, 40), seed=10))
+    lv = 0.4 * torch.from_numpy(normal((12, 40), seed=11))
+    word = seed - 2**32 if dtype == torch.int32 and seed >= 2**31 else seed
+    seed_t = torch.full((), word, dtype=dtype)
+    want = sampler.fused_sample_kl_ref(seed, mu, lv, 0.8)
+    for got in (sampler.fused_sample_kl_ref(seed_t, mu, lv, 0.8), sampler.fused_sample_kl(seed_t, mu, lv, 0.8),
+                sampler.fused_sample_kl_ref(seed_t.reshape(1), mu, lv, 0.8)):
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+    assert torch.equal(sampler.sample_eps(seed_t, 12, 40, "cpu"), sampler.sample_eps(seed, 12, 40, "cpu"))
+
+
+def test_wrapper_takes_a_seed_from_a_vector_of_seeds():
+    """A train step reads element i of a packed int32 vector: a 0-d view."""
+    mu = torch.from_numpy(normal((6, 9), seed=12))
+    lv = torch.from_numpy(normal((6, 9), seed=13))
+    seeds = torch.tensor([3, -5, 77], dtype=torch.int32)
+    for i, s in enumerate((3, 2**32 - 5, 77)):
+        got = sampler.fused_sample_kl(seeds[i], mu, lv, 1.0)
+        want = sampler.fused_sample_kl_ref(s, mu, lv, 1.0)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
