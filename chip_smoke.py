@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
-"""Drive molvax_torch's serving path, training step, chunked trainer and
-constrained decoding once on one CUDA card.
+"""Drive molvax_torch's serving path, training step, chunked trainer,
+training loop, constrained decoding and latent workloads once on one CUDA
+card.
 
     python3 chip_smoke.py
 
 Run from the root of a checkout. It builds the hand-written kernels from
 ``molvax_torch/kernels/csrc/`` (into ``build/molvax_torch/``), makes
-``zinc250k`` weights at full width from a seed, and runs twenty-two
+``zinc250k`` weights at full width from a seed, and runs twenty-four
 phases, each printed on its own lines:
 
   1. environment: card name and power limit, torch and CUDA versions, the
@@ -129,16 +130,37 @@ phases, each printed on its own lines:
  22. the reference's headline training path: synthetic_dataset(4096,
      max_len=120, seed=0) (tokenizer path and seconds), BatchIterator(ds,
      256, seed=0).next_stack(16) on the card, and a K=16 make_train_chunk
-     (one CUDA Graph) at zinc250k, zinc250k_quality and moses_scaled width
-     and property_joint with EMA: against 16 eager steps from a deep copy
-     of the same state on the same stack (weights, Adam moments and steps,
-     EMA, stacked metrics; bit for bit where two eager runs are, else the
-     non-deterministic gradients named and CHUNK_REL), the next stack and
-     replay under sync debug mode "error", one replay's device activity
+     (one CUDA Graph) at zinc250k, zinc250k_quality and moses_scaled width,
+     property_joint with EMA and strict-fp32 zinc250k (the plain sampler
+     path): against 16 eager steps from a deep copy of the same state on
+     the same stack (weights, Adam moments and steps, EMA, stacked metrics;
+     bit for bit where two eager runs are, else the non-deterministic
+     gradients named and CHUNK_REL; strict fp32 must be bit for bit), the
+     next stack and replay under sync debug mode "error" (the weights'
+     version counters advanced by it), one replay's device activity
      against 16 eager steps' (the counters move at capture, not at a
      replay), ms per step eager and chunked, SMILES/s, next_stack's host
      ms, capture seconds, the graph's memory and the idle share of one
-     profiled chunk.
+     profiled chunk;
+ 23. train() at zinc250k_quality's full width on that corpus: 69 steps
+     (4 chunks of 16, 5 single steps), eval every 32 (2 batches and the
+     round-trip probe), select_best, a checkpoint every 32; run U straight
+     to 69, run S stopped at max_steps=32 and resumed by a fresh train():
+     the final checkpoints, the history after step 32, best/'s weights and
+     probe.json bit for bit; a restore into a live model decodes as a
+     fresh model with the same weights (the packed weights rebuilt); U's
+     launches counted exactly (per-layer kernels, encoder, sampler,
+     persistent decode, no stack or plain route); ms per step of the loop,
+     an eval pass, the probe, a checkpoint's save and restore and bytes,
+     the resumed run's idle share; then train() at zinc250k for 256 steps
+     against phase 22's replay;
+ 24. the latent workloads at zinc250k width, each against its plain
+     route: encode_corpus of 1,000 SMILES (a tail chunk), decode_latents
+     greedy (the persistent decode, margin-checked), constrained and beam 5
+     constrained (the automaton kernels, 100% chem-valid, identical to the
+     plain automaton), interpolate (8 slerp waypoints), optimize_from_smiles
+     on property_joint (16 steps of optimize_z against the CPU),
+     fit_aggregate_posterior and sample_aggregate; SMILES/s of the decodes.
 
 Any failure raises and exits non-zero. Without CUDA it exits 2 and prints
 no result. The line before the card's is the ``kernels`` JSON: each kernel
@@ -1685,19 +1707,32 @@ def replay_kernels(eager_step, chunk_fn, n_metrics: int, attempts: int = 3) -> d
             "device_activities": sum(chunk.values()), "eager_device_activities": sum(eager.values())}
 
 
-def phase22(dev, gpu) -> dict:
-    """The reference's headline training path on the card: the synthetic
-    corpus, BatchIterator.next_stack(16), a K=16 chunk (one CUDA Graph),
-    at zinc250k, zinc250k_quality and moses_scaled width (B=256) and the
-    property_joint preset with EMA; each against 16 eager steps from the
-    same state on the same stack, then the next stack and replay under
-    sync debug mode "error", the graph's kernels, memory and times."""
+def corpus(dev_phase: str):
+    """The reference's benchmark corpus, synthetic_dataset(4096,
+    max_len=120, seed=0), with its tokenizer path and seconds."""
     t0 = time.perf_counter()
     ds = synthetic_dataset(4096, max_len=120, seed=0)
-    corpus_s = time.perf_counter() - t0
-    say("phase22", corpus="synthetic_dataset(4096, max_len=120, seed=0)", shape=list(ds.codes.shape),
+    say(dev_phase, corpus="synthetic_dataset(4096, max_len=120, seed=0)", shape=list(ds.codes.shape),
         dtype=str(ds.codes.dtype), tokenizer="native" if tokenizer.native_available() else "numpy",
-        seconds=f"{corpus_s:.3f}")
+        seconds=f"{time.perf_counter() - t0:.3f}")
+    return ds
+
+
+def strict_fp32(preset):
+    """``preset`` with strict fp32 matmuls (the per-layer fp32 kernels, the
+    plain encoder and sampler)."""
+    return dataclasses.replace(preset, name=f"{preset.name}_fp32",
+                               model=dataclasses.replace(preset.model, compute_dtype="float32"))
+
+
+def phase22(dev, gpu, ds) -> dict:
+    """The reference's headline training path on the card: the synthetic
+    corpus, BatchIterator.next_stack(16), a K=16 chunk (one CUDA Graph),
+    at zinc250k, zinc250k_quality, moses_scaled width (B=256), the
+    property_joint preset with EMA and strict-fp32 zinc250k (the plain
+    sampler path); each against 16 eager steps from the same
+    state on the same stack, then the next stack and replay under sync
+    debug mode "error", the graph's kernels, memory and times."""
     t0 = time.perf_counter()
     chem = synthetic_dataset(4096, max_len=120, seed=0, chem=True, with_properties=True)
     say("phase22", corpus="synthetic_dataset(4096, max_len=120, seed=0, chem=True, with_properties=True)",
@@ -1706,106 +1741,459 @@ def phase22(dev, gpu) -> dict:
     prop = dataclasses.replace(prop, name="property_joint_ema", train=dataclasses.replace(prop.train, ema_decay=0.999))
     out = {}
     for preset, data in ((get_preset("zinc250k"), ds), (get_preset("zinc250k_quality"), ds),
-                         (get_preset("moses_scaled"), ds), (prop, chem)):
-        cfg = effective_config(preset, data)
-        with_props = cfg.model.n_properties > 0
-        it = BatchIterator(data, B, seed=0, device=dev, with_properties=with_props)
-        stack, props = it.next_stack(CHUNK)
-        if stack.shape != (CHUNK, B, cfg.model.max_len) or stack.dtype != torch.uint8 or stack.device != dev:
-            raise AssertionError(f"next_stack gave {tuple(stack.shape)} {stack.dtype} on {stack.device}")
-        step, chunk = make_train_step(cfg), make_train_chunk(cfg, CHUNK)
-        base = init_state(cfg, seed=SEED, device=dev)
-        t_case = time.perf_counter()
-        runs = [eager_run(step, base, stack, props) for _ in range(2)]
-        c = copy.deepcopy(base)
+                         (get_preset("moses_scaled"), ds), (prop, chem), (strict_fp32(get_preset("zinc250k")), ds)):
+        out[preset.name] = chunk_case(dev, gpu, preset, data)
+    return out
+
+
+def chunk_case(dev, gpu, preset, data) -> dict:
+    """One case of phase 22: a K=16 chunk of ``preset`` on the first
+    stacks of ``data`` against 16 eager steps, its replay under sync debug
+    mode "error", its device activity, times and memory. Strict fp32 must
+    be deterministic (bit for bit), as the bf16 cases are."""
+    cfg = effective_config(preset, data)
+    with_props = cfg.model.n_properties > 0
+    it = BatchIterator(data, B, seed=0, device=dev, with_properties=with_props)
+    stack, props = it.next_stack(CHUNK)
+    if stack.shape != (CHUNK, B, cfg.model.max_len) or stack.dtype != torch.uint8 or stack.device != dev:
+        raise AssertionError(f"next_stack gave {tuple(stack.shape)} {stack.dtype} on {stack.device}")
+    step, chunk = make_train_step(cfg), make_train_chunk(cfg, CHUNK)
+    base = init_state(cfg, seed=SEED, device=dev)
+    t_case = time.perf_counter()
+    runs = [eager_run(step, base, stack, props) for _ in range(2)]
+    c = copy.deepcopy(base)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held_before = torch.cuda.memory_allocated()
+    reset_counts()
+    t0 = time.perf_counter()
+    c, stacked = chunk(c, stack, props)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    captured_counts = {k: v for k, v in counts().items() if v}
+    captured = chunk.graphs[c.params]
+    peak_gb = (torch.cuda.max_memory_allocated() - held_before) / 1e9
+    held_gb = (torch.cuda.memory_allocated() - held_before) / 1e9
+    (a, a_steps, a_grads), (b, b_steps, b_grads) = runs
+    b_stacked = {k: torch.stack([m[k] for m in b_steps]) for k in b_steps[0]}
+    eager_twice = {**state_diffs(a, b), "metrics": metric_diffs(a_steps, b_stacked)}
+    chunk_vs = {**state_diffs(a, c), "metrics": metric_diffs(a_steps, stacked)}
+    deterministic = all(v[0] == 0.0 for v in eager_twice.values())
+    first, named = first_nondeterministic(a_grads, b_grads)
+    del a_grads, b_grads
+    say("phase22", preset=cfg.name, K=CHUNK, B=B, capture_s=f"{captured.capture_seconds:.3f}",
+        first_call_s=f"{first_s:.3f}", launches_at_capture=json.dumps(captured_counts).replace(" ", ""),
+        graph_peak_GB=f"{peak_gb:.3f}", graph_held_GB=f"{held_gb:.3f}", card=json.dumps(gpu))
+    say("phase22", preset=cfg.name, eager_twice_max_abs=json.dumps({k: v[0] for k, v in eager_twice.items()}),
+        chunk_vs_eager_max_abs=json.dumps({k: v[0] for k, v in chunk_vs.items()}),
+        chunk_vs_eager_max_rel=json.dumps({k: v[1] for k, v in chunk_vs.items()}),
+        deterministic=deterministic, first_differing_step=first, nondeterministic_gradients=json.dumps(named))
+    if not deterministic and cfg.model.compute_dtype == "float32":
+        raise AssertionError(f"{cfg.name}: two eager strict-fp32 runs differ at step {first} in {named}")
+    if deterministic:
+        if any(v[0] for v in chunk_vs.values()):
+            raise AssertionError(f"{cfg.name}: the chunk differs from 16 eager steps: {chunk_vs}")
+    else:
+        if not named:
+            raise AssertionError(f"{cfg.name}: two eager runs differ, but no step's gradients: {eager_twice}")
+        bad = {k: v for k, v in chunk_vs.items() if not v[1] <= CHUNK_REL}
+        if bad or chunk_vs["adam_steps"][0]:
+            raise AssertionError(f"{cfg.name}: the chunk differs from 16 eager steps by {chunk_vs}")
+    # the next chunk's host work and replay under sync debug mode "error"
+    versions = [p._version for p in c.params.parameters()]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        stack2, props2 = it.next_stack(CHUNK)
+        c, stacked2 = chunk(c, stack2, props2)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    losses = stacked2["loss"].tolist()
+    if not all(np.isfinite(losses)) or c.step != 2 * CHUNK:
+        raise AssertionError(f"{cfg.name}: the replay under sync debug mode gave {losses} at step {c.step}")
+    # what is keyed by a weight's version (the decode's packed weights) must see a replay's update
+    if not all(p._version > v for p, v in zip(c.params.parameters(), versions)):
+        raise AssertionError(f"{cfg.name}: a replay left the weights' version counters where they were")
+
+    def eager_step(i=0):
+        nonlocal a
+        a, _ = step(a, stack[i], None if props is None else props[i])
+
+    def eager_steps():
+        for i in range(CHUNK):
+            eager_step(i)
+
+    def chunk_call():
+        nonlocal c
+        c, _ = chunk(c, stack, props)
+
+    t_parts = {"compare": time.perf_counter() - t_case}
+    t0 = time.perf_counter()
+    kern = replay_kernels(eager_step, chunk_call, len(stacked2))
+    t_parts["kernels"] = time.perf_counter() - t0
+    if not kern["equal"] or kern["graph_launches"] not in (0, 1) or not kern["our_kernels"]:
+        raise AssertionError(f"{cfg.name}: a replay's device activity {kern['chunk']} is not 16 times that of "
+                             f"an eager step {kern['eager']} (graph launches {kern['graph_launches']})")
+    t0 = time.perf_counter()
+    ms_eager, ms_chunk = time_ms(eager_steps) / CHUNK, time_ms(chunk_call) / CHUNK
+    t1 = time.perf_counter()
+    it.next_stack(CHUNK)  # the host's part of a stack: gather, wait on its buffer's event, queue the copy
+    stack_ms = (time.perf_counter() - t1) * 1e3
+    prof = profile_step(chunk_call)
+    busy = sum(prof["device_ms"].values()) / CHUNK
+    t_parts["times"] = time.perf_counter() - t0
+    out = {"ms_eager": ms_eager, "ms_chunk": ms_chunk, "busy": busy, "stack_ms": stack_ms,
+           "capture_s": captured.capture_seconds, "peak_gb": peak_gb, "deterministic": deterministic}
+    say("phase22", preset=cfg.name, replay="sync_debug_mode=error", host_syncs=0,
+        loss=json.dumps([round(x, 4) for x in losses[:3]]), graph_launches_per_chunk=kern["graph_launches"],
+        our_kernels_per_chunk=kern["our_kernels"], our_kernels_per_step=kern["our_kernels"] / CHUNK,
+        device_activities_per_chunk=kern["device_activities"],
+        eager_device_activities_per_step=kern["eager_device_activities"])
+    say("phase22", preset=cfg.name, eager_ms_per_step=f"{ms_eager:.4f}", chunk_ms_per_step=f"{ms_chunk:.4f}",
+        chunk_smiles_per_s=f"{B / (ms_chunk / 1e3):.1f}", eager_smiles_per_s=f"{B / (ms_eager / 1e3):.1f}",
+        next_stack_host_ms=f"{stack_ms:.3f}", device_busy_ms_per_step=f"{busy:.3f}",
+        idle_share=f"{1 - busy / ms_chunk:.4f}" if busy else "not measured", card=json.dumps(gpu))
+    say("phase22", preset=cfg.name, seconds=json.dumps({k: round(v, 2) for k, v in t_parts.items()}))
+    del a, b, c, base, runs, stacked, stacked2, b_stacked, chunk, step
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return out
+
+
+# -- train() (phase 23) and the latent workloads (phase 24) ---------------------
+
+
+def payload_diffs(a: dict, b: dict, parts=("params", "adam", "ema"), counters=("step", "base_seed", "count")) -> dict:
+    """Counters and tensors of two checkpoint payloads (io.checkpoint)
+    that differ: {what: largest absolute difference, or the two values}."""
+    out = {k: (a[k], b[k]) for k in counters if a[k] != b[k]}
+
+    def walk(x, y, where):
+        if isinstance(x, dict) or isinstance(y, dict):
+            if not (isinstance(x, dict) and isinstance(y, dict)) or set(x) != set(y):
+                out[where] = "structure"
+                return
+            for k in x:
+                walk(x[k], y[k], f"{where}.{k}")
+        elif x is None or y is None:
+            if (x is None) != (y is None):
+                out[where] = "None against a tensor"
+        elif x.dtype != y.dtype or x.shape != y.shape or not torch.equal(x, y):
+            out[where] = (x.float() - y.float()).abs().max().item() if x.shape == y.shape else "shape"
+
+    for part in parts:
+        walk(a[part], b[part], part)
+    return out
+
+
+def load_payload(directory: str, step: int) -> dict:
+    return torch.load(os.path.join(directory, str(step), "state.pt"), map_location="cpu", weights_only=True)
+
+
+def disk_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, files in os.walk(path) for f in files)
+
+
+def host_ms(fn, reps: int = 3) -> float:
+    """Median host ms of fn() ending in a device synchronisation."""
+    times = []
+    for _ in range(reps):
         torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        held_before = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return sorted(times)[len(times) // 2]
+
+
+def phase23(dev, gpu, ds, p22: dict) -> dict:
+    """train() at zinc250k_quality's full width (B=256, T=120, 3 x
+    GRU-501) on the corpus: 69 steps (4 chunks of 16, 5 single steps), log
+    every 16, eval every 32 (2 batches and the round-trip probe on 256
+    rows, or the held-out split's), select_best, a checkpoint every 32.
+    Run U goes straight to 69; run S stops at max_steps=32 and a fresh
+    train() resumes it in the same directory. S's final checkpoint, its
+    history after step 32, best/'s weights, EMA and step, and probe.json
+    must equal U's bit for bit; a restore into a live model must decode as
+    a fresh model holding the same weights; U's launches are counted
+    exactly. Then the timings, and a throughput run: train() at zinc250k,
+    256 steps, log every 16, no eval and no checkpoint, against phase 22's
+    replay of the same config."""
+    import shutil
+    import tempfile
+
+    from molvax_torch.io import checkpoint as ckpt
+    from molvax_torch.train import train
+    from molvax_torch.train.evaluate import reconstruction_metrics
+
+    qual = get_preset("zinc250k_quality")
+    root = tempfile.mkdtemp(prefix="molvax_phase23_")
+    out = {}
+    try:
+        def cfg_in(name):
+            return dataclasses.replace(qual, train=dataclasses.replace(
+                qual.train, steps=69, log_every=16, eval_every=32, eval_batches=2, eval_roundtrip_n=256,
+                select_best=True, checkpoint_every=32, checkpoint_dir=os.path.join(root, name)))
+
+        u_cfg, s_cfg = cfg_in("U"), cfg_in("S")
         reset_counts()
         t0 = time.perf_counter()
-        c, stacked = chunk(c, stack, props)
+        u_state, u_hist = train(u_cfg, ds, verbose=False)
         torch.cuda.synchronize()
-        first_s = time.perf_counter() - t0
-        captured_counts = {k: v for k, v in counts().items() if v}
-        captured = chunk.graphs[c.params]
-        peak_gb = (torch.cuda.max_memory_allocated() - held_before) / 1e9
-        held_gb = (torch.cuda.memory_allocated() - held_before) / 1e9
-        (a, a_steps, a_grads), (b, b_steps, b_grads) = runs
-        b_stacked = {k: torch.stack([m[k] for m in b_steps]) for k in b_steps[0]}
-        eager_twice = {**state_diffs(a, b), "metrics": metric_diffs(a_steps, b_stacked)}
-        chunk_vs = {**state_diffs(a, c), "metrics": metric_diffs(a_steps, stacked)}
-        deterministic = all(v[0] == 0.0 for v in eager_twice.values())
-        first, named = first_nondeterministic(a_grads, b_grads)
-        del a_grads, b_grads
-        say("phase22", preset=cfg.name, K=CHUNK, B=B, capture_s=f"{captured.capture_seconds:.3f}",
-            first_call_s=f"{first_s:.3f}", launches_at_capture=json.dumps(captured_counts).replace(" ", ""),
-            graph_peak_GB=f"{peak_gb:.3f}", graph_held_GB=f"{held_gb:.3f}", card=json.dumps(gpu))
-        say("phase22", preset=cfg.name, eager_twice_max_abs=json.dumps({k: v[0] for k, v in eager_twice.items()}),
-            chunk_vs_eager_max_abs=json.dumps({k: v[0] for k, v in chunk_vs.items()}),
-            chunk_vs_eager_max_rel=json.dumps({k: v[1] for k, v in chunk_vs.items()}),
-            deterministic=deterministic, first_differing_step=first, nondeterministic_gradients=json.dumps(named))
-        if deterministic:
-            if any(v[0] for v in chunk_vs.values()):
-                raise AssertionError(f"{cfg.name}: the chunk differs from 16 eager steps: {chunk_vs}")
-        else:
-            if not named:
-                raise AssertionError(f"{cfg.name}: two eager runs differ, but no step's gradients: {eager_twice}")
-            bad = {k: v for k, v in chunk_vs.items() if not v[1] <= CHUNK_REL}
-            if bad or chunk_vs["adam_steps"][0]:
-                raise AssertionError(f"{cfg.name}: the chunk differs from 16 eager steps by {chunk_vs}")
-        # the next chunk's host work and replay under sync debug mode "error"
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            stack2, props2 = it.next_stack(CHUNK)
-            c, stacked2 = chunk(c, stack2, props2)
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-        losses = stacked2["loss"].tolist()
-        if not all(np.isfinite(losses)) or c.step != 2 * CHUNK:
-            raise AssertionError(f"{cfg.name}: the replay under sync debug mode gave {losses} at step {c.step}")
+        u_s = time.perf_counter() - t0
+        u_counts = counts()
+        s1_state, s1_hist = train(s_cfg, ds, max_steps=32, verbose=False)
+        prof = {}
 
-        def eager_step(i=0):
-            nonlocal a
-            a, _ = step(a, stack[i], None if props is None else props[i])
+        def resume():
+            prof["result"] = train(s_cfg, ds, verbose=False)
 
-        def eager_steps():
-            for i in range(CHUNK):
-                eager_step(i)
+        busy = profile_step(resume)
+        s_state, s_hist = prof["result"]
+        s_busy = sum(busy["device_ms"].values())
+        # the launches of run U: the chunk's capture (16 steps and the
+        # warm-up step), the 5 single steps, 2 evals of 2 batches, and the
+        # probe at steps 32, 64 and 69 (the final iterate), n rows each
+        L, H = qual.model.gru_layers, qual.model.gru_hidden
+        n_eval = len(ds.split(qual.data.test_fraction, qual.data.seed)[1])
+        n_probe = min(256, n_eval)
+        plan = kg.generate_plan(n_probe, qual.model.charset_size, H, L, *kg.card_limits(dev))
+        per_step = {"fused_encode": 1, "fused_sample_kl": 1,
+                    **{k: L * v for k, v in layer_launches(torch.bfloat16, B, H, 2, 1).items()}}
+        per_eval = {"fused_encode": 1, "fused_sample_kl": 1,
+                    **{k: L * v for k, v in layer_launches(torch.bfloat16, B, H, 1, 0).items()}}
+        want = {k: (CHUNK + 1 + 5) * per_step.get(k, 0) + 4 * per_eval.get(k, 0) for k in u_counts}
+        want["fused_generate"] = want["fused_generate_persistent"] = 3 * plan.slices
+        say("phase23", run="U", preset=qual.name, steps=69, seconds=f"{u_s:.2f}", eval_rows=n_eval,
+            probe_rows=n_probe, launches=json.dumps({k: v for k, v in u_counts.items() if v}).replace(" ", ""))
+        if u_counts != want:
+            raise AssertionError(f"train(): launch counts {u_counts}, expected {want}")
+        # the final checkpoint, the history after the split, best/ and probe.json
+        final = payload_diffs(load_payload(u_cfg.train.checkpoint_dir, 69), load_payload(s_cfg.train.checkpoint_dir, 69))
 
-        def chunk_call():
-            nonlocal c
-            c, _ = chunk(c, stack, props)
+        def strip(rows):
+            return [{k: v for k, v in r.items() if k != "wall_s"} for r in rows]
 
-        t_parts = {"compare": time.perf_counter() - t_case}
+        u_after = strip([r for r in u_hist if r["step"] > 32])
+        hist_equal = u_after == strip(s_hist) and strip(s1_hist) == strip([r for r in u_hist if r["step"] <= 32])
+        best_dirs = [os.path.join(c.train.checkpoint_dir, "best") for c in (u_cfg, s_cfg)]
+        probes = [json.load(open(os.path.join(d, "probe.json"))) for d in best_dirs]
+        best_step = probes[0]["step"]
+        best_pay = [load_payload(d, best_step) for d in best_dirs]
+        # best/ holds the winner's weights and EMA at its step; its Adam state
+        # and count are those of the run that wrote it (as the reference's)
+        best_diff = payload_diffs(*best_pay, parts=("params", "ema"), counters=("step", "base_seed"))
+        best_adam_equal = not payload_diffs(*best_pay, parts=("adam",), counters=("count",))
+        say("phase23", run="S", resumed_at=32, final_checkpoint_differences=json.dumps(final),
+            history_rows_after_32=len(u_after), history_equal=hist_equal, probe_json=json.dumps(probes[0]),
+            probe_json_equal=probes[0] == probes[1], best_differences=json.dumps(best_diff),
+            best_adam_state_equal=best_adam_equal, returned_steps=[u_state.step, s_state.step])
+        for a, b in zip(u_after + strip([r for r in u_hist if r["step"] <= 32]), strip(s_hist) + strip(s1_hist)):
+            if a != b:
+                say("phase23", differing_row_u=json.dumps(a), differing_row_s=json.dumps(b))
+        if final or not hist_equal or probes[0] != probes[1] or best_diff or u_state.step != s_state.step:
+            raise AssertionError("the resumed run differs from the uninterrupted one")
+        for r in u_hist:
+            if not all(np.isfinite(v) for k, v in r.items() if k != "step"):
+                raise AssertionError(f"train(): a non-finite metric in {r}")
+        # a restore into a live model: the decode reads the restored weights
+        u_mgr, s_mgr = (ckpt.make_manager(c.train.checkpoint_dir, c.train.keep_checkpoints) for c in (u_cfg, s_cfg))
+        z_codes = torch.from_numpy(ds.codes[:B]).to(dev)
+        with torch.no_grad():
+            z = encode(u_state.params, qual.model, z_codes)[0]
+        # a step whose weights the live model (U's selected iterate) does not hold
+        other = next(x for x in (64, 32, 69) if x != best_step)
+        before = generate(u_state.params, qual.model, z)[0]
+        packed_key = kg._packed[u_state.params][0]
+        ptrs = [p.data_ptr() for p in u_state.params.parameters()]
+        live = s_mgr.restore(other, u_state)
+        after = generate(live.params, qual.model, z)[0]
+        repacked = kg._packed[live.params][0] != packed_key
+        fresh = s_mgr.restore(other, init_state(qual, device=dev))
+        want_codes = generate(fresh.params, qual.model, z)[0]
+        same_ptrs = ptrs == [p.data_ptr() for p in live.params.parameters()]
+        say("phase23", check="restore_into_live_model", step=other, same_addresses=same_ptrs,
+            packed_weights_rebuilt=repacked, decode_equals_fresh_model=bool(torch.equal(after, want_codes)),
+            decode_changed_by_restore=not bool(torch.equal(before, after)))
+        if not (same_ptrs and repacked and torch.equal(after, want_codes)):
+            raise AssertionError("after a restore into a live model the decode does not read the restored weights")
+        # times: the loop, an eval pass, the probe, a save and a restore
+        rows = {r["step"]: r["wall_s"] for r in u_hist if "loss" in r}
+        ev_it = BatchIterator(ds, B, seed=1, device=dev)
+        eval_step = make_eval_step(qual)
+        batches = [next(ev_it) for _ in range(2)]
+        eval_ms = host_ms(lambda: [eval_step(live, c, p_) for c, p_ in batches])
+        gen = torch.Generator().manual_seed(SEED)
+        probe_ms = host_ms(lambda: reconstruction_metrics(live.params, qual, ds, gen, n=n_probe))
+        t_mgr = ckpt.make_manager(os.path.join(root, "timing"), keep=1)
+        save_ms = host_ms(lambda: t_mgr.save(69, live, force=True))
+        restore_ms = host_ms(lambda: t_mgr.restore(69, live))
+        nbytes = disk_bytes(os.path.join(u_cfg.train.checkpoint_dir, "69"))
+        loop_ms = (rows[64] - rows[16]) / 48 * 1e3  # 3 chunks, with the eval and checkpoint at 32
+        chunk_ms = (rows[64] - rows[48]) / 16 * 1e3  # one chunk, its next_stack and its host pull
+        out["quality"] = {"seconds": u_s, "loop_ms_per_step": loop_ms, "chunk_ms_per_step": chunk_ms,
+                          "eval_ms": eval_ms, "probe_ms": probe_ms,
+                          "save_ms": save_ms, "restore_ms": restore_ms, "checkpoint_bytes": nbytes,
+                          "resume_device_busy_ms": s_busy, "resume_wall_ms": busy["wall_ms"]}
+        say("phase23", preset=qual.name, loop_ms_per_step_16_to_64=f"{loop_ms:.4f}",
+            loop_ms_per_step_48_to_64=f"{chunk_ms:.4f}",
+            eval_pass_ms=f"{eval_ms:.3f}", probe_ms=f"{probe_ms:.3f}", probe_rows=n_probe,
+            checkpoint_save_ms=f"{save_ms:.3f}", checkpoint_restore_ms=f"{restore_ms:.3f}",
+            checkpoint_bytes=nbytes, resumed_run_wall_ms=f"{busy['wall_ms']:.1f}",
+            resumed_run_device_busy_ms=f"{s_busy:.1f}",
+            resumed_run_idle_share=f"{1 - s_busy / busy['wall_ms']:.4f}" if s_busy else "not measured",
+            card=json.dumps(gpu))
+        del u_state, s1_state, s_state, live, fresh
+        # the throughput run
+        fast = get_preset("zinc250k")
+        fast = dataclasses.replace(fast, train=dataclasses.replace(fast.train, steps=256, log_every=16, eval_every=0,
+                                                                   checkpoint_dir=None))
         t0 = time.perf_counter()
-        kern = replay_kernels(eager_step, chunk_call, len(stacked2))
-        t_parts["kernels"] = time.perf_counter() - t0
-        if not kern["equal"] or kern["graph_launches"] not in (0, 1) or not kern["our_kernels"]:
-            raise AssertionError(f"{cfg.name}: a replay's device activity {kern['chunk']} is not 16 times that of "
-                                 f"an eager step {kern['eager']} (graph launches {kern['graph_launches']})")
-        t0 = time.perf_counter()
-        ms_eager, ms_chunk = time_ms(eager_steps) / CHUNK, time_ms(chunk_call) / CHUNK
-        t1 = time.perf_counter()
-        it.next_stack(CHUNK)  # the host's part of a stack: gather, wait on its buffer's event, queue the copy
-        stack_ms = (time.perf_counter() - t1) * 1e3
-        prof = profile_step(chunk_call)
-        busy = sum(prof["device_ms"].values()) / CHUNK
-        t_parts["times"] = time.perf_counter() - t0
-        out[cfg.name] = {"ms_eager": ms_eager, "ms_chunk": ms_chunk, "busy": busy, "stack_ms": stack_ms,
-                         "capture_s": captured.capture_seconds, "peak_gb": peak_gb, "deterministic": deterministic}
-        say("phase22", preset=cfg.name, replay="sync_debug_mode=error", host_syncs=0,
-            loss=json.dumps([round(x, 4) for x in losses[:3]]), graph_launches_per_chunk=kern["graph_launches"],
-            our_kernels_per_chunk=kern["our_kernels"], our_kernels_per_step=kern["our_kernels"] / CHUNK,
-            device_activities_per_chunk=kern["device_activities"],
-            eager_device_activities_per_step=kern["eager_device_activities"])
-        say("phase22", preset=cfg.name, eager_ms_per_step=f"{ms_eager:.4f}", chunk_ms_per_step=f"{ms_chunk:.4f}",
-            chunk_smiles_per_s=f"{B / (ms_chunk / 1e3):.1f}", eager_smiles_per_s=f"{B / (ms_eager / 1e3):.1f}",
-            next_stack_host_ms=f"{stack_ms:.3f}", device_busy_ms_per_step=f"{busy:.3f}",
-            idle_share=f"{1 - busy / ms_chunk:.4f}" if busy else "not measured", card=json.dumps(gpu))
-        say("phase22", preset=cfg.name, seconds=json.dumps({k: round(v, 2) for k, v in t_parts.items()}))
-        del a, b, c, base, runs, stacked, stacked2, b_stacked, chunk, step
+        state, hist = train(fast, ds, verbose=False)
         torch.cuda.synchronize()
-        torch.cuda.empty_cache()
+        total_s = time.perf_counter() - t0
+        walls = {r["step"]: r["wall_s"] for r in hist}
+        ms = (walls[256] - walls[16]) / 240 * 1e3
+        replay_ms = p22["zinc250k"]["ms_chunk"]
+        out["throughput"] = {"ms_per_step": ms, "replay_ms_per_step": replay_ms, "seconds": total_s}
+        say("phase23", run="throughput", preset=fast.name, steps=256, seconds=f"{total_s:.2f}",
+            ms_per_step_16_to_256=f"{ms:.4f}", smiles_per_s=f"{B / (ms / 1e3):.1f}",
+            phase22_replay_ms_per_step=f"{replay_ms:.4f}", phase22_smiles_per_s=f"{B / (replay_ms / 1e3):.1f}",
+            train_over_replay=f"{ms / replay_ms:.4f}", card=json.dumps(gpu))
+        if state.step != 256 or len(hist) != 16:
+            raise AssertionError(f"the throughput run ended at step {state.step} with {len(hist)} rows")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def margin_gap(model, cfg, z: torch.Tensor, codes: torch.Tensor) -> float:
+    """The largest gap between the plain decode's maximum score and the
+    score of the chosen code, replaying ``codes`` through the plain
+    version of fused_generate (greedy)."""
+    with torch.no_grad():
+        z_emb = latent_embed(model, cfg, z)
+    _, scores = kg.fused_generate_ref(model, cfg, z_emb, 0, greedy=True, force_codes=codes, return_scores=True)
+    chosen = scores.gather(-1, codes.long()[..., None])[..., 0]
+    return (scores.max(-1).values - chosen).max().item()
+
+
+def phase24(dev, gpu, model, ds) -> dict:
+    """The latent workloads at zinc250k width (phase 2's weights; a seeded
+    property_joint model for the optimization), each held to its plain
+    route: encode_corpus of 1,000 SMILES (a tail chunk of 232) against one
+    plain encode; decode_latents greedy (the persistent decode, every code
+    within MARGIN of the plain maximum), constrained (auto_step, 100%
+    chem-valid) and beam 5 constrained (auto_mask / auto_advance) on 256
+    latents, the automaton routes against their plain versions bit for
+    bit; interpolate (8 steps, slerp); optimize_from_smiles (16 steps of
+    optimize_z on the property head, against the same steps on the CPU,
+    constrained decode); fit_aggregate_posterior and sample_aggregate."""
+    from molvax_torch.latent import (decode_latents, encode_corpus, fit_aggregate_posterior, interpolate,
+                                     optimize_from_smiles, optimize_z, sample_aggregate, slerp)
+
+    cfg = model.cfg
+    out = {}
+    smiles = decode_codes(ds.codes[:1000])
+    reset_counts()
+    t0 = time.perf_counter()
+    mu, logvar = encode_corpus(model, cfg, smiles, batch=B)
+    torch.cuda.synchronize()
+    enc_ms = (time.perf_counter() - t0) * 1e3
+    with torch.no_grad():
+        mu_one, lv_one = encode(model, cfg, torch.from_numpy(encode_smiles(smiles, DEFAULT_CHARSET, cfg.max_len)).to(dev))
+    enc_err = max(np.abs(mu - mu_one.cpu().numpy()).max(), np.abs(logvar - lv_one.cpu().numpy()).max())
+    say("phase24", call="encode_corpus", n=len(smiles), batch=B, tail=len(smiles) % B, shape=list(mu.shape),
+        ms=f"{enc_ms:.2f}", max_abs_err_vs_one_call=f"{enc_err:.3e}", tol=ENCODER_TOL, **{"fused_encode": counts()["fused_encode"]})
+    if mu.shape != (1000, cfg.latent_dim) or not np.isfinite(mu).all() or not enc_err <= ENCODER_TOL:
+        raise AssertionError(f"encode_corpus: {mu.shape}, error {enc_err}")
+    z = torch.from_numpy(mu[:B]).to(dev)
+    # greedy: one persistent decode, every code within MARGIN of the plain maximum
+    reset_counts()
+    strings = decode_latents(model, cfg, mu[:B])
+    got = counts()
+    codes = kg.fused_generate(model, cfg, latent_embed(model, cfg, z), 0)
+    gap = margin_gap(model, cfg, z, codes)
+    same = strings == decode_codes(codes)
+    ms = time_ms(lambda: decode_latents(model, cfg, mu[:B]))
+    say("phase24", call="decode_latents", mode="greedy", n=B, persistent_launches=got["fused_generate_persistent"],
+        strings_equal_kernel_codes=same, max_margin_gap=f"{gap:.3e}", margin=MARGIN, ms=f"{ms:.3f}",
+        smiles_per_s=f"{B / (ms / 1e3):.1f}", card=json.dumps(gpu))
+    if got["fused_generate_persistent"] != 1 or got["fused_generate_row_block"] or not same or gap > MARGIN:
+        raise AssertionError(f"decode_latents greedy: launches {got}, equal {same}, gap {gap}")
+    out["greedy_ms"] = ms
+    # constrained greedy and beam 5, against the plain automaton
+    for mode, kw, want in (("constrained", dict(constrained=True), {"auto_step": cfg.max_len}),
+                           ("beam5_constrained", dict(constrained=True, beam=BEAM),
+                            {"auto_mask": cfg.max_len, "auto_advance": cfg.max_len})):
+        reset_counts()
+        strings = decode_latents(model, cfg, mu[:B], **kw)
+        got = counts()
+        with plain_automaton():
+            plain = decode_latents(model, cfg, mu[:B], **kw)
+        valid = sum(chem_valid(x) for x in strings)
+        ms = time_ms(lambda: decode_latents(model, cfg, mu[:B], **kw), warmup=1, reps=3)
+        say("phase24", call="decode_latents", mode=mode, n=B, chem_valid=f"{valid}/{len(strings)}",
+            identical_to_plain_route=strings == plain, ms=f"{ms:.3f}", smiles_per_s=f"{B / (ms / 1e3):.1f}",
+            **{k: got[k] for k in ("auto_step", "auto_mask", "auto_advance", "fused_generate")}, card=json.dumps(gpu))
+        if valid != B or strings != plain or any(got[k] != want.get(k, 0) for k in want) or got["fused_generate"]:
+            raise AssertionError(f"decode_latents {mode}: {valid}/{B} valid, launches {got}")
+        out[f"{mode}_ms"] = ms
+    # interpolate: 8 slerp waypoints between two molecules, one persistent decode
+    reset_counts()
+    path = interpolate(model, cfg, SMILES[0], SMILES[200], steps=8)
+    got = counts()
+    ends = torch.from_numpy(encode_smiles([SMILES[0], SMILES[200]], DEFAULT_CHARSET, cfg.max_len)).to(dev)
+    with torch.no_grad():
+        m2 = encode(model, cfg, ends)[0]
+    zs = slerp(m2[:1], m2[1:], torch.linspace(0.0, 1.0, 8, device=dev)[:, None])
+    codes = kg.fused_generate(model, cfg, latent_embed(model, cfg, zs), 0)
+    gap = margin_gap(model, cfg, zs, codes)
+    say("phase24", call="interpolate", steps=8, spherical=True, persistent_launches=got["fused_generate_persistent"],
+        strings_equal_kernel_codes=path == decode_codes(codes), max_margin_gap=f"{gap:.3e}",
+        examples=json.dumps(path[:3]))
+    if got["fused_generate_persistent"] != 1 or path != decode_codes(codes) or gap > MARGIN:
+        raise AssertionError(f"interpolate: launches {got}, gap {gap}")
+    # optimize_from_smiles on the property head: 16 steps, then a constrained decode
+    pcfg = get_preset("property_joint").model
+    pmodel = init_state(get_preset("property_joint"), seed=SEED + 24, device=dev).params
+    reset_counts()
+    t0 = time.perf_counter()
+    opt_strings, res = optimize_from_smiles(pmodel, pcfg, SMILES, steps=16, constrained=True)
+    torch.cuda.synchronize()
+    opt_ms = (time.perf_counter() - t0) * 1e3
+    got = counts()
+    cpu_model = copy.deepcopy(pmodel).cpu()
+    with torch.no_grad():
+        z0 = encode(pmodel, pcfg, torch.from_numpy(encode_smiles(SMILES, DEFAULT_CHARSET, pcfg.max_len)).to(dev))[0]
+    ref = optimize_z(cpu_model, pcfg, z0.cpu(), steps=16)
+    traj_rel = ((res.trajectory.cpu() - ref.trajectory).norm() / ref.trajectory.norm()).item()
+    z_rel = ((res.z.cpu() - ref.z).norm() / ref.z.norm()).item()
+    valid = sum(chem_valid(x) for x in opt_strings)
+    rise = (res.objective - res.objective_start).mean().item()
+    say("phase24", call="optimize_from_smiles", preset="property_joint", steps=16, n=len(SMILES),
+        objective_start=f"{res.objective_start.mean().item():.4f}", objective=f"{res.objective.mean().item():.4f}",
+        mean_rise=f"{rise:.4f}", trajectory_rel_vs_cpu=f"{traj_rel:.3e}", z_rel_vs_cpu=f"{z_rel:.3e}",
+        tol=FP32_ROUTE_REL, chem_valid=f"{valid}/{len(opt_strings)}", auto_step=got["auto_step"], ms=f"{opt_ms:.2f}")
+    if not (traj_rel <= FP32_ROUTE_REL and z_rel <= FP32_ROUTE_REL) or valid != len(SMILES) or not rise > 0:
+        raise AssertionError(f"optimize_from_smiles: rel {traj_rel}, {z_rel}; {valid} valid; rise {rise}")
+    # the aggregate posterior and a decode from it
+    mean, chol = fit_aggregate_posterior(model, cfg, ds.codes[:1000], batch=B)
+    mean_err = (mean.cpu().double() - torch.from_numpy(mu).double().mean(0)).abs().max().item()
+    reset_counts()
+    agg = sample_aggregate(model, cfg, B, torch.Generator().manual_seed(SEED + 25), mean, chol)
+    got = counts()
+    g = torch.Generator().manual_seed(SEED + 25)
+    za = mean[None, :] + torch.randn(B, cfg.latent_dim, generator=g).to(dev) @ chol.T
+    codes = kg.fused_generate(model, cfg, latent_embed(model, cfg, za), 0)
+    gap = margin_gap(model, cfg, za, codes)
+    lower = bool(torch.equal(chol, torch.tril(chol)))
+    say("phase24", call="fit_aggregate_posterior", rows=1000, mean_max_abs_err_vs_encode_corpus=f"{mean_err:.3e}",
+        chol_lower_triangular=lower)
+    say("phase24", call="sample_aggregate", n=B, persistent_launches=got["fused_generate_persistent"],
+        strings_equal_kernel_codes=agg == decode_codes(codes), max_margin_gap=f"{gap:.3e}",
+        distinct=len(set(agg)))
+    if not (mean_err <= 1e-5 and lower and torch.isfinite(chol).all()) or agg != decode_codes(codes) or gap > MARGIN:
+        raise AssertionError(f"aggregate posterior: mean error {mean_err}, gap {gap}")
     return out
 
 
@@ -2260,7 +2648,14 @@ def main() -> int:
     phase21(weights, codes, dev, gpu)
 
     # -- 22. the chunk: corpus -> next_stack -> one CUDA Graph of 16 steps ------
-    phase22(dev, gpu)
+    ds = corpus("phase22")
+    p22 = phase22(dev, gpu, ds)
+
+    # -- 23. train(): resume bit for bit, best/, the loop's throughput --------
+    phase23(dev, gpu, ds, p22)
+
+    # -- 24. the latent workloads --------------------------------------------
+    phase24(dev, gpu, model, ds)
 
     beam_counts = decodes["beam"]
     print(json.dumps({"kernels": [

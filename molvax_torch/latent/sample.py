@@ -1,6 +1,6 @@
 """Generation: prior sampling and free-running (autoregressive) decoding.
 
-Port of ``molvax/latent/sample.py:36-208,246-271,341-361``. ``generate``
+Port of ``molvax/latent/sample.py:36-208,246-361``. ``generate``
 routes as the reference does: 'repeat_z' decoders decode in one
 non-autoregressive pass (``nn.decoder.decode``). With
 ``cfg.use_pallas_generation`` on, a teacher-forced decoder, bf16 matmuls,
@@ -26,6 +26,7 @@ from __future__ import annotations
 
 from typing import List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..data.charset import DEFAULT_CHARSET, Charset
@@ -36,6 +37,7 @@ from ..nn.encoder import linear
 from ..nn.gru import gru_stack_step
 from ..nn.vae import encode as vae_encode, reparameterize
 from .constrain import build_tables
+from .embed import encode_codes_chunked
 
 
 def _default_generator() -> torch.Generator:
@@ -143,6 +145,55 @@ def sample_prior(
     z is drawn from ``generator`` on its device, then moved to the model's."""
     generator = generator if generator is not None else _default_generator()
     z = scale * torch.randn(n, cfg.latent_dim, generator=generator, device=generator.device)
+    codes, _ = generate(
+        model, cfg, z.to(model.device), generator, greedy=greedy,
+        temperature=temperature, constrained=constrained, charset=charset,
+    )
+    return decode_codes(codes, charset)
+
+
+def fit_aggregate_posterior(
+    model, cfg, codes, batch: int = 512, max_n: int = 20_000
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """N(mean, cov) fitted to the model's aggregate posterior over the
+    first ``max_n`` rows of ``codes``: mean and covariance of the encoded
+    mu's, plus the mean encoder noise the decoder was trained to absorb
+    (cov += eps_scale^2 * E[sigma^2], diagonal), in float64 on the host.
+    A trained posterior rarely matches the prior N(0, I) (in the small-eps
+    lineage the means spread far past the prior's shell), so samples from
+    this fit land on the data manifold where prior samples may not.
+
+    Returns (mean (L,), chol (L, L)), fp32 on the model's device: pass
+    them to ``sample_aggregate``."""
+    n = min(codes.shape[0], max_n)
+    mu_all, logvar_all = encode_codes_chunked(model, cfg, np.asarray(codes)[:n], batch=batch)
+    mu_all = mu_all.astype(np.float64)
+    var_mean = np.exp(logvar_all.astype(np.float64)).mean(axis=0)
+    mean = mu_all.mean(axis=0)
+    cov = np.cov(mu_all.T) + np.diag(cfg.eps_scale**2 * var_mean)
+    # jitter keeps the factorization stable when some dims are collapsed
+    chol = np.linalg.cholesky(cov + 1e-6 * np.eye(cov.shape[0]))
+    to = dict(dtype=torch.float32, device=model.device)
+    return torch.as_tensor(mean, **to), torch.as_tensor(chol, **to)
+
+
+def sample_aggregate(
+    model,
+    cfg,
+    n: int,
+    generator: Optional[torch.Generator],
+    mean: torch.Tensor,
+    chol: torch.Tensor,
+    charset: Charset = DEFAULT_CHARSET,
+    greedy: bool = True,
+    temperature: float = 1.0,
+    constrained: bool = False,
+) -> List[str]:
+    """Decode n latents z = mean + chol @ eps, eps ~ N(0, I) drawn from
+    ``generator`` on its device (``fit_aggregate_posterior``), to SMILES."""
+    generator = generator if generator is not None else _default_generator()
+    eps = torch.randn(n, cfg.latent_dim, generator=generator, device=generator.device)
+    z = mean[None, :] + eps.to(mean.device) @ chol.T
     codes, _ = generate(
         model, cfg, z.to(model.device), generator, greedy=greedy,
         temperature=temperature, constrained=constrained, charset=charset,

@@ -30,6 +30,53 @@ def linear(
     return round_to(x, compute_dtype) @ round_to(weight, compute_dtype).T + bias
 
 
+def _strict_flags(deterministic: bool):
+    """cuDNN's flags for a strict-fp32 conv: TF32 off (fp32 operands are
+    not exact in TF32; bf16-rounded ones are)."""
+    cudnn = torch.backends.cudnn
+    return cudnn.flags(
+        enabled=True,  # the helper's default would turn cuDNN off
+        benchmark=cudnn.benchmark,
+        benchmark_limit=cudnn.benchmark_limit,
+        deterministic=deterministic,
+        allow_tf32=False,
+    )
+
+
+class _StrictConv1d(torch.autograd.Function):
+    """``F.conv1d(x, w)`` in fp32 with TF32 off in the forward and in the
+    backward, and a backward that gives the same bits every run. Autograd
+    runs a backward after the forward's flags are gone (so it would run in
+    TF32), and cuDNN's default weight gradient sums in an order that varies
+    from run to run: two runs of a strict-fp32 step, or a step and its CUDA
+    Graph replay, would differ. The weight gradient is one fp32 GEMM over
+    (batch, position) of the gradient against the unfolded input (cuDNN's
+    deterministic fp32 weight gradients at these shapes are FFT-based and
+    cost ~3 ms a step on an H100); the input gradient is cuDNN's
+    transposed conv on its deterministic algorithms."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        with _strict_flags(torch.backends.cudnn.deterministic):
+            return F.conv1d(x, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        gx = gw = None
+        if ctx.needs_input_grad[1]:
+            out_ch, in_ch, k = w.shape
+            cols = x.unfold(2, k, 1)  # (B, C_in, W_out, k)
+            rows = cols.shape[0] * cols.shape[2]
+            gw = g.transpose(0, 1).reshape(out_ch, rows) @ cols.transpose(1, 2).reshape(rows, in_ch * k)
+            gw = gw.reshape(out_ch, in_ch, k)
+        if ctx.needs_input_grad[0]:
+            with _strict_flags(True):
+                gx = F.conv_transpose1d(g, w)
+        return gx, gw
+
+
 def conv1d(
     x_nch: torch.Tensor,
     weight: torch.Tensor,
@@ -41,18 +88,11 @@ def conv1d(
     The operands are rounded to ``compute_dtype`` and the conv runs in
     fp32. cuDNN runs fp32 convolutions in TF32 by default; bf16-rounded
     operands are exact in TF32, but fp32 ones are not, so a 'float32'
-    conv turns TF32 off for this call alone."""
+    conv turns TF32 off for its forward and its backward
+    (``_StrictConv1d``)."""
     x, w = round_to(x_nch, compute_dtype), round_to(weight, compute_dtype)
     if compute_dtype == torch.float32:
-        cudnn = torch.backends.cudnn
-        with cudnn.flags(
-            enabled=True,  # the helper's default would turn cuDNN off
-            benchmark=cudnn.benchmark,
-            benchmark_limit=cudnn.benchmark_limit,
-            deterministic=cudnn.deterministic,
-            allow_tf32=False,
-        ):
-            out = F.conv1d(x, w)
+        out = _StrictConv1d.apply(x, w)
     else:
         out = F.conv1d(x, w)
     return out + bias[None, :, None]

@@ -10,9 +10,10 @@ a property head, and ``start_token`` when it learns one. A state dict from
 ``io.convert.state_dict_from_jax`` loads with ``strict=True``.
 
 Where the reference threads a JAX key, the port threads a 32-bit seed: the
-fused sampler and the scheduled-sampling and word-dropout masks draw from
-the counter hash of ``kernels.generate.noise_bits`` keyed by it, so a step
-is deterministic and resumable on any device. The seed, and the
+sampler's eps (fused or plain: ``kernels.sampler.sample_eps``) and the
+scheduled-sampling and word-dropout masks draw from the counter hash of
+``kernels.generate.noise_bits`` keyed by it, so a step is deterministic and
+resumable on any device. The seed, and the
 scheduled-sampling probability, may be Python numbers or one-element
 tensors on the model's device: a train step reads them from vectors on
 the card, so nothing in it waits for the host (and a CUDA Graph of steps
@@ -143,10 +144,11 @@ def forward(
 
     With ``cfg.use_pallas`` and bf16 matmuls, the encoder is the fused
     encoder kernel and z / KL come from the fused sampler (each takes its
-    plain version for CPU tensors). Otherwise the plain encoder runs and z
-    is reparameterized with torch.randn noise from a generator seeded with
-    ``seed``, which must then be a Python int (a generator's seed is read on
-    the host).
+    plain version for CPU tensors). Otherwise the plain encoder runs and
+    z = mu + eps_scale * exp(logvar / 2) * eps, with the fused sampler's
+    own eps (``sampler.sample_eps``): the two routes draw the same eps for
+    the same seed, and a seed on the device is read there, so every
+    configuration's step can be captured in a CUDA Graph.
 
     ``ss_prob`` turns on two-pass scheduled sampling: a first teacher-forced
     decode (no gradient) predicts each character, and each teacher input is
@@ -159,10 +161,8 @@ def forward(
         z, kl = sampler.fused_sample_kl(seed, mu, logvar, cfg.eps_scale)
     else:
         mu, logvar = encode(model, cfg, codes)
-        if isinstance(seed, torch.Tensor):
-            raise ValueError("forward: the plain sampler seeds a torch.Generator on the host; pass an int seed")
-        gen = torch.Generator(device=mu.device).manual_seed(seed)
-        z = reparameterize(mu, logvar, cfg.eps_scale, gen)
+        eps = sampler.sample_eps(seed, mu.shape[0], mu.shape[1], mu.device)
+        z = mu + cfg.eps_scale * torch.exp(0.5 * logvar) * eps
     teacher = codes if cfg.decoder_conditioning == "teacher_forced" else None
     if ss_prob is not None and teacher is not None:
         with torch.no_grad():

@@ -1,4 +1,6 @@
+from .evaluate import reconstruction_metrics
 from .loop import (
+    PosteriorCollapseError,
     TrainState,
     effective_config,
     ema_eval_state,
@@ -7,11 +9,15 @@ from .loop import (
     make_optimizer,
     make_train_chunk,
     make_train_step,
+    train,
 )
 from .loss import gaussian_kl, recon_accuracy, recon_bce, recon_ce, vae_loss
 from .schedules import beta_at
 
 __all__ = [
+    "PosteriorCollapseError",
+    "reconstruction_metrics",
+    "train",
     "TrainState",
     "effective_config",
     "ema_eval_state",

@@ -1,10 +1,11 @@
 """The training step and the chunk of K steps: Adam with optax's schedules
 and clip, ELBO, EMA.
 
-Port of ``molvax/train/loop.py:55-283``: ``TrainState``,
-``effective_config``, ``ema_eval_state``, ``init_state``,
-``make_optimizer``, ``make_train_step``, ``make_train_chunk`` and
-``make_eval_step``.
+Port of ``molvax/train/loop.py``: ``TrainState``, ``effective_config``,
+``ema_eval_state``, ``init_state``, ``make_optimizer``,
+``make_train_step``, ``make_train_chunk``, ``make_eval_step`` and the
+training loop ``train`` (checkpoints, resume, preemption, eval cadence,
+the round-trip probe, best-iterate selection, the collapse guard).
 
 Where the reference's state is immutable and donated to a jitted step, the
 port's ``TrainState`` holds the model and its optimizer, which the step
@@ -29,19 +30,29 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import json
 import math
+import os
+import signal
 import sys
+import threading
 import time
 import weakref
 from typing import Callable, Dict, Mapping, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
+from torch.autograd.graph import increment_version
 
+from ..config import to_dict
+from ..data import BatchIterator, load_dataset
+from ..io import checkpoint as ckpt_io
 from ..kernels.generate import fold_in, fold_in_range
 from ..nn.vae import MolecularVAE, forward
-from ..utils import PinnedStaging, matmul_dtype, resolve_device
+from ..utils import PinnedStaging, resolve_device
+from .evaluate import reconstruction_metrics
 from .loss import vae_loss
+from .metrics import MetricsLogger, host_rows
 from .schedules import beta_at, ss_prob_at
 
 _EVAL_SALT = 0x7FFFFFFF  # disjoint from every train step's seed
@@ -111,10 +122,13 @@ class Optimizer:
     The learning rate is a 0-d fp32 tensor on the parameters' device
     (``lr``), written by every update. On a card, torch's Adam runs
     ``capturable`` (its step counts and bias corrections on the device),
-    and its state tensors are made here, so that no update reads a host
-    value and a CUDA Graph can capture updates without making state inside
-    the capture. torch refuses ``capturable`` on the CPU, where Adam runs
-    its single-tensor path with the same tensor learning rate."""
+    so that no update reads a host value. Its state tensors (each step
+    count a 0-d fp32 tensor, on the card there, on the host on the CPU, as
+    torch makes them) are made here, so a CUDA Graph can capture updates
+    without making state inside the capture, and a checkpoint always finds
+    the state it saves and restores (``io.checkpoint``). torch refuses
+    ``capturable`` on the CPU, where Adam runs its single-tensor path with
+    the same tensor learning rate."""
 
     def __init__(self, params, train_cfg):
         self.params = list(params)
@@ -125,13 +139,12 @@ class Optimizer:
         self.lr = torch.full((), self.schedule(0), dtype=torch.float32, device=dev)
         self.adam = torch.optim.Adam(self.params, lr=self.lr, betas=(0.9, 0.999), eps=1e-8, foreach=cuda,
                                      capturable=cuda)
-        if cuda:
-            for p in self.params:
-                self.adam.state[p] = {
-                    "step": torch.zeros((), dtype=torch.float32, device=dev),
-                    "exp_avg": torch.zeros_like(p, memory_format=torch.preserve_format),
-                    "exp_avg_sq": torch.zeros_like(p, memory_format=torch.preserve_format),
-                }
+        for p in self.params:
+            self.adam.state[p] = {
+                "step": torch.zeros((), dtype=torch.float32, device=dev if cuda else "cpu"),
+                "exp_avg": torch.zeros_like(p, memory_format=torch.preserve_format),
+                "exp_avg_sq": torch.zeros_like(p, memory_format=torch.preserve_format),
+            }
         self.count = 0
 
     def zero_grad(self) -> None:
@@ -285,17 +298,6 @@ def unpack(values: torch.Tensor):
     return values[0], values[1].view(torch.float32), values[2].view(torch.float32), values[3].view(torch.float32)
 
 
-def host_seed_reason(cfg, device) -> Optional[str]:
-    """Why a step of ``cfg`` on ``device`` needs its seed as a host int (and
-    so cannot be captured in a CUDA Graph), or None. The plain sampler path
-    (not the fused sampler: strict fp32, or ``use_pallas`` off) draws eps
-    from a ``torch.Generator`` that a host int seeds."""
-    if cfg.model.use_pallas and matmul_dtype(cfg.model, device) == torch.bfloat16:
-        return None
-    return ("the plain sampler path (use_pallas off or fp32 matmuls) draws eps from a torch.Generator "
-            "seeded by a host int each step, which a CUDA Graph would freeze")
-
-
 def _device_values(values: np.ndarray, device: torch.device, staging: Dict) -> torch.Tensor:
     """The packed vector on ``device``: shared with numpy on the CPU; on a
     card one non-blocking copy from pinned memory."""
@@ -310,9 +312,9 @@ def step_body(cfg, state: TrainState, codes: torch.Tensor, props: Optional[torch
     """One optimizer step on ``state`` in place: the forward at ``seed``
     (with scheduled-sampling probability ``ss`` where the config has it),
     the ELBO at ``beta``, backward, clip and Adam at ``lr``, the EMA. Each
-    value a Python number or a 0-d tensor on the model's device; the seed
-    an int where ``host_seed_reason`` says so. Returns the metrics, 0-d
-    tensors on the device. Advances no counter: the caller does."""
+    value a Python number or a 0-d tensor on the model's device. Returns
+    the metrics, 0-d tensors on the device. Advances no counter: the
+    caller does."""
     model, opt = state.params, state.opt_state
     use_ss = cfg.train.scheduled_sampling > 0
     wd = cfg.train.word_dropout if cfg.train.word_dropout > 0 else None
@@ -340,10 +342,7 @@ def make_train_step(cfg):
     def train_step(state: TrainState, codes: torch.Tensor, props: Optional[torch.Tensor] = None):
         values = schedule_vectors(cfg, state.base_seed, state.step, state.opt_state.count, 1)
         seeds, beta, ss, lr = unpack(_device_values(values, codes.device, staging))
-        seed = seeds[0]
-        if host_seed_reason(cfg, codes.device) is not None:
-            seed = fold_in(state.base_seed, state.step)
-        metrics = step_body(cfg, state, codes, props, seed, beta[0], ss[0], lr[0])
+        metrics = step_body(cfg, state, codes, props, seeds[0], beta[0], ss[0], lr[0])
         state.opt_state.count += 1
         return state._replace(step=state.step + 1), metrics
 
@@ -369,6 +368,7 @@ class CapturedChunk:
                  props_stack: Optional[torch.Tensor], values: np.ndarray):
         dev = codes_stack.device
         self.key = _chunk_key(state, codes_stack, props_stack)
+        self.written = _state_tensors(state)
         self.staging = PinnedStaging(dev)
         self.codes = codes_stack.clone()
         self.props = None if props_stack is None else props_stack.clone()
@@ -394,25 +394,37 @@ class CapturedChunk:
 
     def replay(self, codes_stack: torch.Tensor, props_stack: Optional[torch.Tensor], values: np.ndarray):
         """The per-chunk host work: one copy of the stack into the static
-        input (and of the properties), one of the values, one replay."""
+        input (and of the properties), one of the values, one replay. A
+        replay writes the state's tensors as the captured steps' in-place
+        ops do, but only capture advanced their version counters: they are
+        advanced again here, so what is keyed by a weight's version (the
+        persistent decode's packed weights, ``kernels.generate``) sees the
+        new weights."""
         self.codes.copy_(codes_stack)
         if self.props is not None:
             self.props.copy_(props_stack)
         self.staging.copy(values.shape, torch.int32, lambda buf: np.copyto(buf, values), out=self.values)
         self.graph.replay()
+        for t in self.written:
+            increment_version(t)
         return self.metrics
+
+
+def _state_tensors(state: TrainState) -> list:
+    """The state's tensors that a step writes in place: weights, Adam
+    state, learning rate, EMA."""
+    opt = state.opt_state
+    return [*opt.params, opt.lr, *(t for p in opt.params for t in opt.adam.state[p].values()),
+            *(state.ema_params or {}).values()]
 
 
 def _chunk_key(state: TrainState, codes_stack, props_stack) -> Tuple:
     """What a captured chunk is bound to: the addresses of the state's
-    tensors (weights, Adam state, learning rate, EMA), which the graph reads
-    and writes in place, and the inputs' shapes and types. A state whose
-    tensors moved is captured anew."""
-    opt = state.opt_state
-    tensors = [*opt.params, opt.lr, *(t for p in opt.params for t in opt.adam.state[p].values()),
-               *(state.ema_params or {}).values()]
+    tensors (``_state_tensors``), which the graph reads and writes in
+    place, and the inputs' shapes and types. A state whose tensors moved
+    is captured anew."""
     props = None if props_stack is None else (tuple(props_stack.shape), props_stack.dtype)
-    return (tuple(t.data_ptr() for t in tensors), tuple(codes_stack.shape), codes_stack.dtype, props)
+    return (tuple(t.data_ptr() for t in _state_tensors(state)), tuple(codes_stack.shape), codes_stack.dtype, props)
 
 
 def make_train_chunk(cfg, chunk: int, device: Optional[Union[str, torch.device]] = None):
@@ -428,17 +440,12 @@ def make_train_chunk(cfg, chunk: int, device: Optional[Union[str, torch.device]]
     values, and replays, with no host sync. The stack must lie on the card
     (``data.BatchIterator(..., device=...).next_stack``). The metrics are
     the graph's buffers, rewritten by the next call: read or copy them
-    before it. A configuration whose step cannot be captured raises
-    (``host_seed_reason``); it never falls back to eager steps. On the CPU
-    (``device="cpu"``) the chunk is K eager steps through the same body."""
+    before it. Every configuration is captured (each sampler path reads its
+    seed on the device); the chunk never falls back to eager steps. On the
+    CPU (``device="cpu"``) the chunk is K eager steps through the same body."""
     if chunk < 1:
         raise ValueError(f"make_train_chunk: chunk must be >= 1, got {chunk}")
-    want = torch.device("cuda" if device is None else device)
-    if want.type == "cuda":
-        reason = host_seed_reason(cfg, want)
-        if reason is not None:
-            raise ValueError(f"make_train_chunk: {cfg.name} cannot be captured in a CUDA Graph: {reason}")
-    dev = resolve_device(want)
+    dev = resolve_device(device)
     step = make_train_step(cfg)
     graphs: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
 
@@ -483,3 +490,296 @@ def make_eval_step(cfg):
         return metrics
 
     return eval_step
+
+
+# -- the training loop ---------------------------------------------------------
+
+_PROBE_SALT = 0x7EED5EED  # the round-trip probe's seed, disjoint from the train steps' and the eval's
+
+
+def _cadence_crossed(every: int, prev_step: int, now_step: int) -> bool:
+    """True iff a multiple of ``every`` lies in (prev_step, now_step].
+
+    A chunk advances K steps per host iteration; eval and checkpoint
+    actions run at chunk boundaries, so they fire at most once per host
+    iteration: once per crossed window when ``every >= K``, once per chunk
+    (not per window) when ``every`` is smaller than K, which ``train``
+    warns about."""
+    return every > 0 and now_step // every > prev_step // every
+
+
+class PosteriorCollapseError(RuntimeError):
+    """Raised by ``train`` when the posterior-collapse guard trips
+    (``TrainConfig.collapse_std_floor`` / ``collapse_abort``). The run
+    checkpoints before raising (when checkpointing is on), so the state at
+    the moment of detection is recoverable."""
+
+
+def _warn(msg: str) -> None:
+    print(f"[molvax] {msg}", file=sys.stderr)
+
+
+def train(
+    cfg,
+    dataset=None,
+    eval_dataset=None,
+    device: Optional[Union[str, torch.device]] = None,
+    metrics_path: Optional[str] = None,
+    max_steps: Optional[int] = None,
+    verbose: bool = True,
+) -> Tuple[TrainState, list]:
+    """End-to-end training per config (the reference's ``train``,
+    ``loop.py:286-740``). Returns (final state, metric history).
+
+    Runs on ``device``, the card unless the caller asks for the CPU (data
+    parallelism is not ported). The K-step chunk (``make_train_chunk``, one
+    CUDA Graph on the card) runs wherever ``step + K <= total``, single
+    steps of ``make_train_step`` the tail; each step is logged at its own
+    cadence from the chunk's stacked metrics, pulled to the host in one
+    copy before the next replay rewrites them. With
+    ``cfg.train.eval_every`` set, a held-out eval (teacher-forced ELBO and
+    recon accuracy, and the free-running round-trip probe when
+    ``eval_roundtrip_n > 0``) runs on ``eval_dataset`` (or a split carved
+    from ``dataset``) with the weights inference reads (the EMA where there
+    is one, for both) and logs metrics prefixed ``eval_``.
+
+    With ``cfg.train.checkpoint_dir`` set: ``charset.json`` and
+    ``config.json`` beside the checkpoints; the latest checkpoint restored
+    and the data and eval streams fast-forwarded to it, so a resumed run
+    takes the batches an uninterrupted one would; a checkpoint at the
+    cadence and at the end; on SIGTERM / SIGINT the current chunk or step
+    ends, the run checkpoints and returns (a second signal kills the
+    process with the default disposition; the handlers are restored when
+    ``train`` returns or raises). ``select_best`` keeps device copies of
+    the weights (and EMA) with the best probe, writes them to ``best/``
+    (with ``best/probe.json``) and returns them; a standing ``best/`` that
+    this run did not beat is loaded back, unless it is incompatible. The
+    posterior-collapse guard reads ``post_std_batch`` at log cadence.
+    Nothing falls back: a checkpoint that cannot be restored raises
+    (``io.checkpoint``), and the chunk never gives way to eager steps."""
+    dev = resolve_device(device)
+    t = cfg.train
+    if dataset is None:
+        dataset = load_dataset(cfg.data.source, max_len=cfg.data.max_len, synthetic_n=cfg.data.n_synthetic,
+                               seed=cfg.data.seed, with_properties=cfg.model.n_properties > 0,
+                               property_source=cfg.data.property_source)
+    cfg = effective_config(cfg, dataset)
+    if eval_dataset is None and t.eval_every:
+        dataset, eval_dataset = dataset.split(cfg.data.test_fraction, cfg.data.seed)
+    with_props = cfg.model.n_properties > 0
+    it = BatchIterator(dataset, t.batch_size, seed=t.seed, device=dev, with_properties=with_props)
+    state = init_state(cfg, device=dev)
+    train_step = make_train_step(cfg)
+    total_steps = max_steps if max_steps is not None else (t.steps or t.epochs * max(it.steps_per_epoch, 1))
+
+    manager = None
+    if t.checkpoint_dir:
+        manager = ckpt_io.make_manager(t.checkpoint_dir, keep=t.keep_checkpoints)
+        # inference decodes with the exact table the model was trained on,
+        # and the directory alone is enough to restore
+        with open(os.path.join(t.checkpoint_dir, "charset.json"), "w") as f:
+            json.dump(list(dataset.charset.chars), f)
+        with open(os.path.join(t.checkpoint_dir, "config.json"), "w") as f:
+            json.dump(to_dict(cfg), f, indent=1)
+        restored = manager.restore_latest(state)
+        if restored is not None:
+            state = restored
+
+    eval_step = eval_it = None
+    if t.eval_every and t.eval_batches > 0 and eval_dataset is not None and len(eval_dataset) > 0:
+        eval_step = make_eval_step(cfg)
+        eval_it = BatchIterator(eval_dataset, t.batch_size, seed=t.seed + 1, device=dev, with_properties=with_props)
+    if t.eval_roundtrip_n > 0 and eval_step is None:
+        _warn("eval_roundtrip_n > 0 needs eval_every > 0, eval_batches > 0 and a held-out split; "
+              "the round-trip probe will not run")
+
+    chunk = max(1, t.train_chunk_size)
+    if chunk > 1:
+        for name, every in (("eval_every", t.eval_every), ("checkpoint_every", t.checkpoint_every)):
+            if every and every < chunk:
+                _warn(f"{name}={every} < train_chunk_size={chunk}: actions fire at chunk boundaries, at most "
+                      "once per chunk (raise the cadence or shrink the chunk)")
+    train_chunk = make_train_chunk(cfg, chunk, device=dev) if chunk > 1 else None
+
+    select_best = t.select_best
+    best = {"metric": -1.0, "params": None, "ema": None, "step": -1}
+    if select_best and (t.eval_roundtrip_n <= 0 or eval_step is None):
+        _warn("select_best needs eval_every > 0, eval_batches > 0, eval_roundtrip_n > 0 and a held-out split; "
+              "falling back to last-step selection")
+        select_best = False
+    best_dir = os.path.join(t.checkpoint_dir, "best") if t.checkpoint_dir else None
+    best_meta_path = os.path.join(best_dir, "probe.json") if best_dir else None
+    if select_best and best_meta_path and os.path.exists(best_meta_path):
+        # a rerun on this directory must not let a worse segment overwrite best/
+        with open(best_meta_path) as f:
+            prior = json.load(f)
+        best["metric"] = float(prior.get("metric", -1.0))
+        best["step"] = int(prior.get("step", -1))
+        _warn(f"select_best: existing best/ has probe {best['metric']:.4f} at step {best['step']}; this run only "
+              "replaces it if beaten")
+
+    def consider_best(metric: float, st: TrainState, at_step: int) -> None:
+        if metric > best["metric"]:
+            # device copies of what inference reads (weights and EMA); not
+            # the Adam moments, which would hold ~2x the weights' bytes
+            best["metric"] = metric
+            best["params"] = {n: p.detach().clone() for n, p in st.params.named_parameters()}
+            best["ema"] = None if st.ema_params is None else {n: e.clone() for n, e in st.ema_params.items()}
+            best["step"] = at_step
+
+    guard_floor = t.collapse_std_floor
+    guard = {"warned": False}
+    if guard_floor > 0 and t.log_every <= 0:
+        _warn("collapse_std_floor set but log_every=0: the guard only checks at log cadence and will never fire")
+
+    def collapse_check(entry: dict) -> None:
+        v, s = entry.get("post_std_batch"), entry["step"]
+        if guard_floor <= 0 or v is None or s < t.collapse_guard_after:
+            return
+        if v >= guard_floor:
+            guard["warned"] = False
+            return
+        msg = (f"[molvax] posterior collapse detected at step {s}: post_std_batch={v:.4g} < "
+               f"collapse_std_floor={guard_floor:g} (aggregate-z spread collapsed; see "
+               "TrainConfig.collapse_std_floor)")
+        if t.collapse_abort:
+            if manager is not None:
+                # under the host step: detection at step s may sit mid-chunk,
+                # while ``state`` is already the chunk's last
+                manager.save(step_now, state)
+                manager.wait_until_finished()
+                msg += f" — checkpointed at step {step_now}"
+            raise PosteriorCollapseError(msg)
+        if not guard["warned"]:
+            print(msg + " - continuing (collapse_abort=False)", file=sys.stderr)
+            guard["warned"] = True
+
+    def roundtrip_probe(st: TrainState) -> Dict[str, float]:
+        """The free-running round-trip probe on the weights inference reads."""
+        gen = torch.Generator().manual_seed(fold_in(st.base_seed, _PROBE_SALT))
+        return reconstruction_metrics(ema_eval_state(st).params, cfg, eval_dataset, gen,
+                                      n=min(t.eval_roundtrip_n, len(eval_dataset)))
+
+    logger = MetricsLogger(metrics_path, stream=sys.stderr if verbose else False)
+    history = []
+    last_probe = {"step": -1, "metric": -1.0}
+    stop = {"flag": False}
+    old_handlers = {}
+    step_now = state.step
+    try:
+        # preemption: finish the current chunk or step, checkpoint, return
+        if manager is not None and threading.current_thread() is threading.main_thread():
+
+            def on_signal(signum, frame):
+                if stop["flag"]:
+                    # the second signal: the default disposition, delivered
+                    # again, so the process dies even if a device call hangs
+                    signal.signal(signum, signal.SIG_DFL)
+                    os.kill(os.getpid(), signum)
+                    return
+                stop["flag"] = True
+
+            for sig in (signal.SIGTERM, signal.SIGINT):
+                old_handlers[sig] = signal.signal(sig, on_signal)
+        if step_now > 0:
+            # the shuffle replayed: one batch per optimizer step, and the
+            # eval stream's eval_batches per crossed cadence window
+            it.fast_forward(step_now)
+            if eval_it is not None:
+                eval_it.fast_forward((step_now // t.eval_every) * t.eval_batches)
+        while step_now < total_steps:
+            prev_step = step_now
+            if train_chunk is not None and step_now + chunk <= total_steps:
+                codes_stack, props_stack = it.next_stack(chunk)
+                state, stacked = train_chunk(state, codes_stack, props_stack)
+                step_now += chunk
+                if t.log_every > 0:
+                    rows = None
+                    for i in range(chunk):
+                        s = prev_step + i + 1
+                        if s % t.log_every == 0 or s == total_steps:
+                            if rows is None:
+                                rows = host_rows(stacked)
+                            entry = logger.log(s, rows[i])
+                            history.append(entry)
+                            collapse_check(entry)
+            else:
+                codes, props = next(it)
+                state, metrics = train_step(state, codes, props)
+                step_now += 1
+                if t.log_every > 0 and (step_now % t.log_every == 0 or step_now == total_steps):
+                    entry = logger.log(step_now, metrics)
+                    history.append(entry)
+                    collapse_check(entry)
+            if eval_step is not None and _cadence_crossed(t.eval_every, prev_step, step_now):
+                ev = ema_eval_state(state)
+                acc = []
+                for _ in range(t.eval_batches):
+                    e_codes, e_props = next(eval_it)
+                    acc.append(eval_step(ev, e_codes, e_props))
+                mean = {f"eval_{k}": torch.stack([m[k] for m in acc]).mean() for k in acc[0]}
+                if t.eval_roundtrip_n > 0:
+                    rt = roundtrip_probe(ev)
+                    mean.update({f"eval_{k}": v for k, v in rt.items()})
+                    last_probe.update(step=step_now, metric=rt["recon_char_acc_nonpad"])
+                    if select_best:
+                        consider_best(rt["recon_char_acc_nonpad"], state, step_now)
+                history.append(logger.log(step_now, mean))
+            if manager is not None and _cadence_crossed(t.checkpoint_every, prev_step, step_now):
+                manager.save(step_now, state)
+            if stop["flag"]:
+                _warn(f"signal received: checkpointing at step {step_now} and stopping")
+                break
+        if manager is not None:
+            manager.save(step_now, state)
+            manager.wait_until_finished()
+        if select_best:
+            # the final iterate competes too, unless the cadence probe
+            # already measured this step
+            if last_probe["step"] == step_now:
+                final_metric = last_probe["metric"]
+            else:
+                final_metric = roundtrip_probe(state)["recon_char_acc_nonpad"]
+                consider_best(final_metric, state, step_now)
+            if best["params"] is not None:
+                if best["step"] != step_now:
+                    _warn(f"select_best: step {best['step']} probe {best['metric']:.4f} beats final step "
+                          f"{step_now} ({final_metric:.4f}); returning it")
+                # the winner into the state's own tensors; the Adam state
+                # stays the last step's (best/ is for inference, resume
+                # reads the last-step checkpoints)
+                with torch.no_grad():
+                    for n, p in state.params.named_parameters():
+                        p.copy_(best["params"][n])
+                    for n, e in (best["ema"] or {}).items():
+                        state.ema_params[n].copy_(e)
+                state = state._replace(step=best["step"])
+                if manager is not None:
+                    best_mgr = ckpt_io.make_manager(best_dir, keep=1)
+                    # forced: a stale best/ may hold a later step
+                    best_mgr.save(best["step"], state, force=True)
+                    best_mgr.wait_until_finished()
+                    with open(best_meta_path, "w") as f:
+                        json.dump({"step": best["step"], "metric": best["metric"]}, f)
+            elif best["step"] >= 0:
+                _warn(f"select_best: existing best/ (probe {best['metric']:.4f} at step {best['step']}) stands; "
+                      "this run did not beat it")
+                # train() returns the selected iterate: the standing winner,
+                # unless best/ is incompatible with this config (failing
+                # here would discard the whole run)
+                try:
+                    restored = ckpt_io.make_manager(best_dir, keep=1).restore_latest(init_state(cfg, device=dev))
+                except ValueError as e:
+                    _warn(f"select_best: standing best/ is incompatible with this config ({e}); returning this "
+                          "run's final state instead")
+                    restored = None
+                if restored is not None:
+                    state = restored
+    finally:
+        # the handlers and the log are restored and closed even when the
+        # loop raises: a stale handler would leave the process unkillable
+        # by one signal for the rest of its life
+        for sig, h in old_handlers.items():
+            signal.signal(sig, h)
+        logger.close()
+    return state, history

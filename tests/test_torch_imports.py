@@ -35,7 +35,9 @@ def test_import_pulls_in_no_jax():
         "import molvax_torch.probes.auto_loop_probe, molvax_torch.probes.capture_probe\n"
         "import molvax_torch.data, molvax_torch.data.native, molvax_torch.data.zinc, molvax_torch.data.molgen\n"
         "import molvax_torch.data.properties, molvax_torch.data.pipeline, molvax_torch.data.featurize\n"
-        "from molvax_torch.train import make_train_chunk, effective_config\n"
+        "from molvax_torch.train import make_train_chunk, effective_config, train, reconstruction_metrics\n"
+        "import molvax_torch.train.metrics, molvax_torch.train.evaluate, molvax_torch.io.checkpoint\n"
+        "import molvax_torch.latent.interpolate, molvax_torch.latent.optimize, molvax_torch.latent.embed\n"
         "bad = [m for m in sys.modules if m in ('jax', 'molvax', 'bench') "
         "or m.startswith(('jax.', 'molvax.', 'bench.'))]\n"
         "assert not bad, bad\n"

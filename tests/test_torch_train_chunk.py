@@ -205,24 +205,93 @@ def test_fp32_chunk_tracks_the_reference_chunk():
 
 
 def test_chunk_refuses_on_the_card_what_it_cannot_capture():
-    """The plain sampler path seeds a torch.Generator with a host int per
-    step, which a graph would freeze: on the card the chunk raises with
-    the reason and never runs eager steps in its place; on the CPU it is
-    K eager steps like any other."""
-    for cfg in (_cfg("fp32"), dataclasses.replace(_cfg("zinc250k"), model=dataclasses.replace(
-            _cfg("zinc250k").model, use_pallas=False))):
-        assert "torch.Generator" in tloop.host_seed_reason(cfg, "cuda")
-        for dev in ("cuda", torch.device("cuda", 0), None):
-            with pytest.raises(ValueError, match="cannot be captured in a CUDA Graph.*torch.Generator"):
-                make_train_chunk(cfg, 4, device=dev)
+    """Every sampler path reads its seed on the device (the plain path
+    draws the fused sampler's eps), so strict fp32 and
+    ``use_pallas`` off no longer raise a graph reason: on the card they
+    are captured like any other configuration, and on this CPU-only host
+    asking for the card raises "CUDA is not available" instead. A bad K
+    still raises."""
+    plain = dataclasses.replace(_cfg("zinc250k"), model=dataclasses.replace(_cfg("zinc250k").model, use_pallas=False))
+    assert not hasattr(tloop, "host_seed_reason")
+    for cfg in (_cfg("fp32"), plain, _cfg("zinc250k"), _cfg("quality")):
         make_train_chunk(cfg, 4, device="cpu")
-    assert tloop.host_seed_reason(_cfg("zinc250k"), "cuda") is None
-    assert tloop.host_seed_reason(_cfg("quality"), "cpu") is None
-    if not torch.cuda.is_available():
-        with pytest.raises(RuntimeError, match="CUDA is not available"):
-            make_train_chunk(_cfg("zinc250k"), 4)
+        if not torch.cuda.is_available():
+            for dev in ("cuda", torch.device("cuda", 0), None):
+                with pytest.raises(RuntimeError, match="CUDA is not available"):
+                    make_train_chunk(cfg, 4, device=dev)
     with pytest.raises(ValueError, match="chunk must be"):
         make_train_chunk(_cfg("zinc250k"), 0, device="cpu")
+
+
+@pytest.mark.parametrize("seed_kind", ["int", "tensor"])
+def test_plain_sampler_path_draws_the_fused_samplers_eps(seed_kind):
+    """The plain path (strict fp32, or ``use_pallas`` off) forms
+    z = mu + eps_scale * exp(logvar / 2) * sample_eps(seed), for an int
+    seed and for a 0-d int32 tensor seed alike; at eps_scale = 1 that is
+    ``fused_sample_kl_ref``'s z bit for bit."""
+    from molvax_torch.kernels import sampler
+    from molvax_torch.nn import vae
+
+    seed_int = 0x9E3779B9
+    seed = seed_int if seed_kind == "int" else torch.tensor(seed_int, dtype=torch.int64).to(torch.int32)
+    for eps_scale in (0.02, 1.0):
+        cfg = _cfg("fp32")
+        cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, eps_scale=eps_scale))
+        state = init_state(cfg, seed=3, device="cpu")
+        codes, _ = _stack(cfg, 1)
+        with torch.no_grad():
+            out = vae.forward(state.params, cfg.model, seed, codes[0])
+            mu, logvar = vae.encode(state.params, cfg.model, codes[0])
+        assert torch.equal(out.mu, mu) and torch.equal(out.logvar, logvar) and out.kl is None
+        eps = sampler.sample_eps(seed_int, mu.shape[0], mu.shape[1], mu.device)
+        assert torch.equal(out.z, mu + eps_scale * torch.exp(0.5 * logvar) * eps)
+        if eps_scale == 1.0:
+            z_ref, _ = sampler.fused_sample_kl_ref(seed, mu, logvar, 1.0)
+            assert torch.equal(out.z, z_ref)
+
+
+def test_strict_conv_backward_is_deterministic_without_tf32(monkeypatch):
+    """A strict-fp32 conv of the plain encoder runs its forward with TF32
+    off, and its backward under flags of its own (autograd runs it after
+    the forward's are gone): the input gradient on cuDNN's deterministic
+    algorithms with TF32 off, the weight gradient as one fp32 GEMM over
+    (batch, position). Values equal ``F.conv1d``'s, gradients within fp32
+    summation order (2e-6 of their largest entry), the same bits on every
+    run; the flags are restored after."""
+    from molvax_torch.nn import encoder
+
+    calls = []
+    real = encoder._strict_flags
+
+    def flags(deterministic):
+        calls.append((torch.is_grad_enabled(), deterministic))
+        return real(deterministic)
+
+    monkeypatch.setattr(encoder, "_strict_flags", flags)
+    before = (torch.backends.cudnn.deterministic, torch.backends.cudnn.allow_tf32)
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(6, 5, 19, generator=g, requires_grad=True)
+    w = torch.randn(3, 5, 4, generator=g, requires_grad=True)
+    b = torch.randn(3, generator=g, requires_grad=True)
+    out = encoder.conv1d(x, w, b, torch.float32)
+    want = torch.nn.functional.conv1d(x, w) + b[None, :, None]
+    assert torch.equal(out, want)
+    grads = torch.autograd.grad(out.square().sum(), (x, w, b))
+    for got, ref in zip(grads, torch.autograd.grad(want.square().sum(), (x, w, b))):
+        assert got.shape == ref.shape
+        assert (got - ref).abs().max().item() <= 2e-6 * ref.abs().max().item()
+    again = torch.autograd.grad(encoder.conv1d(x, w, b, torch.float32).square().sum(), (x, w, b))
+    assert all(torch.equal(a, c) for a, c in zip(grads, again))
+    assert calls[:2] == [(False, before[0]), (False, True)]
+    calls.clear()
+    xs = x.detach()  # the one-hot input of the first conv: no input gradient, no transposed conv
+    (gw,) = torch.autograd.grad(encoder.conv1d(xs, w, b, torch.float32).sum(), (w,))
+    assert calls == [(False, before[0])] and gw.shape == w.shape
+    encoder.conv1d(x, w, b, torch.bfloat16)  # bf16 operands are exact in TF32: cuDNN's own flags
+    assert len(calls) == 1
+    with real(True):
+        assert torch.backends.cudnn.deterministic and not torch.backends.cudnn.allow_tf32
+    assert (torch.backends.cudnn.deterministic, torch.backends.cudnn.allow_tf32) == before
 
 
 def test_chunk_checks_its_inputs():
@@ -284,6 +353,36 @@ def test_encoder_backward_runs_on_deterministic_cudnn(monkeypatch):
             torch.backends.cudnn.allow_tf32) == before
 
 
+def test_a_replay_advances_the_versions_of_what_it_writes():
+    """A CUDA Graph replay updates the weights, Adam state, learning rate
+    and EMA in place without the version-counter bumps of the eager ops
+    (only capture made those): ``CapturedChunk.replay`` advances them, so
+    the persistent decode's packed weights (keyed by each weight's version)
+    are rebuilt after a chunk. The graph and the pinned copy are stood in
+    for here: the card is needed for the real ones."""
+    from types import SimpleNamespace
+
+    cfg = _cfg("props")
+    state = init_state(cfg, seed=0, device="cpu")
+    codes, props = _stack(cfg, 2)
+    captured = tloop.CapturedChunk.__new__(tloop.CapturedChunk)
+    captured.codes, captured.props = codes.clone(), props.clone()
+    captured.values = torch.empty((4, 2), dtype=torch.int32)
+    captured.staging = SimpleNamespace(copy=lambda shape, dtype, fill, out: fill(out.numpy()) or out)
+    replays = []
+    captured.graph = SimpleNamespace(replay=lambda: replays.append(1))
+    captured.metrics = {"loss": torch.zeros(2)}
+    captured.written = tloop._state_tensors(state)
+    tensors = tloop._state_tensors(state)
+    assert {id(p) for p in state.params.parameters()} <= {id(t) for t in tensors}
+    assert all(id(e) in {id(t) for t in tensors} for e in state.ema_params.values())
+    before = [t._version for t in tensors]
+    values = tloop.schedule_vectors(cfg, state.base_seed, 0, 0, 2)
+    assert captured.replay(codes, props, values) is captured.metrics and replays == [1]
+    assert all(t._version > v for t, v in zip(tensors, before))
+    assert torch.equal(captured.values, torch.from_numpy(values))
+
+
 def test_a_captured_chunk_is_bound_to_where_the_state_lies():
     """The graph reads and writes the state's tensors in place: its key
     holds their addresses, so a step (in place) keeps it and a state whose
@@ -292,7 +391,7 @@ def test_a_captured_chunk_is_bound_to_where_the_state_lies():
     state = init_state(cfg, seed=0, device="cpu")
     codes, props = _stack(cfg, 2)
     step = make_train_step(cfg)
-    state, _ = step(state, codes[0], props[0])  # on the CPU torch makes Adam's state at the first update
+    state, _ = step(state, codes[0], props[0])
     key = tloop._chunk_key(state, codes, props)
     state, _ = step(state, codes[1], props[1])
     assert tloop._chunk_key(state, codes, props) == key
