@@ -67,12 +67,15 @@ phases, each printed on its own lines:
      both on the persistent route (input-gate GEMM and recurrence; sweep, dx
      GEMM, one dW GEMM over spans of steps and the sum of the spans), each
      with its exact launches, residual dtypes and two backward runs bit for
-     bit, the fp32 kernels' errors printed beside the in-kernel instance's
-     on the same inputs; the in-kernel instance at a width no layout takes
-     (bf16 H=2304, fp32 H=1536, B=16); fp32 where the sweep keeps its warp
-     tiles (B=64, H=200); gru_layer_scan forward and backward;
-     then gru_layer_scan's own path, a 3-layer hoisted-gi decode through its
-     autograd wrapper, counting launches;
+     bit, and the in-kernel instance (csrc/gru_layer.cu's persistent
+     forward and sweep) on the same inputs, held to the same gates, its
+     backward twice bit for bit; the in-kernel instance where it is the
+     route, at widths no layout takes (I=329; bf16 H=2304 and fp32 H=1536 at
+     B=16, T=16 and at B=256, T=120; bf16 H=4096, B=16, T=16, its W_hh
+     streamed from device memory), each with its plan; fp32 where the sweep
+     keeps its warp tiles (B=64, H=200); gru_layer_scan forward and
+     backward; then gru_layer_scan's own path, a 3-layer hoisted-gi decode
+     through its autograd wrapper, counting launches;
  13. the zinc250k_quality training step (per-layer kernels, two-pass
      scheduled sampling) through the public functions: 20 steps on the
      kernel route with exact launch counts per step (per layer and forward
@@ -86,11 +89,14 @@ phases, each printed on its own lines:
      each; the in-kernel instance, encoder and sampler 0), loss falls, 3
      plain-route steps within 1e-4, with the TF32 switches;
  15. times: both new train steps on both routes, each per-layer kernel
-     against its plain version in bf16 and fp32 (and fp32's in-kernel
-     instance), the forward's and backward's device time by kernel in both,
-     the library yardsticks (torch.nn.GRU on cuDNN, torch.matmul for the dW
-     contraction) in the same call, the device-time split of one step of
-     each, and peak device memory;
+     against its plain version in bf16 and fp32, the in-kernel instance's
+     forward and backward (dx in a GEMM after the sweep and inside it) at
+     layers 0 and 1 and its pair's total against the persistent route's
+     (the route decision), the forward's and backward's device time by
+     kernel on both routes, the library yardsticks (torch.nn.GRU on cuDNN,
+     torch.matmul for the dW contraction) in the same call, the in-kernel
+     instance and cuDNN at bf16 H=2304 and fp32 H=1536 (B=256, T=120), the
+     device-time split of one step of each, and peak device memory;
  16. the automaton kernel (csrc/automaton.cu) against its plain version at
      zinc250k_quality width, B=256: a 120-step greedy walk from seeded
      scores (codes and packed state identical at every step), the same walk
@@ -116,7 +122,8 @@ phases, each printed on its own lines:
      forward's two probe modes (gru_probe_scan, run_variant's) and the
      stack forward's fused3 mode (gru_fused3_scan) within the bf16 gate;
      floor_loop bit for bit, at the probe's three shapes; gru_layer_scan_x's
-     in-kernel forward (fwd_gi's kernel) at fwd_gi's I=330;
+     in-kernel forward (fwd_gi's kernel) at fwd_gi's I=330, and its
+     backward (two runs bit for bit);
  20. the three probe modules (molvax_torch/probes/): each run once with its
      launches counted (every probe kernel once), then their tables: the
      recurrence step decomposed (matmul_only, gates_nostore, full) at H=501
@@ -202,7 +209,7 @@ from molvax_torch.kernels import generate as kg
 from molvax_torch.latent import constrain as kcon
 from molvax_torch.latent.beam import beam_generate, beam_reconstruct
 from molvax_torch.latent.sample import generate, reconstruct, sample_prior
-from molvax_torch.nn.decoder import latent_embed, teacher_inputs
+from molvax_torch.nn.decoder import decoder_input_size, latent_embed, teacher_inputs
 from molvax_torch.nn.encoder import conv_input_channels, encoder_params, flat_conv_dim
 from molvax_torch.nn.gru import gru_layers
 from molvax_torch.nn.vae import MolecularVAE, encode
@@ -365,7 +372,7 @@ def reset_counts() -> None:
     kg.launches = kg.persistent_launches = kg.row_block_launches = conv_enc.launches = sampler.launches = 0
     gru_stack.gemm_gi_launches = gru_stack.rec_launches = gru_stack.sweep_launches = 0
     gru_stack.gemm_dx_launches = gru_stack.dw_launches = 0
-    kgru.layer_fwd_launches = kgru.layer_bwd_launches = kgru.layer_dw_launches = 0
+    kgru.layer_fwd_launches = kgru.layer_bwd_launches = 0
     kgru.layer_gi_launches = kgru.layer_rec_launches = kgru.layer_sweep_launches = 0
     kgru.layer_dx_launches = kgru.layer_gemm_dw_launches = kgru.layer_dw_sum_launches = 0
     kgru.scan_fwd_launches = kgru.scan_bwd_launches = 0
@@ -394,7 +401,6 @@ def counts() -> dict:
         "gru_layer_dw_sum": kgru.layer_dw_sum_launches,
         "gru_layer_scan_x_fwd": kgru.layer_fwd_launches,
         "gru_layer_scan_x_bwd_sweep": kgru.layer_bwd_launches,
-        "gru_layer_bwd_dw": kgru.layer_dw_launches,
         "gru_layer_scan_fwd": kgru.scan_fwd_launches,
         "gru_layer_scan_bwd_sweep": kgru.scan_bwd_launches,
         "auto_step": kauto.step_launches,
@@ -599,7 +605,8 @@ LAYER_SOURCES = STACK_SOURCES + ["molvax_torch/kernels/csrc/gru_layer.cu"]
 STACK_KERNELS = (("gemm_kernel<true, true, 0,", "gemm_gi"), ("gemm_kernelILb1ELb1ELi0E", "gemm_gi"),
                  ("gemm_kernel<true, false, 1,", "gemm_dx"), ("gemm_kernelILb1ELb0ELi1E", "gemm_dx"),
                  ("gemm_kernel<false, false, 2,", "gemm_dw"), ("gemm_kernelILb0ELb0ELi2E", "gemm_dw"),
-                 ("gru_rec_kernel", "recurrence"), ("gru_sweep_kernel", "sweep"), ("sum_parts_kernel", "dw_sum"))
+                 ("gru_rec_kernel", "recurrence"), ("gru_sweep_kernel", "sweep"), ("sum_parts_kernel", "dw_sum"),
+                 ("layer_fwd_kernel", "layer_fwd"), ("layer_sweep_kernel", "layer_sweep"))
 
 
 def stack_split(fn) -> dict:
@@ -753,27 +760,39 @@ def _check_grads(what, names, grads_k, grads_r, rel_tol, **kv):
 
 def saved_x(args, md):
     """gru_layer_scan_x's input x as its autograd wrapper saves it for the
-    backward: on the persistent route the padded copy in md that the
-    forward's GEMM read and the dW GEMM reads again, else x."""
-    x, h0 = args[0], args[5]
-    persistent = kgru._persistent(md, x.shape[1], h0.shape[-1], gru_stack.card_limits(x.device))
-    return gru_stack._padded(x, md) if persistent else x
+    backward: the padded copy in md that the forward read and the dW GEMM
+    reads again, on either route."""
+    return gru_stack._padded(args[0], md)
 
 
-def layer_launches(md, B: int, H: int, fwd: int, bwd: int) -> dict:
+def layer_launches(md, B: int, I: int, H: int, fwd: int, bwd: int) -> dict:
     """The launches of ``fwd`` forwards and ``bwd`` backwards of one
     gru_layer_scan_x layer on the route its shape takes: per batch slice of
     the plan a recurrence and a sweep, the GEMMs and the dW parts' sum; or
-    the in-kernel instance's forward, sweep and dW contraction."""
+    per slice of layer_plan the in-kernel forward and sweep, then the same
+    dx and dW GEMMs and sum."""
     limits = gru_stack.card_limits(DEVICE)
+    gemms = {"gru_layer_gemm_dx": bwd, "gru_layer_gemm_dw": bwd, "gru_layer_dw_sum": bwd}
     if kgru._persistent(md, B, H, limits):
         n = gru_stack.stack_plan(B, H, *limits, esize=md.itemsize).slices
-        return {"gru_layer_gemm_gi": fwd, "gru_layer_rec": n * fwd, "gru_layer_sweep": n * bwd,
-                "gru_layer_gemm_dx": bwd, "gru_layer_gemm_dw": bwd, "gru_layer_dw_sum": bwd}
-    return {"gru_layer_scan_x_fwd": fwd, "gru_layer_scan_x_bwd_sweep": bwd, "gru_layer_bwd_dw": bwd}
+        return {"gru_layer_gemm_gi": fwd, "gru_layer_rec": n * fwd, "gru_layer_sweep": n * bwd, **gemms}
+    n = kgru.layer_plan(B, I, H, *limits, esize=md.itemsize).slices
+    return {"gru_layer_scan_x_fwd": n * fwd, "gru_layer_scan_x_bwd_sweep": n * bwd, **{k: v for k, v in gemms.items() if v}}
 
 
-IN_KERNEL_ERR = [0.0, 0.0]  # check_layer_x's largest in-kernel errors, forward and gradients
+def model_layer_launches(mcfg, md, fwd: int, bwd: int) -> dict:
+    """layer_launches summed over a decoder's GRU layers at B (layer 0 reads
+    the decoder's input, the others H wide)."""
+    out = {}
+    for l in range(mcfg.gru_layers):
+        I = decoder_input_size(mcfg) if l == 0 else mcfg.gru_hidden
+        for k, v in layer_launches(md, B, I, mcfg.gru_hidden, fwd, bwd).items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
+# check_layer_x's largest in-kernel errors at the presets' widths, forward and gradients, by storage type
+IN_KERNEL_ERR = {torch.bfloat16: [0.0, 0.0], torch.float32: [0.0, 0.0]}
 
 
 def check_layer_x(args, md, dY, **kv):
@@ -813,29 +832,35 @@ def check_layer_x(args, md, dY, **kv):
     twice = all(torch.equal(a, b) for a, b in zip(grads_k, grads_again))
     say("phase12", kernel="gru_layer_scan_x", launches=json.dumps(got).replace(" ", ""),
         backward_twice_bit_identical=twice, **kv)
-    if got != layer_launches(md, B, H, 1, 2) or not twice:
+    if got != layer_launches(md, B, I, H, 1, 2) or not twice:
         raise AssertionError(f"gru_layer_scan_x ({kv}): launches {got}, two backward runs identical {twice}")
     bwd_err = _check_grads("gru_layer_scan_x_bwd", GRAD_NAMES, grads_k, grads_r, bwd_rel, **kv)
-    if compare:  # the in-kernel instance's errors on the same inputs, beside them
+    if compare:  # the in-kernel instance on the same inputs, held to the same gates, beside them
         with torch.no_grad():
             res_i = kgru.layer_forward_in_kernel(*args, md)
-            in_res = (*res_i, x, h0, w_ih, w_hh)
+            in_res = (*res_i, saved_x(args, md), h0, w_ih, w_hh)
             grads_i, grads_ir = kgru.layer_backward_in_kernel(in_res, dY), kgru.layer_backward_ref(in_res, dY)
+            grads_i2 = kgru.layer_backward_in_kernel(in_res, dY)
         torch.cuda.synchronize()
         in_fwd = max_abs(res_i[0], res_r[0])
         in_bwd = max(max_abs(a, b) for a, b in zip(grads_i, grads_ir))
+        in_rel = max(rel_err(a, b) for a, b in zip(grads_i, grads_ir))
+        in_twice = all(torch.equal(a, b) for a, b in zip(grads_i, grads_i2))
         say("phase12", kernel="gru_layer_scan_x", route_errors="persistent_beside_in_kernel",
             fwd_max_abs_err=f"{max(out_err, hf_err):.3e}", fwd_max_abs_err_in_kernel=f"{in_fwd:.3e}",
-            grad_max_abs_err=f"{bwd_err:.3e}", grad_max_abs_err_in_kernel=f"{in_bwd:.3e}", **kv)
-        IN_KERNEL_ERR[0] = max(IN_KERNEL_ERR[0], in_fwd)
-        IN_KERNEL_ERR[1] = max(IN_KERNEL_ERR[1], in_bwd)
+            grad_max_abs_err=f"{bwd_err:.3e}", grad_max_abs_err_in_kernel=f"{in_bwd:.3e}",
+            grad_max_rel_err_in_kernel=f"{in_rel:.3e}", in_kernel_backward_twice_bit_identical=in_twice, **kv)
+        if not (in_fwd <= fwd_tol and in_rel <= bwd_rel and in_twice):
+            raise AssertionError(f"in-kernel instance ({kv}): forward {in_fwd:.3e}, gradients {in_rel:.3e} "
+                                 f"relative, two backward runs identical {in_twice}")
+        IN_KERNEL_ERR[md][0] = max(IN_KERNEL_ERR[md][0], in_fwd)
+        IN_KERNEL_ERR[md][1] = max(IN_KERNEL_ERR[md][1], in_bwd)
     return max(out_err, hf_err), bwd_err, res_k
 
 
-def seeded_layer_check(dev, md, T_, B_, I_, H_, label, seed):
-    """gru_layer_scan_x in md at (T, B, I, H), seeded weights uniform
-    +-1/sqrt(H), against its plain versions on the route the shape takes.
-    Returns (forward error, gradient error)."""
+def seeded_layer_args(dev, T_, B_, I_, H_, seed):
+    """gru_layer_scan_x's arguments at (T, B, I, H), seeded weights uniform
+    +-1/sqrt(H), and a cotangent dY."""
     g = torch.Generator(device=dev).manual_seed(seed)
     k = 1.0 / np.sqrt(H_)
 
@@ -844,18 +869,66 @@ def seeded_layer_check(dev, md, T_, B_, I_, H_, label, seed):
 
     args = (torch.randn(T_, B_, I_, generator=g, device=dev), u(3 * H_, I_), u(3 * H_), u(3 * H_, H_), u(3 * H_),
             0.1 * torch.randn(B_, H_, generator=g, device=dev))
-    dY = 1e-2 * torch.randn(T_, B_, H_, generator=g, device=dev)
+    return args, 1e-2 * torch.randn(T_, B_, H_, generator=g, device=dev)
+
+
+def seeded_layer_check(dev, md, T_, B_, I_, H_, label, seed):
+    """gru_layer_scan_x in md at (T, B, I, H) on seeded_layer_args against
+    its plain versions on the route the shape takes. Returns (forward error,
+    gradient error)."""
+    args, dY = seeded_layer_args(dev, T_, B_, I_, H_, seed)
     return check_layer_x(args, md, dY, layer=label)[:2]
 
 
-def wide_layer_check(dev, md=torch.bfloat16):
+def wide_times(dev, gpu) -> dict:
+    """At the widths no layout takes (B=256, T=120, I=329; bf16 H=2304, fp32
+    H=1536): the in-kernel forward and backward, and cuDNN's one-layer GRU of
+    the same sizes and dtype (forward; autograd backward), its yardstick.
+    Returns {md: (fwd ms, bwd ms, cuDNN fwd ms, cuDNN bwd ms)}."""
+    out = {}
+    for md, H_ in ((torch.bfloat16, 2304), (torch.float32, 1536)):
+        args, dY = seeded_layer_args(dev, 120, B, 329, H_, SEED + 7)
+        with torch.no_grad():
+            res = (*kgru.layer_forward_in_kernel(*args, md), saved_x(args, md), args[5], args[1], args[3])
+            fwd = time_ms(lambda: kgru.layer_forward_in_kernel(*args, md))
+            bwd = time_ms(lambda: kgru.layer_backward_in_kernel(res, dY))
+        gru = torch.nn.GRU(329, H_, 1, device=dev, dtype=md)
+        x = args[0].to(md)
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+            with torch.no_grad():
+                fwd_lib = time_ms(lambda: gru(x))
+            xg = x.detach().clone().requires_grad_(True)
+            y, _ = gru(xg)
+            dy = dY.to(md)
+            inputs = [xg, *gru.parameters()]
+            bwd_lib = time_ms(lambda: torch.autograd.grad(y, inputs, dy, retain_graph=True))
+        out[md] = (fwd, bwd, fwd_lib, bwd_lib)
+        say("phase15", kernel="gru_layer_scan_x", route="in_kernel", md=str(md).split(".")[-1], B=B, T=120, I=329,
+            H=H_, fwd_ms=f"{fwd:.4f}", bwd_ms=f"{bwd:.4f}", cudnn_fwd_ms=f"{fwd_lib:.4f}",
+            cudnn_autograd_bwd_ms=f"{bwd_lib:.4f}", card=json.dumps(gpu))
+    return out
+
+
+# widths no layout of the persistent kernels takes (I=329): (md, H, B, T); bf16
+# H=4096 streams W_hh (100 MB) from device memory each step
+WIDE = [(torch.bfloat16, 2304, 16, 16), (torch.bfloat16, 2304, B, 120), (torch.float32, 1536, 16, 16),
+        (torch.float32, 1536, B, 120), (torch.bfloat16, 4096, 16, 16)]
+
+
+def wide_layer_check(dev, md, H_, B_, T_):
     """gru_layer_scan_x at a width no layout of the persistent kernels takes
-    in md (bf16 H=2304, fp32 H=1536; B=16, I=329, T=16): the in-kernel
-    instance of csrc/gru_layer.cu. Returns (forward error, gradient error)."""
-    H_ = 2304 if md == torch.bfloat16 else 1536
-    if kgru.layer_route(16, H_, md, gru_stack.card_limits(dev)) != "in_kernel":
-        raise AssertionError(f"layer_route(16, {H_}, {md}) found a persistent layout")
-    return seeded_layer_check(dev, md, 16, 16, 329, H_, "wide", SEED + 5)
+    in md (I=329): the in-kernel instance of csrc/gru_layer.cu, its weights
+    streamed each step (layer_plan). Returns (forward error, gradient error,
+    the run's launches of the forward and the sweep)."""
+    limits = gru_stack.card_limits(dev)
+    plan = kgru.layer_plan(B_, 329, H_, *limits, esize=md.itemsize)
+    if kgru.layer_route(B_, H_, md, limits) != "in_kernel" or plan.res_hh:
+        raise AssertionError(f"layer_route({B_}, {H_}, {md}) found a persistent layout or W_hh resident: {plan}")
+    say("phase12", wide_layer_plan=json.dumps(dataclasses.asdict(plan)).replace(" ", ""), md=str(md).split(".")[-1],
+        H=H_, B=B_, T=T_)
+    errs = seeded_layer_check(dev, md, T_, B_, 329, H_, "wide", SEED + 5)
+    got = counts()
+    return (*errs, {k: got[k] for k in ("gru_layer_scan_x_fwd", "gru_layer_scan_x_bwd_sweep")})
 
 
 def check_scan(gi, w_hh, b_hh, h0, dY, **kv):
@@ -971,19 +1044,39 @@ AUTO_KERNELS = {"auto_step": "auto_step_kernel", "auto_mask": "auto_mask_kernel"
                 "auto_advance": "auto_advance_kernel"}
 
 
+def _ptxas_at(lines: list, i: int) -> dict:
+    """The registers, stack frame and spilled bytes that the ptxas report
+    gives after its "Function properties for" line i."""
+    frame = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                      " ".join(lines[i + 1 : i + 3]))
+    used = next(x for x in lines[i + 1 : i + 4] if "Used" in x)
+    return {"registers": int(re.search(r"Used (\d+) registers", used).group(1)),
+            "stack_frame_bytes": int(frame.group(1)), "spill_store_bytes": int(frame.group(2)),
+            "spill_load_bytes": int(frame.group(3))}
+
+
 def ptxas_report(log: str, kernel: str) -> dict:
     """A kernel's registers, stack frame and spilled bytes, from the ptxas
     report (-Xptxas -v) of the build."""
     lines = log.splitlines()
     for i, line in enumerate(lines):
         if "Function properties for" in line and kernel in line:
-            frame = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
-                              " ".join(lines[i + 1 : i + 3]))
-            used = next(x for x in lines[i + 1 : i + 4] if "Used" in x)
-            return {"registers": int(re.search(r"Used (\d+) registers", used).group(1)),
-                    "stack_frame_bytes": int(frame.group(1)), "spill_store_bytes": int(frame.group(2)),
-                    "spill_load_bytes": int(frame.group(3))}
+            return _ptxas_at(lines, i)
     raise AssertionError(f"the ptxas report names no {kernel}")
+
+
+def ptxas_instances(log: str, kernel: str) -> dict:
+    """``ptxas_report`` of every instance of a kernel template, by its
+    template arguments (bf16 / fp32, then the bool and int parameters in
+    order), e.g. ``layer_sweep_kernel<bf16,4>``."""
+    names = {"13__nv_bfloat16": "bf16", "f": "fp32"}
+    lines, out = log.splitlines(), {}
+    for i, line in enumerate(lines):
+        m = re.search(kernel + r"I(\w+?)EEv", line) if "Function properties for" in line else None
+        if m:
+            args = [names.get(a, a) for a in re.findall(r"13__nv_bfloat16|^f|(?<=L[bi])\d+", m.group(1))]
+            out[f"{kernel}<{','.join(args)}>"] = _ptxas_at(lines, i)
+    return out
 
 
 # -- bounds ----------------------------------------------------------------------
@@ -1491,6 +1584,18 @@ def phase19(dev) -> dict:
             if not e <= STACK_FWD_TOL:
                 raise AssertionError(f"gru_layer_scan_x at I={p['I']} differs from its plain version by {e:.3e}")
             err["fwd_gi"] = max(err.get("fwd_gi", 0.0), e)
+            # and its backward, the in-kernel sweep with the dx and dW GEMMs
+            dY = 1e-2 * torch.randn(p["T"], rows, p["H"], generator=gen, device=dev)
+            res = (*k, saved_x(args, torch.bfloat16), args[5], args[1], args[3])
+            gk, gk2, gr = (kgru.layer_backward_in_kernel(res, dY), kgru.layer_backward_in_kernel(res, dY),
+                           kgru.layer_backward_ref(res, dY))
+            torch.cuda.synchronize()
+            rel = max(rel_err(a, b) for a, b in zip(gk, gr))
+            twice = all(torch.equal(a, b) for a, b in zip(gk, gk2))
+            say("phase19", kernel="gru_layer_scan_x_in_kernel_bwd[fwd_gi]", B=rows, I=p["I"], H=p["H"],
+                grad_max_rel_err=f"{rel:.3e}", rel_tol=STACK_BWD_REL, backward_twice_bit_identical=twice)
+            if not (rel <= STACK_BWD_REL and twice):
+                raise AssertionError(f"in-kernel backward at I={p['I']}: {rel:.3e} relative, twice identical {twice}")
             if rows == B:
                 plain["fwd_gi"] = time_ms(lambda: kgru.layer_forward_ref(*args, torch.bfloat16))
     return {"g": g, "p": p, "err": err, "plain": plain}
@@ -1958,9 +2063,9 @@ def phase23(dev, gpu, ds, p22: dict) -> dict:
         n_probe = min(256, n_eval)
         plan = kg.generate_plan(n_probe, qual.model.charset_size, H, L, *kg.card_limits(dev))
         per_step = {"fused_encode": 1, "fused_sample_kl": 1,
-                    **{k: L * v for k, v in layer_launches(torch.bfloat16, B, H, 2, 1).items()}}
+                    **model_layer_launches(qual.model, torch.bfloat16, 2, 1)}
         per_eval = {"fused_encode": 1, "fused_sample_kl": 1,
-                    **{k: L * v for k, v in layer_launches(torch.bfloat16, B, H, 1, 0).items()}}
+                    **model_layer_launches(qual.model, torch.bfloat16, 1, 0)}
         want = {k: (CHUNK + 1 + 5) * per_step.get(k, 0) + 4 * per_eval.get(k, 0) for k in u_counts}
         want["fused_generate"] = want["fused_generate_persistent"] = 3 * plan.slices
         say("phase23", run="U", preset=qual.name, steps=69, seconds=f"{u_s:.2f}", eval_rows=n_eval,
@@ -2204,7 +2309,7 @@ def entry(name, source, replaces, launches, err, ms, plain_ms, bnd, library_ms, 
             "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": library_ms, **extra}
 
 
-def probe_entries(p19: dict, p20: dict) -> list:
+def probe_entries(p19: dict, p20: dict, route_comparison: dict) -> list:
     """The probe kernels' entries of the ``kernels`` line, at B=256, T=120,
     H=501: launches of phase 20's probe run (0 on the main paths, which
     phases 5-18 count), errors and plain times of phase 19, times and
@@ -2231,7 +2336,7 @@ def probe_entries(p19: dict, p20: dict) -> list:
         entry("fwd_gi", "gru_layer.cu", "bench/proto_gi_kernel.py:69",
               runs["proto_gi_kernel"]["gru_layer_scan_x_fwd"], p19["err"]["fwd_gi"], prow["in_kernel_1"]["ms"],
               p19["plain"]["fwd_gi"], bnd["fwd_gi"], p20["lib_fwd_gi"], library_dtype="bfloat16",
-              I=p19["p"]["I"], ms_hoisted=prow["hoisted_1"]["ms"]),
+              I=p19["p"]["I"], ms_hoisted=prow["hoisted_1"]["ms"], route_comparison=route_comparison),
         entry("floor_loop", "floor.cu", "bench/auto_loop_probe.py:152", runs["auto_loop_probe"]["floor_loop"], 0,
               p20["floor"][floor_shape]["ms"][floor_k], p19["plain"]["floor"], bnd["floor_loop"], None,
               shape=list(floor_shape), T=g["T"], k_ops=floor_k, ns_per_op=p20["floor"][floor_shape]["ns_per_op"]),
@@ -2271,6 +2376,16 @@ def main() -> int:
         say("phase1", automaton_kernel=name, **auto_ptxas[name])
         if auto_ptxas[name]["stack_frame_bytes"] or auto_ptxas[name]["spill_store_bytes"]:
             raise AssertionError(f"{kernel} uses local memory: {auto_ptxas[name]}")
+    # the per-layer kernels' instances: what ptxas spilled to stay within
+    # __launch_bounds__(256) (kernels/gru.py::layer_plan relies on it)
+    layer_ptxas = {}
+    if _build.info.compiled:
+        for kernel in ("layer_fwd_kernel", "layer_sweep_kernel"):
+            layer_ptxas.update(ptxas_instances(_build.info.log, kernel))
+        if len(layer_ptxas) != 19:  # forward: bf16 in-kernel 3, hoisted 3 modes x 3, fp32 2; sweep: 3 + 2
+            raise AssertionError(f"the ptxas report names {sorted(layer_ptxas)}, expected 19 layer kernel instances")
+    for name, rep in sorted(layer_ptxas.items()):
+        say("phase1", layer_kernel=name, **rep)
 
     # -- 2. weights ----------------------------------------------------------
     full = get_preset("zinc250k")
@@ -2375,6 +2490,8 @@ def main() -> int:
         layer_route_bf16=kgru.layer_route(B, cfg.gru_hidden, torch.bfloat16, limits),
         layer_route_fp32=kgru.layer_route(B, cfg.gru_hidden, torch.float32, limits),
         layer_plan_fp32=json.dumps(dataclasses.asdict(fp32_plan)).replace(" ", ""),
+        layer_plan_in_kernel=json.dumps(dataclasses.asdict(
+            kgru.layer_plan(B, s_args[0].shape[-1], cfg.gru_hidden, *limits))).replace(" ", ""),
         dw_parts_layer0=kgru.dw_parts(cfg.max_len, s_args[0].shape[-1], cfg.gru_hidden, limits[0]))
     say("phase7", preset="zinc250k", plan=json.dumps(dataclasses.asdict(plan)).replace(" ", ""),
         blocks=plan.blocks)
@@ -2487,17 +2604,20 @@ def main() -> int:
     layer_err = {torch.bfloat16: [0.0, 0.0], torch.float32: [0.0, 0.0]}
     layer_res = {}
     for md in (torch.bfloat16, torch.float32):
-        cmp = md == torch.float32  # beside the in-kernel instance's errors
         for l, x_l in ((0, s_args[0]), (1, x1)):
             args = layer_args(s_args, l, x_l)
-            fwd_e, bwd_e, layer_res[md, l] = check_layer_x(args, md, dY_l, layer=l, compare_in_kernel=cmp)
+            fwd_e, bwd_e, layer_res[md, l] = check_layer_x(args, md, dY_l, layer=l, compare_in_kernel=True)
             ragged = tuple(a[:, :6].contiguous() if i == 0 else a for i, a in enumerate(args[:-1])) + (args[-1][:6],)
             fwd_r, bwd_r, _ = check_layer_x(ragged, md, dY_l[:, :6].contiguous(), layer=l, ragged_batch=6,
-                                            compare_in_kernel=cmp)
+                                            compare_in_kernel=True)
             layer_err[md][0] = max(layer_err[md][0], fwd_e, fwd_r)
             layer_err[md][1] = max(layer_err[md][1], bwd_e, bwd_r)
-    wide_err = wide_layer_check(dev)
-    wide_err_fp32 = wide_layer_check(dev, torch.float32)
+    # the in-kernel instance where it is the route: errors by (md, H, B), launches by md
+    wide_err, wide_launches = {}, {torch.bfloat16: {}, torch.float32: {}}
+    for md, H_, B_, T_ in WIDE:
+        *wide_err[md, H_, B_], got = wide_layer_check(dev, md, H_, B_, T_)
+        for k, v in got.items():
+            wide_launches[md][k] = wide_launches[md].get(k, 0) + v
     # strict fp32 where the sweep keeps its warp tiles: the plan's 1 x 8
     # tiles a block (B=64, H=200) have no K-split instance
     tiles_err = seeded_layer_check(dev, torch.float32, 32, 64, 100, 200, "warp_tiles", SEED + 6)
@@ -2519,22 +2639,23 @@ def main() -> int:
     hoisted_rel = abs(hoisted_loss - hoisted_plain) / abs(hoisted_plain)
     say("phase12", path="hoisted_gi_decode", loss=f"{hoisted_loss:.6f}", plain_loss=f"{hoisted_plain:.6f}",
         rel_diff=f"{hoisted_rel:.3e}", tol=ROUTE_REL, **scan_counts)
-    want_scan = {"gru_layer_scan_fwd": L, "gru_layer_scan_bwd_sweep": L, "gru_layer_bwd_dw": L}
+    n_scan = kgru.layer_plan(B, 0, H, *gru_stack.card_limits(dev), hoisted=True).slices
+    want_scan = {"gru_layer_scan_fwd": L * n_scan, "gru_layer_scan_bwd_sweep": L * n_scan, "gru_layer_gemm_dw": L,
+                 "gru_layer_dw_sum": L}
     if any(v != want_scan.get(k, 0) for k, v in scan_counts.items()) or not hoisted_rel <= ROUTE_REL:
         raise AssertionError(f"hoisted-gi decode: counts {scan_counts}, loss rel diff {hoisted_rel:.3e}")
 
     # -- 13. the zinc250k_quality training step ------------------------------
     qfull = get_preset("zinc250k_quality")
     # two forward passes (scheduled sampling), the graded one's backward
-    qL, qH = qfull.model.gru_layers, qfull.model.gru_hidden
-    q_layer = {k: qL * v for k, v in layer_launches(torch.bfloat16, B, qH, 2, 1).items()}
+    q_layer = model_layer_launches(qfull.model, torch.bfloat16, 2, 1)
     q_state, q_step, q_counts = train_phase(
         "phase13", qfull, weights, codes, {"fused_encode": 1, "fused_sample_kl": 1, **q_layer}, ROUTE_REL)
     reset_counts()
     q_eval = {k: float(v) for k, v in make_eval_step(qfull)(q_state, codes, None).items()}
     eval_counts = counts()
     say("phase13", eval=json.dumps({k: round(v, 4) for k, v in q_eval.items()}), **eval_counts)
-    eval_want = {k: qL * v for k, v in layer_launches(torch.bfloat16, B, qH, 1, 0).items()}
+    eval_want = model_layer_launches(qfull.model, torch.bfloat16, 1, 0)
     if any(eval_counts[k] != eval_want.get(k, 0) for k in eval_counts if k.startswith("gru_")):
         raise AssertionError(f"eval step: launch counts {eval_counts}, expected GRU launches {eval_want}")
     if not all(np.isfinite(list(q_eval.values()))):
@@ -2543,7 +2664,7 @@ def main() -> int:
     # -- 14. the strict-fp32 zinc250k training step --------------------------
     ffull = dataclasses.replace(full, name="zinc250k_fp32",
                                 model=dataclasses.replace(cfg, compute_dtype="float32"))
-    f_layer = {k: L * v for k, v in layer_launches(torch.float32, B, H, 1, 1).items()}
+    f_layer = model_layer_launches(ffull.model, torch.float32, 1, 1)
     if "gru_layer_rec" not in f_layer:
         raise AssertionError(f"the strict-fp32 step at B={B}, H={H} is not on the persistent route")
     _, f_step, f_counts = train_phase("phase14", ffull, weights, codes, f_layer, FP32_ROUTE_REL)
@@ -2576,13 +2697,29 @@ def main() -> int:
                     fwd_ms=f"{layer_ms[md, l][0]:.4f}", fwd_plain_ms=f"{layer_ms[md, l][1]:.4f}",
                     bwd_ms=f"{layer_ms[md, l][2]:.4f}", bwd_plain_ms=f"{layer_ms[md, l][3]:.4f}",
                     card=json.dumps(gpu))
-        # the earlier strict-fp32 design, the in-kernel instance, on the same inputs
+        # the in-kernel instance (csrc/gru_layer.cu) on the same inputs: its
+        # pair (forward + sweep, dx GEMM and dW) against the persistent
+        # route's (gi GEMM + recurrence; sweep + dx GEMM + dW)
+        in_ms, route_cmp = {}, {}
+        limits = gru_stack.card_limits(dev)
+        for md in (bf, f32):
+            for l, x_l in ((0, s_args[0]), (1, x1)):
+                args = layer_args(s_args, l, x_l)
+                res_in = (*kgru.layer_forward_in_kernel(*args, md), saved_x(args, md), args[5], args[1], args[3])
+                in_ms[md, l] = (time_ms(lambda: kgru.layer_forward_in_kernel(*args, md)),
+                                time_ms(lambda: kgru.layer_backward_in_kernel(res_in, dY_l)))
+                pair = in_ms[md, l][0] + in_ms[md, l][1]
+                route_cmp[md, l] = (pair, layer_ms[md, l][0] + layer_ms[md, l][2])
+                say("phase15", kernel="gru_layer_scan_x", md=str(md).split(".")[-1], layer=l, I=x_l.shape[2],
+                    route="in_kernel", fwd_ms=f"{in_ms[md, l][0]:.4f}", bwd_ms=f"{in_ms[md, l][1]:.4f}",
+                    in_kernel_pair_ms=f"{pair:.4f}", persistent_pair_ms=f"{route_cmp[md, l][1]:.4f}",
+                    in_kernel_pair_faster=pair < route_cmp[md, l][1], card=json.dumps(gpu))
+        for md in (bf, f32):
+            say("phase15", route_decision=str(md).split(".")[-1], B=B, H=H,
+                layer_route=kgru.layer_route(B, H, md, limits),
+                in_kernel_pair_faster_at_layers=[l for l in (0, 1) if route_cmp[md, l][0] < route_cmp[md, l][1]],
+                card=json.dumps(gpu))
         args0 = layer_args(s_args, 0, s_args[0])
-        res0_in = (*kgru.layer_forward_in_kernel(*args0, f32), args0[0], args0[5], args0[1], args0[3])
-        in_kernel_ms = (time_ms(lambda: kgru.layer_forward_in_kernel(*args0, f32)),
-                        time_ms(lambda: kgru.layer_backward_in_kernel(res0_in, dY_l)))
-        say("phase15", kernel="gru_layer_scan_x", md="float32", layer=0, route="in_kernel",
-            fwd_ms=f"{in_kernel_ms[0]:.4f}", bwd_ms=f"{in_kernel_ms[1]:.4f}", card=json.dumps(gpu))
         s_res = (*kgru.scan_forward(*scan_args), h0[0], whh[0])
         scan_ms = (time_ms(lambda: kgru.scan_forward(*scan_args)), time_ms(lambda: kgru.scan_forward_ref(*scan_args)),
                    time_ms(lambda: kgru.scan_backward(s_res, dY_l)),
@@ -2593,15 +2730,18 @@ def main() -> int:
             res0_md = (*layer_res[md, 0], saved_x(args0, md), args0[5], args0[1], args0[3])
             layer_split["fwd", md] = stack_split(lambda: kgru.layer_forward(*args0, md))
             layer_split["bwd", md] = stack_split(lambda: kgru.layer_backward(res0_md, dY_l))
+            res0_in = (*kgru.layer_forward_in_kernel(*args0, md), saved_x(args0, md), args0[5], args0[1], args0[3])
+            layer_split["in_kernel_fwd", md] = stack_split(lambda: kgru.layer_forward_in_kernel(*args0, md))
+            layer_split["in_kernel_bwd", md] = stack_split(lambda: kgru.layer_backward_in_kernel(res0_in, dY_l))
         for (name, md), parts in layer_split.items():
             say("phase15", layer_split=name, md=str(md).split(".")[-1], layer=0,
                 **{f"{k}_ms": f"{v:.4f}" for k, v in sorted(parts.items())}, card=json.dumps(gpu))
         # bounds of the per-layer kernels at layer 0 (I=329); strict fp32
-        # against the FMA peak, and as 3xTF32 split products at a third of
-        # the TF32 peak
+        # as the 3xTF32 split products the kernels run, at a third of the
+        # TF32 peak, and (a side field) at the FMA peak
         ops0 = 2 * B * T * gru_macs(I0, H)
-        for md, peak in ((bf, PEAK_BF16), (f32, PEAK_FP32), ("tf32x3", PEAK_TF32X3)):
-            mdt = f32 if md == "tf32x3" else md
+        for md, peak in ((bf, PEAK_BF16), (f32, PEAK_TF32X3), ("fp32_fma", PEAK_FP32)):
+            mdt = f32 if md == "fp32_fma" else md
             res0 = (*layer_res[mdt, 0], s_args[0], args0[5], args0[1], args0[3])
             bounds["layer_fwd", md] = bound(ops0, nbytes(*args0) + nbytes(*layer_res[mdt, 0]), peak)
             bounds["layer_bwd", md] = bound(2 * ops0, nbytes(*res0, dY_l) + nbytes(*kgru.layer_backward(res0, dY_l)),
@@ -2612,6 +2752,7 @@ def main() -> int:
     say("phase15", kernel="gru_layer_scan", fwd_ms=f"{scan_ms[0]:.4f}", fwd_plain_ms=f"{scan_ms[1]:.4f}",
         bwd_ms=f"{scan_ms[2]:.4f}", bwd_plain_ms=f"{scan_ms[3]:.4f}", card=json.dumps(gpu))
     lib = library_times(cfg, s_args, dev, "phase15")
+    wide_ms = wide_times(dev, gpu)
     for md, name in ((bf, "layer_bf16"), (f32, "layer_fp32")):
         say("phase15", kernel="gru_layer_scan_x", md=str(md).split(".")[-1], layer=0, fwd_ms=f"{layer_ms[md, 0][0]:.4f}",
             cudnn_fwd_ms=f"{lib[name][0]:.4f}", bwd_ms=f"{layer_ms[md, 0][2]:.4f}",
@@ -2700,7 +2841,8 @@ def main() -> int:
         # are in launches_by_kernel, with the in-kernel instance's (0 on both
         # steps). The fp32 fields: its errors beside the in-kernel instance's
         # on the same inputs, its times beside the in-kernel instance's, its
-        # bound at the FMA peak and as 3xTF32 at a third of the TF32 peak.
+        # bound as the 3xTF32 it runs, at a third of the TF32 peak (and at
+        # the FMA peak).
         entry("gru_layer_scan_x_fwd", "gru_stack.cu", "molvax/kernels/gru.py:527",
               q_counts["gru_layer_rec"] + f_counts["gru_layer_rec"], layer_err[bf][0], layer_ms[bf, 0][0],
               layer_ms[bf, 0][1], bounds["layer_fwd", bf], lib["layer_bf16"][0],
@@ -2709,10 +2851,10 @@ def main() -> int:
                                   "gemm_gi_fp32": f_counts["gru_layer_gemm_gi"], "rec_fp32": f_counts["gru_layer_rec"],
                                   "in_kernel": q_counts["gru_layer_scan_x_fwd"] + f_counts["gru_layer_scan_x_fwd"]},
               ms_split=layer_split["fwd", bf], ms_split_fp32=layer_split["fwd", f32],
-              max_abs_err_in_kernel_bf16_H2304=wide_err[0], max_abs_err_in_kernel_fp32_H1536=wide_err_fp32[0],
-              max_abs_err_fp32=layer_err[f32][0], max_abs_err_fp32_in_kernel=IN_KERNEL_ERR[0],
-              ms_fp32=layer_ms[f32, 0][0], ms_fp32_in_kernel=in_kernel_ms[0], plain_ms_fp32=layer_ms[f32, 0][1],
-              bound_ms_fp32=bounds["layer_fwd", f32][0], bound_ms_fp32_tf32x3=bounds["layer_fwd", "tf32x3"][0],
+              max_abs_err_in_kernel_wide={f"{str(k[0]).split('.')[-1]}_H{k[1]}_B{k[2]}": v[0] for k, v in wide_err.items()},
+              max_abs_err_fp32=layer_err[f32][0], max_abs_err_fp32_in_kernel=IN_KERNEL_ERR[f32][0],
+              ms_fp32=layer_ms[f32, 0][0], ms_fp32_in_kernel=in_ms[f32, 0][0], plain_ms_fp32=layer_ms[f32, 0][1],
+              bound_ms_fp32=bounds["layer_fwd", f32][0], bound_ms_fp32_fma=bounds["layer_fwd", "fp32_fma"][0],
               library_ms_fp32=lib["layer_fp32"][0]),
         entry("gru_layer_scan_x_bwd", "gru_stack.cu", "molvax/kernels/gru.py:689",
               q_counts["gru_layer_sweep"] + f_counts["gru_layer_sweep"], layer_err[bf][1],
@@ -2723,18 +2865,33 @@ def main() -> int:
                                   **{f"{k}_fp32": f_counts[f"gru_layer_{k}"]
                                      for k in ("sweep", "gemm_dx", "gemm_dw", "dw_sum")},
                                   "in_kernel_sweep": q_counts["gru_layer_scan_x_bwd_sweep"]
-                                  + f_counts["gru_layer_scan_x_bwd_sweep"],
-                                  "in_kernel_dw": q_counts["gru_layer_bwd_dw"] + f_counts["gru_layer_bwd_dw"]},
+                                  + f_counts["gru_layer_scan_x_bwd_sweep"]},
               ms_split=layer_split["bwd", bf], ms_split_fp32=layer_split["bwd", f32],
-              max_abs_err_in_kernel_bf16_H2304=wide_err[1], max_abs_err_in_kernel_fp32_H1536=wide_err_fp32[1],
-              max_abs_err_fp32=layer_err[f32][1], max_abs_err_fp32_in_kernel=IN_KERNEL_ERR[1],
-              ms_fp32=layer_ms[f32, 0][2], ms_fp32_in_kernel=in_kernel_ms[1], plain_ms_fp32=layer_ms[f32, 0][3],
-              bound_ms_fp32=bounds["layer_bwd", f32][0], bound_ms_fp32_tf32x3=bounds["layer_bwd", "tf32x3"][0],
+              max_abs_err_in_kernel_wide={f"{str(k[0]).split('.')[-1]}_H{k[1]}_B{k[2]}": v[1] for k, v in wide_err.items()},
+              max_abs_err_fp32=layer_err[f32][1], max_abs_err_fp32_in_kernel=IN_KERNEL_ERR[f32][1],
+              ms_fp32=layer_ms[f32, 0][2], ms_fp32_in_kernel=in_ms[f32, 0][1], plain_ms_fp32=layer_ms[f32, 0][3],
+              bound_ms_fp32=bounds["layer_bwd", f32][0], bound_ms_fp32_fma=bounds["layer_bwd", "fp32_fma"][0],
               library_ms_fp32=lib["layer_fp32"][1]),
         entry("gru_layer_scan_fwd", "gru_layer.cu", "molvax/kernels/gru.py:237", scan_counts["gru_layer_scan_fwd"],
               scan_fwd_err, scan_ms[0], scan_ms[1], bounds["scan_fwd"], None),
         entry("gru_layer_scan_bwd", "gru_layer.cu", "molvax/kernels/gru.py:348",
               scan_counts["gru_layer_scan_bwd_sweep"], scan_bwd_err, scan_ms[2], scan_ms[3], bounds["scan_bwd"], None),
+        # gru_layer_scan_x's in-kernel backward (the sweep, then the dx and dW
+        # GEMMs), bf16 and strict fp32, at layer 0 (I=329): launches of its
+        # sweep in phase 12's runs at the widths no layout takes, where it is
+        # the route (0 on the main paths, whose widths the persistent route
+        # takes); errors at the presets' widths (phase 12); the cuDNN
+        # yardstick's autograd backward; the widths no layout takes beside
+        *(entry(f"gru_layer_scan_x_in_kernel_bwd{tag}", "gru_layer.cu", "molvax/kernels/gru.py:689",
+                wide_launches[md].get("gru_layer_scan_x_bwd_sweep", 0), IN_KERNEL_ERR[md][1], in_ms[md, 0][1],
+                layer_ms[md, 0][3], bounds["layer_bwd", md], lib[name][1], library_dtype=lib[name][2],
+                sources=LAYER_SOURCES, ms_layer1=in_ms[md, 1][1],
+                fwd_launches=wide_launches[md].get("gru_layer_scan_x_fwd", 0), ptxas=layer_ptxas,
+                max_abs_err_wide={f"H{k[1]}_B{k[2]}": v[1] for k, v in wide_err.items() if k[0] == md},
+                wide_B256={"H": 2304 if md == bf else 1536, "fwd_ms": wide_ms[md][0], "bwd_ms": wide_ms[md][1],
+                           "cudnn_fwd_ms": wide_ms[md][2], "cudnn_autograd_bwd_ms": wide_ms[md][3]},
+                **({"bound_ms_fma": bounds["layer_bwd", "fp32_fma"][0]} if md == f32 else {}))
+          for md, tag, name in ((bf, "", "layer_bf16"), (f32, "_fp32", "layer_fp32"))),
         # the automaton: codes, masks and state rows against the plain version (phase 16)
         # launches of one constrained decode (phase 17 holds all three at T)
         entry("auto_step", "automaton.cu", "molvax/kernels/automaton.py:218",
@@ -2752,7 +2909,9 @@ def main() -> int:
               at["advance"], at["advance_plain"], bounds["auto_advance"], None, rows=at["rows"],
               device_ms_per_launch=at["dev_advance"][0], device_ms_per_launch_profiler=at["dev_advance"][1],
               ptxas=auto_ptxas.get("auto_advance")),
-        *probe_entries(p19, p20),
+        *probe_entries(p19, p20, {f"{str(md).split('.')[-1]}_layer{l}": {"in_kernel_pair_ms": v[0],
+                                                                             "persistent_pair_ms": v[1]}
+                                  for (md, l), v in route_cmp.items()}),
     ]}), flush=True)
     print(gpu, flush=True)
     print(json.dumps({"ok": True, "device": {

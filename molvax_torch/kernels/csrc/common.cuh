@@ -127,115 +127,4 @@ __device__ __forceinline__ void column_product(const T* __restrict__ x,
   }
 }
 
-// -- dW = D^T X over R rows, for the GRU backward kernels ---------------------
-// One job per weight matrix:
-//   D (R, M) gate cotangents of type T, M = 3H
-//   X rows r < n_first from x_first, rows r >= n_first from x[r - n_first],
-//   (R, N) of type T; column N of X is a column of ones, which gives db.
-// Each output is summed in a fixed order by one thread: deterministic, no
-// atomics. Operands are read as T and multiplied in fp32 (FMA pipes).
-template <typename T>
-struct DwJob {
-  const T* d;
-  const T* x;
-  const T* x_first;
-  float* dw;  // (M, N)
-  float* db;  // (M)
-  int N;
-  int n_first;
-};
-
-constexpr int MAX_JOBS = 16;  // 2 per layer: stacks of up to 8 layers
-
-template <typename T>
-struct DwJobs {
-  DwJob<T> job[MAX_JOBS];
-};
-
-constexpr int BM = 64, BN = 64, BK = 32, DW_THREADS = 256;
-
-template <typename T>
-__global__ void __launch_bounds__(DW_THREADS)
-gru_dw_kernel(DwJobs<T> jobs, int R, int M) {
-  const DwJob<T> jb = jobs.job[blockIdx.z];
-  const int tiles_n = (jb.N + 1 + BN - 1) / BN;
-  const int tiles_m = (M + BM - 1) / BM;
-  if ((int)blockIdx.x >= tiles_m * tiles_n) return;
-  const int m0 = (blockIdx.x / tiles_n) * BM;
-  const int n0 = (blockIdx.x % tiles_n) * BN;
-
-  __shared__ __align__(16) float sD[BK][BM];
-  __shared__ __align__(16) float sX[BK][BN];
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
-
-  for (int r0 = 0; r0 < R; r0 += BK) {
-    for (int i = tid; i < BK * BM; i += DW_THREADS) {
-      const int kk = i / BM, mm = i % BM;
-      const int r = r0 + kk, m = m0 + mm;
-      sD[kk][mm] = (r < R && m < M) ? to_f(jb.d[(size_t)r * M + m]) : 0.0f;
-    }
-    for (int i = tid; i < BK * BN; i += DW_THREADS) {
-      const int kk = i / BN, nn = i % BN;
-      const int r = r0 + kk, n = n0 + nn;
-      float v = 0.0f;
-      if (r < R) {
-        if (n < jb.N) {
-          v = to_f(r < jb.n_first ? jb.x_first[(size_t)r * jb.N + n]
-                                  : jb.x[(size_t)(r - jb.n_first) * jb.N + n]);
-        } else if (n == jb.N) {
-          v = 1.0f;
-        }
-      }
-      sX[kk][nn] = v;
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int kk = 0; kk < BK; ++kk) {
-      const float4 a = *reinterpret_cast<const float4*>(&sD[kk][ty * 4]);
-      const float4 b = *reinterpret_cast<const float4*>(&sX[kk][tx * 4]);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + ty * 4 + i;
-    if (m >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx * 4 + j;
-      if (n < jb.N) {
-        jb.dw[(size_t)m * jb.N + n] = acc[i][j];
-      } else if (n == jb.N) {
-        jb.db[m] = acc[i][j];
-      }
-    }
-  }
-}
-
-// Launch the n jobs of `jobs` in one grid (blockIdx.z = job).
-template <typename T>
-cudaError_t launch_dw(const DwJobs<T>& jobs, int n, int R, int M, cudaStream_t stream) {
-  int max_tiles = 0;
-  const int tiles_m = (M + BM - 1) / BM;
-  for (int i = 0; i < n; ++i) {
-    const int tiles = tiles_m * ((jobs.job[i].N + 1 + BN - 1) / BN);
-    if (tiles > max_tiles) max_tiles = tiles;
-  }
-  gru_dw_kernel<T><<<dim3(max_tiles, 1, n), DW_THREADS, 0, stream>>>(jobs, R, M);
-  return cudaGetLastError();
-}
-
 }  // namespace

@@ -1,60 +1,76 @@
-// One GRU layer's recurrence for training: forward, reverse sweep, dW.
+// One GRU layer's recurrence for training, persistent on the card's SMs:
+// the forward with the input gates computed inside it (or read, hoisted),
+// and the reverse sweep.
 //
-// Replaces the per-layer Pallas TPU kernels of molvax/kernels/gru.py and
-// computes what they compute, with the same rounding points:
-//   gru_layer_scan_x (_fwd_kernel_x, _bwd_kernel_x): the input gates are
-//     computed in the kernel from x; operand and storage type S is bf16, or
-//     fp32 in the strict-fp32 mode (matmul_dtype='float32');
+// Replaces the per-layer Pallas TPU kernels and computes what they compute,
+// with the same rounding points:
+//   gru_layer_scan_x (molvax/kernels/gru.py _fwd_kernel_x, _bwd_kernel_x;
+//     the fwd_gi probe of bench/proto_gi_kernel.py): the input gates
+//     x[t] @ W_ih + b_ih are computed in the kernel from x; operand and
+//     storage type E is bf16, or fp32 in the strict-fp32 mode
+//     (matmul_dtype='float32');
 //   gru_layer_scan (_fwd_kernel, _bwd_kernel): the input gates gi are read
 //     from device memory, rounded to bf16 at the boundary; bf16 only.
 //
 // forward, per step t and batch row b (torch gate order r|z|n):
-//   gi  = x[t] @ W_ih + b_ih            S operands, fp32 sum, never stored
+//   gi  = x[t] @ W_ih + b_ih            E operands, fp32 sum, never stored
 //         (gru_layer_scan: fp32(gi[t]) of the bf16 input)
-//   gh  = S(h) @ W_hh + b_hh
+//   gh  = E(h) @ W_hh + b_hh
 //   r = sigmoid(gi_r + gh_r), z = sigmoid(gi_z + gh_z), n = tanh(gi_n + r gh_n)
 //   h = (1 - z) n + z h                 fp32 carry
-//   stores hseq = S(h), rzn = S(r|z|n), ghn = S(gh_n)
+//   stores hseq = E(h), rzn = E(r|z|n), ghn = E(gh_n)
 // backward, t = T-1 .. 0 (dY[t] is the cotangent of hseq[t]):
 //   dout = dh + dY[t]
 //   dz = dout (hprev - n) z (1 - z), dn = dout (1 - z)(1 - n^2),
 //   dr = dn gh_n r (1 - r)
-//   dgi = S(dr | dz | dn), dgh = S(dr | dz | dn r)
-//   dh = dout z + dgh @ W_hh^T,  dx[t] = S(dgi @ W_ih^T)   (scan_x only)
-// dW (gru_dw_kernel of common.cuh, over the dgi / dgh the sweep wrote):
-//   dW_hh = sum_{t,b} hprev^T dgh, dW_ih = sum x^T dgi, db = sum dgi | dgh
-// with hprev = hseq[t-1] (S(h0) at t = 0). Every product accumulates in
-// fp32; in the fp32 mode every operand is fp32 and the products run on the
-// FMA pipes in full fp32 (no TF32, no bf16 anywhere).
+//   dgi = E(dr | dz | dn), dgh = E(dr | dz | dn r)
+//   dh = dout z + dgh @ W_hh^T
+// with hprev = hseq[t-1] (E(h0) at t = 0). dx = E(dgi @ W_ih^T) (scan_x
+// only) is csrc/gemm.cuh's dx GEMM after the sweep, dW and db its dW GEMM
+// over the dgi / dgh the sweep writes (kernels/gru.py): on an H100 the
+// reference's dx inside the sweep (_bwd_call_x) took twice the GEMM's time
+// (PERF.md). Every
+// product accumulates in fp32; in the fp32 mode every operand is fp32 and
+// the products are 3xTF32 split products of fp32 accuracy (gemm.cuh
+// fp32_k8), never a single-pass TF32 or bf16 product.
 //
-// Design. The structure of csrc/gru_stack.cu with one layer: a block owns
-// RB batch rows, thread j owns hidden unit j (and j + THREADS, ...), the h
-// carry is fp32 in shared memory and its S copy row-interleaved ([k][RB],
-// double-buffered by step parity), and x[t] is staged the same way. The
-// forward reads weights in (in, 3H) layout and the sweep in torch's
-// (3H, in) layout, so a warp always reads 32 neighbouring columns of one
-// weight row. The TPU kernel accumulates dW in VMEM across its sequential
-// grid; on the H100 blocks run in parallel with nothing carried between
-// them, so the sweep writes dgi / dgh to device memory and a second,
-// deterministic contraction kernel sums them. The TPU's per-gate padding of
-// H to 128 has no counterpart: any H, I and B are taken.
+// What bounds it on an H100. A step's products are small (zinc250k width,
+// B=256: ~0.2 GFLOP of x @ W_ih and h @ W_hh), so latency bounds the T
+// serial steps: reading h (dgh backward) from the other blocks, the
+// products' dependent chains, and the barrier that publishes a step. At
+// widths where the weights do not fit in the SMs' shared memory (bf16
+// H = 2,304: W_hh is 31.8 MB; H = 4,096: 100 MB) each step also reads them
+// from L2 or device memory, and those bytes bound the step.
 //
-// What bounds it on an H100. Each step of a block re-reads both weight
-// matrices from L2 (~2.5 MB bf16 per layer at zinc250k width, I = 329 or
-// 501, H = 501; twice that in fp32), ~2 or 4 bytes per 2*RB FLOPs on the
-// fp32 FMA pipes: per-block instruction issue sets the step time (PERF.md).
-// The contraction is fp32 FMA from shared memory.
+// Design (the layout of csrc/gru_stack.cu's recurrence). One cooperative
+// launch per layer and pass (per batch slice), one block per SM, laid out by
+// kernels/gru.py::layer_plan: g row groups x q blocks; block (group, j) owns
+// `units` hidden units, all three gate columns of each, for the group's
+// `rows` batch rows, split over units / 8 x rt warps (MT m16 row tiles a
+// warp). Its slices of W_hh (3 units x H forward; W_hh[:, units], 3H x
+// units, backward) and of W_ih (3 units x I, forward) stay resident in
+// shared memory where the plan fits them, read once from the tensors as torch stores them and rounded to
+// E there; a slice that does not fit is streamed, chunk by chunk of K, from
+// an E copy through the same double-buffered cp.async ring as the row
+// block it multiplies. Products run on mma.sync (bf16 m16n8k16, or fp32
+// through fp32_k8); each thread's accumulator fragment is its set of (row,
+// unit) pairs, so the fp32 carry (h, dh) lives in registers and the gate
+// math runs on the fragments. A step publishes its h (dgh) through L2 and
+// the group meets at a barrier in two halves (persist.cuh): between
+// group_arrive and group_wait, a block does the work that needs no other
+// block's part of the step:
+//   forward, in-kernel: gi[t+1] = x[t+1] @ W_ih[:, units] + b_ih, x's row
+//     block (zero-padded to a multiple of 16 columns) streamed through the
+//     ring;
+//   forward, hoisted: the loads of gi[t+1];
+//   sweep: phase A's operands of step t-1.
+// The sweep's phase A (gate cotangents of the block's own units, from dh,
+// which only it holds) writes dgi / dgh before the barrier; phase B after it
+// adds dgh[t] @ W_hh[:, units] to dh. Every sum runs in a fixed order: two
+// runs are bit for bit the same. The cooperative launch fails, and the
+// wrapper raises, unless every block is resident.
 //
-// Where these kernels run. bf16 gru_layer_scan_x runs, wherever
-// kernels/gru_stack.py::stack_plan lays it out (kernels/gru.py::layer_route),
-// the stack's tensor-core kernels for one layer instead: the input-gate and
-// dW GEMMs of csrc/gemm.cuh and the persistent recurrence and sweep of
-// csrc/gru_stack.cu, W_hh resident in shared memory. The scan_x instances
-// here serve strict fp32 (mma has no fp32 operand), bf16 widths no layout
-// takes, and the fwd_gi probe (gru_layer_scan_x_in_kernel); the hoisted-gi
-// instances serve gru_layer_scan and the run_variant probes.
-//
-// Probe modes (molvax_gru_probe_scan_fwd). The hoisted-gi forward also runs
+// Probe modes (molvax_gru_layer_fwd, mode). The hoisted-gi forward also runs
 // as the two design probes of bench/gru_experiments.py::run_variant
 // (_kernel_variant), each the production kernel less what the TPU probe
 // took out, so their times decompose this kernel's step:
@@ -66,370 +82,596 @@
 // null in every probe run), which keeps all 3H columns of the product live.
 
 #include "common.cuh"
+#include "gemm.cuh"
+#include "persist.cuh"
 
 namespace {
 
-constexpr int THREADS = 512;  // one hidden unit per thread at H <= 512
-constexpr size_t MAX_SMEM = 232448;  // an H100 block's dynamic shared memory
-
 enum FwdMode { FULL = 0, GATES_NOSTORE = 1, MATMUL_ONLY = 2 };
 
-// shared memory: h32 fp32 [RB][H], hb S [2][H][RB], xb S [I][RB] (!HOISTED)
-template <typename S, bool HOISTED, int MODE = FULL>
-__global__ void __launch_bounds__(THREADS)
-gru_layer_fwd_kernel(const S* __restrict__ x,               // (T, B, I)
-                     const __nv_bfloat16* __restrict__ gi,  // (T, B, 3H), HOISTED
-                     const S* __restrict__ wih,             // (I, 3H)
-                     const float* __restrict__ bih,         // (3H)
-                     const S* __restrict__ whh,             // (H, 3H)
-                     const float* __restrict__ bhh,         // (3H)
-                     const float* __restrict__ h0,          // (B, H)
-                     S* __restrict__ hseq,                  // (T, B, H)
-                     S* __restrict__ rzn,                   // (T, B, 3H), FULL
-                     S* __restrict__ ghn,                   // (T, B, H), FULL
-                     int T, int B, int I, int H,
-                     float* __restrict__ sink) {            // MATMUL_ONLY, null
-  static_assert(MODE == FULL || HOISTED, "the probe modes are of the hoisted-gi forward");
-  extern __shared__ __align__(16) unsigned char smem[];
-  const size_t G = 3 * (size_t)H;
-  float* h32 = reinterpret_cast<float*>(smem);
-  S* hb = reinterpret_cast<S*>(h32 + (size_t)RB * H);
-  S* xb = hb + (size_t)2 * H * RB;
+// elements of padding per row of the sweep's [k][unit] weight tiles: keeps
+// ldmatrix.trans (bf16) free of bank conflicts
+constexpr int TPAD = 8;
 
-  const int tid = threadIdx.x;
-  const int row0 = blockIdx.x * RB;
+__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t r[2], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_addr(p)));
+}
 
-  // rows past B run on zeros and store nothing
-  for (int i = tid; i < RB * H; i += THREADS) {
-    const int r = i / H, j = i % H;
-    const int row = row0 + r;
-    const float v = row < B ? h0[(size_t)row * H + j] : 0.0f;
-    h32[i] = v;
-    hb[(size_t)j * RB + r] = from_f<S>(v);  // step parity 0
-  }
+// element o of a weight tensor of fp32 (f32) or of E, as fp32
+template <typename E>
+__device__ __forceinline__ float weight_at(const void* w, int f32, size_t o) {
+  return f32 ? static_cast<const float*>(w)[o] : to_f(static_cast<const E*>(w)[o]);
+}
 
-  for (int t = 0; t < T; ++t) {
-    const int cur = t & 1, nxt = cur ^ 1;
-    if (!HOISTED) {
-      for (int i = tid; i < RB * I; i += THREADS) {
-        const int r = i / I, k = i % I;
-        const int row = row0 + r;
-        xb[(size_t)k * RB + r] = row < B ? x[((size_t)t * B + row) * I + k] : from_f<S>(0.0f);
-      }
-    }
+// Runs body(c, buf) on chunks c = 0 .. nch - 1 of a product as they land
+// in a ring of `stages` buffers, issue(c, buf) copying chunk c into buffer
+// buf with cp.async: with two buffers the next chunk is copied while one is
+// multiplied; one buffer holds the product's one chunk, all of K. Ends with
+// the ring free again.
+template <typename Issue, typename Body>
+__device__ __forceinline__ void pipeline(int nch, int stages, Issue issue, Body body) {
+  issue(0, 0);
+  cp_async_commit();
+  for (int c = 0; c < nch; ++c) {
+    cp_async_wait<0>();
     __syncthreads();
-    const S* h_old = hb + (size_t)cur * H * RB;
-    S* h_new = hb + (size_t)nxt * H * RB;
+    if (c + 1 < nch) {  // into the buffer that chunk c - 1 used
+      issue(c + 1, (c + 1) % stages);
+      cp_async_commit();
+    }
+    body(c, c % stages);
+  }
+  __syncthreads();
+}
 
-    for (int j = tid; j < H; j += THREADS) {
-      float ig[3][RB], gh[3][RB];
+// The forward's resident slice: shared row gate * U + u is W row gate * H +
+// u0 + u of a (3H, ld) tensor, K valid columns of Kp, E-rounded; rows past H
+// and columns past K are zeros.
+template <typename E>
+__device__ void load_gate_rows(E* s, const void* w, int f32, int ld, int U, int u0, int H, int K, int Kp) {
+  for (int i = threadIdx.x; i < 3 * U * Kp; i += blockDim.x) {
+    const int row = i / Kp, k = i % Kp, u = u0 + row % U;
+    const float v = u < H && k < K ? weight_at<E>(w, f32, (size_t)(row / U * H + u) * ld + k) : 0.0f;
+    s[(size_t)row * (Kp + SPAD<E>) + k] = from_f<E>(v);
+  }
+}
+
+// The sweep's resident slice: shared row k (of Kp) holds columns c0 .. c0 +
+// n of row k of a (K, ld) tensor, E-rounded; zeros past K rows or C columns.
+template <typename E>
+__device__ void load_columns(E* s, const void* w, int f32, int ld, int n, int c0, int C, int K, int Kp) {
+  for (int i = threadIdx.x; i < Kp * n; i += blockDim.x) {
+    const int k = i / n, c = i % n;
+    const float v = k < K && c0 + c < C ? weight_at<E>(w, f32, (size_t)k * ld + c0 + c) : 0.0f;
+    s[(size_t)k * (n + TPAD) + c] = from_f<E>(v);
+  }
+}
+
+template <typename E>
+struct FwdArgs {
+  const E* x;                      // (T, B, ldx) in-kernel; null for the hoisted gi
+  const __nv_bfloat16* gi;         // (T, B, 3H) hoisted, bias included
+  const void* wih;                 // (3H, ldwi): fp32 or E resident, E streamed
+  const float* bih;                // (3H)
+  const void* whh;                 // (3H, ldwh)
+  const float* bhh;                // (3H)
+  const float* h0;                 // (B, H) fp32
+  const E* h0b;                    // (B, ldh) h0 in E
+  E* hseq;                         // (T, B, ldh)
+  E* rzn;                          // (T, B, 3H), FULL
+  E* ghn;                          // (T, B, H), FULL
+  float* sink;                     // (B, H), MATMUL_ONLY, null
+  int* flags;                      // (g) zeros
+  int T, B, I, H, ldx, ldwi, ldwh, ldh, wih_f32, whh_f32;
+  int units, rows, q, chunk, stages, res_ih, res_hh;  // the plan
+  int row_base, row_end;           // the batch rows of this launch
+};
+
+template <typename E>
+struct SweepArgs {
+  const E* hseq;                   // (T, B, ldh)
+  const E* h0b;                    // (B, ldh)
+  const E* rzn;                    // (T, B, 3H)
+  const E* ghn;                    // (T, B, H)
+  const float* dY;                 // (T, B, H) fp32
+  const void* whh;                 // (3H, ldwh): fp32 or E resident, E streamed
+  float* dh0;                      // (B, H)
+  E* dgi;                          // (T, B, ldd)
+  E* dgh;                          // (T, B, ldd)
+  int* flags;
+  int T, B, H, ldh, ldwh, ldd, whh_f32;
+  int units, rows, q, chunk, stages, res_hh;  // the plan
+  int row_base, row_end;
+};
+
+// Forward, MT m16 row tiles a warp: warp w owns 8 units of the block's
+// slice (their r, z and n columns) for MT row tiles from row wr.
+template <typename E, bool IN_X, int MODE, int MT>
+__global__ void __launch_bounds__(256) layer_fwd_kernel(const FwdArgs<E> a) {
+  static_assert(MODE == FULL || (!IN_X && sizeof(E) == 2), "the probe modes are of the hoisted-gi forward");
+  constexpr int EPC = 16 / (int)sizeof(E);  // elements per 16-byte chunk
+  extern __shared__ __align__(16) unsigned char fsmem[];
+  const int H = a.H, G = 3 * H, U = a.units, Kh = round16(H), Kx = IN_X ? round16(a.I) : 0;
+  const int grp = blockIdx.x / a.q, u0 = (blockIdx.x % a.q) * U;
+  const int r0 = a.row_base + grp * a.rows, rend = a.row_end;
+  const int cs = a.chunk + SPAD<E>;
+  const bool streams = !a.res_hh || (IN_X && !a.res_ih);
+  const size_t stage = (size_t)(a.rows + (streams ? 3 * U : 0)) * cs;
+  E* sWh = reinterpret_cast<E*>(fsmem);
+  E* sWi = sWh + (a.res_hh ? (size_t)3 * U * (Kh + SPAD<E>) : 0);
+  E* ring = sWi + (IN_X && a.res_ih ? (size_t)3 * U * (Kx + SPAD<E>) : 0);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wu = warp % (U / 8), wr = warp / (U / 8) * 16 * MT;
+
+  // resident slices; the first product's barrier orders them before any read
+  if (a.res_hh) load_gate_rows<E>(sWh, a.whh, a.whh_f32, a.ldwh, U, u0, H, H, Kh);
+  if (IN_X && a.res_ih) load_gate_rows<E>(sWi, a.wih, a.wih_f32, a.ldwi, U, u0, H, a.I, Kx);
+
+  // ac (+ co: fp32's cross terms) += the group's rows of src (ld, K columns
+  // valid below klim) . the slice's rows of W: resident in sW, or (sW null)
+  // streamed with them from gW (E, (3H, ldw))
+  auto product = [&](float (&ac)[MT][3][4], float (&co)[MT][3][4], const E* src, int ld, int K, int klim,
+                     const E* sW, const E* gW, int ldw) {
+    const int nch = (K + a.chunk - 1) / a.chunk, cpr = a.chunk / EPC;
+    auto issue = [&](int c, int buf) {
+      E* st = ring + (size_t)buf * stage;
+      const int k0 = c * a.chunk;
+      for (int i = threadIdx.x; i < a.rows * cpr; i += blockDim.x) {
+        const int row = i / cpr, kc = (i % cpr) * EPC, r = r0 + row, k = k0 + kc;
+        const int bytes = r < rend ? chunk_bytes<E>(k, klim) : 0;
+        cp_async16(st + (size_t)row * cs + kc, bytes ? src + (size_t)r * ld + k : src, bytes);
+      }
+      if (sW == nullptr) {
+        E* sw = st + (size_t)a.rows * cs;
+        for (int i = threadIdx.x; i < 3 * U * cpr; i += blockDim.x) {
+          const int row = i / cpr, kc = (i % cpr) * EPC, u = u0 + row % U, k = k0 + kc;
+          const int bytes = u < H ? chunk_bytes<E>(k, klim) : 0;
+          cp_async16(sw + (size_t)row * cs + kc, bytes ? gW + (size_t)(row / U * H + u) * ldw + k : gW, bytes);
+        }
+      }
+    };
+    pipeline(nch, a.stages, issue, [&](int c, int buf) {
+      const E* A = ring + (size_t)buf * stage;
+      const E* W = sW ? sW + c * a.chunk : A + (size_t)a.rows * cs;
+      const int wst = sW ? K + SPAD<E> : cs, wg = U * wst;  // a row, a gate's rows
+      const int klen = min(a.chunk, K - c * a.chunk);
+      if constexpr (sizeof(E) == 2) {
+        const E* wrow = W + (wu * 8 + (lane & 7)) * wst + ((lane >> 3) & 1) * 8;
+#pragma unroll 2
+        for (int kk = 0; kk < klen; kk += 16) {
+          uint32_t bw[3][2];
 #pragma unroll
-      for (int g = 0; g < 3; ++g)
+          for (int gte = 0; gte < 3; ++gte) ldmatrix_x2(bw[gte], wrow + gte * wg + kk);
 #pragma unroll
-        for (int r = 0; r < RB; ++r) ig[g][r] = gh[g][r] = 0.0f;
-      if (HOISTED && MODE != MATMUL_ONLY) {
+          for (int mt = 0; mt < MT; ++mt) {
+            uint32_t af[4];
+            ldmatrix_x4(af, A + (size_t)(wr + mt * 16 + (lane & 15)) * cs + kk + (lane >> 4) * 8);
 #pragma unroll
-        for (int r = 0; r < RB; ++r) {
-          const int row = row0 + r;
-          if (row < B) {
-            const __nv_bfloat16* gr = gi + ((size_t)t * B + row) * G + j;
-            ig[0][r] = __bfloat162float(gr[0]);
-            ig[1][r] = __bfloat162float(gr[H]);
-            ig[2][r] = __bfloat162float(gr[2 * H]);
+            for (int gte = 0; gte < 3; ++gte) mma_bf16(ac[mt][gte], af, bw[gte]);
           }
         }
-      } else if (!HOISTED) {
-        gate_products(xb, wih, I, H, j, ig);
+      } else {  // column n of the warp's tile: gate n / 8, unit n % 8
+        const E* w = W + wu * 8 * wst;
+        auto k8 = [&](int kk) {
+          fp32_k8(ac, co, [&](int m, int k) { return A[(size_t)(wr + m) * cs + kk + k]; },
+                  [&](int k, int n) { return w[(n >> 3) * wg + (n & 7) * wst + kk + k]; }, lane);
+        };
+        int kk = 0;
+        for (; kk + 32 <= klen; kk += 32) {  // no branch inside: loads run ahead
 #pragma unroll
-        for (int r = 0; r < RB; ++r) {
-          ig[0][r] += bih[j];
-          ig[1][r] += bih[H + j];
-          ig[2][r] += bih[2 * H + j];
+          for (int s = 0; s < 4; ++s) k8(kk + 8 * s);
         }
+        for (; kk < klen; kk += 8) k8(kk);
       }
-      gate_products(h_old, whh, H, H, j, gh);
-      float hv[RB];
+    });
+  };
+
+  // this thread's (row, unit) pairs: fragment element (mt, e)
+  int rowof[MT][4], unit[4];
+  bool ok[MT][4];
+  float h[MT][4];
 #pragma unroll
-      for (int r = 0; r < RB; ++r) {
+  for (int e = 0; e < 4; ++e) unit[e] = u0 + wu * 8 + (lane & 3) * 2 + (e & 1);
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      rowof[mt][e] = r0 + wr + mt * 16 + (lane >> 2) + (e >> 1) * 8;
+      ok[mt][e] = rowof[mt][e] < rend && unit[e] < H;
+      h[mt][e] = ok[mt][e] ? a.h0[(size_t)rowof[mt][e] * H + unit[e]] : 0.0f;
+    }
+  float bh[3][4], bi[3][4];
+#pragma unroll
+  for (int gte = 0; gte < 3; ++gte)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      bh[gte][e] = unit[e] < H ? a.bhh[gte * H + unit[e]] : 0.0f;
+      bi[gte][e] = IN_X && unit[e] < H ? a.bih[gte * H + unit[e]] : 0.0f;
+    }
+
+  // the input gates of step t: computed from x[t], or loaded
+  float gi[MT][4][3];
+  auto input_gates = [&](int t) {
+    if constexpr (IN_X) {
+      float ga[MT][3][4] = {}, gc[MT][3][4] = {};
+      product(ga, gc, a.x + (size_t)t * a.B * a.ldx, a.ldx, Kx, a.I, a.res_ih ? sWi : nullptr,
+              static_cast<const E*>(a.wih), a.ldwi);
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+#pragma unroll
+          for (int gte = 0; gte < 3; ++gte) gi[mt][e][gte] = (ga[mt][gte][e] + gc[mt][gte][e]) + bi[gte][e];
+    } else if constexpr (MODE != MATMUL_ONLY) {
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const __nv_bfloat16* p = a.gi + ((size_t)t * a.B + rowof[mt][e]) * G + unit[e];
+#pragma unroll
+          for (int gte = 0; gte < 3; ++gte) gi[mt][e][gte] = ok[mt][e] ? __bfloat162float(p[gte * H]) : 0.0f;
+        }
+    }
+  };
+  input_gates(0);
+
+  for (int t = 0; t < a.T; ++t) {
+    float acc[MT][3][4] = {}, corr[MT][3][4] = {};
+    product(acc, corr, t == 0 ? a.h0b : a.hseq + (size_t)(t - 1) * a.B * a.ldh, a.ldh, Kh, H,
+            a.res_hh ? sWh : nullptr, static_cast<const E*>(a.whh), a.ldwh);
+    // the gate math on the fragments
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float gr = acc[mt][0][e] + corr[mt][0][e], gz = acc[mt][1][e] + corr[mt][1][e];
+        const float gnn = acc[mt][2][e] + corr[mt][2][e];
+        const size_t o = (size_t)t * a.B + rowof[mt][e];
+        const int j = unit[e];
         if constexpr (MODE == MATMUL_ONLY) {
-          const float h = gh[0][r] + bhh[j];
-          h32[r * H + j] = h;
-          hv[r] = h;
-          const int row = row0 + r;
-          if (row < B) hseq[((size_t)t * B + row) * H + j] = from_f<S>(h);
+          const float hv = gr + bh[0][e];
+          h[mt][e] = hv;
+          if (ok[mt][e]) {
+            a.hseq[o * a.ldh + j] = from_f<E>(hv);
+            if (a.sink != nullptr) a.sink[(size_t)rowof[mt][e] * H + j] = gz + gnn;
+          }
         } else {
-          const float rg = sigmoid_f(ig[0][r] + (gh[0][r] + bhh[j]));
-          const float zg = sigmoid_f(ig[1][r] + (gh[1][r] + bhh[H + j]));
-          const float gn = gh[2][r] + bhh[2 * H + j];
-          const float n = tanhf(ig[2][r] + rg * gn);
-          const float h = (1.0f - zg) * n + zg * h32[r * H + j];
-          h32[r * H + j] = h;  // only this thread touches unit j's carry
-          hv[r] = h;
-          const int row = row0 + r;
-          if (row < B) {
-            const size_t o = (size_t)t * B + row;
-            hseq[o * H + j] = from_f<S>(h);
+          const float rg = sigmoid_f(gi[mt][e][0] + (gr + bh[0][e]));
+          const float zg = sigmoid_f(gi[mt][e][1] + (gz + bh[1][e]));
+          const float gn = gnn + bh[2][e];
+          const float n = tanhf(gi[mt][e][2] + rg * gn);
+          const float hv = (1.0f - zg) * n + zg * h[mt][e];
+          h[mt][e] = hv;
+          if (ok[mt][e]) {
+            a.hseq[o * a.ldh + j] = from_f<E>(hv);
             if constexpr (MODE == FULL) {
-              rzn[o * G + j] = from_f<S>(rg);
-              rzn[o * G + H + j] = from_f<S>(zg);
-              rzn[o * G + 2 * H + j] = from_f<S>(n);
-              ghn[o * H + j] = from_f<S>(gn);
+              a.rzn[o * G + j] = from_f<E>(rg);
+              a.rzn[o * G + H + j] = from_f<E>(zg);
+              a.rzn[o * G + 2 * H + j] = from_f<E>(n);
+              a.ghn[o * H + j] = from_f<E>(gn);
             }
           }
         }
       }
-      if constexpr (MODE == MATMUL_ONLY) {
-        if (sink != nullptr) {
-          float s = 0.0f;
-#pragma unroll
-          for (int r = 0; r < RB; ++r) s += gh[1][r] + gh[2][r];
-          sink[(size_t)blockIdx.x * H + j] = s;
-        }
-      }
-      store_rows(h_new, j, hv);
+    if (t + 1 < a.T) {
+      group_arrive(a.flags + grp);
+      input_gates(t + 1);  // needs no other block's h: runs in the barrier's shadow
+      group_wait(a.flags + grp, a.q * (t + 1));
     }
-    __syncthreads();  // this step's h is the next step's operand
   }
 }
 
-// shared memory: dh32 fp32 [RB][H], sgi S [3H][RB], sgh S [3H][RB]
-template <typename S, bool WITH_DX>
-__global__ void __launch_bounds__(THREADS)
-gru_layer_bwd_kernel(const S* __restrict__ hseq,   // (T, B, H)
-                     const S* __restrict__ h0s,    // (B, H), h0 rounded to S
-                     const S* __restrict__ rzn,    // (T, B, 3H)
-                     const S* __restrict__ ghn,    // (T, B, H)
-                     const float* __restrict__ dY, // (T, B, H)
-                     const S* __restrict__ wih,    // (3H, I), WITH_DX
-                     const S* __restrict__ whh,    // (3H, H)
-                     S* __restrict__ dx,           // (T, B, I), WITH_DX
-                     float* __restrict__ dh0,      // (B, H)
-                     S* __restrict__ dgi,          // (T, B, 3H)
-                     S* __restrict__ dgh,          // (T, B, 3H)
-                     int T, int B, int I, int H) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const size_t G = 3 * (size_t)H;
-  float* dh32 = reinterpret_cast<float*>(smem);
-  S* sgi = reinterpret_cast<S*>(dh32 + (size_t)RB * H);
-  S* sgh = sgi + G * RB;
+// Reverse sweep, MT m16 row tiles a warp: warp w owns 8 units of the slice
+// for MT row tiles from row wr: phase A's gate cotangents and dh for them,
+// and their columns of phase B's product (two accumulator sets over
+// alternate k steps, for chains in flight).
+template <typename E, int MT>
+__global__ void __launch_bounds__(256) layer_sweep_kernel(const SweepArgs<E> a) {
+  constexpr int EPC = 16 / (int)sizeof(E);
+  extern __shared__ __align__(16) unsigned char ssmem[];
+  const int H = a.H, G = 3 * H, U = a.units, Kb = round16(G);
+  const int grp = blockIdx.x / a.q, u0 = (blockIdx.x % a.q) * U;
+  const int r0 = a.row_base + grp * a.rows, rend = a.row_end;
+  const int cs = a.chunk + SPAD<E>, wcs = U + TPAD;
+  const size_t stage = (size_t)a.rows * cs + (a.res_hh ? 0 : (size_t)a.chunk * wcs);
+  E* sW = reinterpret_cast<E*>(ssmem);
+  E* ring = sW + (a.res_hh ? (size_t)Kb * wcs : 0);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wu = warp % (U / 8), wr = warp / (U / 8) * 16 * MT;
 
-  const int tid = threadIdx.x;
-  const int row0 = blockIdx.x * RB;
+  if (a.res_hh) load_columns<E>(sW, a.whh, a.whh_f32, a.ldwh, U, u0, H, G, Kb);
 
-  for (int i = tid; i < RB * H; i += THREADS) dh32[i] = 0.0f;
-  __syncthreads();
-
-  for (int t = T - 1; t >= 0; --t) {
-    // phase 1: the gate cotangents of unit j, from the stored residuals
-    for (int j = tid; j < H; j += THREADS) {
-#pragma unroll
-      for (int r = 0; r < RB; ++r) {
-        const int row = row0 + r;
-        float rg = 0.0f, zg = 0.0f, n = 0.0f, gn = 0.0f, hp = 0.0f, ext = 0.0f;
-        if (row < B) {
-          const size_t o = (size_t)t * B + row;
-          rg = to_f(rzn[o * G + j]);
-          zg = to_f(rzn[o * G + H + j]);
-          n = to_f(rzn[o * G + 2 * H + j]);
-          gn = to_f(ghn[o * H + j]);
-          hp = to_f(t > 0 ? hseq[(o - B) * H + j] : h0s[(size_t)row * H + j]);
-          ext = dY[o * H + j];
+  // ac (+ co) += the group's rows of src (dgh of a step: ld ldd, G valid
+  // columns) . W_hh[:, units]: resident in sw, or (sw null) streamed with
+  // them
+  auto product = [&](float (&ac)[2][MT][4], float (&co)[2][MT][4], const E* src) {
+    const E* sw = a.res_hh ? sW : nullptr;
+    const int nch = (Kb + a.chunk - 1) / a.chunk, cpr = a.chunk / EPC, cpw = U / EPC;
+    const E* gW = static_cast<const E*>(a.whh);
+    auto issue = [&](int c, int buf) {
+      E* st = ring + (size_t)buf * stage;
+      const int k0 = c * a.chunk;
+      for (int i = threadIdx.x; i < a.rows * cpr; i += blockDim.x) {
+        const int row = i / cpr, kc = (i % cpr) * EPC, r = r0 + row, k = k0 + kc;
+        const int bytes = r < rend ? chunk_bytes<E>(k, G) : 0;
+        cp_async16(st + (size_t)row * cs + kc, bytes ? src + (size_t)r * a.ldd + k : src, bytes);
+      }
+      if (sw == nullptr) {
+        E* wb = st + (size_t)a.rows * cs;
+        for (int i = threadIdx.x; i < a.chunk * cpw; i += blockDim.x) {
+          const int kr = i / cpw, uc = (i % cpw) * EPC, k = k0 + kr, u = u0 + uc;
+          const int bytes = k < G ? chunk_bytes<E>(u, H) : 0;
+          cp_async16(wb + (size_t)kr * wcs + uc, bytes ? gW + (size_t)k * a.ldwh + u : gW, bytes);
         }
-        const float dout = dh32[r * H + j] + ext;
+      }
+    };
+    pipeline(nch, a.stages, issue, [&](int c, int buf) {
+      const E* A = ring + (size_t)buf * stage;
+      const E* W = sw ? sw + (size_t)c * a.chunk * wcs : A + (size_t)a.rows * cs;
+      const int klen = min(a.chunk, Kb - c * a.chunk);
+      if constexpr (sizeof(E) == 2) {
+        const E* wcol = W + (size_t)(lane & 15) * wcs + wu * 8;
+#pragma unroll 2
+        for (int kk = 0; kk < klen; kk += 32) {
+#pragma unroll
+          for (int p = 0; p < 2; ++p) {
+            if (kk + 16 * p >= klen) break;
+            uint32_t bw[2];
+            ldmatrix_x2_trans(bw, wcol + (size_t)(kk + 16 * p) * wcs);
+#pragma unroll
+            for (int mt = 0; mt < MT; ++mt) {
+              uint32_t af[4];
+              ldmatrix_x4(af, A + (size_t)(wr + mt * 16 + (lane & 15)) * cs + kk + 16 * p + (lane >> 4) * 8);
+              mma_bf16(ac[p][mt], af, bw);
+            }
+          }
+        }
+      } else {  // the warp's 8 columns are the tile's
+        const E* w = W + wu * 8;
+        auto k8 = [&](float(&cc)[MT][4], float(&rr)[MT][4], int kk) {
+          using Tile = float(&)[MT][1][4];
+          fp32_k8(reinterpret_cast<Tile>(cc), reinterpret_cast<Tile>(rr),
+                  [&](int m, int k) { return A[(size_t)(wr + m) * cs + kk + k]; },
+                  [&](int k, int n) { return w[(size_t)(kk + k) * wcs + n]; }, lane);
+        };
+        int kk = 0;
+        for (; kk + 16 <= klen; kk += 16) {  // no branch inside: loads run ahead
+          k8(ac[0], co[0], kk);
+          k8(ac[1], co[1], kk + 8);
+        }
+        if (kk < klen) k8(ac[0], co[0], kk);
+      }
+    });
+  };
+
+  int rowof[MT][4], unit[4];
+  bool ok[MT][4];
+  float dh[MT][4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) unit[e] = u0 + wu * 8 + (lane & 3) * 2 + (e & 1);
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      rowof[mt][e] = r0 + wr + mt * 16 + (lane >> 2) + (e >> 1) * 8;
+      ok[mt][e] = rowof[mt][e] < rend && unit[e] < H;
+      dh[mt][e] = 0.0f;
+    }
+
+  // phase A's operands of step t (r, z, n, gh_n, hprev, dY): they do not
+  // wait for dh, so step t-1's are loaded in the barrier's shadow
+  float in[MT][4][6];
+  auto load_in = [&](int t) {
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (!ok[mt][e]) continue;
+        const int j = unit[e], row = rowof[mt][e];
+        const size_t o = (size_t)t * a.B + row;
+        in[mt][e][0] = to_f(a.rzn[o * G + j]);
+        in[mt][e][1] = to_f(a.rzn[o * G + H + j]);
+        in[mt][e][2] = to_f(a.rzn[o * G + 2 * H + j]);
+        in[mt][e][3] = to_f(a.ghn[o * H + j]);
+        in[mt][e][4] = to_f(t > 0 ? a.hseq[(o - a.B) * a.ldh + j] : a.h0b[(size_t)row * a.ldh + j]);
+        in[mt][e][5] = a.dY[o * H + j];
+      }
+  };
+  load_in(a.T - 1);
+
+  for (int t = a.T - 1, s = 1; t >= 0; --t, ++s) {
+    // phase A: the gate cotangents of the block's own units
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (!ok[mt][e]) continue;
+        const int j = unit[e];
+        const size_t o = (size_t)t * a.B + rowof[mt][e];
+        const float rg = in[mt][e][0], zg = in[mt][e][1], n = in[mt][e][2], gn = in[mt][e][3];
+        const float hp = in[mt][e][4];
+        const float dout = dh[mt][e] + in[mt][e][5];
         const float dz = dout * (hp - n) * zg * (1.0f - zg);
         const float dn = dout * (1.0f - zg) * (1.0f - n * n);
         const float dghn = dn * rg;
         const float dr = dn * gn * rg * (1.0f - rg);
-        const S s_r = from_f<S>(dr);
-        const S s_z = from_f<S>(dz);
-        const S s_n = from_f<S>(dn);
-        const S s_hn = from_f<S>(dghn);
-        sgi[(size_t)j * RB + r] = s_r;
-        sgi[((size_t)H + j) * RB + r] = s_z;
-        sgi[((size_t)2 * H + j) * RB + r] = s_n;
-        sgh[(size_t)j * RB + r] = s_r;
-        sgh[((size_t)H + j) * RB + r] = s_z;
-        sgh[((size_t)2 * H + j) * RB + r] = s_hn;
-        if (row < B) {
-          const size_t o = ((size_t)t * B + row) * G;
-          dgi[o + j] = s_r;
-          dgi[o + H + j] = s_z;
-          dgi[o + 2 * H + j] = s_n;
-          dgh[o + j] = s_r;
-          dgh[o + H + j] = s_z;
-          dgh[o + 2 * H + j] = s_hn;
-        }
-        dh32[r * H + j] = dout * zg;  // the product below adds to it
+        const E b_r = from_f<E>(dr);
+        const E b_z = from_f<E>(dz);
+        E* pi = a.dgi + o * a.ldd + j;
+        E* ph = a.dgh + o * a.ldd + j;
+        pi[0] = b_r;
+        pi[H] = b_z;
+        pi[2 * H] = from_f<E>(dn);
+        ph[0] = b_r;
+        ph[H] = b_z;
+        ph[2 * H] = from_f<E>(dghn);
+        dh[mt][e] = dout * zg;
       }
-    }
-    __syncthreads();
+    group_arrive(a.flags + grp);
+    if (t > 0) load_in(t - 1);
+    group_wait(a.flags + grp, a.q * s);
 
-    // phase 2: dh += dgh @ W_hh^T, and dx[t] = S(dgi @ W_ih^T)
-    for (int k = tid; k < H; k += THREADS) {
-      float acc[RB] = {0.0f, 0.0f, 0.0f, 0.0f};
-      column_product(sgh, whh, (int)G, H, k, acc);
+    // phase B: dh[:, units] += dgh[t] @ W_hh[:, units]
+    float acc[2][MT][4] = {}, corr[2][MT][4] = {};
+    product(acc, corr, a.dgh + (size_t)t * a.B * a.ldd);
 #pragma unroll
-      for (int r = 0; r < RB; ++r) dh32[r * H + k] += acc[r];
-    }
-    if (WITH_DX) {
-      for (int i = tid; i < I; i += THREADS) {
-        float acc[RB] = {0.0f, 0.0f, 0.0f, 0.0f};
-        column_product(sgi, wih, (int)G, I, i, acc);
+    for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-        for (int r = 0; r < RB; ++r) {
-          const int row = row0 + r;
-          if (row < B) dx[((size_t)t * B + row) * I + i] = from_f<S>(acc[r]);
-        }
-      }
+      for (int e = 0; e < 4; ++e)
+        dh[mt][e] += (acc[0][mt][e] + corr[0][mt][e]) + (acc[1][mt][e] + corr[1][mt][e]);
+  }
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (ok[mt][e]) a.dh0[(size_t)rowof[mt][e] * H + unit[e]] = dh[mt][e];
+}
+
+// -- the plans the kernels take, and their shared memory ----------------------
+
+// units a multiple of 8 (one warp a unit tile) up to 64, units / 8 x rt
+// warps, at most 8; rows = 16 mt rt, mt 1, 2 or 4 (fp32: 1 or 2);
+// chunk a multiple of 16; 1 or 2 ring buffers (one: each product whole)
+template <typename E>
+bool bad_plan(int units, int rows, int rt, int q, int g, int chunk, int stages) {
+  if (units <= 0 || units % 8 || units > 64 || rt <= 0 || units / 8 * rt > 8 || q <= 0 || g <= 0 ||
+      chunk <= 0 || chunk % 16 || rows <= 0 || rows % (16 * rt) || stages < 1 || stages > 2)
+    return true;
+  const int mt = rows / 16 / rt;
+  return !(mt == 1 || mt == 2 || (mt == 4 && sizeof(E) == 2));
+}
+
+template <typename E>
+size_t fwd_smem(int I, int H, int units, int rows, int chunk, int stages, bool in_x, bool res_ih, bool res_hh) {
+  const int Kh = round16(H), Kx = in_x ? round16(I) : 0;
+  const bool streams = !res_hh || (in_x && !res_ih);
+  return ((res_hh ? (size_t)3 * units * (Kh + SPAD<E>) : 0) +
+          (in_x && res_ih ? (size_t)3 * units * (Kx + SPAD<E>) : 0) +
+          (size_t)stages * (rows + (streams ? 3 * units : 0)) * (chunk + SPAD<E>)) *
+         sizeof(E);
+}
+
+template <typename E>
+size_t sweep_smem(int H, int units, int rows, int chunk, int stages, bool res_hh) {
+  const int Kb = round16(3 * H);
+  return ((res_hh ? (size_t)Kb * (units + TPAD) : 0) +
+          (size_t)stages * ((size_t)rows * (chunk + SPAD<E>) + (res_hh ? 0 : (size_t)chunk * (units + TPAD)))) *
+         sizeof(E);
+}
+
+template <typename E, bool IN_X, int MODE>
+int launch_fwd_mode(const FwdArgs<E>& a, int mt, int blocks, int threads, size_t smem, void* stream) {
+  if constexpr (sizeof(E) == 4) {
+    if (mt == 1) return launch_persistent(layer_fwd_kernel<E, IN_X, MODE, 1>, a, blocks, threads, smem, stream);
+    return launch_persistent(layer_fwd_kernel<E, IN_X, MODE, 2>, a, blocks, threads, smem, stream);
+  } else {
+    switch (mt) {
+      case 1: return launch_persistent(layer_fwd_kernel<E, IN_X, MODE, 1>, a, blocks, threads, smem, stream);
+      case 2: return launch_persistent(layer_fwd_kernel<E, IN_X, MODE, 2>, a, blocks, threads, smem, stream);
+      default: return launch_persistent(layer_fwd_kernel<E, IN_X, MODE, 4>, a, blocks, threads, smem, stream);
     }
-    __syncthreads();
-  }
-
-  for (int i = tid; i < RB * H; i += THREADS) {
-    const int r = i / H, j = i % H;
-    const int row = row0 + r;
-    if (row < B) dh0[(size_t)row * H + j] = dh32[i];
   }
 }
 
-template <typename S>
-size_t fwd_smem(int I, int H, bool hoisted) {
-  return (size_t)RB * H * sizeof(float) + (size_t)2 * H * RB * sizeof(S) +
-         (hoisted ? 0 : (size_t)I * RB * sizeof(S));
+template <typename E>
+int layer_fwd(const FwdArgs<E>& a, int mode, int rt, int g, void* stream) {
+  constexpr int EPC = 16 / (int)sizeof(E);
+  const bool in_x = a.x != nullptr;
+  const bool single = a.stages == 1 && (a.chunk < max(round16(a.H), in_x ? round16(a.I) : 0) || !a.res_hh ||
+                                        (in_x && !a.res_ih));  // one buffer: all of K, nothing streamed
+  if (bad_plan<E>(a.units, a.rows, rt, a.q, g, a.chunk, a.stages) || single || a.T <= 0 || a.B <= 0 ||
+      a.H <= 0 || a.ldh % EPC || a.row_base < 0 || a.row_end > a.B || a.row_end <= a.row_base ||
+      (in_x && (a.I <= 0 || a.ldx % EPC)) || (!in_x && a.gi == nullptr) ||
+      (!a.res_hh && (a.whh_f32 || a.ldwh % EPC)) || (in_x && !a.res_ih && (a.wih_f32 || a.ldwi % EPC)) ||
+      (mode != FULL && (in_x || sizeof(E) != 2)))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = fwd_smem<E>(a.I, a.H, a.units, a.rows, a.chunk, a.stages, in_x, a.res_ih, a.res_hh);
+  const int mt = a.rows / 16 / rt, blocks = g * a.q, threads = a.units / 8 * rt * 32;
+  if (in_x) return launch_fwd_mode<E, true, FULL>(a, mt, blocks, threads, smem, stream);
+  if constexpr (sizeof(E) == 2) {
+    if (mode == GATES_NOSTORE) return launch_fwd_mode<E, false, GATES_NOSTORE>(a, mt, blocks, threads, smem, stream);
+    if (mode == MATMUL_ONLY) return launch_fwd_mode<E, false, MATMUL_ONLY>(a, mt, blocks, threads, smem, stream);
+    return launch_fwd_mode<E, false, FULL>(a, mt, blocks, threads, smem, stream);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
-template <typename S>
-size_t bwd_smem(int H) {
-  return (size_t)RB * H * sizeof(float) + (size_t)2 * 3 * H * RB * sizeof(S);
-}
-
-bool bad_shape(int T, int B, int I, int H) { return T <= 0 || B <= 0 || I <= 0 || H <= 0; }
-
-template <typename S, bool HOISTED, int MODE = FULL>
-cudaError_t launch_fwd(const void* x, const void* gi, const void* wih, const float* bih,
-                       const void* whh, const float* bhh, const float* h0, void* hseq,
-                       void* rzn, void* ghn, int T, int B, int I, int H, void* stream,
-                       float* sink = nullptr) {
-  const size_t smem = fwd_smem<S>(I, H, HOISTED);
-  if (smem > MAX_SMEM) return cudaErrorInvalidValue;
-  auto kernel = gru_layer_fwd_kernel<S, HOISTED, MODE>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  kernel<<<(B + RB - 1) / RB, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const S*>(x), static_cast<const __nv_bfloat16*>(gi),
-      static_cast<const S*>(wih), bih, static_cast<const S*>(whh), bhh, h0,
-      static_cast<S*>(hseq), static_cast<S*>(rzn), static_cast<S*>(ghn), T, B, I, H, sink);
-  return cudaGetLastError();
-}
-
-template <typename S, bool WITH_DX>
-cudaError_t launch_bwd(const void* hseq, const void* h0s, const void* rzn, const void* ghn,
-                       const float* dY, const void* wih, const void* whh, void* dx,
-                       float* dh0, void* dgi, void* dgh, int T, int B, int I, int H,
-                       void* stream) {
-  const size_t smem = bwd_smem<S>(H);
-  if (smem > MAX_SMEM) return cudaErrorInvalidValue;
-  auto kernel = gru_layer_bwd_kernel<S, WITH_DX>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  kernel<<<(B + RB - 1) / RB, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const S*>(hseq), static_cast<const S*>(h0s), static_cast<const S*>(rzn),
-      static_cast<const S*>(ghn), dY, static_cast<const S*>(wih),
-      static_cast<const S*>(whh), static_cast<S*>(dx), dh0, static_cast<S*>(dgi),
-      static_cast<S*>(dgh), T, B, I, H);
-  return cudaGetLastError();
-}
-
-template <typename S>
-cudaError_t launch_layer_dw(const void* x, const void* h0s, const void* hseq, const void* dgi,
-                            const void* dgh, float* dwih, float* dbih, float* dwhh,
-                            float* dbhh, int T, int B, int I, int H, bool with_ih,
-                            void* stream) {
-  const S* x_ = static_cast<const S*>(x);
-  const S* hseq_ = static_cast<const S*>(hseq);
-  DwJobs<S> jobs;
-  // W_hh: hprev = S(h0) for the first B rows, then hseq one step behind
-  jobs.job[0] = DwJob<S>{static_cast<const S*>(dgh), hseq_, static_cast<const S*>(h0s),
-                         dwhh, dbhh, H, B};
-  jobs.job[1] = DwJob<S>{static_cast<const S*>(dgi), x_, x_, dwih, dbih, I, 0};
-  return launch_dw(jobs, with_ih ? 2 : 1, T * B, 3 * H, static_cast<cudaStream_t>(stream));
+template <typename E>
+int layer_sweep(const SweepArgs<E>& a, int rt, int g, void* stream) {
+  constexpr int EPC = 16 / (int)sizeof(E);
+  const bool single = a.stages == 1 && (a.chunk < round16(3 * a.H) || !a.res_hh);
+  if (bad_plan<E>(a.units, a.rows, rt, a.q, g, a.chunk, a.stages) || single || a.T <= 0 || a.B <= 0 ||
+      a.H <= 0 || a.ldh % EPC || a.ldd % EPC || a.row_base < 0 || a.row_end > a.B || a.row_end <= a.row_base ||
+      (!a.res_hh && (a.whh_f32 || a.ldwh % EPC)))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = sweep_smem<E>(a.H, a.units, a.rows, a.chunk, a.stages, a.res_hh);
+  const int mt = a.rows / 16 / rt, blocks = g * a.q, threads = a.units / 8 * rt * 32;
+  if constexpr (sizeof(E) == 4) {
+    if (mt == 1) return launch_persistent(layer_sweep_kernel<E, 1>, a, blocks, threads, smem, stream);
+    return launch_persistent(layer_sweep_kernel<E, 2>, a, blocks, threads, smem, stream);
+  } else {
+    switch (mt) {
+      case 1: return launch_persistent(layer_sweep_kernel<E, 1>, a, blocks, threads, smem, stream);
+      case 2: return launch_persistent(layer_sweep_kernel<E, 2>, a, blocks, threads, smem, stream);
+      default: return launch_persistent(layer_sweep_kernel<E, 4>, a, blocks, threads, smem, stream);
+    }
+  }
 }
 
 }  // namespace
 
 // Each entry point launches on `stream` and returns the launch's
-// cudaError_t (0 = success). `fp32` selects the strict-fp32 instance of
-// gru_layer_scan_x (every S operand fp32) over the bf16 one.
-extern "C" int molvax_gru_layer_x_fwd(const void* x, const void* wih, const float* bih,
-                                      const void* whh, const float* bhh, const float* h0,
-                                      void* hseq, void* rzn, void* ghn, int T, int B, int I,
-                                      int H, int fp32, void* stream) {
-  if (bad_shape(T, B, I, H)) return (int)cudaErrorInvalidValue;
-  if (fp32)
-    return (int)launch_fwd<float, false>(x, nullptr, wih, bih, whh, bhh, h0, hseq, rzn, ghn,
-                                         T, B, I, H, stream);
-  return (int)launch_fwd<__nv_bfloat16, false>(x, nullptr, wih, bih, whh, bhh, h0, hseq, rzn,
-                                               ghn, T, B, I, H, stream);
+// cudaError_t (0 = success); `fp32` selects the strict-fp32 instance (every
+// E operand fp32) over the bf16 one.
+
+// The forward of one layer, one launch for the batch rows [row_base,
+// row_end): in-kernel input gates from x (x not null), or hoisted from gi
+// (bf16; x null), where `mode` may also name a probe mode (1 GATES_NOSTORE,
+// 2 MATMUL_ONLY). The plan: units, rows (= 16 mt rt), rt, q, g, chunk, and
+// which weight slices stay resident (res_ih, res_hh).
+extern "C" int molvax_layer_fwd(const void* x, const void* gi, const void* wih, const float* bih, const void* whh,
+                                const float* bhh, const float* h0, const void* h0b, void* hseq, void* rzn,
+                                void* ghn, float* sink, int* flags, int T, int B, int I, int H, int ldx, int ldwi,
+                                int ldwh, int ldh, int wih_f32, int whh_f32, int units, int rows, int rt, int q,
+                                int g, int chunk, int stages, int res_ih, int res_hh, int row_base, int row_end,
+                                int fp32, int mode, void* stream) {
+  if (fp32) {
+    const FwdArgs<float> a{static_cast<const float*>(x), static_cast<const __nv_bfloat16*>(gi), wih, bih, whh,
+                           bhh, h0, static_cast<const float*>(h0b), static_cast<float*>(hseq),
+                           static_cast<float*>(rzn), static_cast<float*>(ghn), sink, flags, T, B, I, H, ldx, ldwi,
+                           ldwh, ldh, wih_f32, whh_f32, units, rows, q, chunk, stages, res_ih, res_hh, row_base,
+                           row_end};
+    return layer_fwd(a, mode, rt, g, stream);
+  }
+  typedef __nv_bfloat16 bf;
+  const FwdArgs<bf> a{static_cast<const bf*>(x), static_cast<const bf*>(gi), wih, bih, whh, bhh, h0,
+                      static_cast<const bf*>(h0b), static_cast<bf*>(hseq), static_cast<bf*>(rzn),
+                      static_cast<bf*>(ghn), sink, flags, T, B, I, H, ldx, ldwi, ldwh, ldh, wih_f32, whh_f32,
+                      units, rows, q, chunk, stages, res_ih, res_hh, row_base, row_end};
+  return layer_fwd(a, mode, rt, g, stream);
 }
 
-extern "C" int molvax_gru_layer_x_bwd(const void* hseq, const void* h0s, const void* rzn,
-                                      const void* ghn, const float* dY, const void* wih,
-                                      const void* whh, void* dx, float* dh0, void* dgi,
-                                      void* dgh, int T, int B, int I, int H, int fp32,
-                                      void* stream) {
-  if (bad_shape(T, B, I, H)) return (int)cudaErrorInvalidValue;
-  if (fp32)
-    return (int)launch_bwd<float, true>(hseq, h0s, rzn, ghn, dY, wih, whh, dx, dh0, dgi, dgh,
-                                        T, B, I, H, stream);
-  return (int)launch_bwd<__nv_bfloat16, true>(hseq, h0s, rzn, ghn, dY, wih, whh, dx, dh0, dgi,
-                                              dgh, T, B, I, H, stream);
-}
-
-extern "C" int molvax_gru_layer_scan_fwd(const void* gi, const void* whh, const float* bhh,
-                                         const float* h0, void* hseq, void* rzn, void* ghn,
-                                         int T, int B, int H, void* stream) {
-  if (bad_shape(T, B, 1, H)) return (int)cudaErrorInvalidValue;
-  return (int)launch_fwd<__nv_bfloat16, true>(nullptr, gi, nullptr, nullptr, whh, bhh, h0,
-                                              hseq, rzn, ghn, T, B, 0, H, stream);
-}
-
-// run_variant's probe modes of gru_layer_scan's forward: mode 1 =
-// GATES_NOSTORE, 2 = MATMUL_ONLY; hseq only. `sink` is null in a probe run
-// (see the note at the top).
-extern "C" int molvax_gru_probe_scan_fwd(int mode, const void* gi, const void* whh,
-                                         const float* bhh, const float* h0, void* hseq,
-                                         float* sink, int T, int B, int H, void* stream) {
-  if (bad_shape(T, B, 1, H)) return (int)cudaErrorInvalidValue;
-  if (mode == GATES_NOSTORE)
-    return (int)launch_fwd<__nv_bfloat16, true, GATES_NOSTORE>(
-        nullptr, gi, nullptr, nullptr, whh, bhh, h0, hseq, nullptr, nullptr, T, B, 0, H, stream);
-  if (mode == MATMUL_ONLY)
-    return (int)launch_fwd<__nv_bfloat16, true, MATMUL_ONLY>(
-        nullptr, nullptr, nullptr, nullptr, whh, bhh, h0, hseq, nullptr, nullptr, T, B, 0, H,
-        stream, sink);
-  return (int)cudaErrorInvalidValue;
-}
-
-extern "C" int molvax_gru_layer_scan_bwd(const void* hseq, const void* h0s, const void* rzn,
-                                         const void* ghn, const float* dY, const void* whh,
-                                         float* dh0, void* dgi, void* dgh, int T, int B, int H,
-                                         void* stream) {
-  if (bad_shape(T, B, 1, H)) return (int)cudaErrorInvalidValue;
-  return (int)launch_bwd<__nv_bfloat16, false>(hseq, h0s, rzn, ghn, dY, nullptr, whh, nullptr,
-                                               dh0, dgi, dgh, T, B, 0, H, stream);
-}
-
-// dW_hh, db_hh from dgh and hprev; with `with_ih`, dW_ih, db_ih from dgi and x
-extern "C" int molvax_gru_layer_dw(const void* x, const void* h0s, const void* hseq,
-                                   const void* dgi, const void* dgh, float* dwih, float* dbih,
-                                   float* dwhh, float* dbhh, int T, int B, int I, int H,
-                                   int fp32, int with_ih, void* stream) {
-  if (bad_shape(T, B, with_ih ? I : 1, H)) return (int)cudaErrorInvalidValue;
-  if (fp32)
-    return (int)launch_layer_dw<float>(x, h0s, hseq, dgi, dgh, dwih, dbih, dwhh, dbhh, T, B, I,
-                                       H, with_ih, stream);
-  return (int)launch_layer_dw<__nv_bfloat16>(x, h0s, hseq, dgi, dgh, dwih, dbih, dwhh, dbhh, T,
-                                             B, I, H, with_ih, stream);
+// The reverse sweep of one layer, one launch for the batch rows [row_base,
+// row_end): dgi, dgh (T, B, ldd) and dh0.
+extern "C" int molvax_layer_sweep(const void* hseq, const void* h0b, const void* rzn, const void* ghn,
+                                  const float* dY, const void* whh, float* dh0, void* dgi, void* dgh, int* flags,
+                                  int T, int B, int H, int ldh, int ldwh, int ldd, int whh_f32, int units, int rows,
+                                  int rt, int q, int g, int chunk, int stages, int res_hh, int row_base, int row_end,
+                                  int fp32, void* stream) {
+  if (fp32) {
+    typedef const float* cf;
+    const SweepArgs<float> a{static_cast<cf>(hseq), static_cast<cf>(h0b), static_cast<cf>(rzn),
+                             static_cast<cf>(ghn), dY, whh, dh0, static_cast<float*>(dgi), static_cast<float*>(dgh),
+                             flags, T, B, H, ldh, ldwh, ldd, whh_f32, units, rows, q, chunk, stages, res_hh,
+                             row_base, row_end};
+    return layer_sweep(a, rt, g, stream);
+  }
+  typedef __nv_bfloat16 bf;
+  typedef const bf* cb;
+  const SweepArgs<bf> a{static_cast<cb>(hseq), static_cast<cb>(h0b), static_cast<cb>(rzn), static_cast<cb>(ghn),
+                        dY, whh, dh0, static_cast<bf*>(dgi), static_cast<bf*>(dgh), flags, T, B, H, ldh, ldwh, ldd,
+                        whh_f32, units, rows, q, chunk, stages, res_hh, row_base, row_end};
+  return layer_sweep(a, rt, g, stream);
 }

@@ -101,6 +101,7 @@
 
 #include "common.cuh"
 #include "gemm.cuh"
+#include "persist.cuh"
 
 namespace {
 
@@ -231,27 +232,6 @@ gru_stack_fwd_kernel(const __nv_bfloat16* __restrict__ x0,    // (T, B, I0)
 
 // -- the persistent recurrences ---------------------------------------------
 
-// elements of padding per shared-memory row: 16 bytes (8 bf16, 4 fp32), which
-// keeps ldmatrix (bf16) and the fp32 word reads of fp32_k8 free of conflicts
-template <typename E>
-constexpr int SPAD = 16 / (int)sizeof(E);
-
-// The row groups' barrier: every block of the group has stored its part of
-// step t (count reaches `target`) before any reads it.
-__device__ __forceinline__ void group_barrier(int* flag, int target) {
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    __threadfence();
-    atomicAdd(flag, 1);
-    int v;
-    do {
-      asm volatile("ld.acquire.gpu.global.s32 %0, [%1];\n" : "=r"(v) : "l"(flag) : "memory");
-    } while (v < target);
-    __threadfence();
-  }
-  __syncthreads();
-}
-
 // The group's row block of E (rows x K of a (., ld) array, rows from r0,
 // valid below rlim, columns valid below klim) streamed in chunks of
 // `chunk` columns through `stages` (1 or 2) buffers of rows x (chunk +
@@ -338,8 +318,6 @@ struct SweepArgs {
   int units, rows, q, chunk;
   int row_base, row_end;
 };
-
-__host__ __device__ inline int round16(int x) { return (x + 15) / 16 * 16; }
 
 // the resident W_hh slice, then the ring of one or two chunk buffers
 template <typename E>
@@ -693,21 +671,6 @@ __global__ void __launch_bounds__(256) gru_sweep_kernel(const SweepArgs<E> a) {
       if (ok[mt][e]) a.dh0[(size_t)rowof[mt][e] * H + unit[e]] = dh[mt][e];
 }
 
-// One cooperative launch of `kernel` over g * q blocks; every block must be
-// resident (one per SM) or the launch fails.
-template <typename Args>
-int launch_persistent(void (*kernel)(Args), const Args& args, int blocks, int threads,
-                      size_t smem, void* stream) {
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  void* params[] = {const_cast<Args*>(&args)};
-  err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(kernel), dim3(blocks), dim3(threads),
-                                    params, smem, static_cast<cudaStream_t>(stream));
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
-}
-
 // a plan the kernels take: units a multiple of 8 (one warp each 8, at most
 // 8 warps), rows 16 .. 64 in steps of 16, chunk a multiple of 16
 bool bad_plan(int units, int rows, int q, int g, int chunk) {
@@ -869,7 +832,7 @@ extern "C" int molvax_gru_fused3_fwd(const void* gi0, const float* zeros, const 
                                      const float* bih, const void* whh, const float* bhh,
                                      const float* h0, void* hseq, int T, int B, int H, int L,
                                      void* stream) {
-  if (T <= 0 || B <= 0 || H <= 0 || L < 2 || 2 * L > MAX_JOBS) return (int)cudaErrorInvalidValue;
+  if (T <= 0 || B <= 0 || H <= 0 || L < 2 || 2 * L > GEMM_MAX_JOBS) return (int)cudaErrorInvalidValue;
   const size_t smem = (size_t)L * RB * H * sizeof(float) +
                       (size_t)2 * L * H * RB * sizeof(__nv_bfloat16);
   auto kernel = gru_stack_fwd_kernel<true>;

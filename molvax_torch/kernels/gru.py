@@ -19,14 +19,18 @@ non-uniform stacks, and pinned configs, runs one per-layer kernel per layer:
   dW_ih / db_ih and dW_hh / db_hh. Unlike the stack, every bf16 layer rounds
   the cotangent it passes down to bf16 (``gru.py:636-638``). Shapes the plan
   cannot lay out (bf16 H > 2,112, fp32 H > 1,152 at B=256) run the
-  in-kernel instance of ``csrc/gru_layer.cu``: ``x[t] @ W_ih`` inside the
-  recurrence on the FMA pipes, weights re-read from L2 each step; its
-  backward is a reverse-sweep kernel that writes dx and the gate
-  cotangents, then a dW contraction kernel. ``gru_layer_scan_x_in_kernel``
-  names that instance (the ``fwd_gi`` probe's kernel).
+  in-kernel instance of ``csrc/gru_layer.cu``, laid out by ``layer_plan``:
+  one persistent cooperative launch (per batch slice) of a forward that
+  computes ``x[t+1] @ W_ih`` on the tensor cores while the row group meets
+  at the step's barrier, its W_hh and W_ih slices resident in shared memory
+  where they fit and streamed from L2 or device memory each step where they
+  do not; its backward, one persistent launch of the reverse sweep, then
+  the dx GEMM and the dW GEMM of the persistent route. ``gru_layer_scan_x_in_kernel`` names that instance (the ``fwd_gi``
+  probe's kernel).
 - ``gru_layer_scan`` (``:390``): the same recurrence with precomputed input
-  gates, rounded to bf16 at the boundary; its backward returns dgi
-  (``csrc/gru_layer.cu``).
+  gates, rounded to bf16 at the boundary (``csrc/gru_layer.cu``'s hoisted
+  forward, gi[t+1] loaded while the group meets at the barrier); its
+  backward returns dgi (the sweep, then the dW GEMM).
 
 ``layer_forward_ref`` / ``layer_backward_ref`` and ``scan_forward_ref`` /
 ``scan_backward_ref`` are the same math in plain torch ops, rounding where
@@ -45,21 +49,25 @@ Weights are in torch layout: ``w_ih`` (3H, I), ``w_hh`` (3H, H), the
 transposes of the JAX arguments; sequences are (T, B, ·) as in the
 reference. The TPU's batch and time blocking, its per-gate padding of H to
 a multiple of 128 and its batch-size fallback (``pallas_batch_ok``) have no
-counterpart: the kernels take any B and I, and any H that a layout or the
-in-kernel instance's shared memory takes.
+counterpart: the kernels take any B and I, and any H that ``stack_plan``
+or ``layer_plan`` lays out (bf16 H up to 8,448: 64 units on each of 132
+SMs).
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 import sys
-from typing import List, Optional, Tuple
+from typing import Callable, List, Optional, Tuple
 
 import torch
 
 from ..utils import round_to
 from . import _build, gru_stack
-from .gru_stack import _check_cuda, _contract, _dw_job, _dx_job, _gemm, _is_padded, _padded, _stream, counter
+from .gru_stack import (_check_cuda, _contract, _dw_job, _dx_job, _gemm, _is_padded, _ld, _padded, _row_align,
+                        _stream, _up, counter)
 
 # kernel launches made by the wrappers (not by the plain versions)
 layer_gi_launches = 0  # gru_layer_scan_x forward, bf16 or fp32: the input-gate GEMM
@@ -68,15 +76,13 @@ layer_sweep_launches = 0  # backward: the persistent reverse sweep (per slice)
 layer_dx_launches = 0  # ... the GEMM of dx
 layer_gemm_dw_launches = 0  # ... the GEMM of dW_ih, db_ih, dW_hh and db_hh (two jobs per part)
 layer_dw_sum_launches = 0  # ... the sum of its parts
-layer_fwd_launches = 0  # gru_layer_scan_x's in-kernel instance: forward
-layer_bwd_launches = 0  # ... reverse sweep
-scan_fwd_launches = 0  # gru_layer_scan forward
-scan_bwd_launches = 0  # gru_layer_scan reverse sweep
-layer_dw_launches = 0  # the dW contraction of either in-kernel backward
+layer_fwd_launches = 0  # gru_layer_scan_x's in-kernel instance: forward (per batch slice)
+layer_bwd_launches = 0  # ... reverse sweep (per slice); its dx and dW GEMMs count as the route's above
+scan_fwd_launches = 0  # gru_layer_scan forward (per slice)
+scan_bwd_launches = 0  # gru_layer_scan reverse sweep (per slice); its dW GEMM and sum count above
 probe_matmul_only_launches = 0  # gru_probe_scan(mode='matmul_only')
 probe_gates_nostore_launches = 0  # gru_probe_scan(mode='gates_nostore')
 
-_RB = 4  # batch rows per block (csrc/common.cuh)
 _MATMUL_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 PROBE_MODES = {"gates_nostore": 1, "matmul_only": 2}  # csrc/gru_layer.cu FwdMode
 _warned_fp32 = False  # one-time note: the fused stack is bf16-only
@@ -214,24 +220,188 @@ def scan_backward_ref(res: Residuals, dY: torch.Tensor):
     return dgi.float(), _contract(dgh, hprev), dgh.float().sum((0, 1)), dh0
 
 
+# -- the in-kernel instance's plan --------------------------------------------
+
+
+_TPAD = 8  # elements of padding per row of the sweep's [k][unit] tiles (csrc/gru_layer.cu TPAD)
+_MTS = {2: (1, 2, 4), 4: (1, 2)}  # m16 row tiles a warp: the kernels' instances, bf16 and fp32
+_MAX_THREADS = 256  # the kernels' __launch_bounds__
+
+
+@dataclasses.dataclass(frozen=True)
+class LayerPlan:
+    """How ``csrc/gru_layer.cu``'s forward and reverse sweep lie on the card:
+    ``g`` row groups of ``rows`` batch rows, each of ``q`` blocks that own
+    ``units`` hidden units (all three gate columns of each); a block's
+    ``units / 8 * rt`` warps each hold 8 units for ``mt`` m16 row tiles;
+    ``slices`` launches per pass cover B rows. ``res_hh`` / ``res_ih``: the
+    forward's W_hh / W_ih slices stay resident in shared memory, else they
+    stream from an E copy, chunk by chunk, each step; ``bwd_res_hh`` the
+    sweep's W_hh[:, units]. ``chunk`` / ``bwd_chunk``: the columns a ring
+    buffer holds, ``stages`` / ``bwd_stages`` its buffers (1: each
+    product's K whole; 2: the next chunk copied while one is multiplied);
+    ``*_smem``: the blocks' shared-memory bytes."""
+
+    g: int
+    q: int
+    units: int
+    rows: int
+    rt: int
+    slices: int
+    chunk: int
+    bwd_chunk: int
+    stages: int
+    bwd_stages: int
+    res_hh: bool
+    res_ih: bool
+    bwd_res_hh: bool
+    fwd_smem: int
+    bwd_smem: int
+
+    @property
+    def blocks(self) -> int:
+        return self.g * self.q
+
+    @property
+    def threads(self) -> int:
+        return self.units // 8 * self.rt * 32
+
+    @property
+    def mt(self) -> int:
+        return self.rows // 16 // self.rt
+
+
+def fwd_smem(I: int, H: int, units: int, rows: int, chunk: int, stages: int, in_x: bool, res_ih: bool,
+             res_hh: bool, esize: int) -> int:
+    """Shared-memory bytes of a forward block (``csrc/gru_layer.cu``
+    fwd_smem): the resident slices (3 units x K, rows padded by 16 bytes),
+    then ``stages`` ring buffers of the row block's chunk and any streamed
+    slice's. ``in_x``: the in-kernel instance (x and W_ih, I wide); else
+    the hoisted one."""
+    pad = 16 // esize
+    Kh, Kx = _up(H, 16), _up(I, 16) if in_x else 0
+    streams = not res_hh or (in_x and not res_ih)
+    return ((3 * units * (Kh + pad) if res_hh else 0) + (3 * units * (Kx + pad) if in_x and res_ih else 0)
+            + stages * (rows + (3 * units if streams else 0)) * (chunk + pad)) * esize
+
+
+def sweep_smem(H: int, units: int, rows: int, chunk: int, stages: int, res_hh: bool, esize: int) -> int:
+    """Shared-memory bytes of a reverse-sweep block (``sweep_smem``): W_hh[:,
+    units] (3H x units) resident, rows padded by 8 elements, then ``stages``
+    ring buffers of the dgh row block's chunk and a streamed W_hh chunk."""
+    pad, Kb = 16 // esize, _up(3 * H, 16)
+    return ((Kb * (units + _TPAD) if res_hh else 0)
+            + stages * (rows * (chunk + pad) + (0 if res_hh else chunk * (units + _TPAD)))) * esize
+
+
+def _ring(fits: Callable[[int, int], bool], K: int, streamed: bool) -> Optional[Tuple[int, int]]:
+    """(chunk, buffers) of a ring that ``fits(chunk, buffers)``: one buffer
+    of all of K where nothing streams, else the widest chunk (a multiple of
+    16) with two buffers; None where none fits."""
+    if not streamed and fits(K, 1):
+        return K, 1
+    lo, hi = 0, K // 16  # chunks of 16: lo fits (or is 0)
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        lo, hi = (mid, hi) if fits(16 * mid, 2) else (lo, mid - 1)
+    return (16 * lo, 2) if lo else None
+
+
+def _fwd_layout(I, H, units, rows, esize, smem, in_x):
+    """(res_hh, res_ih, chunk, buffers, bytes) of the forward: the most
+    resident bytes of the two slices that fit beside a ring."""
+    pad = 16 // esize
+    Kh, Kx = _up(H, 16), _up(I, 16) if in_x else 0
+    opts = [(hh, ih) for hh in (True, False) for ih in ((True, False) if in_x else (False,))]
+    opts.sort(key=lambda o: -(o[0] * 3 * units * (Kh + pad) + o[1] * 3 * units * (Kx + pad)))
+    for hh, ih in opts:
+        ring = _ring(lambda c, n: fwd_smem(I, H, units, rows, c, n, in_x, ih, hh, esize) <= smem, max(Kh, Kx),
+                     not hh or (in_x and not ih))
+        if ring:
+            return hh, ih, *ring, fwd_smem(I, H, units, rows, *ring, in_x, ih, hh, esize)
+    return None
+
+
+def _bwd_layout(H, units, rows, esize, smem):
+    """(res_hh, chunk, buffers, bytes) of the sweep: W_hh[:, units] resident
+    where it fits beside a ring, else streamed."""
+    Kb = _up(3 * H, 16)
+    for hh in (True, False):
+        ring = _ring(lambda c, n: sweep_smem(H, units, rows, c, n, hh, esize) <= smem, Kb, not hh)
+        if ring:
+            return hh, *ring, sweep_smem(H, units, rows, *ring, hh, esize)
+    return None
+
+
+@functools.lru_cache(maxsize=256)
+def layer_plan(B: int, I: int, H: int, sms: int = gru_stack.SMS, smem: int = gru_stack.SMEM, esize: int = 2,
+               hoisted: bool = False) -> LayerPlan:
+    """Lay out ``csrc/gru_layer.cu``'s forward and sweep for batch B, input
+    width I (``hoisted``: none, the input gates are given) and width H on a
+    card of ``sms`` SMs with ``smem`` bytes of shared memory a block, one
+    block per SM, for elements of ``esize`` bytes (2: bf16, 4: strict
+    fp32). Each slice width (units, a multiple of 8) gives q = ceil(H /
+    units) blocks a group and as many row groups as the SMs hold, warps
+    splitting the group's rows where the units leave room; its slices must
+    fit the shared memory: each resident where it fits beside the ring
+    (most resident bytes first), else streamed each step. Among the layouts
+    that fit, the fewest launches per pass, then the least estimated step
+    time (a warp's products, the bytes a block streams, a synchronisation
+    per chunk).
+
+    Registers need no count here: a block has at most 256 threads, the
+    kernels' ``__launch_bounds__(256)``, under which ptxas keeps a thread
+    within 255 registers, and 256 x 255 fit an SM's 65,536, so one block of
+    any plan is resident by its registers (what ptxas spills to fit is in
+    ``PERF.md``). The cooperative launch fails, and the wrapper raises,
+    where any block of the plan is not resident.
+
+    Where no layout keeps the weights resident they come from the L2 cache
+    or device memory every step. At bf16 H = 2,304 (I = 329, B = 256) the
+    whole W_hh is 31.8 MB: more than the 132 SMs' shared memory (30.7 MB),
+    less than the H100's 50 MB L2, so each step streams it from L2. At bf16
+    H = 4,096 it is 100 MB and every step reads it from device memory. Raises
+    where no layout fits: more than sms x 64 units, or slices too large for
+    the shared memory even streamed."""
+    if B < 1 or H < 1 or (I < 1 and not hoisted) or esize not in (2, 4):
+        raise ValueError(f"layer_plan: B={B}, I={I}, H={H}, esize={esize}")
+    in_x = not hoisted
+    Kh, Kx, Kb = _up(H, 16), _up(I, 16) if in_x else 0, _up(3 * H, 16)
+    best = None
+    for units in range(min(gru_stack._MAX_UNITS, _up(H, 8)), 7, -8):
+        q = -(-H // units)
+        if q > sms:
+            break
+        g = max(1, min(sms // q, -(-B // 16)))
+        n16 = -(-(-(-B // g)) // 16)  # m16 row tiles of a group's rows
+        rt = min(_MAX_THREADS // 32 // (units // 8), n16)
+        mt = next((m for m in _MTS[esize] if m * rt >= n16), _MTS[esize][-1])
+        rows = 16 * mt * rt
+        slices = -(-B // (g * rows))
+        if slices == 1:
+            g = -(-B // rows)
+        fwd = _fwd_layout(I, H, units, rows, esize, smem, in_x)
+        bwd = _bwd_layout(H, units, rows, esize, smem)
+        if fwd is None or bwd is None:
+            continue
+        plan = LayerPlan(g, q, units, rows, rt, slices, fwd[2], bwd[1], fwd[3], bwd[2], fwd[0], fwd[1], bwd[0],
+                         fwd[4], bwd[3])
+        # a tensor-core pass a k16 step: bf16 one product, 3xTF32 three of k8, twice
+        passes = 1 if esize == 2 else 6
+        work = mt * (3 * (Kh + Kx) + Kb) // 16 * passes * 10
+        streamed = ((0 if plan.res_hh else 3 * units * Kh) + (0 if plan.res_ih or not in_x else 3 * units * Kx)
+                    + (0 if plan.bwd_res_hh else Kb * units)) * esize // 16
+        syncs = (-(-Kh // plan.chunk) + -(-Kx // plan.chunk) + -(-Kb // plan.bwd_chunk)) * 200
+        key = (slices, work + streamed + syncs, -units)
+        if best is None or key < best[0]:
+            best = (key, plan)
+    if best is None:
+        raise ValueError(f"layer_plan: no layout of the per-layer kernels fits I={I}, H={H} ({esize}-byte "
+                         f"elements) on {sms} SMs with {smem} bytes of shared memory a block")
+    return best[1]
+
+
 # -- the kernels ---------------------------------------------------------------
-
-
-def smem_bytes(I: int, H: int, md: torch.dtype) -> int:
-    """The larger shared-memory need of the per-layer forward (x staged,
-    I wide; I = 0 for ``gru_layer_scan``) and reverse-sweep kernels."""
-    s = torch.finfo(md).bits // 8
-    carry = _RB * H * 4
-    return max(carry + 2 * H * _RB * s + I * _RB * s, carry + 6 * H * _RB * s)
-
-
-def _check_fits(what: str, I: int, H: int, md: torch.dtype, smem: int = gru_stack.SMEM) -> None:
-    """Raise where the per-layer kernels' shared memory exceeds ``smem``,
-    what a block of the card may opt in to (``gru_stack.plan_limits``)."""
-    need = smem_bytes(I, H, md)
-    if need > smem:
-        raise ValueError(f"{what}: I={I}, H={H} in {md} needs {need} bytes of shared memory per block, "
-                         f"more than the {smem} a block of the card has")
 
 
 def _layer_dims(what, x, w_ih, w_hh, h0) -> Tuple[int, int, int, int]:
@@ -243,17 +413,11 @@ def _layer_dims(what, x, w_ih, w_hh, h0) -> Tuple[int, int, int, int]:
     return T, B, I, H
 
 
-def _check_layer(what, x, w_ih, w_hh, h0, md) -> Tuple[int, int, int, int]:
-    T, B, I, H = _layer_dims(what, x, w_ih, w_hh, h0)
-    _check_fits(what, I, H, md, gru_stack.plan_limits(x.device)[1])
-    return T, B, I, H
-
-
 def _check_residuals(what, shape, md, hseq, rzn, ghn, dY, padded: bool = False) -> None:
     """The sweep reads the forward's residuals in place: in the storage type
     md, hseq and ghn of ``shape`` (T, B, H), rzn (T, B, 3H), contiguous; with
-    ``padded`` (the persistent sweep's), hseq may also have its rows padded
-    to a multiple of 8, as the persistent recurrence writes it. dY (T, B, H)."""
+    ``padded`` (the persistent sweeps'), hseq may also have its rows padded
+    to a multiple of 16 bytes, as the forwards write it. dY (T, B, H)."""
     T, B, H = shape
     if md not in _MATMUL_DTYPES.values():
         raise ValueError(f"{what}: residuals stored in {md}")
@@ -274,7 +438,8 @@ def layer_route(B: int, H: int, md: torch.dtype = torch.bfloat16,
     GEMMs) wherever ``stack_plan`` lays the persistent kernels out with md's
     elements on a card of ``limits`` (SMs, shared memory of a block: the
     wrappers pass the card's, ``gru_stack.plan_limits``; the default is an
-    H100 SXM's), else 'in_kernel' (``csrc/gru_layer.cu``'s instance of md)."""
+    H100 SXM's), else 'in_kernel' (``csrc/gru_layer.cu``, planned by
+    ``layer_plan``)."""
     try:
         gru_stack.stack_plan(B, H, *limits, esize=md.itemsize)
     except ValueError:
@@ -291,25 +456,10 @@ def _ptrs(*tensors):
     return [None if t is None else t.data_ptr() for t in tensors]
 
 
-def _contract_kernel(x, h0s, hseq, dgi, dgh, T, B, I, H, md, with_ih: bool):
-    """The dW contraction kernel: (dW_ih, db_ih) if with_ih, and (dW_hh,
-    db_hh), fp32, torch layout."""
-    global layer_dw_launches
-    dev, G = hseq.device, 3 * H
-    dwih = torch.empty(G, I, device=dev) if with_ih else None
-    dbih = torch.empty(G, device=dev) if with_ih else None
-    dwhh = torch.empty(G, H, device=dev)
-    dbhh = torch.empty(G, device=dev)
-    fn = _build.function("molvax_gru_layer_dw", [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
-    err = fn(*_ptrs(x, h0s, hseq, dgi, dgh, dwih, dbih, dwhh, dbhh),
-             T, B, I, H, int(md == torch.float32), int(with_ih), _stream(hseq))
-    _build.check(err, "gru_layer dW")
-    layer_dw_launches += 1
-    return dwih, dbih, dwhh, dbhh
-
-
-_COUNT = {name: counter(globals(), f"layer_{name}_launches")
-          for name in ("gi", "rec", "sweep", "dx", "gemm_dw", "dw_sum")}
+_COUNT = {**{name: counter(globals(), f"layer_{name}_launches")
+             for name in ("gi", "rec", "sweep", "dx", "gemm_dw", "dw_sum", "fwd", "bwd")},
+          **{name: counter(globals(), f"{name}_launches")
+             for name in ("scan_fwd", "scan_bwd", "probe_matmul_only", "probe_gates_nostore")}}
 
 
 def dw_parts(T: int, I: int, H: int, sms: int = gru_stack.SMS) -> int:
@@ -331,8 +481,35 @@ def _sum_parts(parts: torch.Tensor, out: torch.Tensor) -> None:
     fn = _build.function("molvax_sum_parts", [ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p,
                                               ctypes.c_void_p])
     _build.check(fn(parts.data_ptr(), parts.shape[0], parts.shape[1], out.data_ptr(), _stream(out)),
-                 "gru_layer_scan_x dW parts")
+                 "gru_layer dW parts")
     _COUNT["dw_sum"]()
+
+
+def _layer_dw(dgi, xp, dgh, hs, h0b, sms: int, md: torch.dtype):
+    """One layer's weight gradients from the gate cotangents a sweep wrote:
+    one GEMM launch of dW_ih / db_ih over x (where dgi is given) and dW_hh /
+    db_hh over h one step behind (h0 in md first), two jobs for each of
+    ``dw_parts`` spans of time steps, and one launch that sums the parts in
+    order. All operands padded in md. Returns (dW_ih, db_ih, dW_hh, db_hh),
+    fp32, torch layout (None for the first two without dgi)."""
+    T, B, G = dgh.shape
+    H, I = G // 3, 0 if dgi is None else xp.shape[-1]
+    k = dw_parts(T, I, H, sms)
+    n_ih, n_hh = (0 if dgi is None else G * I + G), G * H + G
+    parts = torch.empty(k, n_ih + n_hh, device=dgh.device)
+    jobs = []
+    for p in range(k):
+        t0, t1 = p * T // k, (p + 1) * T // k
+        ih, hh = parts[p, :n_ih], parts[p, n_ih:]
+        if dgi is not None:
+            jobs.append(_dw_job(dgi[t0:t1], xp[t0:t1], ih[: G * I].view(G, I), ih[G * I :]))
+        first = dict(first=h0b) if t0 == 0 else {}  # h one step behind: h0 in md, then hseq
+        jobs.append(_dw_job(dgh[t0:t1], hs[max(t0 - 1, 0) : t1], hh[: G * H].view(G, H), hh[G * H :], **first))
+    _gemm("dw", jobs, dgh, _COUNT["gemm_dw"], md)
+    out = torch.empty(n_ih + n_hh, device=dgh.device)
+    _sum_parts(parts, out)
+    ih = (out[: G * I].view(G, I), out[G * I : n_ih]) if dgi is not None else (None, None)
+    return (*ih, out[n_ih : n_ih + G * H].view(G, H), out[n_ih + G * H :])
 
 
 def layer_forward(x, w_ih, b_ih, w_hh, b_hh, h0, md: torch.dtype) -> Residuals:
@@ -356,13 +533,11 @@ def layer_backward(res: Residuals, dY: torch.Tensor):
     """``layer_backward_ref`` on the card. On the persistent route, in the
     residuals' storage type md: the stack's persistent reverse sweep (ext =
     dY, no h_final cotangent: on the per-layer route it arrives inside
-    dY[-1]), one GEMM of dx stored in md, one GEMM launch of dW_ih / db_ih
-    over x and dW_hh / db_hh over h one step behind (h0 in md first), two
-    jobs for each of ``dw_parts`` spans of time steps, and one launch that
-    sums the parts. It reads hseq in place, padded or not, and x in place
-    where it is laid out as ``_padded`` leaves it (the autograd wrapper
-    saves the forward's copy). Deterministic: every output is summed in a
-    fixed order. Else ``layer_backward_in_kernel``."""
+    dY[-1]), one GEMM of dx stored in md, and ``_layer_dw``. It reads hseq
+    in place, padded or not, and x in place where it is laid out as
+    ``_padded`` leaves it (the autograd wrapper saves the forward's copy).
+    Deterministic: every output is summed in a fixed order. Else
+    ``layer_backward_in_kernel``."""
     hseq, rzn, ghn, x, h0, w_ih, w_hh = res
     what = "gru_layer_scan_x backward"
     _check_cuda(what, hseq, rzn, ghn, x, h0, w_ih, w_hh, dY)
@@ -372,122 +547,146 @@ def layer_backward(res: Residuals, dY: torch.Tensor):
     if not _persistent(md, B, H, limits):
         return layer_backward_in_kernel(res, dY)
     _check_residuals(what, (T, B, H), md, hseq, rzn, ghn, dY, padded=True)
-    dev, G = x.device, 3 * H
+    dev = x.device
     dgi, dgh, dh0 = gru_stack.layer_sweep(hseq, h0, rzn, ghn, w_hh, dY, torch.zeros(B, H, device=dev),
                                           count=_COUNT["sweep"], md=md)
     with torch.no_grad():
         hs, xp, h0b, wihp = (_padded(t, md) for t in (hseq, x, h0, w_ih))
     dx = torch.empty(T, B, I, dtype=md, device=dev)
     _gemm("dx", [_dx_job(dgi, wihp, dx)], x, _COUNT["dx"], md)
-    # each part: dW_ih | db_ih, then dW_hh | db_hh, of its span of steps
-    k, n_ih, n_hh = dw_parts(T, I, H, limits[0]), G * I + G, G * H + G
-    parts = torch.empty(k, n_ih + n_hh, device=dev)
-    jobs = []
-    for p in range(k):
-        t0, t1 = p * T // k, (p + 1) * T // k
-        ih, hh = parts[p, :n_ih], parts[p, n_ih:]
-        jobs.append(_dw_job(dgi[t0:t1], xp[t0:t1], ih[: G * I].view(G, I), ih[G * I :]))
-        first = dict(first=h0b) if t0 == 0 else {}  # h one step behind: h0 in md, then hseq
-        jobs.append(_dw_job(dgh[t0:t1], hs[max(t0 - 1, 0) : t1], hh[: G * H].view(G, H), hh[G * H :], **first))
-    _gemm("dw", jobs, x, _COUNT["gemm_dw"], md)
-    out = torch.empty(n_ih + n_hh, device=dev)
-    _sum_parts(parts, out)
-    dwih, dbih = out[: G * I].view(G, I), out[G * I : n_ih]
-    dwhh, dbhh = out[n_ih : n_ih + G * H].view(G, H), out[n_ih + G * H :]
-    return dx.float(), dwih, dbih, dwhh, dbhh, dh0
+    return (dx.float(), *_layer_dw(dgi, xp, dgh, hs, h0b, limits[0], md), dh0)
+
+
+def _weight(w: torch.Tensor, md: torch.dtype, resident: bool):
+    """A weight (3H, ·) as a layer kernel reads it: (tensor, 1 if its
+    elements are fp32, row stride). A resident slice is read once from the
+    tensor as torch stores it (fp32 or md, rows contiguous) and rounded to
+    md in the kernel; a streamed one is copied by cp.async each step, so it
+    comes from an md tensor with 16-byte rows (``_padded``: the tensor itself
+    where it is one, else a copy a call)."""
+    if not resident:
+        w = _padded(w, md)
+        return w, 0, _ld(w)
+    if w.dtype not in (torch.float32, md) or w.stride(-1) != 1:
+        w = w.float().contiguous()
+    return w, int(w.dtype == torch.float32), w.stride(0)
+
+
+def _forward(what, plan: LayerPlan, md, x, gi, w_ih, b_ih, w_hh, b_hh, h0, mode: int, count) -> Residuals:
+    """``csrc/gru_layer.cu``'s forward, one launch per batch slice of the
+    plan, each counted by ``count``: in-kernel input gates from x (padded in
+    md), or hoisted from gi (bf16, contiguous; x None) in ``mode`` (0 the
+    production kernel, else a probe mode, which stores hseq only). Returns
+    (hseq as a view of rows padded to 16 bytes, rzn, ghn: None in a probe
+    mode)."""
+    T, B = (gi if x is None else x).shape[:2]
+    H, I = h0.shape[-1], 0 if x is None else x.shape[-1]
+    dev = h0.device
+    with torch.no_grad():
+        wih, wih_f32, ldwi = _weight(w_ih, md, plan.res_ih) if x is not None else (None, 0, 0)
+        whh, whh_f32, ldwh = _weight(w_hh, md, plan.res_hh)
+        bih = None if x is None else b_ih.float().contiguous()
+        bhh, h0f, h0b = b_hh.float().contiguous(), h0.float().contiguous(), _padded(h0, md)
+    hseq = torch.empty(T, B, _up(H, _row_align(md)), dtype=md, device=dev)[..., :H]
+    full = mode == 0
+    rzn = torch.empty(T, B, 3 * H, dtype=md, device=dev) if full else None
+    ghn = torch.empty(T, B, H, dtype=md, device=dev) if full else None
+    fn = _build.function("molvax_layer_fwd", [ctypes.c_void_p] * 13 + [ctypes.c_int] * 23 + [ctypes.c_void_p])
+    span = plan.g * plan.rows
+    for base in range(0, B, span):
+        flags = torch.zeros(plan.g, dtype=torch.int32, device=dev)
+        err = fn(*_ptrs(x, gi, wih, bih, whh, bhh, h0f, h0b, hseq, rzn, ghn, None, flags), T, B, I, H,
+                 0 if x is None else _ld(x), ldwi, ldwh, _ld(hseq), wih_f32, whh_f32, plan.units, plan.rows,
+                 plan.rt, plan.q, plan.g, plan.chunk, plan.stages, int(plan.res_ih), int(plan.res_hh), base,
+                 min(B, base + span), int(md == torch.float32), mode, _stream(h0))
+        _build.check(err, what)
+        count()
+    return hseq, rzn, ghn
+
+
+def _sweep(what, plan: LayerPlan, hseq, h0, rzn, ghn, dY, w_hh, count):
+    """``csrc/gru_layer.cu``'s reverse sweep in the residuals' storage type,
+    one launch per batch slice of the plan, each counted by ``count``.
+    Returns (dgi, dgh as views of padded buffers, dh0 fp32)."""
+    T, B, H = hseq.shape
+    md, dev = hseq.dtype, hseq.device
+    with torch.no_grad():
+        hs, h0b, dY_ = _padded(hseq, md), _padded(h0, md), dY.float().contiguous()
+        whh, whh_f32, ldwh = _weight(w_hh, md, plan.bwd_res_hh)
+    G = _up(3 * H, _row_align(md))
+    dgi = torch.empty(T, B, G, dtype=md, device=dev)[..., : 3 * H]
+    dgh = torch.empty(T, B, G, dtype=md, device=dev)[..., : 3 * H]
+    dh0 = torch.empty(B, H, device=dev)
+    fn = _build.function("molvax_layer_sweep", [ctypes.c_void_p] * 10 + [ctypes.c_int] * 18 + [ctypes.c_void_p])
+    span = plan.g * plan.rows
+    for base in range(0, B, span):
+        flags = torch.zeros(plan.g, dtype=torch.int32, device=dev)
+        err = fn(*_ptrs(hs, h0b, rzn, ghn, dY_, whh, dh0, dgi, dgh, flags), T, B, H, _ld(hs), ldwh, _ld(dgi),
+                 whh_f32, plan.units, plan.rows, plan.rt, plan.q, plan.g, plan.bwd_chunk, plan.bwd_stages,
+                 int(plan.bwd_res_hh), base, min(B, base + span), int(md == torch.float32), _stream(hseq))
+        _build.check(err, what)
+        count()
+    return dgi, dgh, dh0
 
 
 def layer_forward_in_kernel(x, w_ih, b_ih, w_hh, b_hh, h0, md: torch.dtype) -> Residuals:
-    """``layer_forward_ref`` on the card through ``csrc/gru_layer.cu``: one
-    launch of the forward kernel that computes ``x[t] @ W_ih`` inside the
-    recurrence. bf16 or strict fp32 where ``layer_route`` says 'in_kernel',
-    and the ``fwd_gi`` probe."""
-    global layer_fwd_launches
+    """``layer_forward_ref`` on the card through ``csrc/gru_layer.cu``: the
+    forward that computes ``x[t] @ W_ih`` inside the recurrence, one
+    persistent launch per batch slice of ``layer_plan``. bf16 or strict fp32
+    where ``layer_route`` says 'in_kernel', and the ``fwd_gi`` probe. The
+    weights and biases are read as torch stores them, x from its padded
+    copy in md (``_padded``: x itself where it is one); hseq comes back as a
+    view of rows padded to 16 bytes. Raises where no plan fits the card."""
     what = "gru_layer_scan_x forward"
     _check_cuda(what, x, w_ih, b_ih, w_hh, b_hh, h0)
-    T, B, I, H = _check_layer(what, x, w_ih, w_hh, h0, md)
-    dev = x.device
+    T, B, I, H = _layer_dims(what, x, w_ih, w_hh, h0)
+    plan = layer_plan(B, I, H, *gru_stack.plan_limits(x.device), esize=md.itemsize)
     with torch.no_grad():
-        x_ = x.to(md).contiguous()
-        # (in, 3H) copies: a warp reads 32 neighbouring gate columns
-        wih_t = w_ih.t().to(md).contiguous()
-        whh_t = w_hh.t().to(md).contiguous()
-        bih_, bhh_, h0_ = (t.float().contiguous() for t in (b_ih, b_hh, h0))
-    hseq = torch.empty(T, B, H, dtype=md, device=dev)
-    rzn = torch.empty(T, B, 3 * H, dtype=md, device=dev)
-    ghn = torch.empty(T, B, H, dtype=md, device=dev)
-    fn = _build.function("molvax_gru_layer_x_fwd", [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
-    err = fn(*_ptrs(x_, wih_t, bih_, whh_t, bhh_, h0_, hseq, rzn, ghn),
-             T, B, I, H, int(md == torch.float32), _stream(x))
-    _build.check(err, what)
-    layer_fwd_launches += 1
-    return hseq, rzn, ghn
+        xp = _padded(x, md)
+    return _forward(what, plan, md, xp, None, w_ih, b_ih, w_hh, b_hh, h0, 0, _COUNT["fwd"])
 
 
 def layer_backward_in_kernel(res: Residuals, dY: torch.Tensor):
     """``layer_backward_ref`` on the card through ``csrc/gru_layer.cu``: the
-    reverse-sweep kernel (dx inside it), then the dW / db contraction
-    kernel. Contiguous residuals only."""
-    global layer_bwd_launches
+    persistent reverse sweep (one launch per batch slice of ``layer_plan``),
+    then one GEMM of dx, then ``_layer_dw``. Deterministic: every output is
+    summed in a fixed order."""
     hseq, rzn, ghn, x, h0, w_ih, w_hh = res
     what = "gru_layer_scan_x backward"
     _check_cuda(what, hseq, rzn, ghn, x, h0, w_ih, w_hh, dY)
+    T, B, I, H = _layer_dims(what, x, w_ih, w_hh, h0)
     md = hseq.dtype
-    T, B, I, H = _check_layer(what, x, w_ih, w_hh, h0, md)
-    _check_residuals(what, (T, B, H), md, hseq, rzn, ghn, dY)
-    dev = x.device
+    _check_residuals(what, (T, B, H), md, hseq, rzn, ghn, dY, padded=True)
+    limits = gru_stack.plan_limits(x.device)
+    plan = layer_plan(B, I, H, *limits, esize=md.itemsize)
+    dgi, dgh, dh0 = _sweep(what + " sweep", plan, hseq, h0, rzn, ghn, dY, w_hh, _COUNT["bwd"])
     with torch.no_grad():
-        x_ = x.to(md).contiguous()
-        h0s = h0.to(md).contiguous()
-        # torch's (3H, in) layout is the transposed copy the sweep reads
-        wih_, whh_ = w_ih.to(md).contiguous(), w_hh.to(md).contiguous()
-        dY_ = dY.float().contiguous()
-    dx = torch.empty(T, B, I, dtype=md, device=dev)
-    dh0 = torch.empty(B, H, device=dev)
-    dgi = torch.empty(T, B, 3 * H, dtype=md, device=dev)
-    dgh = torch.empty_like(dgi)
-    sweep = _build.function("molvax_gru_layer_x_bwd", [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
-    err = sweep(*_ptrs(hseq, h0s, rzn, ghn, dY_, wih_, whh_, dx, dh0, dgi, dgh),
-                T, B, I, H, int(md == torch.float32), _stream(x))
-    _build.check(err, what + " sweep")
-    layer_bwd_launches += 1
-    dwih, dbih, dwhh, dbhh = _contract_kernel(x_, h0s, hseq, dgi, dgh, T, B, I, H, md, True)
-    return dx.float(), dwih, dbih, dwhh, dbhh, dh0
+        hs, xp, h0b = (_padded(t, md) for t in (hseq, x, h0))
+        dx = torch.empty(T, B, I, dtype=md, device=x.device)
+        _gemm("dx", [_dx_job(dgi, _padded(w_ih, md), dx)], x, _COUNT["dx"], md)
+    return (dx.float(), *_layer_dw(dgi, xp, dgh, hs, h0b, limits[0], md), dh0)
 
 
-def _scan_operands(what, gi, w_hh, b_hh, h0):
-    """The hoisted-gi forward's checks and operands: (T, B, H, gi bf16,
-    W_hh (H, 3H) bf16, b_hh fp32, h0 fp32), contiguous."""
-    bf = torch.bfloat16
-    _check_cuda(what, gi, w_hh, b_hh, h0)
+def _scan_plan(what, gi, w_hh, h0) -> LayerPlan:
+    """The hoisted-gi forward's checks and plan (bf16)."""
+    _check_cuda(what, gi, w_hh, h0)
     T, B, G = gi.shape
     H = G // 3
     if tuple(w_hh.shape) != (G, H) or tuple(h0.shape) != (B, H):
         raise ValueError(f"{what}: gi {tuple(gi.shape)}, w_hh {tuple(w_hh.shape)}, h0 {tuple(h0.shape)}")
-    _check_fits(what, 0, H, bf, gru_stack.plan_limits(gi.device)[1])
-    with torch.no_grad():
-        gi_ = gi.to(bf).contiguous()  # rounded at the boundary, as gru.py:409
-        whh_t = w_hh.t().to(bf).contiguous()
-        bhh_, h0_ = b_hh.float().contiguous(), h0.float().contiguous()
-    return T, B, H, gi_, whh_t, bhh_, h0_
+    return layer_plan(B, 0, H, *gru_stack.plan_limits(gi.device), hoisted=True)
 
 
 def scan_forward(gi, w_hh, b_hh, h0) -> Residuals:
-    """``scan_forward_ref`` on the card: one launch of the forward kernel
-    with the input gates read from device memory."""
-    global scan_fwd_launches
+    """``scan_forward_ref`` on the card: the persistent forward with the
+    input gates read from device memory, rounded to bf16 at the boundary
+    (``gru.py:409``), one launch per batch slice of ``layer_plan``."""
     what = "gru_layer_scan forward"
-    bf = torch.bfloat16
-    T, B, H, gi_, whh_t, bhh_, h0_ = _scan_operands(what, gi, w_hh, b_hh, h0)
-    dev = gi.device
-    hseq = torch.empty(T, B, H, dtype=bf, device=dev)
-    rzn = torch.empty(T, B, 3 * H, dtype=bf, device=dev)
-    ghn = torch.empty(T, B, H, dtype=bf, device=dev)
-    fn = _build.function("molvax_gru_layer_scan_fwd", [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
-    err = fn(*_ptrs(gi_, whh_t, bhh_, h0_, hseq, rzn, ghn), T, B, H, _stream(gi))
-    _build.check(err, what)
-    scan_fwd_launches += 1
-    return hseq, rzn, ghn
+    _check_cuda(what, gi, w_hh, b_hh, h0)
+    plan = _scan_plan(what, gi, w_hh, h0)
+    with torch.no_grad():
+        gi_ = gi.to(torch.bfloat16).contiguous()
+    return _forward(what, plan, torch.bfloat16, None, gi_, None, None, w_hh, b_hh, h0, 0, _COUNT["scan_fwd"])
 
 
 def gru_probe_scan(gi, w_hh, b_hh, h0, mode: str) -> torch.Tensor:
@@ -496,30 +695,24 @@ def gru_probe_scan(gi, w_hh, b_hh, h0, mode: str) -> torch.Tensor:
     bf16, forward only. ``mode`` 'gates_nostore' (the production kernel
     without its r|z|n and gh_n stores) or 'matmul_only' (the serial h @ W_hh
     chain and the carry; all 3H columns of the product are computed). One
-    launch for CUDA tensors, ``gru_probe_scan_ref`` for CPU tensors."""
-    global probe_matmul_only_launches, probe_gates_nostore_launches
+    launch per batch slice for CUDA tensors, ``gru_probe_scan_ref`` for CPU
+    tensors."""
     code = _probe_mode(mode)
     if _plain_here(gi):
         return gru_probe_scan_ref(gi, w_hh, b_hh, h0, mode)
     what = f"gru_probe_scan {mode}"
-    T, B, H, gi_, whh_t, bhh_, h0_ = _scan_operands(what, gi, w_hh, b_hh, h0)
-    hseq = torch.empty(T, B, H, dtype=torch.bfloat16, device=gi.device)
-    fn = _build.function("molvax_gru_probe_scan_fwd",
-                         [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    _check_cuda(what, gi, w_hh, b_hh, h0)
+    plan = _scan_plan(what, gi, w_hh, h0)
+    with torch.no_grad():
+        gi_ = gi.to(torch.bfloat16).contiguous()
     # the sink stays null: it only keeps matmul_only's z and n products live
-    err = fn(code, *_ptrs(gi_, whh_t, bhh_, h0_, hseq, None), T, B, H, _stream(gi))
-    _build.check(err, what)
-    if code == PROBE_MODES["matmul_only"]:
-        probe_matmul_only_launches += 1
-    else:
-        probe_gates_nostore_launches += 1
-    return hseq
+    return _forward(what, plan, torch.bfloat16, None, gi_, None, None, w_hh, b_hh, h0, code,
+                    _COUNT[f"probe_{mode}"])[0]
 
 
 def scan_backward(res: Residuals, dY: torch.Tensor):
-    """``scan_backward_ref`` on the card: the reverse-sweep kernel without
-    the dx product, then the contraction kernel for dW_hh / db_hh."""
-    global scan_bwd_launches
+    """``scan_backward_ref`` on the card: the persistent reverse sweep
+    without dx, then ``_layer_dw``'s GEMM and sum of dW_hh / db_hh."""
     hseq, rzn, ghn, h0, w_hh = res
     what = "gru_layer_scan backward"
     bf = torch.bfloat16
@@ -527,21 +720,13 @@ def scan_backward(res: Residuals, dY: torch.Tensor):
     T, B, H = hseq.shape
     if tuple(w_hh.shape) != (3 * H, H) or tuple(h0.shape) != (B, H):
         raise ValueError(f"{what}: hseq {tuple(hseq.shape)}, w_hh {tuple(w_hh.shape)}, h0 {tuple(h0.shape)}")
-    _check_residuals(what, (T, B, H), bf, hseq, rzn, ghn, dY)
-    _check_fits(what, 0, H, bf, gru_stack.plan_limits(hseq.device)[1])
-    dev = hseq.device
+    _check_residuals(what, (T, B, H), bf, hseq, rzn, ghn, dY, padded=True)
+    limits = gru_stack.plan_limits(hseq.device)
+    plan = layer_plan(B, 0, H, *limits, hoisted=True)
+    dgi, dgh, dh0 = _sweep(what + " sweep", plan, hseq, h0, rzn, ghn, dY, w_hh, _COUNT["scan_bwd"])
     with torch.no_grad():
-        h0s = h0.to(bf).contiguous()
-        whh_ = w_hh.to(bf).contiguous()
-        dY_ = dY.float().contiguous()
-    dh0 = torch.empty(B, H, device=dev)
-    dgi = torch.empty(T, B, 3 * H, dtype=bf, device=dev)
-    dgh = torch.empty_like(dgi)
-    sweep = _build.function("molvax_gru_layer_scan_bwd", [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
-    err = sweep(*_ptrs(hseq, h0s, rzn, ghn, dY_, whh_, dh0, dgi, dgh), T, B, H, _stream(hseq))
-    _build.check(err, what + " sweep")
-    scan_bwd_launches += 1
-    _, _, dwhh, dbhh = _contract_kernel(None, h0s, hseq, None, dgh, T, B, 0, H, bf, False)
+        hs, h0b = _padded(hseq, bf), _padded(h0, bf)
+    _, _, dwhh, dbhh = _layer_dw(None, None, dgh, hs, h0b, limits[0], bf)
     return dgi.float(), dwhh, dbhh, dh0
 
 
@@ -553,9 +738,8 @@ class _GRULayerX(torch.autograd.Function):
     @staticmethod
     def forward(ctx, route, md, x, w_ih, b_ih, w_hh, b_hh, h0):
         ctx.route = "plain" if _plain_here(x) else route
-        if ctx.route == "kernel" and x.is_cuda and _persistent(md, x.shape[1], h0.shape[-1],
-                                                               gru_stack.plan_limits(x.device)):
-            x = _padded(x, md)  # the operand of the gi GEMM, kept for the dW GEMM
+        if ctx.route != "plain":
+            x = _padded(x, md)  # the forward's operand, kept for the dW GEMM
         fwd = {"plain": layer_forward_ref, "kernel": layer_forward, "in_kernel": layer_forward_in_kernel}
         hseq, rzn, ghn = fwd[ctx.route](x, w_ih, b_ih, w_hh, b_hh, h0, md)
         ctx.save_for_backward(hseq, rzn, ghn, x, h0, w_ih, w_hh)

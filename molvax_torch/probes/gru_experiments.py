@@ -146,10 +146,11 @@ def measure(inp: dict) -> Dict[str, dict]:
 
 
 def sass_counts() -> Optional[Dict[str, Dict[str, int]]]:
-    """Static FFMA and LDG counts of the bf16 hoisted-gi forward's three
-    instances in the built library (``cuobjdump -sass``), or None where the
-    toolkit has no cuobjdump. matmul_only keeps all of W_hh's loads and
-    products only if its z and n products were not dropped as dead code."""
+    """Static HMMA and LDGSTS counts of the bf16 hoisted-gi forward's three
+    instances at one m16 row tile a warp (the layout of B=256, H=501) in the
+    built library (``cuobjdump -sass``), or None where the toolkit has no
+    cuobjdump. matmul_only keeps all of W_hh's products only if its z and n
+    products were not dropped as dead code."""
     tool = shutil.which("cuobjdump") or shutil.which("/usr/local/cuda/bin/cuobjdump")
     if tool is None:
         return None
@@ -160,12 +161,12 @@ def sass_counts() -> Optional[Dict[str, Dict[str, int]]]:
     out, cur = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
-            m = re.search(r"gru_layer_fwd_kernelI13__nv_bfloat16Lb1ELi([012])E", line)
+            m = re.search(r"layer_fwd_kernelI13__nv_bfloat16Lb0ELi([012])ELi1E", line)
             cur = names[m.group(1)] if m else None
             if cur:
-                out[cur] = {"FFMA": 0, "LDG": 0}
+                out[cur] = {"HMMA": 0, "LDGSTS": 0}
         elif cur:
-            for op in ("FFMA", "LDG"):
+            for op in ("HMMA", "LDGSTS"):
                 if re.search(rf"\b{op}\b", line):
                     out[cur][op] += 1
     return out

@@ -4,8 +4,12 @@ Port of the entry point of ``bench/proto_gi_kernel.py``. Its TPU kernel
 ``fwd_gi`` computes ``gru_layer_scan_x``'s bf16 forward (x @ W_ih inside the
 recurrence; hseq, r|z|n and gh_n stored), so its counterpart is the
 in-kernel instance of ``csrc/gru_layer.cu``, called by its name
-(``gru_layer_scan_x_in_kernel``): the production ``gru_layer_scan_x`` hoists
-its input gates since the per-layer redesign. Run on a CUDA card:
+(``gru_layer_scan_x_in_kernel``): one persistent cooperative launch that
+computes x[t+1] @ W_ih on the tensor cores while its row group meets at
+step t's barrier. The production ``gru_layer_scan_x`` hoists its input
+gates into a GEMM wherever the persistent route lays a width out (the
+in-kernel pair measured no faster there, ``PERF.md``). Run on a CUDA
+card:
 
     python -m molvax_torch.probes.proto_gi_kernel
 

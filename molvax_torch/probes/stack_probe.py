@@ -5,6 +5,8 @@ Run by path from the root of a checkout, on a CUDA card:
 
     python3 molvax_torch/probes/stack_probe.py             # times at zinc250k width
     python3 molvax_torch/probes/stack_probe.py --steps     # a recurrence step decomposed
+    python3 molvax_torch/probes/stack_probe.py [--root DIR] --layers  # the per-layer kernels
+    python3 molvax_torch/probes/stack_probe.py --layer-steps  # the in-kernel forward's step decomposed
     python3 molvax_torch/probes/stack_probe.py --root DIR  # the times of the checkout at DIR
     python3 molvax_torch/probes/stack_probe.py --sass DIR  # the bf16 kernels' SASS against DIR's
     python3 molvax_torch/probes/stack_probe.py [--root DIR] --decodes  # the automaton and the decodes
@@ -48,6 +50,17 @@ T=120, I0=329, H=501, L=3, seeded weights (uniform +-1/sqrt(H)):
   split products, split on the integer pipe or by ``cvt.rna.tf32.f32``,
   the GEMM's k-tiles summed apart or all in one tensor-core accumulator;
   or FFMA), each with its GEMMs' errors against a float64 product.
+- ``--layers`` (with ``--root DIR`` or without): ``layer_times``, the
+  in-kernel instance of ``gru_layer_scan_x`` (``csrc/gru_layer.cu``)
+  forward and backward at fwd_gi's width (bf16, I=330), strict fp32 at
+  I=329, and the widths no layout of the persistent route takes (bf16
+  H=2304, fp32 H=1536; I=329), each beside cuDNN's one-layer GRU, and
+  ``gru_layer_scan`` and its probe modes: parent, change, change, parent
+  in one call is the A/B of the layer kernels.
+- ``--layer-steps``: the in-kernel forward at those widths rebuilt with
+  parts of its step taken out (``LAYER_VARIANTS``: the group barrier, the
+  input product computed in the barrier's shadow, the hidden product, or
+  all), times only.
 - ``--decodes`` (with ``--root DIR`` or without): the automaton kernel's
   times (``automaton_times``) and the constrained greedy and beam-5
   decodes' (``decode_times``), events and device-busy time.
@@ -649,6 +662,97 @@ def kernel_times(inp: dict, own: bool) -> dict:
     return out
 
 
+# (I, H, dtype, B) of the per-layer kernels' times (``layer_times``): fwd_gi's
+# width, strict fp32 at zinc250k's layer 0, and the widths no layout of the
+# persistent route takes
+LAYER_WIDTHS = [(330, 501, torch.bfloat16, B), (329, 501, torch.float32, B), (329, 2304, torch.bfloat16, B),
+                (329, 1536, torch.float32, B)]
+
+
+def _layer_inputs(I: int, H: int, Bx: int, seed: int = 0):
+    g = torch.Generator(device="cuda:0").manual_seed(seed)
+    k = 1.0 / H ** 0.5
+
+    def u(*shape):
+        return (2.0 * torch.rand(*shape, generator=g, device="cuda:0") - 1.0) * k
+
+    args = (torch.randn(T, Bx, I, generator=g, device="cuda:0"), u(3 * H, I), u(3 * H), u(3 * H, H), u(3 * H),
+            0.1 * torch.randn(Bx, H, generator=g, device="cuda:0"))
+    return args, 1e-2 * torch.randn(T, Bx, H, generator=g, device="cuda:0")
+
+
+def layer_times() -> dict:
+    """The per-layer kernels' times, ms, with the package on sys.path: the
+    in-kernel instance (``layer_forward_in_kernel``, ``layer_backward_in_kernel``)
+    at each of LAYER_WIDTHS, T=120, and cuDNN's one-layer GRU of the same
+    sizes and dtype (forward); ``gru_layer_scan`` forward and backward and
+    ``gru_probe_scan``'s two modes at zinc250k width."""
+    from molvax_torch.kernels import gru as kgru
+    from molvax_torch.train.profiling import event_ms
+
+    out = {}
+    with torch.no_grad():
+        for I, H_, md, Bx in LAYER_WIDTHS:
+            args, dY = _layer_inputs(I, H_, Bx)
+            tag = f"{str(md).split('.')[-1]}_I{I}_H{H_}"
+            res = (*kgru.layer_forward_in_kernel(*args, md), args[0], args[5], args[1], args[3])
+            out[f"in_kernel_fwd_{tag}"] = event_ms(lambda: kgru.layer_forward_in_kernel(*args, md))
+            out[f"in_kernel_bwd_{tag}"] = event_ms(lambda: kgru.layer_backward_in_kernel(res, dY))
+            gru = torch.nn.GRU(I, H_, 1, device="cuda:0", dtype=md)
+            x = args[0].to(md)
+            with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+                out[f"cudnn_fwd_{tag}"] = event_ms(lambda: gru(x))
+        args, dY = _layer_inputs(I0, H, B)
+        x0, w_ih, b_ih, w_hh, b_hh, h0 = args
+        gi = x0 @ w_ih.T + b_ih
+        sres = (*kgru.scan_forward(gi, w_hh, b_hh, h0), h0, w_hh)
+        out["scan_fwd"] = event_ms(lambda: kgru.scan_forward(gi, w_hh, b_hh, h0))
+        out["scan_bwd"] = event_ms(lambda: kgru.scan_backward(sres, dY))
+        for mode in ("matmul_only", "gates_nostore"):
+            out[mode] = event_ms(lambda: kgru.gru_probe_scan(gi, w_hh, b_hh, h0, mode))
+    return out
+
+
+# (variant, [(text in csrc/gru_layer.cu, its replacement)]): the in-kernel
+# forward's step with parts taken out (results wrong, times only)
+_L_NOBARRIER = [("      group_arrive(a.flags + grp);\n", "      __syncthreads();\n"),
+                ("      group_wait(a.flags + grp, a.q * (t + 1));\n", "      __syncthreads();\n")]
+_L_NOINPUT = [("      product(ga, gc, a.x + (size_t)t * a.B * a.ldx,", "      if (t < 0) product(ga, gc, a.x + (size_t)t * a.B * a.ldx,")]
+_L_NOHIDDEN = [("    product(acc, corr, t == 0 ? a.h0b", "    if (t < 0) product(acc, corr, t == 0 ? a.h0b")]
+LAYER_VARIANTS = {"base": [], "nobarrier": _L_NOBARRIER, "noinput": _L_NOINPUT, "nohidden": _L_NOHIDDEN,
+                  "noproducts": _L_NOINPUT + _L_NOHIDDEN, "empty": _L_NOBARRIER + _L_NOINPUT + _L_NOHIDDEN}
+
+
+def layer_step_times(root: Path) -> list:
+    """The in-kernel forward at each of LAYER_WIDTHS, T=120, rebuilt from
+    csrc/gru_layer.cu in each variant of LAYER_VARIANTS (the barrier, the
+    input product x[t+1] @ W_ih, the hidden product h @ W_hh, or all taken
+    out), each build from a copy of csrc/ under build/stack_probe/: ms a
+    forward and µs a step."""
+    from molvax_torch.kernels import gru as kgru
+    from molvax_torch.train.profiling import event_ms
+
+    src = Path(kgru.__file__).resolve().parent / "csrc"
+    rows = []
+    for name in LAYER_VARIANTS:
+        d = root / "build" / "stack_probe" / f"layer_{name}" / "csrc"
+        shutil.rmtree(d.parent, ignore_errors=True)
+        shutil.copytree(src, d)
+        (d / "gru_layer.cu").write_text(variant_source((src / "gru_layer.cu").read_text(), name, LAYER_VARIANTS))
+        build_variant(d)
+        row = {"variant": name}
+        with torch.no_grad():
+            for I, H_, md, Bx in LAYER_WIDTHS:
+                args, _ = _layer_inputs(I, H_, Bx)
+                ms = event_ms(lambda: kgru.layer_forward_in_kernel(*args, md))
+                slices = kgru.layer_plan(Bx, I, H_, *kgru.gru_stack.plan_limits(args[0].device),
+                                         esize=md.itemsize).slices
+                tag = f"{str(md).split('.')[-1]}_I{I}_H{H_}"
+                row.update({f"fwd_{tag}_ms": ms, f"fwd_{tag}_us_per_step": ms * 1e3 / T / slices})
+        rows.append(row)
+    return rows
+
+
 def step_times(inp: dict, root: Path) -> list:
     """One layer's recurrence and sweep, bf16 and strict fp32, in every
     variant of VARIANTS; then the strict-fp32 pieces in the other product
@@ -761,6 +865,11 @@ def main(argv) -> int:
         print(json.dumps({"root": str(root), **encode_times(), **train_times(), "card": card}), flush=True)
     elif "--decodes" in argv:
         print(json.dumps({"root": str(root), **automaton_times(), **decode_times(), "card": card}), flush=True)
+    elif "--layers" in argv:
+        print(json.dumps({"root": str(root), **layer_times(), "card": card}), flush=True)
+    elif "--layer-steps" in argv:
+        for row in layer_step_times(root):
+            print(json.dumps({**row, "card": card}), flush=True)
     elif "--steps" in argv:
         for row in step_times(inp, root):
             print(json.dumps({**row, "card": card}), flush=True)

@@ -54,9 +54,8 @@ def _rel(got, want):
     return float(np.linalg.norm(got - want) / np.linalg.norm(want))
 
 
-def _layer_x_case(I, H, md):
+def _layer_x_case(I, H, md, T=12, B=16):
     """h_seq and the six gradients of sum(sin(h_seq)), reference and port."""
-    T, B = 12, 16
     p = _layer_np(I, H, seed=I + H)
     x = normal((T, B, I), seed=1)
     h0 = 0.1 * normal((B, H), seed=2)
@@ -90,6 +89,27 @@ def test_layer_scan_x_strict_fp32_matches_pallas_kernel(I, H):
     np.testing.assert_allclose(h_t, h_j, atol=FP32_TOL, rtol=FP32_TOL)
     for name, got, want in zip(GRAD_NAMES, g_t, g_j):
         np.testing.assert_allclose(got, want, atol=FP32_GRAD_TOL, rtol=FP32_GRAD_TOL, err_msg=name)
+
+
+@pytest.mark.parametrize("md,H", [("bfloat16", 2304), ("float32", 1536)])
+def test_layer_scan_x_matches_pallas_kernel_where_no_layout_fits(md, H):
+    """bf16 H=2304 and strict-fp32 H=1536 (I=329), widths that no layout of
+    the persistent route takes (on a card, the in-kernel instance of
+    csrc/gru_layer.cu with W_hh streamed each step): the plain versions
+    against the reference's kernel in interpret mode at T=3, B=4, with the
+    tolerances above."""
+    esize = 2 if md == "bfloat16" else 4
+    assert kgru.layer_route(4, H, kgru._matmul_dtype(md)) == "in_kernel"
+    assert not kgru.layer_plan(4, 329, H, esize=esize).res_hh
+    h_t, h_j, g_t, g_j = _layer_x_case(329, H, md, T=3, B=4)
+    if md == "bfloat16":
+        np.testing.assert_allclose(h_t, h_j, atol=BF16_TOL, rtol=0)
+        for name, got, want in zip(GRAD_NAMES, g_t, g_j):
+            assert _rel(got, want) <= BF16_GRAD_REL, (name, _rel(got, want))
+    else:
+        np.testing.assert_allclose(h_t, h_j, atol=FP32_TOL, rtol=FP32_TOL)
+        for name, got, want in zip(GRAD_NAMES, g_t, g_j):
+            np.testing.assert_allclose(got, want, atol=FP32_GRAD_TOL, rtol=FP32_GRAD_TOL, err_msg=name)
 
 
 def test_layer_scan_matches_pallas_kernel():
@@ -235,15 +255,20 @@ def test_single_layer_bf16_takes_per_layer(kernel, capsys):
 
 
 def test_shared_memory_check():
-    """The kernels keep the h carry, its operand copy, x and the gate
-    cotangents of 4 rows in shared memory: moses_scaled's 1024 wide layers
-    fit in both modes; a shape that does not fit raises before a launch."""
+    """The in-kernel instance's plan keeps its blocks within a block's
+    shared memory: moses_scaled's 1024 wide layers fit in both modes, every
+    weight slice resident in bf16 and the forward's W_hh in fp32; the byte counts are the kernels' layouts;
+    a width that no layout takes raises before a launch."""
     for md in (torch.bfloat16, torch.float32):
-        assert kgru.smem_bytes(1024, 1024, md) <= ks.SMEM
-        kgru._check_fits("gru_layer_scan_x", 1024, 1024, md)
-    assert kgru.smem_bytes(1024, 1024, torch.float32) == 4 * 1024 * 4 + 6 * 1024 * 4 * 4
-    with pytest.raises(ValueError, match="shared memory"):
-        kgru._check_fits("gru_layer_scan_x", 512, 4096, torch.float32)
+        plan = kgru.layer_plan(256, 1024, 1024, esize=md.itemsize)
+        assert max(plan.fwd_smem, plan.bwd_smem) <= ks.SMEM and plan.res_hh
+        assert (plan.res_ih and plan.bwd_res_hh) == (md == torch.bfloat16)
+    # fp32, 8 units, 32 rows, chunks of 64: two 3 x 8 x (1024 + 4) slices, two ring buffers of 32 x (64 + 4)
+    assert kgru.fwd_smem(1024, 1024, 8, 32, 64, 2, True, True, True, 4) == (2 * 3 * 8 * 1028 + 2 * 32 * 68) * 4
+    # bf16 sweep, W_hh streamed: two buffers of 32 x (64 + 8) rows and 64 x (8 + 8) weights
+    assert kgru.sweep_smem(1024, 8, 32, 64, 2, False, 2) == 2 * (32 * 72 + 64 * 16) * 2
+    with pytest.raises(ValueError, match="no layout"):
+        kgru.layer_plan(256, 512, 64 * ks.SMS + 1, esize=4)
 
 
 def test_backward_checks_the_residuals_it_reads():

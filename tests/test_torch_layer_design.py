@@ -168,25 +168,27 @@ def test_layer_route_is_persistent_at_the_presets_widths(preset, B):
 def test_fp32_layer_route_takes_the_in_kernel_instance_where_no_fp32_layout_fits(B, H):
     """An fp32 W_hh slice takes twice the shared memory of a bf16 one: the
     fp32 plan lays out every H up to 1,152 at B=256 and raises beyond, where
-    bf16 still has a layout; there the fp32 in-kernel instance's shared
-    memory (112 H bytes) still takes the layer."""
+    bf16 still has a layout; there the fp32 in-kernel instance's
+    ``layer_plan`` still takes the layer."""
     with pytest.raises(ValueError, match="no layout fits"):
         ks.stack_plan(B, H, esize=4)
     assert kgru.layer_route(B, H, F32) == "in_kernel" and not kgru._persistent(F32, B, H)
     assert kgru.layer_route(B, H) == "persistent"
-    kgru._check_fits("gru_layer_scan_x", 329, H, F32)
+    plan = kgru.layer_plan(B, 329, H, esize=4)
+    assert plan.blocks <= ks.SMS and max(plan.fwd_smem, plan.bwd_smem) <= ks.SMEM
     assert kgru.layer_route(256, 1152, F32) == "persistent"
 
 
 @pytest.mark.parametrize("B,H", [(256, 2144), (16, 2304), (256, 3072)])
 def test_layer_route_takes_the_in_kernel_instance_where_no_layout_fits(B, H):
     """stack_plan lays out every H up to 2,112 at B=256 and raises beyond;
-    there the bf16 in-kernel instance's shared memory still takes the
-    layer (4 rows of h, its bf16 copies and x)."""
+    there the bf16 in-kernel instance's ``layer_plan`` still takes the
+    layer."""
     with pytest.raises(ValueError, match="no layout fits"):
         ks.stack_plan(B, H)
     assert kgru.layer_route(B, H) == "in_kernel"
-    kgru._check_fits("gru_layer_scan_x", 329, H, BF)
+    plan = kgru.layer_plan(B, 329, H)
+    assert plan.blocks <= ks.SMS and max(plan.fwd_smem, plan.bwd_smem) <= ks.SMEM
     assert kgru.layer_route(256, 2112) == "persistent"
 
 
@@ -212,7 +214,7 @@ def test_persistent_sweep_reads_a_padded_hseq_in_place():
 
 def _counts():
     return (kgru.layer_gi_launches, kgru.layer_rec_launches, kgru.layer_sweep_launches, kgru.layer_dx_launches,
-            kgru.layer_gemm_dw_launches, kgru.layer_dw_sum_launches, kgru.layer_fwd_launches, kgru.layer_bwd_launches, kgru.layer_dw_launches,
+            kgru.layer_gemm_dw_launches, kgru.layer_dw_sum_launches, kgru.layer_fwd_launches, kgru.layer_bwd_launches,
             ks.gemm_gi_launches, ks.rec_launches, ks.sweep_launches, ks.gemm_dx_launches, ks.dw_launches)
 
 
@@ -352,7 +354,7 @@ def test_persistent_route_hands_each_launch_the_right_operands(T, B, I, H, md, m
         assert torch.equal(a, b) if name in ("dx", "dh0") else _rel(a, b) <= 1e-6, name
     n = ks.stack_plan(B, H, esize=md.itemsize).slices
     added = tuple(a - b for a, b in zip(_counts(), before))
-    assert added == (1, n, n, 1, 1, 1) + (0,) * 8
+    assert added == (1, n, n, 1, 1, 1) + (0,) * 7
 
 
 @pytest.mark.parametrize("T,I,H,parts", [(120, 329, 501, 3), (120, 501, 501, 4), (120, 549, 1024, 3), (2, 10, 24, 2)])
@@ -360,3 +362,51 @@ def test_dw_gemm_parts_fill_the_card(T, I, H, parts):
     """zinc250k's layer 0: 84 output tiles on 132 SMs, one wave with 48 idle;
     in 3 parts, 252 tiles in two waves of a third of the rows each."""
     assert kgru.dw_parts(T, I, H) == parts
+
+
+@pytest.mark.parametrize("md", [BF, F32])
+@pytest.mark.parametrize("T,B,I,H", SHAPES)
+def test_in_kernel_route_hands_each_launch_the_right_operands(T, B, I, H, md, monkeypatch):
+    """layer_forward_in_kernel / layer_backward_in_kernel with
+    csrc/gru_layer.cu's launches replaced by their plain versions on the
+    operands they are given (x as its padded copy in the storage type), and
+    the dx and dW GEMMs by gemm_ref: equal to the per-layer plain versions,
+    dx and dh0 bit for bit, dW and db within 1e-6 relative (the split GEMM
+    sums in another order); hseq a view of rows padded to 16 bytes; each
+    layer kernel counted once per batch slice of layer_plan on the in-kernel
+    counters, the dx GEMM, the dW GEMM and the sum of its parts once each on
+    the route's, none on the stack's."""
+    _plain_launches(monkeypatch, md)
+    plan = kgru.layer_plan(B, I, H, esize=md.itemsize)
+
+    def forward(what, plan_, md_, x, gi, w_ih, b_ih, w_hh, b_hh, h0, mode, count):
+        assert plan_ == plan and md_ == md and mode == 0 and gi is None and ks._is_padded(x, md)
+        hseq = torch.empty(T, B, ks._up(H, ks._row_align(md)), dtype=md)[..., :H]
+        res = kgru.layer_forward_ref(x, w_ih, b_ih, w_hh, b_hh, h0, md)
+        hseq.copy_(res[0])
+        for _ in range(plan.slices):
+            count()
+        return (hseq, *res[1:])
+
+    def sweep(what, plan_, hseq, h0, rzn, ghn, dY, w_hh, count):
+        assert plan_ == plan and hseq.dtype == md
+        for _ in range(plan.slices):
+            count()
+        return ks.layer_sweep_ref(hseq, h0, rzn, ghn, w_hh, dY, torch.zeros_like(h0), md)
+
+    monkeypatch.setattr(kgru, "_forward", forward)
+    monkeypatch.setattr(kgru, "_sweep", sweep)
+    args = _layer_args(T, B, I, H, seed=H + 3)
+    x, w_ih, _, w_hh, _, h0 = args
+    dY = torch.from_numpy(normal((T, B, H), seed=6))
+    before = _counts()
+    res = kgru.layer_forward_in_kernel(*args, md)
+    grads = kgru.layer_backward_in_kernel((*res, ks._padded(x, md), h0, w_ih, w_hh), dY)
+    want = kgru.layer_forward_ref(*args, md)
+    assert all(a.dtype == md and torch.equal(a, b) for a, b in zip(res, want))
+    assert res[0].stride(-2) == ks._up(H, ks._row_align(md))  # rows padded to 16 bytes
+    for name, a, b in zip(["dx", "dw_ih", "db_ih", "dw_hh", "db_hh", "dh0"], grads,
+                          kgru.layer_backward_ref((*want, x, h0, w_ih, w_hh), dY)):
+        assert torch.equal(a, b) if name in ("dx", "dh0") else _rel(a, b) <= 1e-6, name
+    added = tuple(a - b for a, b in zip(_counts(), before))
+    assert added == (0, 0, 0, 1, 1, 1, plan.slices, plan.slices) + (0,) * 5

@@ -223,8 +223,8 @@ def test_plans_fit_the_card_they_run_on(card, monkeypatch):
     layout the training kernels take on a CUDA device fits that card:
     ``stack_plan``'s group x block count is at most its SMs (the
     cooperative launch is taken) and its blocks' shared memory within its
-    limit, or ``layer_route`` sends the layer to the in-kernel instance (no
-    cooperative launch), whose shared memory fits too; ``dw_parts`` takes
+    limit, or ``layer_route`` sends the layer to the in-kernel instance,
+    whose ``layer_plan`` fits the card too; ``dw_parts`` takes
     the fewest waves of the card's SMs. On 132 SMs every plan is the one
     planned without a card, from an H100 SXM's constants, as before."""
     sms, smem = card
@@ -240,7 +240,8 @@ def test_plans_fit_the_card_they_run_on(card, monkeypatch):
             assert max(plan.fwd_smem, plan.bwd_smem) <= smem
             assert plan.slices * plan.g * plan.rows >= B
         else:
-            kgru._check_fits("gru_layer_scan_x", I, H, md, smem)
+            lplan = kgru.layer_plan(B, I, H, *ks.plan_limits(cuda), esize=esize)
+            assert lplan.blocks <= sms and max(lplan.fwd_smem, lplan.bwd_smem) <= smem
         tiles = -(-3 * H // 128) * (-(-(I + 1) // 128) + -(-(H + 1) // 128))
         k = kgru.dw_parts(T, I, H, sms)
         assert 1 <= k <= 4 and all(-(-tiles * k // sms) / k <= -(-tiles * j // sms) / j for j in range(1, 5))

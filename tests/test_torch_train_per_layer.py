@@ -34,7 +34,7 @@ FREE_BITS = 0.1  # zinc250k_quality's
 
 def _launches():
     return (conv_enc.launches, sampler.launches, gru_stack.rec_launches, gru_stack.sweep_launches,
-            gru.layer_fwd_launches, gru.layer_bwd_launches, gru.layer_dw_launches)
+            gru.layer_fwd_launches, gru.layer_bwd_launches)
 
 
 def _per_layer_grads_jax(params, jcfg, codes, beta):
