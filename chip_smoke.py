@@ -120,16 +120,20 @@ phases, each printed on its own lines:
  19. the design probes' kernels against their plain versions at full width
      (B=256, T=120, H=501, L=3) and at a ragged batch of 6: the hoisted-gi
      forward's two probe modes (gru_probe_scan, run_variant's) and the
-     stack forward's fused3 mode (gru_fused3_scan) within the bf16 gate;
-     floor_loop bit for bit, at the probe's three shapes; gru_layer_scan_x's
+     fused3 wavefront (gru_fused3_scan: the stack forward as one cooperative
+     launch a batch slice, counted per slice) within the bf16 gate, two runs
+     bit for bit; floor_loop bit for bit, at the probe's three shapes, with
+     int32-limit elements, at 4 chains, 3 (13 ops), 1 and 8; gru_layer_scan_x's
      in-kernel forward (fwd_gi's kernel) at fwd_gi's I=330, and its
      backward (two runs bit for bit);
  20. the three probe modules (molvax_torch/probes/): each run once with its
      launches counted (every probe kernel once), then their tables: the
      recurrence step decomposed (matmul_only, gates_nostore, full) at H=501
-     and 512, the 3-layer forward per layer, on the stack and fused3; the
-     in-kernel against the hoisted input GEMM; the automaton per step and
-     its budget; the int32-op floor; each with its bound;
+     and 512, the 3-layer forward per layer, on the stack, fused3, and
+     fused3's work on the per-layer pieces in the same call; the in-kernel
+     against the hoisted input GEMM; the automaton per step and its budget;
+     the int32-op floor (ns per op, fixed cost, one op's dependent latency
+     and the latency floor); each with its bound;
  21. one train step of zinc250k, zinc250k_quality, strict fp32 and a bf16
      step with the property head (three seeded targets, target stats)
      under torch.cuda.set_sync_debug_mode("error"): no host sync on the
@@ -188,6 +192,7 @@ import dataclasses
 import json
 import os
 import re
+import subprocess
 import sys
 import time
 
@@ -378,7 +383,7 @@ def reset_counts() -> None:
     kgru.scan_fwd_launches = kgru.scan_bwd_launches = 0
     kauto.step_launches = kauto.mask_launches = kauto.advance_launches = 0
     kgru.probe_matmul_only_launches = kgru.probe_gates_nostore_launches = 0
-    gru_stack.fused3_launches = kfloor.launches = 0
+    kgru.fused3_launches = kfloor.launches = 0
 
 
 def counts() -> dict:
@@ -408,7 +413,7 @@ def counts() -> dict:
         "auto_advance": kauto.advance_launches,
         "gru_probe_matmul_only": kgru.probe_matmul_only_launches,
         "gru_probe_gates_nostore": kgru.probe_gates_nostore_launches,
-        "gru_fused3": gru_stack.fused3_launches,
+        "gru_fused3": kgru.fused3_launches,
         "floor_loop": kfloor.launches,
     }
 
@@ -1545,9 +1550,10 @@ def phase19(dev) -> dict:
             stack = (g["gi"][:, :rows].contiguous(), *g["stack"], h0[:, :rows].contiguous())
             checks = [(f"gru_probe_scan[{m}]", m, lambda m=m: kgru.gru_probe_scan(*one, m),
                        lambda m=m: kgru.gru_probe_scan_ref(*one, m)) for m in kgru.PROBE_MODES]
-            checks.append(("gru_fused3_scan", "fused3", lambda: gru_stack.gru_fused3_scan(*stack),
+            checks.append(("gru_fused3_scan", "fused3", lambda: kgru.gru_fused3_scan(*stack),
                            lambda: gru_stack.gru_fused3_scan_ref(*stack)))
             for name, key, kern, ref in checks:
+                before = kgru.fused3_launches
                 k, r = kern(), ref()
                 torch.cuda.synchronize()
                 e = max_abs(k, r)
@@ -1555,6 +1561,14 @@ def phase19(dev) -> dict:
                     hseq_bit_identical=f"{(k == r).float().mean().item():.6f}", tol=STACK_FWD_TOL)
                 if not (torch.isfinite(k.float()).all() and k.shape == r.shape and e <= STACK_FWD_TOL):
                     raise AssertionError(f"{name} differs from its plain version by {e:.3e} at B={rows}")
+                if key == "fused3":  # one wavefront launch a batch slice, and a second run bit for bit
+                    plan = kgru.fused3_plan(rows, H_, L_, *gru_stack.plan_limits(dev))
+                    twice = torch.equal(k, kern())
+                    say("phase19", kernel=name, B=rows, plan=json.dumps(dataclasses.asdict(plan)).replace(" ", ""),
+                        launches=kgru.fused3_launches - before, twice_bit_identical=twice)
+                    if kgru.fused3_launches - before != 2 * plan.slices or not twice:
+                        raise AssertionError(f"fused3 at B={rows}: {kgru.fused3_launches - before} launches for "
+                                             f"two calls of {plan.slices} slices; twice identical {twice}")
                 err[key] = max(err.get(key, 0.0), e)
                 if rows == B:
                     plain[key] = time_ms(ref)
@@ -1562,7 +1576,8 @@ def phase19(dev) -> dict:
         for shape in auto_loop_probe.FLOOR_SHAPES:
             x = torch.randint(-64, 64, shape, dtype=torch.int32, generator=gen, device=dev)
             x.view(-1)[:2] = torch.tensor([2**31 - 1, -(2**31)], dtype=torch.int32, device=dev)
-            for k_ops, chains in ((auto_loop_probe.FLOOR_K[0], auto_loop_probe.FLOOR_CHAINS), (13, 3)):
+            for k_ops, chains in ((auto_loop_probe.FLOOR_K[0], auto_loop_probe.FLOOR_CHAINS), (13, 3), (13, 1),
+                                  (13, 8)):
                 same = torch.equal(kfloor.floor_loop(x, g["T"], k_ops, chains),
                                    kfloor.floor_loop_ref(x, g["T"], k_ops, chains))
                 say("phase19", kernel="floor_loop", shape=json.dumps(shape), T=g["T"], k_ops=k_ops, chains=chains,
@@ -1635,6 +1650,11 @@ def phase20(dev, g, p, ms_gen: float, gpu: str) -> dict:
     print(gpu, flush=True)
     for h, inp in ((g["H"], g), (512, g512)):
         gru_experiments.print_table(rows[h], inp)
+        # the question run_fused3 asks: one launch of all layers against one a layer, same work, same call
+        say("phase20", H=h, fused3_ms=f"{rows[h]['fused3']['ms']:.4f}",
+            per_layer_same_work_ms=f"{rows[h]['per_layer_same']['ms']:.4f}",
+            fused3_over_per_layer=f"{rows[h]['fused3']['ms'] / rows[h]['per_layer_same']['ms']:.4f}",
+            fused3_slices=rows[h]["fused3"]["slices"])
     share = rows[g["H"]]["matmul_only"]["ms"] / rows[g["H"]]["full"]["ms"]
     sass = gru_experiments.sass_counts()
     say("phase20", matmul_only_over_full=f"{share:.4f}", min_share=MATMUL_ONLY_MIN_SHARE,
@@ -1647,14 +1667,31 @@ def phase20(dev, g, p, ms_gen: float, gpu: str) -> dict:
     auto_loop_probe.print_table(arow, a)
     frows = auto_loop_probe.floor_measure(device=dev)
     auto_loop_probe.print_floor(frows)
+    dep_ns = frows[auto_loop_probe.LATENCY_SHAPE]["ns_per_op"][-1]
+    clock = sm_clock_mhz()
+    # the event times above carry the wrapper's host cost; the device's own time of one launch
+    fx = torch.ones(auto_loop_probe.FLOOR_SHAPES[-1], dtype=torch.int32, device=dev)
+    floor_device_ms = queued_ms(lambda: kfloor.floor_loop(fx, g["T"], auto_loop_probe.FLOOR_K[0],
+                                                          auto_loop_probe.FLOOR_CHAINS))
+    say("phase20", floor_dependent_ns_per_op=f"{dep_ns:.4f}", sm_clock_max_mhz=clock,
+        cycles_per_dependent_op=f"{dep_ns * clock / 1e3:.2f}" if clock else "not measured",
+        floor_device_ms=f"{floor_device_ms:.5f}")
     # the one PyTorch call computing fwd_gi's function: cuDNN's one-layer bf16 GRU
     gru = torch.nn.GRU(p["I"], p["H"], 1, device=dev, dtype=torch.bfloat16)
     xb = p["x"].to(torch.bfloat16)
     with torch.no_grad():
         lib_fwd_gi = time_ms(lambda: gru(xb))
     say("phase20", library=f"torch.nn.GRU[one layer, I={p['I']}]", fwd_ms=f"{lib_fwd_gi:.4f}", dtype="bfloat16")
-    return {"runs": runs, "rows": rows[g["H"]], "proto": prow, "auto": arow, "floor": frows,
-            "lib_fwd_gi": lib_fwd_gi}
+    return {"runs": runs, "rows": rows[g["H"]], "rows512": rows[512], "proto": prow, "auto": arow, "floor": frows,
+            "floor_device_ms": floor_device_ms, "lib_fwd_gi": lib_fwd_gi}
+
+
+def sm_clock_mhz():
+    """The card's highest SM clock in MHz (nvidia-smi clocks.max.sm), or
+    None where nvidia-smi does not report it."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True).stdout.split()
+    return int(out[0]) if out and out[0].isdigit() else None
 
 
 def phase21(weights, codes, dev, gpu) -> dict:
@@ -2330,16 +2367,24 @@ def probe_entries(p19: dict, p20: dict, route_comparison: dict) -> list:
               p19["plain"]["matmul_only"], bnd["matmul_only"], None, mode="matmul_only",
               ms_gates_nostore=rows["gates_nostore"]["ms"], plain_ms_gates_nostore=p19["plain"]["gates_nostore"],
               bound_ms_gates_nostore=bnd["gates_nostore"][0], ms_full=rows["full"]["ms"]),
-        entry("run_fused3", "gru_stack.cu", "bench/gru_experiments.py:155", ge_runs["gru_fused3"],
+        entry("run_fused3", "gru_layer.cu", "bench/gru_experiments.py:155", ge_runs["gru_fused3"],
               p19["err"]["fused3"], rows["fused3"]["ms"], p19["plain"]["fused3"], bnd["fused3"], None,
-              layers=g["L"]),
+              layers=g["L"], slices=rows["fused3"]["slices"], per_layer_same_work_ms=rows["per_layer_same"]["ms"],
+              ms_H512=p20["rows512"]["fused3"]["ms"], per_layer_same_work_ms_H512=p20["rows512"]["per_layer_same"]["ms"],
+              library_none="cuDNN's GRU cannot take layer 0's gates as given"),
         entry("fwd_gi", "gru_layer.cu", "bench/proto_gi_kernel.py:69",
               runs["proto_gi_kernel"]["gru_layer_scan_x_fwd"], p19["err"]["fwd_gi"], prow["in_kernel_1"]["ms"],
               p19["plain"]["fwd_gi"], bnd["fwd_gi"], p20["lib_fwd_gi"], library_dtype="bfloat16",
               I=p19["p"]["I"], ms_hoisted=prow["hoisted_1"]["ms"], route_comparison=route_comparison),
         entry("floor_loop", "floor.cu", "bench/auto_loop_probe.py:152", runs["auto_loop_probe"]["floor_loop"], 0,
               p20["floor"][floor_shape]["ms"][floor_k], p19["plain"]["floor"], bnd["floor_loop"], None,
-              shape=list(floor_shape), T=g["T"], k_ops=floor_k, ns_per_op=p20["floor"][floor_shape]["ns_per_op"]),
+              shape=list(floor_shape), T=g["T"], k_ops=floor_k, chains=auto_loop_probe.FLOOR_CHAINS,
+              ns_per_op=p20["floor"][floor_shape]["ns_per_op"], fixed_ms=p20["floor"][floor_shape]["fixed_ms"],
+              device_ms=p20["floor_device_ms"],
+              latency_floor_ms=auto_loop_probe.floor_latency_ms(
+                  g["T"], floor_k, auto_loop_probe.FLOOR_CHAINS,
+                  p20["floor"][auto_loop_probe.LATENCY_SHAPE]["ns_per_op"][-1]),
+              library_none="no PyTorch call runs this integer loop"),
     ]
 
 
@@ -2386,6 +2431,17 @@ def main() -> int:
             raise AssertionError(f"the ptxas report names {sorted(layer_ptxas)}, expected 19 layer kernel instances")
     for name, rep in sorted(layer_ptxas.items()):
         say("phase1", layer_kernel=name, **rep)
+    # the probe kernels' instances: the fused3 wavefront (one a row-tile
+    # count), the int32 floor (one a chain count)
+    probe_ptxas = {}
+    if _build.info.compiled:
+        for kernel in ("fused3_kernel", "floor_kernel"):
+            probe_ptxas.update(ptxas_instances(_build.info.log, kernel))
+        if len(probe_ptxas) != 11:
+            raise AssertionError(f"the ptxas report names {sorted(probe_ptxas)}, expected 3 fused3 and 8 floor "
+                                 "instances")
+    for name, rep in sorted(probe_ptxas.items()):
+        say("phase1", probe_kernel=name, **rep)
 
     # -- 2. weights ----------------------------------------------------------
     full = get_preset("zinc250k")

@@ -8,15 +8,26 @@
 // `k_ops` ops y = (y > t) ? y - 1 : y + 1, op i to chain i % chains; the
 // output is the sum of the chains, with int32 wrap-around.
 //
-// Design. One thread per element (a warp is 32 neighbouring elements: one
-// row of a (B, 32) layout). T and k_ops are runtime arguments, so nvcc cannot
-// fold the loop; the chains are a template argument (an instance per count,
-// 1 .. MAX_CHAINS) so that they live in registers. Differencing two k_ops
-// cancels the launch and the loop overhead.
+// What bounds it on an H100: the integer pipes, and the dependent chain. Each
+// op is a compare and an add (the select folds into them): 2 int32
+// operations per element and op; the ops of a chain depend on each other, so
+// one chain's T ceil(k_ops / chains) ops take at least as many times one
+// op's dependent latency.
 //
-// What bounds it on an H100: the integer pipes. Each op is a compare and an
-// add (the select folds into them): 2 int32 operations per element and op,
-// dependent within a chain, independent across chains.
+// Design. A thread per (element, chain): chain c runs its k_ops / chains +
+// (c < k_ops % chains) ops a step, in registers. The chains of an element sit
+// in P neighbouring lanes (P the power of two at or above `chains`; lanes past
+// `chains` carry 0), and __shfl_xor_sync adds them: wrapping addition is
+// associative and commutative, so the sum is bit for bit the one of a single
+// thread. At (256, 32) with 4 chains that is 32,768 threads on the 132 SMs
+// where a thread an element (the previous design) gave 8,192 threads with
+// ILP 4 on 32 of them. T and k_ops are runtime arguments, so nvcc cannot
+// fold the loop, and differencing two k_ops cancels the launch and the loop's
+// fixed cost; the chains are a template argument (an instance per count, 1 ..
+// MAX_CHAINS). The op is written as a select between y - 1 and y + 1, both
+// computed beside the compare: one compare-and-adds level and the select, two
+// dependent instructions an op (ISETP | IADD3, then SEL; PERF.md has the
+// SASS).
 
 #include <cuda_runtime.h>
 
@@ -25,34 +36,34 @@ namespace {
 constexpr int THREADS = 256;
 constexpr int MAX_CHAINS = 8;
 
+// One op of a chain at step t (unsigned adds wrap as the TPU's int32 adds do)
+__device__ __forceinline__ unsigned floor_op(unsigned y, int t) {
+  const unsigned lo = y - 1u, hi = y + 1u;
+  return (int)y > t ? lo : hi;
+}
+
 template <int CHAINS>
 __global__ void __launch_bounds__(THREADS)
 floor_kernel(const int* __restrict__ x, int* __restrict__ out, int n, int T, int k_ops) {
-  const int i = blockIdx.x * THREADS + threadIdx.x;
-  if (i >= n) return;
-  // unsigned adds wrap as the TPU's int32 adds do
-  unsigned y[CHAINS];
-#pragma unroll
-  for (int c = 0; c < CHAINS; ++c) y[c] = (unsigned)x[i] + (unsigned)c;
-  const int rounds = k_ops / CHAINS, tail = k_ops % CHAINS;
+  constexpr int P = CHAINS <= 1 ? 1 : CHAINS <= 2 ? 2 : CHAINS <= 4 ? 4 : 8;  // lanes an element
+  const int i = (blockIdx.x * THREADS + threadIdx.x) / P, c = threadIdx.x % P;
+  // a lane of a partial last element group still takes part in the shuffles
+  const bool live = i < n && c < CHAINS;
+  unsigned y = live ? (unsigned)x[i] + (unsigned)c : 0u;
+  const int ops = live ? k_ops / CHAINS + (c < k_ops % CHAINS) : 0;
   for (int t = 0; t < T; ++t) {
-    for (int k = 0; k < rounds; ++k) {
-#pragma unroll
-      for (int c = 0; c < CHAINS; ++c) y[c] = (int)y[c] > t ? y[c] - 1u : y[c] + 1u;
-    }
-#pragma unroll
-    for (int c = 0; c < CHAINS; ++c)
-      if (c < tail) y[c] = (int)y[c] > t ? y[c] - 1u : y[c] + 1u;
+    for (int k = 0; k < ops; ++k) y = floor_op(y, t);
   }
-  unsigned s = 0;
 #pragma unroll
-  for (int c = 0; c < CHAINS; ++c) s += y[c];
-  out[i] = (int)s;
+  for (int m = P / 2; m > 0; m /= 2) y += __shfl_xor_sync(0xffffffffu, y, m);
+  if (i < n && c == 0) out[i] = (int)y;
 }
 
 template <int CHAINS>
 cudaError_t launch(const int* x, int* out, int n, int T, int k_ops, cudaStream_t stream) {
-  floor_kernel<CHAINS><<<(n + THREADS - 1) / THREADS, THREADS, 0, stream>>>(x, out, n, T, k_ops);
+  constexpr int P = CHAINS <= 1 ? 1 : CHAINS <= 2 ? 2 : CHAINS <= 4 ? 4 : 8;
+  const long long threads = (long long)n * P;
+  floor_kernel<CHAINS><<<(int)((threads + THREADS - 1) / THREADS), THREADS, 0, stream>>>(x, out, n, T, k_ops);
   return cudaGetLastError();
 }
 

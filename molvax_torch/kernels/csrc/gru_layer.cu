@@ -80,6 +80,29 @@
 // MATMUL_ONLY's output reads only the r third of gh, so the z and n products
 // would be dead code; their sum goes to `sink` when it is not null (it is
 // null in every probe run), which keeps all 3H columns of the product live.
+//
+// The fused3 probe (molvax_gru_fused3_fwd, fused3_kernel) replaces
+// bench/gru_experiments.py::run_fused3 (_fused3_kernel), the TPU's test of
+// one kernel running all L layers of the stack forward: layer 0's input
+// gates gi0 (T, B, 3H) bf16 are given, bias included; the upper layers
+// compute theirs from the bf16 h sequence of the layer below; hseq of every
+// layer is stored and no r|z|n or gh_n. One cooperative launch (per batch
+// slice) splits the SMs into L teams, one a layer, each laid out as this
+// file's forward (kernels/gru.py::fused3_plan: one row split shared by all
+// teams, so that a row group of layer l waits on one row group of layer
+// l-1): team 0 runs the hoisted-gi step in GATES_NOSTORE mode, the others
+// the in-kernel step in the same mode, the very code of layer_fwd_kernel
+// (layer_fwd_block). The layers run as a wavefront: before it reads x[t], a
+// block of layer l waits until the row group of layer l-1 that holds its
+// rows has published step t (group_wait on that group's counter), and every
+// team arrives after its last step too. x[t+1] @ W_ih runs between the
+// halves of step t's barrier, as in the in-kernel forward, so layer l runs
+// about a step behind layer l-1 (a skew of 2 ticks between a layer's input
+// and its use). Three launches, one a layer, would not be sure to be
+// resident together, and a wait across them could then deadlock: the teams
+// are one launch, blocks taking their layer from blockIdx. Bound on an H100
+// as the forward's: latency, a step at a time; the teams share the card, so
+// a block owns about L times the rows x units of a one-layer launch.
 
 #include "common.cuh"
 #include "gemm.cuh"
@@ -186,15 +209,21 @@ struct SweepArgs {
   int row_base, row_end;
 };
 
-// Forward, MT m16 row tiles a warp: warp w owns 8 units of the block's
-// slice (their r, z and n columns) for MT row tiles from row wr.
-template <typename E, bool IN_X, int MODE, int MT>
-__global__ void __launch_bounds__(256) layer_fwd_kernel(const FwdArgs<E> a) {
-  static_assert(MODE == FULL || (!IN_X && sizeof(E) == 2), "the probe modes are of the hoisted-gi forward");
+// Forward, MT m16 row tiles a warp, of block `blk` of the launch: warp w
+// owns 8 units of the block's slice (their r, z and n columns) for MT row
+// tiles from row wr. WAVE: the block is in a team of the fused3 wavefront:
+// before it reads x[t] it waits until the row group of the layer below
+// (counters `below`, `qb` blocks a group) has published step t, and it
+// arrives after its last step too, for the layer above.
+template <typename E, bool IN_X, int MODE, int MT, bool WAVE = false>
+__device__ __forceinline__ void layer_fwd_block(const FwdArgs<E>& a, unsigned blk, int* below = nullptr,
+                                                int qb = 0) {
+  static_assert(MODE == FULL || (sizeof(E) == 2 && (!IN_X || (WAVE && MODE == GATES_NOSTORE))),
+                "the probe modes are of the hoisted-gi forward and the fused3 wavefront");
   constexpr int EPC = 16 / (int)sizeof(E);  // elements per 16-byte chunk
   extern __shared__ __align__(16) unsigned char fsmem[];
   const int H = a.H, G = 3 * H, U = a.units, Kh = round16(H), Kx = IN_X ? round16(a.I) : 0;
-  const int grp = blockIdx.x / a.q, u0 = (blockIdx.x % a.q) * U;
+  const int grp = blk / a.q, u0 = (blk % a.q) * U;
   const int r0 = a.row_base + grp * a.rows, rend = a.row_end;
   const int cs = a.chunk + SPAD<E>;
   const bool streams = !a.res_hh || (IN_X && !a.res_ih);
@@ -295,6 +324,7 @@ __global__ void __launch_bounds__(256) layer_fwd_kernel(const FwdArgs<E> a) {
   float gi[MT][4][3];
   auto input_gates = [&](int t) {
     if constexpr (IN_X) {
+      if constexpr (WAVE) group_wait(below + grp, qb * (t + 1));
       float ga[MT][3][4] = {}, gc[MT][3][4] = {};
       product(ga, gc, a.x + (size_t)t * a.B * a.ldx, a.ldx, Kx, a.I, a.res_ih ? sWi : nullptr,
               static_cast<const E*>(a.wih), a.ldwi);
@@ -359,7 +389,35 @@ __global__ void __launch_bounds__(256) layer_fwd_kernel(const FwdArgs<E> a) {
       group_arrive(a.flags + grp);
       input_gates(t + 1);  // needs no other block's h: runs in the barrier's shadow
       group_wait(a.flags + grp, a.q * (t + 1));
+    } else if constexpr (WAVE) {
+      group_arrive(a.flags + grp);  // the last step, for the layer above
     }
+  }
+}
+
+template <typename E, bool IN_X, int MODE, int MT>
+__global__ void __launch_bounds__(256) layer_fwd_kernel(const FwdArgs<E> a) {
+  layer_fwd_block<E, IN_X, MODE, MT>(a, blockIdx.x);
+}
+
+// The fused3 wavefront: L teams of `team_blocks` blocks, team l running
+// layer l's forward (layer[l]) with the plan's shared layout.
+constexpr int MAX_TEAMS = 8;  // the stack's most layers (kernels/gru_stack.py)
+
+struct Fused3Args {
+  FwdArgs<__nv_bfloat16> layer[MAX_TEAMS];
+  int team_blocks;
+};
+
+template <int MT>
+__global__ void __launch_bounds__(256) fused3_kernel(const __grid_constant__ Fused3Args a) {
+  const unsigned team = blockIdx.x / a.team_blocks, blk = blockIdx.x % a.team_blocks;
+  typedef __nv_bfloat16 bf;
+  if (team == 0) {
+    layer_fwd_block<bf, false, GATES_NOSTORE, MT, true>(a.layer[0], blk);
+  } else {
+    const FwdArgs<bf>& lo = a.layer[team - 1];
+    layer_fwd_block<bf, true, GATES_NOSTORE, MT, true>(a.layer[team], blk, lo.flags, lo.q);
   }
 }
 
@@ -575,19 +633,30 @@ int launch_fwd_mode(const FwdArgs<E>& a, int mt, int blocks, int threads, size_t
   }
 }
 
+// true where the forward cannot run `a` with rt row tiles of warps and g
+// groups
 template <typename E>
-int layer_fwd(const FwdArgs<E>& a, int mode, int rt, int g, void* stream) {
+bool bad_fwd(const FwdArgs<E>& a, int rt, int g) {
   constexpr int EPC = 16 / (int)sizeof(E);
   const bool in_x = a.x != nullptr;
   const bool single = a.stages == 1 && (a.chunk < max(round16(a.H), in_x ? round16(a.I) : 0) || !a.res_hh ||
                                         (in_x && !a.res_ih));  // one buffer: all of K, nothing streamed
-  if (bad_plan<E>(a.units, a.rows, rt, a.q, g, a.chunk, a.stages) || single || a.T <= 0 || a.B <= 0 ||
-      a.H <= 0 || a.ldh % EPC || a.row_base < 0 || a.row_end > a.B || a.row_end <= a.row_base ||
-      (in_x && (a.I <= 0 || a.ldx % EPC)) || (!in_x && a.gi == nullptr) ||
-      (!a.res_hh && (a.whh_f32 || a.ldwh % EPC)) || (in_x && !a.res_ih && (a.wih_f32 || a.ldwi % EPC)) ||
-      (mode != FULL && (in_x || sizeof(E) != 2)))
-    return (int)cudaErrorInvalidValue;
-  const size_t smem = fwd_smem<E>(a.I, a.H, a.units, a.rows, a.chunk, a.stages, in_x, a.res_ih, a.res_hh);
+  return bad_plan<E>(a.units, a.rows, rt, a.q, g, a.chunk, a.stages) || single || a.T <= 0 || a.B <= 0 ||
+         a.H <= 0 || a.ldh % EPC || a.row_base < 0 || a.row_end > a.B || a.row_end <= a.row_base ||
+         (in_x && (a.I <= 0 || a.ldx % EPC)) || (!in_x && a.gi == nullptr) ||
+         (!a.res_hh && (a.whh_f32 || a.ldwh % EPC)) || (in_x && !a.res_ih && (a.wih_f32 || a.ldwi % EPC));
+}
+
+template <typename E>
+size_t fwd_bytes(const FwdArgs<E>& a) {
+  return fwd_smem<E>(a.I, a.H, a.units, a.rows, a.chunk, a.stages, a.x != nullptr, a.res_ih, a.res_hh);
+}
+
+template <typename E>
+int layer_fwd(const FwdArgs<E>& a, int mode, int rt, int g, void* stream) {
+  const bool in_x = a.x != nullptr;
+  if (bad_fwd(a, rt, g) || (mode != FULL && (in_x || sizeof(E) != 2))) return (int)cudaErrorInvalidValue;
+  const size_t smem = fwd_bytes(a);
   const int mt = a.rows / 16 / rt, blocks = g * a.q, threads = a.units / 8 * rt * 32;
   if (in_x) return launch_fwd_mode<E, true, FULL>(a, mt, blocks, threads, smem, stream);
   if constexpr (sizeof(E) == 2) {
@@ -596,6 +665,29 @@ int layer_fwd(const FwdArgs<E>& a, int mode, int rt, int g, void* stream) {
     return launch_fwd_mode<E, false, FULL>(a, mt, blocks, threads, smem, stream);
   }
   return (int)cudaErrorInvalidValue;
+}
+
+// The wavefront of L teams: layer 0 hoisted, the others in-kernel, every
+// team on one layout (units, rows, q, g, the batch rows); the dynamic
+// shared memory is the largest team's.
+int fused3_fwd(const Fused3Args& a, int L, int rt, int g, void* stream) {
+  if (L < 2 || L > MAX_TEAMS || a.team_blocks != g * a.layer[0].q) return (int)cudaErrorInvalidValue;
+  size_t smem = 0;
+  for (int l = 0; l < L; ++l) {
+    const FwdArgs<__nv_bfloat16>& f = a.layer[l];
+    const FwdArgs<__nv_bfloat16>& f0 = a.layer[0];
+    if (bad_fwd(f, rt, g) || (l == 0) != (f.x == nullptr) || f.units != f0.units || f.rows != f0.rows ||
+        f.q != f0.q || f.T != f0.T || f.B != f0.B || f.row_base != f0.row_base || f.row_end != f0.row_end)
+      return (int)cudaErrorInvalidValue;
+    const size_t bytes = fwd_bytes(f);
+    if (bytes > smem) smem = bytes;
+  }
+  const int mt = a.layer[0].rows / 16 / rt, blocks = L * a.team_blocks, threads = a.layer[0].units / 8 * rt * 32;
+  switch (mt) {
+    case 1: return launch_persistent(fused3_kernel<1>, a, blocks, threads, smem, stream);
+    case 2: return launch_persistent(fused3_kernel<2>, a, blocks, threads, smem, stream);
+    default: return launch_persistent(fused3_kernel<4>, a, blocks, threads, smem, stream);
+  }
 }
 
 template <typename E>
@@ -674,4 +766,42 @@ extern "C" int molvax_layer_sweep(const void* hseq, const void* h0b, const void*
                         dY, whh, dh0, static_cast<bf*>(dgi), static_cast<bf*>(dgh), flags, T, B, H, ldh, ldwh, ldd,
                         whh_f32, units, rows, q, chunk, stages, res_hh, row_base, row_end};
   return layer_sweep(a, rt, g, stream);
+}
+
+// run_fused3's probe, one cooperative launch for the batch rows [row_base,
+// row_end): gi0 (T, B, 3H) bf16, layer 0's input gates with its bias; the
+// weights of layer l at wih + l * wih_stride ((3H, ldwi), l < L-1) and whh +
+// l * whh_stride ((3H, ldwh)) elements, each fp32 or bf16 (*_f32); bih
+// (L-1, 3H), bhh (L, 3H), h0 (L, B, H) fp32; h0b (L, B, ldh) bf16 at a layer
+// stride of h0b_stride; hseq (L, T, B, ldh) bf16 out; flags (L, g) zeros.
+// The plan: units, rows (= 16 mt rt), rt, q, g, and each team's ring and
+// resident slices (layer 0's: chunk0, stages0, res_hh0; the others').
+extern "C" int molvax_gru_fused3_fwd(const void* gi0, const void* wih, long long wih_stride, int ldwi, int wih_f32,
+                                     const float* bih, const void* whh, long long whh_stride, int ldwh,
+                                     int whh_f32, const float* bhh, const float* h0, const void* h0b,
+                                     long long h0b_stride, void* hseq, int ldh, int* flags, int T, int B, int H,
+                                     int L, int units, int rows, int rt, int q, int g, int chunk0, int stages0,
+                                     int res_hh0, int chunk, int stages, int res_ih, int res_hh, int row_base,
+                                     int row_end, void* stream) {
+  typedef __nv_bfloat16 bf;
+  if (L < 2 || L > MAX_TEAMS) return (int)cudaErrorInvalidValue;
+  auto at = [](const void* p, long long elems, int f32) {
+    return static_cast<const void*>(static_cast<const char*>(p) + elems * (f32 ? 4 : 2));
+  };
+  const size_t G = 3 * (size_t)H, hs = (size_t)T * B * ldh;
+  bf* out = static_cast<bf*>(hseq);
+  const bf* h0s = static_cast<const bf*>(h0b);
+  Fused3Args a{};
+  a.team_blocks = g * q;
+  for (int l = 0; l < L; ++l) {
+    const bool up = l > 0;
+    a.layer[l] = FwdArgs<bf>{up ? out + (l - 1) * hs : nullptr, up ? nullptr : static_cast<const bf*>(gi0),
+                             up ? at(wih, (l - 1) * wih_stride, wih_f32) : nullptr, up ? bih + (l - 1) * G : nullptr,
+                             at(whh, l * whh_stride, whh_f32), bhh + l * G, h0 + (size_t)l * B * H,
+                             h0s + l * h0b_stride, out + l * hs, nullptr, nullptr, nullptr, flags + l * g, T, B,
+                             up ? H : 0, H, up ? ldh : 0, up ? ldwi : 0, ldwh, ldh, up ? wih_f32 : 0, whh_f32,
+                             units, rows, q, up ? chunk : chunk0, up ? stages : stages0, up ? res_ih : 0,
+                             up ? res_hh : res_hh0, row_base, row_end};
+  }
+  return fused3_fwd(a, L, rt, g, stream);
 }

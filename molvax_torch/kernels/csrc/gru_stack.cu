@@ -85,17 +85,6 @@
 // three products, splits its K across 8 warps instead where the plan's
 // tiles fit (gru_sweep_kernel's RT x NG instances). Where a step's time
 // goes: PERF.md (section 6), from stack_probe.py --steps.
-//
-// The fused3 probe (molvax_gru_fused3_fwd, gru_stack_fwd_kernel<true>) is
-// the previous design's stack forward as the design probe
-// bench/gru_experiments.py::run_fused3 (_fused3_kernel) ran it: a block of
-// RB = 4 rows runs time outer, layers inner, with products on the FMA pipes
-// and weights re-read from L2 each step; layer 0 reads its input gates gi0
-// (T, B, 3H) bf16, bias included (b_ih0 is then a zero vector); the upper
-// layers compute theirs in the kernel; hseq of every layer is stored and no
-// r|z|n or gh_n. The TPU probe's separate copy of the top layer (htop) was a
-// layout device: hseq[L-1] is already contiguous here. The template's other
-// instance, the previous production forward, is no longer built.
 
 #include <string.h>
 
@@ -104,131 +93,6 @@
 #include "persist.cuh"
 
 namespace {
-
-constexpr int THREADS = 512;  // one hidden unit per thread at H <= 512
-
-// shared memory: h32 fp32 [L][RB][H], hb bf16 [2][L][H][RB], xb bf16 [I0][RB]
-// (FUSED3: I0 = 0, no xb)
-template <bool FUSED3 = false>
-__global__ void __launch_bounds__(THREADS)
-gru_stack_fwd_kernel(const __nv_bfloat16* __restrict__ x0,    // (T, B, I0)
-                     const __nv_bfloat16* __restrict__ wih0,  // (I0, 3H)
-                     const float* __restrict__ bih0,          // (3H)
-                     const __nv_bfloat16* __restrict__ wih,   // (L-1, H, 3H)
-                     const float* __restrict__ bih,           // (L-1, 3H)
-                     const __nv_bfloat16* __restrict__ whh,   // (L, H, 3H)
-                     const float* __restrict__ bhh,           // (L, 3H)
-                     const float* __restrict__ h0,            // (L, B, H)
-                     __nv_bfloat16* __restrict__ hseq,        // (L, T, B, H)
-                     __nv_bfloat16* __restrict__ rzn,         // (L, T, B, 3H), !FUSED3
-                     __nv_bfloat16* __restrict__ ghn,         // (L, T, B, H), !FUSED3
-                     int T, int B, int I0, int H, int L,
-                     const __nv_bfloat16* __restrict__ gi0) { // (T, B, 3H), FUSED3
-  extern __shared__ __align__(16) unsigned char smem[];
-  const size_t G = 3 * (size_t)H;
-  float* h32 = reinterpret_cast<float*>(smem);
-  __nv_bfloat16* hb = reinterpret_cast<__nv_bfloat16*>(h32 + (size_t)L * RB * H);
-  __nv_bfloat16* xb = hb + (size_t)2 * L * H * RB;
-
-  const int tid = threadIdx.x;
-  const int row0 = blockIdx.x * RB;
-
-  // rows past B run on zeros and store nothing
-  for (int i = tid; i < L * RB * H; i += THREADS) {
-    const int l = i / (RB * H), r = (i / H) % RB, j = i % H;
-    const int row = row0 + r;
-    const float v = row < B ? h0[((size_t)l * B + row) * H + j] : 0.0f;
-    h32[i] = v;
-    hb[((size_t)l * H + j) * RB + r] = __float2bfloat16_rn(v);  // step parity 0
-  }
-
-  for (int t = 0; t < T; ++t) {
-    const int cur = t & 1, nxt = cur ^ 1;
-    for (int i = tid; i < RB * I0; i += THREADS) {
-      const int r = i / I0, k = i % I0;
-      const int row = row0 + r;
-      __nv_bfloat16 v = __float2bfloat16_rn(0.0f);
-      if (row < B) v = x0[((size_t)t * B + row) * I0 + k];
-      xb[(size_t)k * RB + r] = v;
-    }
-    __syncthreads();
-
-    for (int l = 0; l < L; ++l) {
-      const __nv_bfloat16* x_in;
-      const __nv_bfloat16* w_in;
-      const float* b_in;
-      int K;
-      if (l == 0) {
-        x_in = xb;
-        w_in = wih0;
-        b_in = bih0;
-        K = I0;
-      } else {
-        x_in = hb + ((size_t)nxt * L + (l - 1)) * H * RB;
-        w_in = wih + (size_t)(l - 1) * H * G;
-        b_in = bih + (size_t)(l - 1) * G;
-        K = H;
-      }
-      const __nv_bfloat16* w_h = whh + (size_t)l * H * G;
-      const float* b_h = bhh + (size_t)l * G;
-      const __nv_bfloat16* h_old = hb + ((size_t)cur * L + l) * H * RB;
-      __nv_bfloat16* h_new = hb + ((size_t)nxt * L + l) * H * RB;
-      float* h_l = h32 + (size_t)l * RB * H;
-
-      for (int j = tid; j < H; j += THREADS) {
-        float gi[3][RB], gh[3][RB];
-#pragma unroll
-        for (int g = 0; g < 3; ++g)
-#pragma unroll
-          for (int r = 0; r < RB; ++r) gi[g][r] = gh[g][r] = 0.0f;
-        if constexpr (FUSED3) {
-          if (l == 0) {  // layer 0's gates are given (b_ih0 is zero)
-#pragma unroll
-            for (int r = 0; r < RB; ++r) {
-              const int row = row0 + r;
-              if (row < B) {
-                const __nv_bfloat16* gr = gi0 + ((size_t)t * B + row) * G + j;
-                gi[0][r] = __bfloat162float(gr[0]);
-                gi[1][r] = __bfloat162float(gr[H]);
-                gi[2][r] = __bfloat162float(gr[2 * H]);
-              }
-            }
-          } else {
-            gate_products(x_in, w_in, K, H, j, gi);
-          }
-        } else {
-          gate_products(x_in, w_in, K, H, j, gi);
-        }
-        gate_products(h_old, w_h, H, H, j, gh);
-        float hv[RB];
-#pragma unroll
-        for (int r = 0; r < RB; ++r) {
-          const float rg = sigmoid_f((gi[0][r] + b_in[j]) + (gh[0][r] + b_h[j]));
-          const float zg = sigmoid_f((gi[1][r] + b_in[H + j]) + (gh[1][r] + b_h[H + j]));
-          const float gn = gh[2][r] + b_h[2 * H + j];
-          const float n = tanhf((gi[2][r] + b_in[2 * H + j]) + rg * gn);
-          const float h = (1.0f - zg) * n + zg * h_l[r * H + j];
-          h_l[r * H + j] = h;  // only this thread touches unit j's carry
-          hv[r] = h;
-          const int row = row0 + r;
-          if (row < B) {
-            const size_t o = ((size_t)l * T + t) * B + row;
-            hseq[o * H + j] = __float2bfloat16_rn(h);
-            if constexpr (!FUSED3) {
-              rzn[o * G + j] = __float2bfloat16_rn(rg);
-              rzn[o * G + H + j] = __float2bfloat16_rn(zg);
-              rzn[o * G + 2 * H + j] = __float2bfloat16_rn(n);
-              ghn[o * H + j] = __float2bfloat16_rn(gn);
-            }
-          }
-        }
-        store_rows(h_new, j, hv);
-      }
-      __syncthreads();  // layer l's new h is the next layer's input
-    }
-  }
-}
-
 
 // -- the persistent recurrences ---------------------------------------------
 
@@ -823,26 +687,4 @@ extern "C" int molvax_gru_sweep_f32(const void* hseq, const void* h0b, const voi
                                     int row_base, int row_end, void* stream) {
   return gru_sweep<float>(hseq, h0b, rzn, ghn, ext, dhf, whhT, dgi, dgh, dh0, flags, T, B, H, ldh, ldw,
                           ldd, units, rows, q, g, chunk, row_base, row_end, stream);
-}
-
-// run_fused3's probe: gi0 (T, B, 3H) bf16 in place of x0 and W_ih0, hseq
-// (L, T, B, H) out, no residuals. gi0 holds layer 0's bias; `zeros` (3H)
-// stands in for b_ih0, so the gate math is the previous production kernel's.
-extern "C" int molvax_gru_fused3_fwd(const void* gi0, const float* zeros, const void* wih,
-                                     const float* bih, const void* whh, const float* bhh,
-                                     const float* h0, void* hseq, int T, int B, int H, int L,
-                                     void* stream) {
-  if (T <= 0 || B <= 0 || H <= 0 || L < 2 || 2 * L > GEMM_MAX_JOBS) return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)L * RB * H * sizeof(float) +
-                      (size_t)2 * L * H * RB * sizeof(__nv_bfloat16);
-  auto kernel = gru_stack_fwd_kernel<true>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  typedef const __nv_bfloat16* cbf;
-  kernel<<<(B + RB - 1) / RB, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      nullptr, nullptr, zeros, static_cast<cbf>(wih), bih, static_cast<cbf>(whh), bhh, h0,
-      static_cast<__nv_bfloat16*>(hseq), nullptr, nullptr, T, B, 0, H, L,
-      static_cast<cbf>(gi0));
-  return (int)cudaGetLastError();
 }

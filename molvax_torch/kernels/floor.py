@@ -3,7 +3,8 @@
 Port of ``bench/auto_loop_probe.py::floor_loop`` (``_floor_kernel``), the
 TPU probe of what one native int32 op costs inside a kernel loop, which was
 the floor for an automaton written as vector ops. ``floor_loop`` launches
-``csrc/floor.cu`` (one thread per element of x) for CUDA tensors and runs
+``csrc/floor.cu`` (one thread per element and chain, the chains of an
+element summed by warp shuffles) for CUDA tensors and runs
 ``floor_loop_ref`` for CPU tensors; the two agree bit for bit. T, k_ops and
 chains are runtime arguments of the kernel, so the loop cannot be folded:
 the time per op comes from differencing two k_ops.
@@ -47,8 +48,8 @@ def floor_loop_ref(x: torch.Tensor, T: int, k_ops: int, chains: int = 4) -> torc
 
 def floor_loop(x: torch.Tensor, T: int, k_ops: int, chains: int = 4) -> torch.Tensor:
     """``floor_loop_ref`` on the card: one launch of ``molvax_floor_loop``
-    over x's elements (int32, any shape), or the plain version for a CPU
-    tensor. Returns an int32 tensor of x's shape."""
+    over x's elements (int32, any shape) and their chains, or the plain
+    version for a CPU tensor. Returns an int32 tensor of x's shape."""
     global launches
     _check(x, T, k_ops, chains)
     if x.device.type == "cpu":

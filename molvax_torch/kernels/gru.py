@@ -39,7 +39,11 @@ stack's plain pieces (``gemm_ref``, ``layer_recurrence_ref``,
 ``layer_sweep_ref``, in either storage type), bit for bit. ``gru_probe_scan`` runs
 ``gru_layer_scan``'s forward kernel in the two modes of the design probe
 ``bench/gru_experiments.py::run_variant`` (forward only, no autograd; plain
-version ``gru_probe_scan_ref``). For CUDA tensors the wrappers launch the
+version ``gru_probe_scan_ref``), and ``gru_fused3_scan`` the whole stack
+forward of the design probe ``run_fused3`` (layer 0's input gates given, no
+residuals) as one cooperative launch of the same file, its layers a
+wavefront of teams laid out by ``fused3_plan`` (plain version
+``gru_stack.gru_fused3_scan_ref``). For CUDA tensors the wrappers launch the
 kernels or raise; the plain versions run only for tensors on the CPU (and
 when called by name). Like the TPU kernels' custom VJPs, the backward reads
 the stored residuals and rounds dgi / dgh and dx to the storage type, so it
@@ -82,6 +86,7 @@ scan_fwd_launches = 0  # gru_layer_scan forward (per slice)
 scan_bwd_launches = 0  # gru_layer_scan reverse sweep (per slice); its dW GEMM and sum count above
 probe_matmul_only_launches = 0  # gru_probe_scan(mode='matmul_only')
 probe_gates_nostore_launches = 0  # gru_probe_scan(mode='gates_nostore')
+fused3_launches = 0  # gru_fused3_scan: the wavefront forward of the whole stack (per batch slice)
 
 _MATMUL_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 PROBE_MODES = {"gates_nostore": 1, "matmul_only": 2}  # csrc/gru_layer.cu FwdMode
@@ -333,6 +338,26 @@ def _bwd_layout(H, units, rows, esize, smem):
     return None
 
 
+def _split(B: int, H: int, units: int, sms: int, esize: int = 2) -> Optional[Tuple[int, ...]]:
+    """(q, g, rows, rt, mt, slices) of blocks owning ``units`` hidden units
+    on ``sms`` SMs: q = ceil(H / units) blocks a group, as many row groups
+    as the SMs hold, warps splitting a group's rows where the units leave
+    room (rt warps of mt m16 tiles), ``slices`` launches to cover B rows;
+    None where one group takes more than ``sms`` blocks."""
+    q = -(-H // units)
+    if q > sms:
+        return None
+    g = max(1, min(sms // q, -(-B // 16)))
+    n16 = -(-(-(-B // g)) // 16)  # m16 row tiles of a group's rows
+    rt = min(_MAX_THREADS // 32 // (units // 8), n16)
+    mt = next((m for m in _MTS[esize] if m * rt >= n16), _MTS[esize][-1])
+    rows = 16 * mt * rt
+    slices = -(-B // (g * rows))
+    if slices == 1:
+        g = -(-B // rows)
+    return q, g, rows, rt, mt, slices
+
+
 @functools.lru_cache(maxsize=256)
 def layer_plan(B: int, I: int, H: int, sms: int = gru_stack.SMS, smem: int = gru_stack.SMEM, esize: int = 2,
                hoisted: bool = False) -> LayerPlan:
@@ -369,17 +394,10 @@ def layer_plan(B: int, I: int, H: int, sms: int = gru_stack.SMS, smem: int = gru
     Kh, Kx, Kb = _up(H, 16), _up(I, 16) if in_x else 0, _up(3 * H, 16)
     best = None
     for units in range(min(gru_stack._MAX_UNITS, _up(H, 8)), 7, -8):
-        q = -(-H // units)
-        if q > sms:
+        split = _split(B, H, units, sms, esize)
+        if split is None:
             break
-        g = max(1, min(sms // q, -(-B // 16)))
-        n16 = -(-(-(-B // g)) // 16)  # m16 row tiles of a group's rows
-        rt = min(_MAX_THREADS // 32 // (units // 8), n16)
-        mt = next((m for m in _MTS[esize] if m * rt >= n16), _MTS[esize][-1])
-        rows = 16 * mt * rt
-        slices = -(-B // (g * rows))
-        if slices == 1:
-            g = -(-B // rows)
+        q, g, rows, rt, mt, slices = split
         fwd = _fwd_layout(I, H, units, rows, esize, smem, in_x)
         bwd = _bwd_layout(H, units, rows, esize, smem)
         if fwd is None or bwd is None:
@@ -398,6 +416,88 @@ def layer_plan(B: int, I: int, H: int, sms: int = gru_stack.SMS, smem: int = gru
     if best is None:
         raise ValueError(f"layer_plan: no layout of the per-layer kernels fits I={I}, H={H} ({esize}-byte "
                          f"elements) on {sms} SMs with {smem} bytes of shared memory a block")
+    return best[1]
+
+
+@dataclasses.dataclass(frozen=True)
+class Fused3Plan:
+    """How ``csrc/gru_layer.cu``'s fused3 wavefront lies on the card:
+    ``layers`` teams (team l runs layer l), each of ``g`` row groups of
+    ``rows`` batch rows x ``q`` blocks that own ``units`` hidden units, the
+    same split in every team, so that a row group of layer l waits on the
+    one row group of layer l-1 that holds its rows; ``slices`` launches
+    cover B rows. Per team, (layer 0's hoisted step, the upper layers'
+    in-kernel step): the ring's ``chunk`` columns and ``stages`` buffers,
+    whether the W_hh slice stays resident (``res_hh``), and the blocks'
+    shared-memory bytes (``smem``); ``res_ih``: the upper teams' W_ih
+    slices."""
+
+    layers: int
+    g: int
+    q: int
+    units: int
+    rows: int
+    rt: int
+    slices: int
+    chunk: Tuple[int, int]
+    stages: Tuple[int, int]
+    res_hh: Tuple[bool, bool]
+    res_ih: bool
+    smem: Tuple[int, int]
+
+    @property
+    def blocks(self) -> int:
+        return self.layers * self.g * self.q
+
+    @property
+    def threads(self) -> int:
+        return self.units // 8 * self.rt * 32
+
+    @property
+    def mt(self) -> int:
+        return self.rows // 16 // self.rt
+
+
+@functools.lru_cache(maxsize=64)
+def fused3_plan(B: int, H: int, L: int, sms: int = gru_stack.SMS, smem: int = gru_stack.SMEM) -> Fused3Plan:
+    """Lay out the fused3 wavefront of L bf16 layers of width H at batch B
+    on a card of ``sms`` SMs with ``smem`` bytes of shared memory a block:
+    the SMs split evenly into L teams, one block an SM. The row split is
+    fixed first, from the team's share of the SMs, and both steps (layer
+    0's hoisted one, the upper layers' in-kernel one, I = H) must fit it:
+    planned apart, the teams could split the rows differently (at H = 512,
+    B = 256 layer_plan gives the hoisted team 4 x 64 rows and the in-kernel
+    teams 2 x 128). Each slice width (units, a multiple of 8) gives the
+    split of ``_split`` on sms // L SMs; its slices resident where they fit
+    beside the ring (``_fwd_layout``). Among the layouts that fit, the
+    fewest launches, then the least estimated step time of the in-kernel
+    team, the slower (its two products, the bytes it streams, a
+    synchronisation per chunk), then the most units. Raises where no
+    layout fits."""
+    if B < 1 or H < 1 or not 2 <= L <= gru_stack._MAX_LAYERS:
+        raise ValueError(f"fused3_plan: B={B}, H={H}, L={L}")
+    Kh, team_sms = _up(H, 16), sms // L
+    best = None
+    for units in range(min(gru_stack._MAX_UNITS, _up(H, 8)), 7, -8):
+        split = _split(B, H, units, team_sms)
+        if split is None:
+            break
+        q, g, rows, rt, mt, slices = split
+        first = _fwd_layout(0, H, units, rows, 2, smem, False)
+        upper = _fwd_layout(H, H, units, rows, 2, smem, True)
+        if first is None or upper is None:
+            continue
+        plan = Fused3Plan(L, g, q, units, rows, rt, slices, (first[2], upper[2]), (first[3], upper[3]),
+                          (first[0], upper[0]), upper[1], (first[4], upper[4]))
+        work = mt * 6 * Kh // 16 * 10
+        streamed = ((0 if upper[0] else 3 * units * Kh) + (0 if upper[1] else 3 * units * Kh)) * 2 // 16
+        syncs = 2 * -(-Kh // upper[2]) * 200
+        key = (slices, work + streamed + syncs, -units)
+        if best is None or key < best[0]:
+            best = (key, plan)
+    if best is None:
+        raise ValueError(f"fused3_plan: no layout of the fused3 wavefront fits H={H}, L={L} on {sms} SMs with "
+                         f"{smem} bytes of shared memory a block")
     return best[1]
 
 
@@ -558,7 +658,7 @@ def layer_backward(res: Residuals, dY: torch.Tensor):
 
 
 def _weight(w: torch.Tensor, md: torch.dtype, resident: bool):
-    """A weight (3H, ·) as a layer kernel reads it: (tensor, 1 if its
+    """A weight (3H, ·), or a stack of them, as a layer kernel reads it: (tensor, 1 if its
     elements are fp32, row stride). A resident slice is read once from the
     tensor as torch stores it (fp32 or md, rows contiguous) and rounded to
     md in the kernel; a streamed one is copied by cp.async each step, so it
@@ -569,7 +669,7 @@ def _weight(w: torch.Tensor, md: torch.dtype, resident: bool):
         return w, 0, _ld(w)
     if w.dtype not in (torch.float32, md) or w.stride(-1) != 1:
         w = w.float().contiguous()
-    return w, int(w.dtype == torch.float32), w.stride(0)
+    return w, int(w.dtype == torch.float32), w.stride(-2)
 
 
 def _forward(what, plan: LayerPlan, md, x, gi, w_ih, b_ih, w_hh, b_hh, h0, mode: int, count) -> Residuals:
@@ -708,6 +808,54 @@ def gru_probe_scan(gi, w_hh, b_hh, h0, mode: str) -> torch.Tensor:
     # the sink stays null: it only keeps matmul_only's z and n products live
     return _forward(what, plan, torch.bfloat16, None, gi_, None, None, w_hh, b_hh, h0, code,
                     _COUNT[f"probe_{mode}"])[0]
+
+
+def gru_fused3_scan(gi0, wih, bih, whh, bhh, h0) -> torch.Tensor:
+    """``run_fused3``'s probe, the whole stack forward in one launch: gi0
+    (T, B, 3H) layer 0's input gates (bias included), wih (L-1, 3H, H), bih
+    (L-1, 3H), whh (L, 3H, H), bhh (L, 3H), h0 (L, B, H) -> hseq (L, T, B, H)
+    bf16, a view of rows padded to 16 bytes; forward only, no residuals.
+    The TPU probe also wrote a copy of the top layer (``htop``) to have it
+    contiguous; ``hseq[L-1]``'s steps already are. For CUDA tensors one
+    cooperative launch of ``csrc/gru_layer.cu``'s wavefront per batch slice
+    of ``fused3_plan``, each counted; ``gru_stack.gru_fused3_scan_ref`` for
+    CPU tensors. Raises where no plan fits the card."""
+    global fused3_launches
+    if _plain_here(gi0):
+        return gru_stack.gru_fused3_scan_ref(gi0, wih, bih, whh, bhh, h0)
+    what = "gru_fused3_scan"
+    _check_cuda(what, gi0, wih, bih, whh, bhh, h0)
+    T, B = gi0.shape[:2]
+    L, H = gru_stack._check_layers(what, gi0, wih, whh, h0)
+    G, bf, dev = 3 * H, torch.bfloat16, gi0.device
+    for name, t, want in (("gi0", gi0, (T, B, G)), ("bih", bih, (L - 1, G)), ("bhh", bhh, (L, G))):
+        gru_stack._check_shape(what, name, t, want)
+    plan = fused3_plan(B, H, L, *gru_stack.plan_limits(dev))
+    with torch.no_grad():
+        gi = gi0.to(bf).contiguous()
+        wi, wi_f32, ldwi = _weight(wih, bf, plan.res_ih)
+        wh, wh_f32, ldwh = _weight(whh, bf, all(plan.res_hh))
+        bih_, bhh_, h0f = (t.float().contiguous() for t in (bih, bhh, h0))
+        # bf16(h0) with hseq's row stride: the kernel reads both as one operand
+        h0b = torch.empty(L, B, _up(H, _row_align(bf)), dtype=bf, device=dev)[..., :H]
+        h0b.copy_(h0)
+    hseq = torch.empty(L, T, B, _up(H, _row_align(bf)), dtype=bf, device=dev)[..., :H]
+    fn = _build.function("molvax_gru_fused3_fwd", [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+        *[ctypes.c_int] * 18, ctypes.c_void_p])
+    span = plan.g * plan.rows
+    for base in range(0, B, span):
+        flags = torch.zeros(L, plan.g, dtype=torch.int32, device=dev)
+        err = fn(gi.data_ptr(), wi.data_ptr(), wi.stride(0), ldwi, wi_f32, bih_.data_ptr(), wh.data_ptr(),
+                 wh.stride(0), ldwh, wh_f32, bhh_.data_ptr(), h0f.data_ptr(), h0b.data_ptr(), h0b.stride(0),
+                 hseq.data_ptr(), _ld(hseq), flags.data_ptr(), T, B, H, L, plan.units, plan.rows, plan.rt,
+                 plan.q, plan.g, plan.chunk[0], plan.stages[0], int(plan.res_hh[0]), plan.chunk[1],
+                 plan.stages[1], int(plan.res_ih), int(plan.res_hh[1]), base, min(B, base + span), _stream(gi0))
+        _build.check(err, what)
+        fused3_launches += 1
+    return hseq
 
 
 def scan_backward(res: Residuals, dY: torch.Tensor):

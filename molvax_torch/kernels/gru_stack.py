@@ -23,9 +23,10 @@ epilogues), ``layer_recurrence_ref`` and ``layer_sweep_ref``.
 ``stack_forward_ref`` / ``stack_backward_ref`` are their compositions. For
 CUDA tensors the wrappers launch the kernels or raise; the plain versions
 run only for tensors on the CPU (and when called by name).
-``gru_fused3_scan`` runs the previous design's stack forward kernel as the
-design probe ``bench/gru_experiments.py::run_fused3`` (layer 0's input
-gates given, no residuals; plain version ``gru_fused3_scan_ref``).
+``gru_fused3_scan_ref`` is the plain version of the design probe
+``bench/gru_experiments.py::run_fused3`` (layer 0's input gates given, no
+residuals), whose kernel, the layers as one wavefront, is
+``kernels/gru.py::gru_fused3_scan``.
 
 The backward is not autograd of the forward: like the TPU kernel it reads
 bf16 residuals and rounds dgi / dgh to bf16 (``gru_stack.py:400-401``), so
@@ -58,7 +59,6 @@ rec_launches = 0  # forward recurrence, one per layer (and batch slice)
 sweep_launches = 0  # reverse sweep, one per layer (and batch slice)
 gemm_dx_launches = 0  # cotangent for the layer below, one per layer
 dw_launches = 0  # dW / db of the whole stack, one per backward
-fused3_launches = 0  # gru_fused3_scan
 
 
 def counter(space: dict, name: str) -> Callable[[], None]:
@@ -263,17 +263,24 @@ def layer_recurrence_ref(gi, w_hh, b_hh, h0, md: torch.dtype = torch.bfloat16) -
     w = round_to(w_hh, md).T
     h = h0.float()
     for t in range(T):
-        g_in = gi[t]
-        gh = round_to(h, md) @ w + b_hh
-        r = torch.sigmoid(g_in[:, :H] + gh[:, :H])
-        z = torch.sigmoid(g_in[:, H : 2 * H] + gh[:, H : 2 * H])
-        gn = gh[:, 2 * H :]
-        n = torch.tanh(g_in[:, 2 * H :] + r * gn)
-        h = (1.0 - z) * n + z * h
+        h, r, z, n, gn = recurrence_step_ref(gi[t], w, b_hh, h, md)
         hseq[t] = h
         rzn[t] = torch.cat([r, z, n], dim=-1)
         ghn[t] = gn
     return hseq, rzn, ghn
+
+
+def recurrence_step_ref(g_in, w_t, b_hh, h, md: torch.dtype = torch.bfloat16):
+    """One step of ``layer_recurrence_ref``: the fp32 input gates g_in
+    (B, 3H), bias included, w_t the md-rounded W_hh^T (H, 3H), b_hh (3H),
+    the fp32 carry h (B, H) -> (h, r, z, n, gh_n), fp32."""
+    H = h.shape[-1]
+    gh = round_to(h, md) @ w_t + b_hh
+    r = torch.sigmoid(g_in[:, :H] + gh[:, :H])
+    z = torch.sigmoid(g_in[:, H : 2 * H] + gh[:, H : 2 * H])
+    gn = gh[:, 2 * H :]
+    n = torch.tanh(g_in[:, 2 * H :] + r * gn)
+    return (1.0 - z) * n + z * h, r, z, n, gn
 
 
 def _stack_ref(gi_first, wih, bih, whh, bhh, h0) -> Residuals:
@@ -646,41 +653,6 @@ def stack_backward(res: Residuals, dY: torch.Tensor, dhf: torch.Tensor):
     jobs += [_dw_job(dgh[l], hs[l], dwhh[l], dbhh[l], first=h0b[l]) for l in range(L)]
     _gemm("dw", jobs, x0)
     return dx0.float(), dwih0, dbih0, dwih, dbih, dwhh, dbhh, dh0
-
-
-def gru_fused3_scan(gi0, wih, bih, whh, bhh, h0) -> torch.Tensor:
-    """The previous design's stack forward kernel as ``run_fused3``'s probe:
-    gi0 (T, B, 3H) layer 0's input gates (bias included), wih (L-1, 3H, H),
-    bih (L-1, 3H), whh (L, 3H, H), bhh (L, 3H), h0 (L, B, H) -> hseq (L, T,
-    B, H) bf16, forward only, no residuals. The TPU probe also wrote a copy
-    of the top layer (``htop``) to have it contiguous; ``hseq[L-1]`` already
-    is. One launch for CUDA tensors, ``gru_fused3_scan_ref`` for CPU
-    tensors."""
-    global fused3_launches
-    if gi0.device.type == "cpu":
-        return gru_fused3_scan_ref(gi0, wih, bih, whh, bhh, h0)
-    what = "gru_fused3_scan"
-    _check_cuda(what, gi0, wih, bih, whh, bhh, h0)
-    T, B = gi0.shape[:2]
-    L, H = _check_layers(what, gi0, wih, whh, h0)
-    G = 3 * H
-    for name, t, want in (("gi0", gi0, (T, B, G)), ("bih", bih, (L - 1, G)), ("bhh", bhh, (L, G))):
-        _check_shape(what, name, t, want)
-    bf = torch.bfloat16
-    with torch.no_grad():
-        gi0_ = gi0.to(bf).contiguous()
-        # (in, 3H) copies: a warp reads 32 neighbouring gate columns
-        wih_t = wih.transpose(1, 2).to(bf).contiguous()
-        whh_t = whh.transpose(1, 2).to(bf).contiguous()
-        bih_, bhh_, h0_ = (t.float().contiguous() for t in (bih, bhh, h0))
-    zeros = torch.zeros(G, device=gi0.device)  # b_ih0: gi0 holds layer 0's bias
-    hseq = torch.empty(L, T, B, H, dtype=bf, device=gi0.device)
-    fn = _build.function("molvax_gru_fused3_fwd", [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
-    err = fn(*(t.data_ptr() for t in (gi0_, zeros, wih_t, bih_, whh_t, bhh_, h0_, hseq)), T, B, H, L,
-             _stream(gi0))
-    _build.check(err, what)
-    fused3_launches += 1
-    return hseq
 
 
 class _GRUStack(torch.autograd.Function):

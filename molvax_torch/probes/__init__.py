@@ -6,8 +6,9 @@ as ``python -m molvax_torch.probes.<name>`` on a CUDA card and callable from
 
   * ``gru_experiments``: where a GRU recurrence step's time goes (the serial
     h @ W_hh chain, the gate math, the residual stores), and a 3-layer
-    forward on the stack route, on three layer launches and in one fused
-    launch (fused3);
+    forward on the stack route, on three layer launches and in one
+    wavefront launch of all layers (fused3), beside the per-layer pieces
+    doing fused3's work;
   * ``proto_gi_kernel``: the input GEMM inside the recurrence kernel against
     a hoisted one;
   * ``auto_loop_probe``: the automaton per step as n=1 launches and as one

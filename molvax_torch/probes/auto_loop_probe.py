@@ -9,6 +9,7 @@ CUDA card:
     python -m molvax_torch.probes.auto_loop_probe [B [T]]
     python -m molvax_torch.probes.auto_loop_probe --floor
     python -m molvax_torch.probes.auto_loop_probe --variants
+    python -m molvax_torch.probes.auto_loop_probe --floor-variants
 
 At B=256, T=120, with one seeded score row per batch element for every step
 (as the reference): µs per step of the plain ``select_advance`` loop
@@ -17,13 +18,20 @@ launch of n=T, and the per-step budget the reference set (a constrained
 decode of >= 120,000 SMILES/s) on top of this card's own ``fused_generate``
 time. ``--floor``: ns per int32 op inside a kernel loop, by differencing
 k_ops 64 -> 256 -> 1024 at T=120, at the reference's shapes (128, 16) and
-(16, 128) and at (256, 32), one warp per row at B=256. ``--variants``:
+(16, 128) and at (256, 32), one warp per row at B=256, each with its fixed
+cost (the intercept of a line through the three times); and one warp of
+single chains (``LATENCY_SHAPE``), whose ns per op is one op's dependent
+latency: times T ceil(k_ops / chains) it gives a shape's latency floor
+(``floor_latency_ms``), beside ``floor_bound``'s throughput bound. ``--variants``:
 the automaton kernel rebuilt in each variant of ``VARIANTS`` (under
 ``build/auto_probe/``): 4 (kept), 2, 8 or 16 rows (warps) a block, each
 checked against the plain version on one n=T walk; and the kept kernel
 without its transition, its pool scan or its closable slots' reductions
 (times only); each timed as ``stack_probe.automaton_times`` times it
 (events and the profiler's device time), with its registers.
+``--floor-variants``: ``csrc/floor.cu`` rebuilt with each form of its op in
+``FLOOR_VARIANTS`` (under ``build/auto_probe/``), each held bit for bit to
+the plain version and then measured as ``--floor`` measures.
 """
 
 from __future__ import annotations
@@ -52,6 +60,7 @@ TARGET_SMILES_S = 120_000  # the reference's goal for constrained decoding
 FLOOR_SHAPES: Tuple[Tuple[int, int], ...] = ((128, 16), (16, 128), (256, 32))
 FLOOR_K = (64, 256, 1024)
 FLOOR_CHAINS = 4
+LATENCY_SHAPE = (1, 32)  # one warp, one chain a lane: the dependent chain alone
 # --variants: (csrc file, text, replacement) of each variant of the automaton
 # kernel: the rows (warps) a block, then parts of a step taken out at the
 # kept rows a block (results wrong, times only): the transition (each step
@@ -64,6 +73,34 @@ VARIANTS = {
     "no_advance": [("automaton.cuh", "      row_advance(t, w, popc(s.open));\n", "")],
     "no_pool_scan": [("automaton.cuh", "  const int used = imin(imax(pn, 0), P);", "  const int used = 0 * P;")],
     "no_anc_pc": [("automaton.cuh", "    if ((closing >> j) & 1u) {", "    if (false) {")],
+}
+
+
+# --floor-variants: (csrc file, text, replacement) of each form of floor.cu's
+# op and loop: the kept form (a compare beside y - 1, then a predicated
+# y + 1: two dependent levels an op; a loop of ops inside a loop of steps);
+# the op with no predicate, y - 1 + 2 (max(y, t + 1) - max(y, t)) (three
+# levels of integer ALU ops, exact at the int32 limits); one flat loop of
+# T ops iterations, t advancing off the chain of y; and the loop of ops
+# unrolled 1 or 4 times (the kept kernel leaves the unrolling to nvcc)
+_FLOOR_OP = """  const unsigned lo = y - 1u, hi = y + 1u;
+  return (int)y > t ? lo : hi;"""
+_FLOOR_LOOP = """  for (int t = 0; t < T; ++t) {
+    for (int k = 0; k < ops; ++k) y = floor_op(y, t);
+  }"""
+FLOOR_VARIANTS = {
+    "select": [],
+    "minmax": [("floor.cu", _FLOOR_OP, """  const int a = max((int)y, t + 1), b = max((int)y, t);
+  return y - 1u + 2u * (unsigned)(a - b);""")],
+    "flat": [("floor.cu", _FLOOR_LOOP, """  for (int t = 0, k = 0; t < T && ops > 0;) {
+    y = floor_op(y, t);
+    const bool next = ++k == ops;
+    t += next;
+    k = next ? 0 : k;
+  }""")],
+    **{f"unroll{n}": [("floor.cu", "    for (int k = 0; k < ops; ++k) y = floor_op(y, t);",
+                       f"#pragma unroll {n}\n    for (int k = 0; k < ops; ++k) y = floor_op(y, t);")]
+       for n in (1, 4)},
 }
 
 
@@ -140,17 +177,30 @@ def measure(inp: dict, fused_ms: Optional[float] = None, plain_steps: Optional[i
 
 
 def floor_measure(device=None) -> Dict[Tuple[int, int], dict]:
-    """Per shape of FLOOR_SHAPES: ms of one floor_loop launch at T steps of
-    each FLOOR_K ops (median of 9), and ns per op from each pair of
-    consecutive k_ops (the launch and the loop's own overhead cancel)."""
+    """Per shape of FLOOR_SHAPES (FLOOR_CHAINS chains) and LATENCY_SHAPE (1
+    chain): ms of one floor_loop launch at T steps of each FLOOR_K ops
+    (median of 9), ns per op from each pair of consecutive k_ops (the launch
+    and the loop's own overhead cancel), and the fixed cost: the intercept
+    at k_ops = 0 of the least-squares line through the times."""
     dev = resolve_device(device)
     rows = {}
-    for shape in FLOOR_SHAPES:
+    for shape, chains in [(s, FLOOR_CHAINS) for s in FLOOR_SHAPES] + [(LATENCY_SHAPE, 1)]:
         x = torch.ones(shape, dtype=torch.int32, device=dev)
-        ms = {k: profiling.event_ms(lambda: kfloor.floor_loop(x, T, k, FLOOR_CHAINS), reps=9) for k in FLOOR_K}
+        ms = {k: profiling.event_ms(lambda: kfloor.floor_loop(x, T, k, chains), reps=9) for k in FLOOR_K}
         ns = [(ms[hi] - ms[lo]) * 1e6 / T / (hi - lo) for lo, hi in zip(FLOOR_K, FLOOR_K[1:])]
-        rows[shape] = {"ms": ms, "ns_per_op": ns}
+        k_mean = sum(FLOOR_K) / len(FLOOR_K)
+        ms_mean = sum(ms.values()) / len(ms)
+        slope = (sum((k - k_mean) * (ms[k] - ms_mean) for k in FLOOR_K)
+                 / sum((k - k_mean) ** 2 for k in FLOOR_K))
+        rows[shape] = {"chains": chains, "ms": ms, "ns_per_op": ns, "fixed_ms": ms_mean - slope * k_mean}
     return rows
+
+
+def floor_latency_ms(T_: int, k_ops: int, chains: int, ns_per_dependent_op: float) -> float:
+    """The least time one chain's dependent ops take: T ceil(k_ops /
+    chains) ops, each one op's dependent latency (``LATENCY_SHAPE``'s ns
+    per op, measured on the same card)."""
+    return T_ * -(-k_ops // chains) * ns_per_dependent_op * 1e-6
 
 
 def floor_bound(shape: Tuple[int, int], T_: int, k_ops: int) -> tuple:
@@ -159,6 +209,38 @@ def floor_bound(shape: Tuple[int, int], T_: int, k_ops: int) -> tuple:
     n = shape[0] * shape[1]
     peaks = profiling.H100_SXM
     return profiling.bound_ms(2 * n * T_ * k_ops + n * (FLOOR_CHAINS - 1), 2 * n * 4, peaks.int32_tops * 1e12)
+
+
+def _variant_csrc(root: Path, name: str, edits) -> Path:
+    """A copy of csrc/ under build/auto_probe/<name>/ with ``edits`` made."""
+    src = Path(kauto.__file__).resolve().parent / "csrc"
+    d = root / "build" / "auto_probe" / name / "csrc"
+    shutil.rmtree(d.parent, ignore_errors=True)
+    shutil.copytree(src, d)
+    for file, old, new in edits:
+        text = (d / file).read_text()
+        if old not in text:
+            raise ValueError(f"variant {name}: {old!r} is not in csrc/{file}")
+        (d / file).write_text(text.replace(old, new))
+    return d
+
+
+def floor_variant_rows(root: Path) -> list:
+    """floor.cu in each form of FLOOR_VARIANTS, built from a copy of csrc/:
+    bit for bit against the plain version at (256, 32) with the int32
+    limits, at 4, 3, 1 and 8 chains, then ``floor_measure``."""
+    from .stack_probe import build_variant
+
+    rows = []
+    for name, edits in FLOOR_VARIANTS.items():
+        build_variant(_variant_csrc(root, f"floor_{name}", edits))
+        x = torch.randint(-64, 64, FLOOR_SHAPES[-1], dtype=torch.int32, device="cuda:0")
+        x.view(-1)[:2] = torch.tensor([2**31 - 1, -(2**31)], dtype=torch.int32, device="cuda:0")
+        for k_ops, chains in ((64, 4), (13, 3), (13, 1), (13, 8)):
+            if not torch.equal(kfloor.floor_loop(x, T, k_ops, chains), kfloor.floor_loop_ref(x, T, k_ops, chains)):
+                raise AssertionError(f"floor variant {name} differs from the plain version at {k_ops}, {chains}")
+        rows.append({"variant": name, **{str(k): v for k, v in floor_measure().items()}})
+    return rows
 
 
 def variant_rows(root: Path) -> list:
@@ -171,18 +253,9 @@ def variant_rows(root: Path) -> list:
     from .generate_probe import registers
     from .stack_probe import automaton_times, build_variant
 
-    src = Path(kauto.__file__).resolve().parent / "csrc"
     rows = []
     for name, edits in VARIANTS.items():
-        d = root / "build" / "auto_probe" / name / "csrc"
-        shutil.rmtree(d.parent, ignore_errors=True)
-        shutil.copytree(src, d)
-        for file, old, new in edits:
-            text = (d / file).read_text()
-            if old not in text:
-                raise ValueError(f"variant {name}: {old!r} is not in csrc/{file}")
-            (d / file).write_text(text.replace(old, new))
-        build_variant(d)
+        build_variant(_variant_csrc(root, name, edits))
         if name.startswith("warps"):
             inp = make_inputs()
             got, want = inp["state0"].clone(), inp["state0"].clone()
@@ -212,11 +285,13 @@ def print_table(r: Dict[str, float], inp: dict, file=sys.stdout) -> None:
 
 
 def print_floor(rows, file=sys.stdout) -> None:
+    dep_ns = rows[LATENCY_SHAPE]["ns_per_op"][-1]
     for shape, r in rows.items():
         steps = "  ".join(f"k={k}: {ms * 1e3 / T:7.3f} us/step" for k, ms in r["ms"].items())
         ns = ", ".join(f"{v:.4f}" for v in r["ns_per_op"])
-        print(f"floor {shape}: {ns} ns/op  ({steps}; bound at k={FLOOR_K[0]} "
-              f"{floor_bound(shape, T, FLOOR_K[0])[0]:.6f} ms)", file=file)
+        print(f"floor {shape} x {r['chains']} chains: {ns} ns/op, fixed {r['fixed_ms'] * 1e3:.2f} us  ({steps}; "
+              f"at k={FLOOR_K[0]}: bound {floor_bound(shape, T, FLOOR_K[0])[0]:.6f} ms, latency floor "
+              f"{floor_latency_ms(T, FLOOR_K[0], r['chains'], dep_ns):.6f} ms)", file=file)
 
 
 def main(argv=None) -> int:
@@ -224,6 +299,10 @@ def main(argv=None) -> int:
     print(profiling.card_line())
     if "--floor" in argv:
         print_floor(floor_measure())
+        return 0
+    if "--floor-variants" in argv:
+        for row in floor_variant_rows(Path.cwd()):
+            print(json.dumps(row), flush=True)
         return 0
     if "--variants" in argv:
         for row in variant_rows(Path.cwd()):

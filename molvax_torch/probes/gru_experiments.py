@@ -20,10 +20,16 @@ then the production 3-layer forward on both routes of
 ``gru_forward_pallas``, each per layer an input-gate GEMM and a persistent
 recurrence (the per-layer route, three ``gru_layer_scan_x`` calls, takes
 each layer's h through fp32 between them; the stack route passes the bf16
-h sequence on) and ``fused3`` (``gru_fused3_scan``: the previous design's one-launch stack
-kernel with layer 0's gates given and no residuals). Each row carries its bound (the
-least time the card could take, ``train.profiling.bound_ms``); the
-products count 2 FLOPs per multiply-add at the bf16 tensor-core peak.
+h sequence on); ``fused3`` (``gru_fused3_scan``: the whole stack as one
+cooperative launch, its layers a wavefront of teams of SMs, layer 0's
+gates given, no residuals); and ``per_layer_same``, fused3's work done by
+the per-layer pieces in one call (layer 0's persistent recurrence on the
+same gates, then for each upper layer the input-gate GEMM and its
+recurrence: ``gru_stack.gemm`` and ``layer_recurrence``, which also store
+their residuals), the yardstick of the question ``run_fused3`` asks: does
+one launch of all layers beat one launch a layer? Each row carries its
+bound (the least time the card could take, ``train.profiling.bound_ms``);
+the products count 2 FLOPs per multiply-add at the bf16 tensor-core peak.
 """
 
 from __future__ import annotations
@@ -87,7 +93,23 @@ def _stack(inp: dict) -> torch.Tensor:
 
 
 def _fused3(inp: dict) -> torch.Tensor:
-    return ks.gru_fused3_scan(inp["gi"], *inp["stack"], inp["h0"])
+    return kgru.gru_fused3_scan(inp["gi"], *inp["stack"], inp["h0"])
+
+
+def _uncounted() -> None:
+    pass
+
+
+def _per_layer_same(inp: dict, gi0: torch.Tensor) -> torch.Tensor:
+    """fused3's function on the per-layer pieces (gi0: fp32 gates): launched
+    but not counted, as a yardstick."""
+    wih, bih, whh, bhh = inp["stack"]
+    h0 = inp["h0"]
+    hs = ks.layer_recurrence(gi0, whh[0], bhh[0], h0[0], count=_uncounted)[0]
+    for l in range(1, inp["L"]):
+        gi = ks.gemm("gi", hs, wih[l - 1], bih[l - 1], count=_uncounted)
+        hs = ks.layer_recurrence(gi, whh[l], bhh[l], h0[l], count=_uncounted)[0]
+    return hs
 
 
 def probe(inp: dict) -> Dict[str, torch.Tensor]:
@@ -129,9 +151,11 @@ def bounds(inp: dict) -> Dict[str, tuple]:
 
 def measure(inp: dict) -> Dict[str, dict]:
     """Each row's time (CUDA events for one call, median of 5; step_timer
-    for the per-layer route's three layers) and bound."""
+    for the per-layer route's three layers) and bound; fused3's row also
+    holds its launches a call (``slices``)."""
     T_ = inp["T"]
     b = bounds(inp)
+    b["per_layer_same"] = b["fused3"]  # the same function
     rows = {}
     with torch.no_grad():
         for mode in MODES:
@@ -139,6 +163,10 @@ def measure(inp: dict) -> Dict[str, dict]:
         rows["per_layer_3"] = {"ms": 1e3 * profiling.step_timer(lambda: _per_layer(inp), steps=1, rounds=6)}
         rows["stack_3"] = {"ms": profiling.event_ms(lambda: _stack(inp))}
         rows["fused3"] = {"ms": profiling.event_ms(lambda: _fused3(inp))}
+        gi0 = inp["gi"].float()
+        rows["per_layer_same"] = {"ms": profiling.event_ms(lambda: _per_layer_same(inp, gi0))}
+    rows["fused3"]["slices"] = kgru.fused3_plan(inp["B"], inp["H"], inp["L"],
+                                                *ks.plan_limits(inp["gi"].device)).slices
     for name, row in rows.items():
         row["us_per_step"] = row["ms"] * 1e3 / T_
         row["bound_ms"], row["bound_by"] = b[name]
@@ -175,7 +203,7 @@ def sass_counts() -> Optional[Dict[str, Dict[str, int]]]:
 def print_table(rows: Dict[str, dict], inp: dict, file=sys.stdout) -> None:
     print(f"config: B={inp['B']} T={inp['T']} H={inp['H']} L={inp['L']} I0={inp['I0']}", file=file)
     for name, r in rows.items():
-        per = "layer-sweep" if name in MODES else "3-layer fwd"
+        per = "layer-sweep" if name in MODES else f"{inp['L']}-layer fwd"
         print(f"{name:14s}: {r['ms']:8.3f} ms/{per} ({r['us_per_step']:7.2f} us/step)  "
               f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})", file=file)
 
@@ -191,7 +219,9 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         if not all(torch.isfinite(v.float()).all() for v in out.values()):
             raise AssertionError("a probe's output is not finite")
-        print_table(measure(inp), inp)
+        rows = measure(inp)
+        print_table(rows, inp)
+        print(f"fused3 / per_layer_same: {rows['fused3']['ms'] / rows['per_layer_same']['ms']:.4f}")
     print(f"sass (static counts, bf16 hoisted-gi forward): {sass_counts()}")
     return 0
 

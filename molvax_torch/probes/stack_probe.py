@@ -7,6 +7,7 @@ Run by path from the root of a checkout, on a CUDA card:
     python3 molvax_torch/probes/stack_probe.py --steps     # a recurrence step decomposed
     python3 molvax_torch/probes/stack_probe.py [--root DIR] --layers  # the per-layer kernels
     python3 molvax_torch/probes/stack_probe.py --layer-steps  # the in-kernel forward's step decomposed
+    python3 molvax_torch/probes/stack_probe.py --fused3-steps  # the fused3 wavefront's tick decomposed
     python3 molvax_torch/probes/stack_probe.py --root DIR  # the times of the checkout at DIR
     python3 molvax_torch/probes/stack_probe.py --sass DIR  # the bf16 kernels' SASS against DIR's
     python3 molvax_torch/probes/stack_probe.py [--root DIR] --decodes  # the automaton and the decodes
@@ -22,7 +23,8 @@ T=120, I0=329, H=501, L=3, seeded weights (uniform +-1/sqrt(H)):
   (``kernels.gru_stack.stack_forward`` / ``stack_backward``), and the GRU
   kernels beside it: ``gru_layer_scan_x`` forward and backward at layer 0,
   bf16 and strict fp32, ``gru_layer_scan`` forward and backward,
-  ``gru_probe_scan`` (``matmul_only``) and ``gru_fused3_scan``; one
+  ``gru_probe_scan`` (``matmul_only``), ``gru_fused3_scan`` and
+  ``floor_loop`` (events, and device time queued behind a sleep); one
   greedy ``fused_generate`` decode at ``zinc250k`` width (B=256, seeded
   weights: ``make_decoder``), whichever instance the checkout takes; and
   the automaton kernel (``automaton_times``: ``auto_step`` per step at
@@ -61,6 +63,13 @@ T=120, I0=329, H=501, L=3, seeded weights (uniform +-1/sqrt(H)):
   parts of its step taken out (``LAYER_VARIANTS``: the group barrier, the
   input product computed in the barrier's shadow, the hidden product, or
   all), times only.
+- ``--fused3-steps``: ``gru_fused3_scan`` at H=501 and 512 in each variant
+  of ``FUSED3_VARIANTS``: the wavefront as kept (x[t+1] @ W_ih computed in
+  the shadow of step t's barrier, a layer two ticks behind its input), at
+  skew 1 (x[t] @ W_ih at the start of step t, after the wait on the layer
+  below), and with the input product, the hidden product, both, a team's
+  own barrier wait or the wait on the layer below taken out; and one upper
+  team's forward run alone on its layout.
 - ``--decodes`` (with ``--root DIR`` or without): the automaton kernel's
   times (``automaton_times``) and the constrained greedy and beam-5
   decodes' (``decode_times``), events and device-busy time.
@@ -618,6 +627,7 @@ def train_times(device: str = "cuda:0", seed: int = 0) -> dict:
 def kernel_times(inp: dict, own: bool) -> dict:
     """The GRU kernels' times, ms, with the package on sys.path; ``own``
     adds the redesigned stack's pieces and the host's enqueue times."""
+    from molvax_torch.kernels import floor as kfloor
     from molvax_torch.kernels import generate as kg
     from molvax_torch.kernels import gru as kgru
     from molvax_torch.kernels import gru_stack as ks
@@ -641,7 +651,12 @@ def kernel_times(inp: dict, own: bool) -> dict:
         out["scan_fwd"] = event_ms(lambda: kgru.scan_forward(gi, whh[0], bhh[0], h0[0]))
         out["scan_bwd"] = event_ms(lambda: kgru.scan_backward(sres, dY))
         out["matmul_only"] = event_ms(lambda: kgru.gru_probe_scan(gi, whh[0], bhh[0], h0[0], "matmul_only"))
-        out["fused3"] = event_ms(lambda: ks.gru_fused3_scan(gi.to(bf), wih, bih, whh, bhh, h0))
+        # a parent checkout from before the wavefront has the wrapper in gru_stack
+        fused3 = getattr(kgru, "gru_fused3_scan", None) or ks.gru_fused3_scan
+        out["fused3"] = event_ms(lambda: fused3(gi.to(bf), wih, bih, whh, bhh, h0))
+        fx = torch.ones(256, 32, dtype=torch.int32, device="cuda:0")
+        out["floor_loop"] = event_ms(lambda: kfloor.floor_loop(fx, T, 64, 4), reps=9)
+        out["floor_loop_device"] = queued_ms(lambda: kfloor.floor_loop(fx, T, 64, 4))
         model, cfg, z_emb = make_decoder()
         out["fused_generate_greedy"] = event_ms(lambda: kg.fused_generate(model, cfg, z_emb, 0))
         out.update(automaton_times())
@@ -749,6 +764,76 @@ def layer_step_times(root: Path) -> list:
                                          esize=md.itemsize).slices
                 tag = f"{str(md).split('.')[-1]}_I{I}_H{H_}"
                 row.update({f"fwd_{tag}_ms": ms, f"fwd_{tag}_us_per_step": ms * 1e3 / T / slices})
+        rows.append(row)
+    return rows
+
+
+# (variant, [(text in csrc/gru_layer.cu, its replacement)]): the fused3
+# wavefront's step with a part moved or taken out. skew1 computes the upper
+# layers' x[t] @ W_ih at the start of step t, after the wait on the layer
+# below, not in the shadow of step t-1's barrier (results right); the others
+# take out the input product, the hidden product, both, the wait of a
+# team's own barrier or the wait on the layer below (results wrong, times
+# only; every arrive stays, so no wait is left without its count); unroll1
+# and unroll4 unroll the forward's bf16 product loop (k16 steps) 1 or 4
+# times, where the kept kernel unrolls it twice. The forward kernels share
+# the step, so a variant changes them too.
+FUSED3_VARIANTS = {
+    "base": [],
+    "skew1": [("  input_gates(0);\n\n  for (int t = 0; t < a.T; ++t) {\n",
+               "  for (int t = 0; t < a.T; ++t) {\n    input_gates(t);\n"),
+              ("      input_gates(t + 1);  // needs no other block's h: runs in the barrier's shadow\n", "")],
+    "noinput": _L_NOINPUT,
+    "nohidden": _L_NOHIDDEN,
+    "noproducts": _L_NOINPUT + _L_NOHIDDEN,
+    "nowait": [("      group_wait(a.flags + grp, a.q * (t + 1));\n", "      __syncthreads();\n")],
+    "nowave": [("      if constexpr (WAVE) group_wait(below + grp, qb * (t + 1));\n", "")],
+    **{f"unroll{n}": [("#pragma unroll 2\n        for (int kk = 0; kk < klen; kk += 16) {",
+                       f"#pragma unroll {n}\n        for (int kk = 0; kk < klen; kk += 16) {{")] for n in (1, 4)},
+}
+
+
+def fused3_step_times(root: Path) -> list:
+    """``gru_fused3_scan`` at B=256, T=120, L=3, H=501 and 512
+    (``gru_experiments.make_inputs``), rebuilt from csrc/gru_layer.cu in each
+    variant of FUSED3_VARIANTS under build/stack_probe/: ms a forward, µs a
+    tick (T + 2 (L-1) ticks), and (base, skew1) the largest difference from
+    the plain version; and, in the base build, one team alone: the
+    in-kernel forward of one upper layer (I = H) on the team's layout
+    (``layer_plan`` on sms // L SMs), its µs a step."""
+    from molvax_torch.kernels import gru as kgru
+    from molvax_torch.kernels import gru_stack as ks
+    from molvax_torch.probes import gru_experiments as ge
+    from molvax_torch.train.profiling import event_ms
+
+    src = Path(kgru.__file__).resolve().parent / "csrc"
+    rows = []
+    for name in FUSED3_VARIANTS:
+        d = root / "build" / "stack_probe" / f"fused3_{name}" / "csrc"
+        shutil.rmtree(d.parent, ignore_errors=True)
+        shutil.copytree(src, d)
+        (d / "gru_layer.cu").write_text(variant_source((src / "gru_layer.cu").read_text(), name, FUSED3_VARIANTS))
+        build_variant(d)
+        row = {"variant": name}
+        with torch.no_grad():
+            for h in (501, 512):
+                g = ge.make_inputs(H=h, device="cuda:0")
+                args = (g["gi"], *g["stack"], g["h0"])
+                ms = event_ms(lambda: kgru.gru_fused3_scan(*args))
+                row.update({f"H{h}_ms": ms, f"H{h}_us_per_tick": ms * 1e3 / (g["T"] + 2 * (g["L"] - 1))})
+                if name in ("base", "skew1", "unroll1", "unroll4"):
+                    err = (kgru.gru_fused3_scan(*args).float() - ks.gru_fused3_scan_ref(*args).float()).abs().max()
+                    row[f"H{h}_max_abs_err"] = err.item()
+                if name == "base":
+                    sms, smem = ks.plan_limits(g["gi"].device)
+                    plan = kgru.layer_plan(g["B"], h, h, sms // g["L"], smem)
+                    layer = g["layers"][1]
+                    x = kgru._padded(torch.randn(g["T"], g["B"], h, device="cuda:0"), torch.bfloat16)
+                    one = (plan, torch.bfloat16, x, None, layer["w_ih"], layer["b_ih"], layer["w_hh"],
+                           layer["b_hh"], g["h0"][1], 0, lambda: None)
+                    ms = event_ms(lambda: kgru._forward("team alone", *one))
+                    row.update({f"H{h}_team_alone_plan": [plan.g, plan.q, plan.units, plan.rows, plan.slices],
+                                f"H{h}_team_alone_us_per_step": ms * 1e3 / g["T"] / plan.slices})
         rows.append(row)
     return rows
 
@@ -867,6 +952,9 @@ def main(argv) -> int:
         print(json.dumps({"root": str(root), **automaton_times(), **decode_times(), "card": card}), flush=True)
     elif "--layers" in argv:
         print(json.dumps({"root": str(root), **layer_times(), "card": card}), flush=True)
+    elif "--fused3-steps" in argv:
+        for row in fused3_step_times(root):
+            print(json.dumps({**row, "card": card}), flush=True)
     elif "--layer-steps" in argv:
         for row in layer_step_times(root):
             print(json.dumps({**row, "card": card}), flush=True)

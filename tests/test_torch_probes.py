@@ -238,7 +238,7 @@ def test_probe_wrappers_take_the_plain_versions_on_the_cpu():
     """On CPU tensors each wrapper returns its plain version's result and
     launches nothing; bad arguments raise before any launch."""
     saved = (kgru.probe_matmul_only_launches, kgru.probe_gates_nostore_launches,
-             ks.fused3_launches, kfloor.launches, kgru.layer_fwd_launches)
+             kgru.fused3_launches, kfloor.launches, kgru.layer_fwd_launches)
     H, Bs, Ts, L = 8, 3, 4, 2
     gi = torch.from_numpy(normal((Ts, Bs, 3 * H), seed=61))
     w = torch.from_numpy(_uniform((3 * H, H), 62, 0.3))
@@ -250,7 +250,7 @@ def test_probe_wrappers_take_the_plain_versions_on_the_cpu():
         kgru.gru_probe_scan(gi, w, b, h0, "full")
     stack = (gi, w[None].repeat(L - 1, 1, 1), b[None].repeat(L - 1, 1), w[None].repeat(L, 1, 1),
              b[None].repeat(L, 1), h0[None].repeat(L, 1, 1))
-    assert torch.equal(ks.gru_fused3_scan(*stack), ks.gru_fused3_scan_ref(*stack))
+    assert torch.equal(kgru.gru_fused3_scan(*stack), ks.gru_fused3_scan_ref(*stack))
     x = torch.arange(-6, 6, dtype=torch.int32).view(3, 4)
     assert torch.equal(kfloor.floor_loop(x, 5, 7, 3), kfloor.floor_loop_ref(x, 5, 7, 3))
     for bad in (dict(chains=0), dict(chains=kfloor.MAX_CHAINS + 1), dict(k_ops=-1)):
@@ -260,5 +260,5 @@ def test_probe_wrappers_take_the_plain_versions_on_the_cpu():
     with pytest.raises(ValueError, match="int32"):
         kfloor.floor_loop(x.float(), 2, 3)
     after = (kgru.probe_matmul_only_launches, kgru.probe_gates_nostore_launches,
-             ks.fused3_launches, kfloor.launches, kgru.layer_fwd_launches)
+             kgru.fused3_launches, kfloor.launches, kgru.layer_fwd_launches)
     assert after == saved
