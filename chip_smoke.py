@@ -1,13 +1,13 @@
 #!/usr/bin/env python3
 """Drive molvax_torch's serving path, training step, chunked trainer,
-training loop, constrained decoding and latent workloads once on one CUDA
-card.
+training loop, constrained decoding, latent workloads, evaluation and CLI
+once on one CUDA card.
 
     python3 chip_smoke.py
 
 Run from the root of a checkout. It builds the hand-written kernels from
 ``molvax_torch/kernels/csrc/`` (into ``build/molvax_torch/``), makes
-``zinc250k`` weights at full width from a seed, and runs twenty-four
+``zinc250k`` weights at full width from a seed, and runs twenty-six
 phases, each printed on its own lines:
 
   1. environment: card name and power limit, torch and CUDA versions, the
@@ -171,7 +171,33 @@ phases, each printed on its own lines:
      constrained (the automaton kernels, 100% chem-valid, identical to the
      plain automaton), interpolate (8 slerp waypoints), optimize_from_smiles
      on property_joint (16 steps of optimize_z against the CPU),
-     fit_aggregate_posterior and sample_aggregate; SMILES/s of the decodes.
+     fit_aggregate_posterior and sample_aggregate; SMILES/s of the decodes;
+ 25. evaluate() at zinc250k_quality's full width: a state trained by
+     train() for 64 steps with EMA 0.999 on the training split of phase
+     22's corpus, scored on the held-out split with beam=5 and the
+     temperature sweep: the reference's keys (report_keys of
+     tests/test_torch_eval_keys.py), finite values, fractions in [0, 1],
+     con_chem_valid 1.0; each metric function's launches exactly (the
+     persistent decode a slice for every prior, aggregate, interpolation,
+     round-trip and sweep decode, the row-block decode never; auto_step
+     120 per constrained decode; per eval batch the encoder, the sampler
+     and the per-layer GRU forward), its wall ms and idle share; the same
+     seed's report bit for bit, twice; the deterministic metrics against
+     the plain route (rates within 0.02, per-character accuracies within
+     0.01, the posterior within 1e-3 relative, teacher-forced within
+     1e-2 relative); then a property_joint state for optimization_metrics'
+     two variants (opt_con_chem_valid 1.0, their launches exact);
+ 26. the CLI through molvax_torch.cli.main in this process: train
+     (zinc250k_quality, 64 steps, eval and checkpoints every 32, EMA,
+     best/; property_joint, 32 steps), presets, sample (plain, sampled,
+     aggregate, constrained), reconstruct (greedy, equal to a decode by the
+     EMA weights of best/ bit for bit; beam 5 constrained), interpolate
+     (plain, constrained), evaluate --holdout --beam 5, encode, decode
+     (equal to reconstruct; beam 5), optimize --constrained, the refusals
+     of a missing checkpoint and of optimize without a property head; each
+     command's lines, launches and ms; no module of JAX or of the
+     reference loaded; then python3 -m molvax_torch.cli sample in a child
+     process.
 
 Any failure raises and exits non-zero. Without CUDA it exits 2 and prints
 no result. The line before the card's is the ``kernels`` JSON: each kernel
@@ -2339,6 +2365,424 @@ def phase24(dev, gpu, model, ds) -> dict:
     return out
 
 
+# -- evaluate() (phase 25) and the CLI (phase 26) --------------------------------
+
+EVAL_METRICS = ("teacher_forced_metrics", "generation_metrics", "constrained_generation_metrics",
+                "reconstruction_metrics", "beam_reconstruction_metrics", "posterior_prior_metrics",
+                "interpolation_metrics", "aggregate_generation_metrics", "optimization_metrics",
+                "temperature_sweep")
+# the deterministic metrics, kernel route against plain route: greedy decodes
+# differ from the plain version's at near-ties in ~1% of positions, so string
+# rates within 0.02 absolute and per-character accuracies within 0.01; the
+# posterior's statistics within 1e-3 relative; the teacher-forced metrics
+# within ROUTE_REL relative (the bf16 route gate)
+EVAL_RATE_TOL = 0.02
+EVAL_CHAR_TOL = 0.01
+EVAL_POST_REL = 1e-3
+
+
+def eval_module():
+    import importlib
+
+    return importlib.import_module("molvax_torch.train.evaluate")  # the package's name is the function's
+
+
+@contextlib.contextmanager
+def metric_calls(profiled: bool):
+    """Each metric function that evaluate() calls, wrapped where evaluate()
+    finds it: its launches (counts() before and after), its wall ms (host
+    clock, ending in a sync) and, ``profiled``, the device-busy ms of its
+    own torch.profiler session. A metric called by another (the sweep's
+    generation_metrics) counts in its caller. Yields {name: [record]}."""
+    ev = eval_module()
+    saved = {n: getattr(ev, n) for n in EVAL_METRICS}
+    calls = {n: [] for n in EVAL_METRICS}
+    inside = [False]
+
+    def wrap(name, fn):
+        def call(*a, **kw):
+            if inside[0]:
+                return fn(*a, **kw)
+            inside[0] = True
+            try:
+                torch.cuda.synchronize()
+                before = counts()
+                if profiled:
+                    box = {}
+                    prof = profile_step(lambda: box.update(out=fn(*a, **kw)))
+                    out, wall, busy = box["out"], prof["wall_ms"], sum(prof["device_ms"].values())
+                else:
+                    t0 = time.perf_counter()
+                    out = fn(*a, **kw)
+                    torch.cuda.synchronize()
+                    wall, busy = (time.perf_counter() - t0) * 1e3, None
+                after = counts()
+                calls[name].append({"ms": wall, "busy_ms": busy,
+                                    "launches": {k: after[k] - before[k] for k in after if after[k] != before[k]}})
+                return out
+            finally:
+                inside[0] = False
+
+        return call
+
+    for n, fn in saved.items():
+        setattr(ev, n, wrap(n, fn))
+    try:
+        yield calls
+    finally:
+        for n, fn in saved.items():
+            setattr(ev, n, fn)
+
+
+@contextlib.contextmanager
+def plain_eval_route():
+    """plain_route() and plain_automaton(), and the generation kernel's
+    plain version in its wrapper's place."""
+    saved = kg.fused_generate
+    kg.fused_generate = kg.fused_generate_ref
+    try:
+        with plain_route(), plain_automaton():
+            yield
+    finally:
+        kg.fused_generate = saved
+
+
+def decode_launches(n: int, mcfg, dev) -> dict:
+    """One decode of n rows: the persistent instance, once a slice of its plan."""
+    plan = kg.generate_plan(n, mcfg.charset_size, mcfg.gru_hidden, mcfg.gru_layers, *kg.card_limits(dev))
+    if plan is None:
+        raise AssertionError(f"no persistent plan for a decode of {n} rows")
+    return {"fused_generate": plan.slices, "fused_generate_persistent": plan.slices}
+
+
+def eval_batch_launches(mcfg, rows: int) -> dict:
+    """One teacher-forced eval batch of ``rows`` rows: the encoder and the
+    sampler, and the decoder's GRU forward on its route (per layer the
+    input-gate GEMM and, per batch slice, the recurrence)."""
+    out = {"fused_encode": 1, "fused_sample_kl": 1}
+    if mcfg.gru_kernel == "per_layer":
+        for l in range(mcfg.gru_layers):
+            I = decoder_input_size(mcfg) if l == 0 else mcfg.gru_hidden
+            for k, v in layer_launches(torch.bfloat16, rows, I, mcfg.gru_hidden, 1, 0).items():
+                if v:
+                    out[k] = out.get(k, 0) + v
+    else:
+        n = gru_stack.stack_plan(rows, mcfg.gru_hidden, *gru_stack.card_limits(DEVICE), esize=2).slices
+        out.update(gru_stack_gemm_gi=mcfg.gru_layers, gru_stack_rec=n * mcfg.gru_layers)
+    return out
+
+
+def check_eval_report(report: dict, what: str, **flags) -> None:
+    """evaluate()'s keys for these flags (tests/test_torch_eval_keys.py,
+    held there to the reference's), finite values, fractions in [0, 1],
+    the constrained decodes all chemically valid."""
+    tests = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    from test_torch_eval_keys import is_fraction, report_keys
+
+    want = report_keys(**flags)
+    if set(report) != want:
+        raise AssertionError(f"{what}: keys differ from the reference's: {sorted(set(report) ^ want)}")
+    bad = {k: v for k, v in report.items() if not np.isfinite(v) or (is_fraction(k) and not 0.0 <= v <= 1.0)}
+    bad.update({k: report[k] for k in ("con_chem_valid", "opt_con_chem_valid") if k in report and report[k] != 1.0})
+    if bad:
+        raise AssertionError(f"{what}: values out of range {bad}")
+
+
+def phase25(dev, gpu, ds) -> dict:
+    """evaluate() at zinc250k_quality's full width (3 x GRU-501, latent
+    292, T=120, the per-layer bf16 route) with EMA 0.999: a state trained
+    by train() for 64 steps on the training split of phase 22's corpus,
+    scored on its held-out split with train_dataset= the training split,
+    beam=5 and the temperature sweep. Run A: the report's keys and ranges,
+    each metric function's exact launches and wall ms. Run B (the whole
+    report under the profiler) and run C (each metric under its own
+    profiler session): the same report bit for bit, and the idle shares.
+    The deterministic metrics against the plain route. Then one evaluate()
+    of a property_joint state (EMA 0.999, 32 steps on a chem corpus, the
+    target stats backfilled), for optimization_metrics' two variants."""
+    from molvax_torch.train import ema_eval_state, evaluate, train
+
+    ev = eval_module()
+    out = {}
+    qual = get_preset("zinc250k_quality")
+    qual = dataclasses.replace(qual, name="zinc250k_quality_ema", train=dataclasses.replace(
+        qual.train, ema_decay=0.999, eval_every=0, eval_roundtrip_n=0, select_best=False, log_every=16))
+    mcfg, T = qual.model, qual.model.max_len
+    train_ds, held = ds.split(qual.data.test_fraction, qual.data.seed)
+    t0 = time.perf_counter()
+    state, _ = train(qual, train_ds, max_steps=64, verbose=False)
+    torch.cuda.synchronize()
+    say("phase25", preset=qual.name, trained_steps=state.step, train_s=f"{time.perf_counter() - t0:.2f}",
+        train_rows=len(train_ds), held_out_rows=len(held), ema=state.ema_params is not None)
+    flags = dict(beam=BEAM, sweep_temperatures=True)
+
+    def report_of():
+        return evaluate(state, qual, held, train_dataset=train_ds, **flags)
+
+    with metric_calls(False) as calls:
+        t0 = time.perf_counter()
+        report = report_of()
+        torch.cuda.synchronize()
+        total_ms = (time.perf_counter() - t0) * 1e3
+    check_eval_report(report, "evaluate(zinc250k_quality)", **flags)
+    rows = min(len(held), qual.train.batch_size)
+    n_pairs = min(64, len(held) // 2)
+    want = {
+        "teacher_forced_metrics": {k: 8 * v for k, v in eval_batch_launches(mcfg, rows).items()},
+        "generation_metrics": decode_launches(1000, mcfg, dev),
+        "constrained_generation_metrics": {"auto_step": T},
+        "reconstruction_metrics": decode_launches(min(256, len(held)), mcfg, dev),
+        "beam_reconstruction_metrics": {},  # unconstrained, as the reference's: torch ops a step
+        "posterior_prior_metrics": {},  # the inference encode is the plain encoder, as the reference's
+        "interpolation_metrics": decode_launches(n_pairs * 9, mcfg, dev),
+        "aggregate_generation_metrics": decode_launches(1000, mcfg, dev),
+        "temperature_sweep": {k: 4 * v for k, v in decode_launches(500, mcfg, dev).items()},
+    }
+    got = {n: [c["launches"] for c in calls[n]] for n in EVAL_METRICS}
+    for name in EVAL_METRICS:
+        say("phase25", metric=name, calls=len(calls[name]),
+            launches=json.dumps(got[name][0] if got[name] else {}).replace(" ", ""),
+            ms=f"{calls[name][0]['ms']:.2f}" if calls[name] else "-")
+    bad = {n: (got[n], [w]) for n, w in want.items() if got[n] != [w]}
+    if bad or got["optimization_metrics"]:
+        raise AssertionError(f"evaluate(): launches by metric {bad}, optimization {got['optimization_metrics']}")
+    # runs B and C: the same report, bit for bit, and where the device idles
+    box = {}
+    whole = profile_step(lambda: box.update(r=report_of()))
+    whole_busy = sum(whole["device_ms"].values())
+    with metric_calls(True) as prof_calls:
+        report_c = report_of()
+    same = {"B": box["r"] == report, "C": report_c == report}
+    say("phase25", check="same_seed_reports_identical", run_B=same["B"], run_C=same["C"],
+        differing=json.dumps(sorted(k for k in report if box["r"][k] != report[k] or report_c[k] != report[k])))
+    if not all(same.values()):
+        raise AssertionError("two evaluate() calls with the same seed gave different reports")
+    idle = {}
+    for name in EVAL_METRICS:
+        if prof_calls[name]:
+            c = prof_calls[name][0]
+            idle[name] = 1 - c["busy_ms"] / c["ms"] if c["busy_ms"] else None
+            wall = calls[name][0]["ms"]
+            say("phase25", metric=name, wall_ms=f"{wall:.2f}", profiled_wall_ms=f"{c['ms']:.2f}",
+                device_busy_ms=f"{c['busy_ms']:.3f}",
+                idle_share=f"{idle[name]:.4f}" if idle[name] is not None else "not measured",
+                idle_share_of_unprofiled_wall=f"{1 - c['busy_ms'] / wall:.4f}" if c["busy_ms"] else "not measured",
+                card=json.dumps(gpu))
+    say("phase25", report="evaluate(beam=5, sweep_temperatures=True)", keys=len(report), wall_ms=f"{total_ms:.1f}",
+        profiled_wall_ms=f"{whole['wall_ms']:.1f}", device_busy_ms=f"{whole_busy:.1f}",
+        idle_share=f"{1 - whole_busy / whole['wall_ms']:.4f}" if whole_busy else "not measured",
+        idle_share_of_unprofiled_wall=f"{1 - whole_busy / total_ms:.4f}" if whole_busy else "not measured",
+        card=json.dumps(gpu))
+    say("phase25", report_values=json.dumps({k: round(v, 5) for k, v in sorted(report.items())}))
+    out["quality"] = {"total_ms": total_ms, "by_metric_ms": {n: c[0]["ms"] for n, c in calls.items() if c},
+                      "idle": idle, "whole_idle": 1 - whole_busy / whole["wall_ms"] if whole_busy else None}
+    # the deterministic metrics on the plain route (the same derived generator for the pairs)
+    g4 = ev.split_generator(torch.Generator().manual_seed(0), 7, dev)[3]
+    ema = ema_eval_state(state)
+    t0 = time.perf_counter()
+    with plain_eval_route():
+        plain = ev.teacher_forced_metrics(ema, qual, held)
+        plain.update(ev.reconstruction_metrics(ema.params, qual, held, None))
+        plain.update(ev.beam_reconstruction_metrics(ema.params, qual, held, beam=BEAM))
+        plain.update(ev.posterior_prior_metrics(ema.params, qual, held))
+        plain.update(ev.interpolation_metrics(ema.params, qual, held, g4, n_pairs=n_pairs))
+    gaps, over = {}, {}
+    for k, v in plain.items():
+        if k.startswith("post_") and k != "post_std_batch":
+            gap, tol = abs(report[k] - v) / max(abs(v), 1e-12), EVAL_POST_REL
+        elif k in ("acc", "acc_nonpad") or "char" in k:
+            gap, tol = abs(report[k] - v), EVAL_CHAR_TOL
+        elif k.startswith(("recon_", "interp_")):
+            gap, tol = abs(report[k] - v), EVAL_RATE_TOL
+        else:  # the teacher-forced loss and its parts
+            gap, tol = abs(report[k] - v) / max(abs(v), 1e-12), ROUTE_REL
+        gaps[k] = gap
+        if gap > tol:
+            over[k] = (report[k], v, tol)
+    say("phase25", check="deterministic_metrics_kernel_vs_plain_route", plain_route_s=f"{time.perf_counter() - t0:.2f}",
+        gaps=json.dumps({k: float(f"{g:.3e}") for k, g in gaps.items()}),
+        tolerances=json.dumps({"rates": EVAL_RATE_TOL, "char": EVAL_CHAR_TOL, "posterior_rel": EVAL_POST_REL,
+                               "teacher_forced_rel": ROUTE_REL}))
+    if over:
+        raise AssertionError(f"evaluate(): kernel route against plain route {over}")
+    # a property_joint state: optimization_metrics with both variants
+    t0 = time.perf_counter()
+    chem = synthetic_dataset(1024, max_len=120, seed=0, chem=True, with_properties=True)
+    prop = get_preset("property_joint")
+    prop = dataclasses.replace(prop, name="property_joint_ema", train=dataclasses.replace(
+        prop.train, ema_decay=0.999, log_every=16))
+    p_train, p_held = chem.split(prop.data.test_fraction, prop.data.seed)
+    p_state, _ = train(prop, p_train, max_steps=32, verbose=False)
+    torch.cuda.synchronize()
+    corpus_s = time.perf_counter() - t0
+    with metric_calls(False) as p_calls:
+        t0 = time.perf_counter()
+        p_report = evaluate(p_state, prop, p_held, train_dataset=p_train)  # cfg without stats: backfilled
+        torch.cuda.synchronize()
+        p_ms = (time.perf_counter() - t0) * 1e3
+    check_eval_report(p_report, "evaluate(property_joint)", n_properties=prop.model.n_properties)
+    n_opt = min(64, len(p_held))
+    dec = decode_launches(n_opt, prop.model, dev)
+    want_opt = {**{k: 2 * v for k, v in dec.items()}, "auto_step": 2 * T}
+    got_opt = [c["launches"] for c in p_calls["optimization_metrics"]]
+    say("phase25", preset=prop.name, trained_steps=p_state.step, corpus_and_train_s=f"{corpus_s:.2f}",
+        held_out_rows=len(p_held), optimization_launches=json.dumps(got_opt).replace(" ", ""),
+        opt_keys=json.dumps({k: round(v, 4) for k, v in p_report.items() if k.startswith("opt_")}),
+        wall_ms=f"{p_ms:.1f}", optimization_ms=f"{p_calls['optimization_metrics'][0]['ms']:.1f}",
+        card=json.dumps(gpu))
+    if got_opt != [want_opt]:
+        raise AssertionError(f"optimization_metrics: launches {got_opt}, expected {want_opt}")
+    out["property"] = {"wall_ms": p_ms, "optimization_ms": p_calls["optimization_metrics"][0]["ms"]}
+    return out
+
+
+def phase26(dev, gpu) -> dict:
+    """The CLI on the card, through molvax_torch.cli.main in this process:
+    train (zinc250k_quality 64 steps with eval, checkpoints, EMA and best/;
+    property_joint 32 steps), presets, sample (plain, sampled, aggregate,
+    constrained), reconstruct (greedy, beam 5 constrained), interpolate
+    (plain, constrained), evaluate --holdout, encode, decode (greedy, beam
+    5), optimize --constrained, and the two refusals; each command's lines,
+    launches and wall ms. reconstruct equals a decode by the EMA weights of
+    best/ bit for bit, decode of encode's file equals reconstruct. Then one
+    python3 -m molvax_torch.cli sample in a child process."""
+    import io
+    import shutil
+    import tempfile
+
+    from molvax_torch import cli
+    from molvax_torch.config import from_dict
+    from molvax_torch.data.charset import Charset
+    from molvax_torch.io.checkpoint import CheckpointManager
+
+    root = tempfile.mkdtemp(prefix="molvax_phase26_")
+    qdir, pdir = os.path.join(root, "quality"), os.path.join(root, "property")
+    times = {}
+
+    def run(name, argv, n_lines):
+        stdout, stderr = io.StringIO(), io.StringIO()
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(stdout), contextlib.redirect_stderr(stderr):
+            rc = cli.main(argv)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        lines, got = stdout.getvalue().splitlines(), counts()
+        say("phase26", command=name, rc=rc, lines=len(lines), ms=f"{ms:.1f}",
+            launches=json.dumps({k: v for k, v in got.items() if v}).replace(" ", ""), card=json.dumps(gpu))
+        if rc != 0 or len(lines) != n_lines:
+            raise AssertionError(f"{name}: rc {rc}, {len(lines)} lines, expected {n_lines}: {stderr.getvalue()[-2000:]}")
+        times[name] = ms
+        return lines, stderr.getvalue(), got
+
+    def refused(name, argv, match):
+        with contextlib.redirect_stdout(io.StringIO()), contextlib.redirect_stderr(io.StringIO()):
+            try:
+                cli.main(argv)
+            except SystemExit as e:
+                say("phase26", command=name, refused=json.dumps(str(e)))
+                if match not in str(e):
+                    raise AssertionError(f"{name}: refused with {e!r}") from e
+                return
+        raise AssertionError(f"{name}: not refused")
+
+    def over(*pairs):
+        return [x for p in pairs for x in ("--override", p)]
+
+    try:
+        mcfg, T = get_preset("zinc250k_quality").model, get_preset("zinc250k_quality").model.max_len
+        run("train zinc250k_quality", ["train", "--preset", "zinc250k_quality", "--steps", "64", "--quiet",
+                                       "--metrics", os.path.join(root, "q.jsonl")] + over(
+            f"train.checkpoint_dir={qdir}", "train.eval_every=32", "train.checkpoint_every=32",
+            "train.ema_decay=0.999", "data.n_synthetic=4096"), 1)
+        evals = [r for r in map(json.loads, open(os.path.join(root, "q.jsonl"))) if "eval_recon_exact" in r]
+        best_step = CheckpointManager(os.path.join(qdir, "best")).latest_step()
+        top_step = CheckpointManager(qdir).latest_step()
+        say("phase26", eval_rows=len(evals), best_step=best_step, top_step=top_step)
+        if len(evals) != 2 or best_step is None or top_step != 64:
+            raise AssertionError(f"train: {len(evals)} eval rows, best/ step {best_step}, top step {top_step}")
+        run("train property_joint", ["train", "--preset", "property_joint", "--steps", "32", "--quiet"] + over(
+            f"train.checkpoint_dir={pdir}", "train.ema_decay=0.999", "data.n_synthetic=1024"), 1)
+        run("presets", ["presets"], len(cli.PRESETS))
+        q = ["--ckpt", qdir]
+        dec256 = decode_launches(B, mcfg, dev)
+        for name, extra, n in (("sample", [], B), ("sample --stochastic --temperature 0.7",
+                                                   ["--stochastic", "--temperature", "0.7"], B),
+                               ("sample --aggregate", ["--aggregate"], B)):
+            _, _, got = run(name, ["sample"] + q + ["-n", str(n)] + extra, n)
+            if any(got[k] != v for k, v in dec256.items()) or got["fused_generate_row_block"]:
+                raise AssertionError(f"{name}: launches {got}, expected {dec256}")
+        lines, err, got = run("sample --constrained", ["sample"] + q + ["-n", "64", "--constrained"], 64)
+        if got["auto_step"] != T or "# chem-valid: 100.00%" not in err:
+            raise AssertionError(f"sample --constrained: auto_step {got['auto_step']}, {err[-300:]}")
+        recon, err, got = run("reconstruct", ["reconstruct"] + q + SMILES, B)
+        if any(got[k] != v for k, v in dec256.items()):
+            raise AssertionError(f"reconstruct: launches {got}")
+        # the strings of a decode by best/'s EMA weights, made here
+        cfg = from_dict(json.load(open(os.path.join(qdir, "config.json"))))
+        charset = Charset(chars=tuple(json.load(open(os.path.join(qdir, "charset.json")))))
+        payload = load_payload(os.path.join(qdir, "best"), best_step)
+        ema_model = init_state(cfg, device=dev, weights=payload["ema"]).params
+        raw_model = init_state(cfg, device=dev, weights=payload["params"]).params
+        want = reconstruct(ema_model, cfg.model, SMILES, torch.Generator().manual_seed(0), charset=charset)
+        raw = reconstruct(raw_model, cfg.model, SMILES, torch.Generator().manual_seed(0), charset=charset)
+        got_strings = [line.split("\t")[1] for line in recon]
+        say("phase26", check="reconstruct_is_best_ema_decode", equal=got_strings == want,
+            differs_from_raw_weights=got_strings != raw, best_dir_served="using best-checkpoint selection dir" in err)
+        if got_strings != want or [line.split("\t")[0] for line in recon] != SMILES:
+            raise AssertionError("reconstruct did not serve best/'s EMA weights")
+        _, _, got = run("reconstruct --beam 5 --constrained", ["reconstruct"] + q + ["--beam", "5", "--constrained"]
+                        + SMILES, B)
+        if got["auto_mask"] != T or got["auto_advance"] != T:
+            raise AssertionError(f"beam 5 constrained: launches {got}")
+        run("interpolate -n 9", ["interpolate"] + q + [SMILES[0], SMILES[200], "-n", "9"], 9)
+        path, _, _ = run("interpolate -n 9 --constrained", ["interpolate"] + q + [SMILES[0], SMILES[200], "-n", "9",
+                                                                              "--constrained"], 9)
+        if not all(chem_valid(x) for x in path):
+            raise AssertionError(f"interpolate --constrained: {path}")
+        lines, _, got = run("evaluate --holdout --beam 5 --n-prior 256", ["evaluate"] + q + [
+            "--holdout", "--beam", "5", "--n-prior", "256"], 1)
+        check_eval_report(json.loads(lines[0]), "evaluate command", beam=BEAM)
+        if got["fused_encode"] != 8 or got["fused_generate_persistent"] == 0 or got["fused_generate_row_block"]:
+            raise AssertionError(f"evaluate: launches {got}")
+        smi, npz = os.path.join(root, "in.smi"), os.path.join(root, "lat.npz")
+        with open(smi, "w") as f:
+            f.write("smiles\n" + "\n".join(SMILES) + "\n")
+        _, err, got = run("encode --in --out", ["encode"] + q + ["--in", smi, "--out", npz], 0)
+        if got["fused_encode"] or f"mu/logvar ({B}, {mcfg.latent_dim})" not in err:
+            raise AssertionError(f"encode: {err[-300:]}, launches {got}")  # the plain encoder, as the reference's
+        decoded, _, got = run("decode", ["decode"] + q + ["--in", npz], B)
+        if decoded != got_strings or any(got[k] != v for k, v in dec256.items()):
+            raise AssertionError(f"decode of encode's file differs from reconstruct ({got})")
+        run("decode --beam 5", ["decode"] + q + ["--in", npz, "--beam", "5"], B)
+        lines, _, got = run("optimize --constrained", ["optimize", "--ckpt", pdir, "--constrained"] + SMILES[:16], 16)
+        if not all(chem_valid(line.split("\t")[1]) for line in lines) or got["auto_step"] != T:
+            raise AssertionError(f"optimize --constrained: {lines[:3]}, launches {got}")
+        refused("sample, no checkpoint", ["sample", "--ckpt", os.path.join(root, "missing")], "no checkpoint found")
+        refused("optimize, no property head", ["optimize"] + q + ["CCO"], "no property head")
+        leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "molvax"))
+        say("phase26", check="no_jax_or_reference_module", leaked=json.dumps(leaked))
+        if leaked:
+            raise AssertionError(f"the CLI pulled in {leaked}")
+        here = os.path.dirname(os.path.abspath(__file__))
+        t0 = time.perf_counter()
+        child = subprocess.run([sys.executable, "-m", "molvax_torch.cli", "sample", "--ckpt", qdir, "-n", "4"],
+                               cwd=here, env=dict(os.environ, PYTHONPATH=here), capture_output=True, text=True,
+                               timeout=600)
+        child_s = time.perf_counter() - t0
+        say("phase26", command="python3 -m molvax_torch.cli sample -n 4 (child process)", rc=child.returncode,
+            lines=len(child.stdout.splitlines()), s=f"{child_s:.2f}", card=json.dumps(gpu))
+        if child.returncode != 0 or len(child.stdout.splitlines()) != 4:
+            raise AssertionError(f"python3 -m molvax_torch.cli: rc {child.returncode}: {child.stderr[-2000:]}")
+        times["child sample -n 4 (s)"] = child_s
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return times
+
+
 def entry(name, source, replaces, launches, err, ms, plain_ms, bnd, library_ms, **extra) -> dict:
     """One kernel of the ``kernels`` line."""
     return {"name": name, "route": "cuda", "source": f"molvax_torch/kernels/csrc/{source}",
@@ -2853,6 +3297,16 @@ def main() -> int:
 
     # -- 24. the latent workloads --------------------------------------------
     phase24(dev, gpu, model, ds)
+
+    # -- 25. evaluate() at full width ------------------------------------------
+    t0 = time.perf_counter()
+    phase25(dev, gpu, ds)
+    say("phase25", phase_s=f"{time.perf_counter() - t0:.1f}")
+
+    # -- 26. the CLI ------------------------------------------------------------
+    t0 = time.perf_counter()
+    phase26(dev, gpu)
+    say("phase26", phase_s=f"{time.perf_counter() - t0:.1f}")
 
     beam_counts = decodes["beam"]
     print(json.dumps({"kernels": [

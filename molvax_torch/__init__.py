@@ -20,7 +20,15 @@ GRU (``gru_layer.cu``); and constrained decoding and beam search
 hand-written valence-automaton kernel ``automaton.cu``; and the data layer
 (``data``: the corpora, the native tokenizer, property targets and the
 ``BatchIterator``) with the chunked trainer (``train.make_train_chunk``: K
-steps as one CUDA Graph on the card).
+steps as one CUDA Graph on the card); the training loop (``train.train``:
+checkpoints in ``io.checkpoint``, resume, preemption, the eval cadence and
+``best/``) and the latent workloads (``latent``: the corpus encode and
+decode, interpolation, property optimization in z, the aggregate
+posterior); evaluation (``train.evaluate``: the reference's report, key
+for key, on the EMA weights) and the CLI (``python3 -m molvax_torch.cli``,
+installed as ``molvax-torch``: every ``molvax`` subcommand), with the debug
+guards of ``utils`` (``debug_mode``, ``assert_finite``, ``checked``). Data
+parallelism is not ported yet.
 """
 
 __version__ = "0.1.0"

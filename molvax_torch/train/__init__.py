@@ -1,4 +1,4 @@
-from .evaluate import reconstruction_metrics
+from .evaluate import evaluate, generation_metrics, reconstruction_metrics
 from .loop import (
     PosteriorCollapseError,
     TrainState,
@@ -16,6 +16,8 @@ from .schedules import beta_at
 
 __all__ = [
     "PosteriorCollapseError",
+    "evaluate",
+    "generation_metrics",
     "reconstruction_metrics",
     "train",
     "TrainState",

@@ -1,7 +1,16 @@
-"""Device and dtype resolution for the port."""
+"""Device and dtype resolution for the port, and the debug guards.
+
+The guards (``debug_mode``, ``assert_finite``, ``checked``) are the
+reference's ``molvax/utils.py`` in torch's idiom: anomaly detection makes a
+backward fail at the op that produced a NaN, and a finiteness check on a
+tensor tree raises at the first non-finite leaf. Both sync with the host, so
+they are development tools: never leave them on a hot path.
+"""
 
 from __future__ import annotations
 
+import contextlib
+import functools
 from typing import Optional, Union
 
 import torch
@@ -76,3 +85,58 @@ class PinnedStaging:
         event.record(torch.cuda.current_stream(self.device))
         self._events[i] = event
         return out
+
+
+@contextlib.contextmanager
+def debug_mode(nans: bool = True, tracer_leaks: bool = False):
+    """``with debug_mode(): train(...)``: fail fast at the first NaN.
+
+    ``nans`` turns on ``torch.autograd.set_detect_anomaly``, so a backward
+    raises at the op whose gradient is NaN and names the forward op that
+    made it; the previous setting comes back on exit. ``tracer_leaks`` has
+    no effect: eager torch has no tracers to leak (the argument stays for
+    the reference's call pattern, as ``ModelConfig.use_pallas_automaton``
+    does)."""
+    prev = torch.is_anomaly_enabled()
+    try:
+        torch.autograd.set_detect_anomaly(nans)
+        yield
+    finally:
+        torch.autograd.set_detect_anomaly(prev)
+
+
+def _leaves(tree, path: str = ""):
+    if isinstance(tree, torch.Tensor):
+        yield path, tree
+    elif isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaves(v, f"{path}[{k!r}]")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _leaves(v, f"{path}[{i}]")
+
+
+def assert_finite(tree, name: str = "tree") -> None:
+    """Raise ``FloatingPointError("non-finite values in {name}{path}")`` at
+    the first leaf of ``tree`` (a tensor, or dicts, lists and tuples of
+    them) that holds a NaN or an infinity. Each leaf's check syncs with the
+    host; under CUDA-graph capture, where a sync would break the capture,
+    it raises ``RuntimeError`` instead."""
+    if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(f"assert_finite({name}) syncs with the host and cannot run under CUDA-graph capture")
+    for path, leaf in _leaves(tree):
+        if not bool(torch.isfinite(leaf).all()):
+            raise FloatingPointError(f"non-finite values in {name}{path}")
+
+
+def checked(fn):
+    """``fn`` wrapped for the reference's call pattern
+    (``molvax.utils.checked(step)(...)``). In eager torch ``assert_finite``
+    inside ``fn`` has already raised by the time ``fn`` returns, so the
+    wrapper only calls it."""
+
+    @functools.wraps(fn)
+    def wrapper(*args, **kwargs):
+        return fn(*args, **kwargs)
+
+    return wrapper
