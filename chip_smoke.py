@@ -1,13 +1,13 @@
 #!/usr/bin/env python3
 """Drive molvax_torch's serving path, training step, chunked trainer,
-training loop, constrained decoding, latent workloads, evaluation and CLI
-once on one CUDA card.
+training loop, constrained decoding, latent workloads, evaluation, CLI and
+data parallelism once on one CUDA card.
 
     python3 chip_smoke.py
 
 Run from the root of a checkout. It builds the hand-written kernels from
 ``molvax_torch/kernels/csrc/`` (into ``build/molvax_torch/``), makes
-``zinc250k`` weights at full width from a seed, and runs twenty-six
+``zinc250k`` weights at full width from a seed, and runs twenty-seven
 phases, each printed on its own lines:
 
   1. environment: card name and power limit, torch and CUDA versions, the
@@ -197,7 +197,28 @@ phases, each printed on its own lines:
      of a missing checkpoint and of optimize without a property head; each
      command's lines, launches and ms; no module of JAX or of the
      reference loaded; then python3 -m molvax_torch.cli sample in a child
-     process.
+     process;
+ 27. data parallelism (molvax_torch.parallel): (d) the sampler and both
+     decode instances (sampled at T=0.7) at row_base 0 on B=256 and 128 on
+     rows 128-255 against their plain versions at the same base, and the
+     row_base 128 call equal to the B=256 call's rows 128-255 bit for bit;
+     (a) an NCCL world of one rank in this process: the K=16 zinc250k
+     chunk over its mesh, the gradients' all-reduce captured in the graph
+     (one NCCL kernel a step in a replay), against the no-mesh chunk from
+     the same weights, bit for bit (weights, Adam state, metrics), both
+     chunks' ms a step and the all-reduce's device ms a step; (b) train()
+     at moses_scaled width with 256 rows a chip in that world: the
+     reference's warning for its 8x1 mesh, an auto 1-rank mesh, 12
+     chunked steps, ms a step and the bytes reduced a step; then two gloo
+     ranks on the card (spawned): (c) one eager zinc250k step, 128 rows a
+     rank of the global 256, each rank's all-reduced gradients within the
+     bf16 gate of the 1-process step's, the metrics (post_std_batch and
+     acc_nonpad among them) within 1e-3, rank 1's eps and masks those of
+     rows 128-255, the chunk refused on a gloo group; (e) sample_prior(256)
+     and decode_latents greedy over the ranks equal to the 1-process
+     strings (or a near-tie within MARGIN); (f) the ranks' checkpoint
+     restored by this process, and this process's restored by the ranks,
+     bit for bit.
 
 Any failure raises and exits non-zero. Without CUDA it exits 2 and prints
 no result. The line before the card's is the ``kernels`` JSON: each kernel
@@ -2783,6 +2804,489 @@ def phase26(dev, gpu) -> dict:
     return times
 
 
+# -- data parallelism (phase 27) --------------------------------------------------
+
+DP_RANKS = 2  # gloo ranks on the one card (NCCL refuses two ranks on one device)
+DP_GRAD_REL = STACK_BWD_REL  # the bf16 gradient gate: ||dp - one|| / ||one|| per gradient
+DP_METRIC_REL = 1e-3
+DP_DIR = os.path.join("build", "phase27")
+DP_WARNING = ("[molvax] configured mesh 8x1 unusable here (devices=1, batch=256); using an auto 1-device data "
+              "mesh")
+
+
+@contextlib.contextmanager
+def recorded_grads(seen: list):
+    """``Optimizer.update`` keeps a copy of the gradients it is handed
+    (after the data-parallel all-reduce) in ``seen``, one list a step."""
+    from molvax_torch.train.loop import Optimizer
+
+    real = Optimizer.update
+
+    def update(self, lr):
+        seen.append([None if p.grad is None else p.grad.detach().clone() for p in self.params])
+        return real(self, lr)
+
+    Optimizer.update = update
+    try:
+        yield seen
+    finally:
+        Optimizer.update = real
+
+
+def fresh_dir(*parts) -> str:
+    import shutil
+
+    path = os.path.join(DP_DIR, *parts)
+    shutil.rmtree(path, ignore_errors=True)
+    os.makedirs(path)
+    return path
+
+
+def row_base_checks(model, codes, dev, gpu) -> dict:
+    """Phase 27 (d): the sampler and both decode instances at row_base 0 on
+    the B=256 rows and at row_base 128 on rows 128-255, each against its
+    plain version at the same row base (the sampler within SAMPLER_REL, a
+    decode's codes within MARGIN of the plain maximum, its identical
+    share), and the call at row_base 128 equal to the B=256 call's rows
+    128-255 bit for bit, kernel and plain version alike."""
+    cfg, half = model.cfg, B // 2
+    with torch.no_grad():
+        mu, lv = encode(model, cfg, codes)
+    seed_t = torch.full((), SEED + 27, dtype=torch.int32, device=dev)
+    out = {"sampler": {}, "persistent": {}, "row_block": {}}
+    calls = {}
+    with torch.no_grad():
+        for rb in (0, half):
+            m, l = mu[rb:].contiguous(), lv[rb:].contiguous()
+            calls[rb] = (*sampler._sample_kernel(seed_t, m, l, cfg.eps_scale, rb),
+                         *sampler.fused_sample_kl_ref(seed_t, m, l, cfg.eps_scale, rb))
+    torch.cuda.synchronize()
+    for rb, (zk, klk, zr, klr) in calls.items():
+        z_rel, kl_rel = max_abs(zk, zr) / zr.abs().max().item(), max_abs(klk, klr) / klr.abs().max().item()
+        out["sampler"][rb] = {"z_rel_err": z_rel, "kl_rel_err": kl_rel, "max_abs_err": max(max_abs(zk, zr),
+                                                                                          max_abs(klk, klr))}
+        say("phase27", check="d", kernel="fused_sample_kl", row_base=rb, rows=zk.shape[0], z_rel_err=f"{z_rel:.3e}",
+            kl_rel_err=f"{kl_rel:.3e}", z_bit_identical=f"{(zk == zr).float().mean().item():.6f}",
+            rel_tol=SAMPLER_REL)
+        if not (z_rel <= SAMPLER_REL and kl_rel <= SAMPLER_REL):
+            raise AssertionError(f"sampler at row_base {rb}: z {z_rel:.3e}, kl {kl_rel:.3e}")
+    full, part = calls[0], calls[half]
+    rows_k = torch.equal(part[0], full[0][half:]) and torch.equal(part[1], full[1][half:])
+    rows_r = torch.equal(part[2], full[2][half:]) and torch.equal(part[3], full[3][half:])
+    out["sampler"]["rows_bit_for_bit"] = rows_k and rows_r
+    say("phase27", check="d", kernel="fused_sample_kl", row_base128_equals_B256_rows_128_255_kernel=rows_k,
+        plain=rows_r)
+    if not (rows_k and rows_r):
+        raise AssertionError("the sampler at row_base 128 is not the B=256 call's rows 128-255")
+
+    rng = np.random.default_rng(SEED + 27)
+    z = torch.from_numpy(rng.standard_normal((B, cfg.latent_dim)).astype(np.float32)).to(dev)
+    with torch.no_grad():
+        z_emb = latent_embed(model, cfg, z)
+    if kg.generate_plan(half, cfg.charset_size, cfg.gru_hidden, cfg.gru_layers, *kg.card_limits(dev)) is None:
+        raise AssertionError("no persistent plan at zinc250k width, B=128")
+    seed = SEED + 27
+    for instance in ("persistent", "row_block"):
+        got = {}
+        for rb in (0, half):
+            zpart = z_emb[rb:]
+            before = (kg.persistent_launches, kg.row_block_launches)
+            codes_k = kg._decode(model, cfg, zpart, seed, False, 0.7, row_block=instance == "row_block", row_base=rb)
+            codes_r, scores = kg.fused_generate_ref(model, cfg, zpart, seed, greedy=False, temperature=0.7,
+                                                    force_codes=codes_k, return_scores=True, row_base=rb)
+            plain = kg.fused_generate_ref(model, cfg, zpart, seed, greedy=False, temperature=0.7, row_base=rb)
+            torch.cuda.synchronize()
+            launched = (kg.persistent_launches - before[0], kg.row_block_launches - before[1])
+            want = (1, 0) if instance == "persistent" else (0, 1)
+            chosen = scores.gather(-1, codes_k.long()[..., None])[..., 0]
+            gap = (scores.max(-1).values - chosen).max().item()
+            same = (codes_k == plain).float().mean().item()
+            out[instance][rb] = {"max_margin_gap": gap, "identical_codes": same}
+            say("phase27", check="d", kernel="fused_generate", instance=instance, row_base=rb, rows=zpart.shape[0],
+                mode="sampled_T0.7", launches=json.dumps(dict(zip(("persistent", "row_block"), launched))),
+                identical_codes=f"{same:.6f}", max_margin_gap=f"{gap:.3e}", margin=MARGIN)
+            if launched != want or gap > MARGIN:
+                raise AssertionError(f"{instance} decode at row_base {rb}: launches {launched}, gap {gap:.3e}")
+            got[rb] = codes_k
+        rows = torch.equal(got[half], got[0][half:])
+        out[instance]["rows_bit_for_bit"] = rows
+        say("phase27", check="d", kernel="fused_generate", instance=instance,
+            row_base128_equals_B256_rows_128_255=rows)
+        if not rows:
+            raise AssertionError(f"the {instance} decode at row_base 128 is not the B=256 decode's rows 128-255")
+    return out
+
+
+def _profile_counts(fn) -> dict:
+    """(device ms, launches) by kernel name over one call of ``fn``, with
+    torch.profiler; empty where it records no device activity."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        dev_us = getattr(ev, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(ev, "self_cuda_time_total", 0.0)
+        ms, n = out.get(ev.key, (0.0, 0))
+        out[ev.key] = (ms + dev_us / 1e3, n + ev.count)
+    return out
+
+
+def nccl_world_checks(dev, gpu, ds) -> dict:
+    """Phase 27 (a) and (b), in this process, in an NCCL world of one rank
+    (the card's machine holds one card; NCCL refuses two ranks on one
+    device): (a) the K=16 zinc250k chunk over the 1-rank mesh, its
+    gradients' all-reduce captured in the graph, against the no-mesh chunk
+    from the same weights on the same stack, bit for bit; per-step times of
+    both (no mesh, mesh, mesh, no mesh) and the all-reduce's device time a
+    step; (b) train() at moses_scaled width with its per-chip batch of 256
+    (data_axis left at 8): the reference's warning, an auto 1-rank mesh,
+    chunked steps, ms a step and the bytes reduced a step."""
+    import io
+
+    import torch.distributed as dist
+
+    from molvax_torch.parallel import make_mesh, replicate
+    from molvax_torch.train import train
+
+    os.environ.setdefault("TORCH_NCCL_ASYNC_ERROR_HANDLING", "0")  # before a collective is captured
+    store = fresh_dir("nccl")
+    dist.init_process_group("nccl", init_method=f"file://{os.path.abspath(store)}/store", world_size=1, rank=0)
+    out = {}
+    try:
+        mesh = make_mesh(device=dev)
+        backend = dist.get_backend(mesh.group)
+        say("phase27", check="a", world=dist.get_world_size(), backend=backend, mesh=json.dumps(mesh.shape),
+            device=str(mesh.device), nccl_version=".".join(map(str, torch.cuda.nccl.version())))
+        if not (mesh.collective and backend == "nccl" and mesh.size == 1 and mesh.device == dev):
+            raise AssertionError(f"the NCCL world's mesh is {mesh} on {backend}")
+        cfg = effective_config(get_preset("zinc250k"), ds)
+        stack, _ = BatchIterator(ds, B, seed=0, device=dev).next_stack(CHUNK)
+        base = init_state(cfg, seed=SEED, device=dev)
+        plain_chunk, mesh_chunk = make_train_chunk(cfg, CHUNK, device=dev), make_train_chunk(cfg, CHUNK, mesh=mesh)
+        a, b = copy.deepcopy(base), replicate(mesh, copy.deepcopy(base))
+        a, ma = plain_chunk(a, stack, None)
+        # each all-reduce call, and whether a graph was being captured
+        reduces, real_all_reduce = [], dist.all_reduce
+
+        def all_reduce(tensor, *args, **kw):
+            reduces.append(torch.cuda.is_current_stream_capturing())
+            return real_all_reduce(tensor, *args, **kw)
+
+        dist.all_reduce = all_reduce
+        try:
+            reset_counts()
+            b, mb = mesh_chunk(b, stack, None)
+            torch.cuda.synchronize()
+            launches = {k: v for k, v in counts().items() if v}
+            diffs = state_diffs(a, b)
+            mdiff = max((ma[k].float() - mb[k].float()).abs().max().item() for k in ma)
+            bit = all(v[0] == 0.0 for v in diffs.values()) and mdiff == 0.0 and ma.keys() == mb.keys()
+            at_capture = list(reduces)
+            b, _ = mesh_chunk(b, stack, None)
+            torch.cuda.synchronize()
+            at_replay = reduces[len(at_capture):]
+        finally:
+            dist.all_reduce = real_all_reduce
+        say("phase27", check="a", all_reduce_calls_at_capture=len(at_capture),
+            of_them_inside_the_capture=sum(at_capture), all_reduce_calls_at_a_replay=len(at_replay))
+        # the warm-up step before the capture, then one a captured step
+        if at_capture != [False] + [True] * CHUNK or at_replay:
+            raise AssertionError(f"all-reduce calls at capture {at_capture}, at a replay {at_replay}")
+        say("phase27", check="a", preset="zinc250k", K=CHUNK, B=B, launches_at_capture=json.dumps(launches),
+            mesh_chunk_vs_no_mesh_max_abs=json.dumps({**{k: v[0] for k, v in diffs.items()}, "metrics": mdiff}),
+            bit_for_bit=bit)
+        if not bit:
+            raise AssertionError(f"the 1-rank NCCL mesh chunk differs from the no-mesh chunk: {diffs}, {mdiff}")
+        if launches.get("fused_sample_kl") != CHUNK + 1 or launches.get("fused_encode") != CHUNK + 1:
+            raise AssertionError(f"the mesh chunk's capture launched {launches}")
+
+        def call_plain():
+            nonlocal a
+            a, _ = plain_chunk(a, stack, None)
+
+        def call_mesh():
+            nonlocal b
+            b, _ = mesh_chunk(b, stack, None)
+
+        t = [time_ms(fn) / CHUNK for fn in (call_plain, call_mesh, call_mesh, call_plain)]
+        prof = _profile_counts(call_mesh)
+        nccl = {k: v for k, v in prof.items() if "nccl" in k.lower()}
+        nccl_launches = sum(n for _, n in nccl.values())
+        # the step's whole reduce (the flat buffer's copy in, the all-reduce,
+        # the division, the copies back), eager on gradients of the model's
+        # shapes: its device time queued behind a sleep (queued_ms), by the
+        # profiler, and its event time (the host's launches included)
+        from molvax_torch.parallel import GradientMean
+
+        gm = GradientMean(mesh)
+        grads = [torch.randn_like(p) for p in b.params.parameters()]
+        gm(grads)
+        reduce_ms = queued_ms(lambda: gm(grads))
+        reduce_prof = _profile_counts(lambda: gm(grads))
+        reduce_event_ms = time_ms(lambda: gm(grads))
+        grad_bytes = mesh_chunk.grad_mean.numel * 4
+        out["a"] = {"ms_no_mesh": (t[0] + t[3]) / 2, "ms_mesh": (t[1] + t[2]) / 2, "ms_runs": t,
+                    "reduce_device_ms_per_step": reduce_ms, "reduce_event_ms": reduce_event_ms,
+                    "nccl_kernels_per_chunk": nccl_launches, "grad_bytes": grad_bytes}
+        say("phase27", check="a", ms_per_step_no_mesh_mesh_mesh_no_mesh=json.dumps([round(x, 4) for x in t]),
+            profiler_kernels_per_replay=sum(n for _, n in prof.values()), nccl_kernels_per_replay=nccl_launches,
+            nccl_kernels=json.dumps(sorted(nccl)), reduce_device_ms_per_step=f"{reduce_ms:.4f}",
+            reduce_profiler_ms=f"{sum(ms for ms, _ in reduce_prof.values()):.4f}" if reduce_prof else "not measured",
+            reduce_profiler_kernels=json.dumps({k: n for k, (_, n) in sorted(reduce_prof.items())}),
+            reduce_event_ms=f"{reduce_event_ms:.4f}", grad_bytes_per_step=grad_bytes, card=json.dumps(gpu))
+        del a, b, base, plain_chunk, mesh_chunk, ma, mb
+
+        # (b) train() at moses_scaled width, 256 rows a chip
+        mp = get_preset("moses_scaled")
+        mp = dataclasses.replace(mp, train=dataclasses.replace(mp.train, batch_size=B, train_chunk_size=4, log_every=4))
+        err = io.StringIO()
+        reset_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stderr(err):
+            state, hist = train(mp, ds, max_steps=12, verbose=False)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        launches = {k: v for k, v in counts().items() if v}
+        warned = [line for line in err.getvalue().splitlines() if line.startswith("[molvax] configured mesh")]
+        rows = [row for row in hist if "loss" in row]
+        losses = [row["loss"] for row in rows]
+        n_params = sum(p.numel() for p in state.params.parameters())
+        # the log rows' clock: steps 4 -> 12, two replays after the capture
+        ms_step = (rows[-1]["wall_s"] - rows[0]["wall_s"]) / (rows[-1]["step"] - rows[0]["step"]) * 1e3
+        out["b"] = {"ms_per_step": ms_step, "grad_bytes": n_params * 4, "warning": warned, "losses": losses,
+                    "launches": launches}
+        for line in warned:
+            print(line, flush=True)
+        say("phase27", check="b", preset="moses_scaled", gru=f"{mp.model.gru_layers}x{mp.model.gru_hidden}",
+            batch=B, data_axis=mp.mesh.data_axis, steps=state.step, chunk=mp.train.train_chunk_size,
+            warning_is_the_references=warned == [DP_WARNING], launches=json.dumps(launches),
+            loss=json.dumps([round(x, 4) for x in losses]), ms_per_step=f"{ms_step:.3f}",
+            train_s=f"{train_s:.2f}", grad_bytes_per_step=n_params * 4, card=json.dumps(gpu))
+        if warned != [DP_WARNING] or state.step != 12 or not all(np.isfinite(losses)) or len(losses) != 3:
+            raise AssertionError(f"train() at moses_scaled width: warning {warned}, step {state.step}, loss {losses}")
+        if not all(launches.get(k) for k in ("fused_encode", "fused_sample_kl", "gru_stack_rec", "gru_stack_sweep")):
+            raise AssertionError(f"train() at moses_scaled width launched {launches}")
+        del state
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase27_rank(rank: int, world: int, root: str, cfg, charset, codes_np, z_np) -> None:
+    """A gloo rank of phase 27 (c), (e), (f) on the card (spawned): joins
+    the world through the file store in ``root``, writes rank<r>.pt."""
+    import torch.distributed as dist
+
+    dev = torch.device(DEVICE)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", init_method=f"file://{os.path.abspath(root)}/store", world_size=world,
+                            rank=rank)
+    try:
+        out = gloo_rank_checks(rank, root, cfg, charset, codes_np, z_np, dev)
+        torch.save(out, os.path.join(root, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def gloo_rank_checks(rank: int, root: str, cfg, charset, codes_np, z_np, dev) -> dict:
+    from molvax_torch.io import checkpoint as ckpt
+    from molvax_torch.latent import decode_latents
+    from molvax_torch.nn.vae import bernoulli_mask
+    from molvax_torch.parallel import make_mesh, replicate, shard_batch
+
+    mesh = make_mesh(device=dev)
+    half = B // DP_RANKS
+    out = {"mesh": (mesh.shape, mesh.data_rank, str(mesh.device))}
+    # (c) one eager step on this rank's 128 rows of the global 256
+    state = replicate(mesh, init_state(cfg, seed=SEED, device=dev))
+    seen, drawn = [], []
+    real_fs = sampler.fused_sample_kl
+
+    def spy(seed, mu, logvar, eps_scale=1.0, row_base=0):
+        z, kl = real_fs(seed, mu, logvar, eps_scale, row_base)
+        drawn.append((seed.clone(), mu.detach().clone(), logvar.detach().clone(), z.detach().clone(), row_base))
+        return z, kl
+
+    sampler.fused_sample_kl = spy
+    reset_counts()
+    try:
+        with recorded_grads(seen):
+            state, metrics = make_train_step(cfg, mesh)(state, shard_batch(mesh, codes_np))
+        torch.cuda.synchronize()
+    finally:
+        sampler.fused_sample_kl = real_fs
+    out["launches"] = {k: v for k, v in counts().items() if v}
+    one = torch.load(os.path.join(root, "one_step.pt"), weights_only=True)
+    names = [n for n, _ in state.params.named_parameters()]
+    out["grad_rel"] = {n: ((g.float().cpu() - one["grads"][n]).norm() / one["grads"][n].norm().clamp_min(1e-30)).item()
+                       for n, g in zip(names, seen[0]) if g is not None}
+    out["metric_rel"] = {k: abs(v.item() - one["metrics"][k]) / max(abs(one["metrics"][k]), 1e-30)
+                         for k, v in metrics.items()}
+    seed, mu, lv, z, rb = drawn[0]
+    L = mu.shape[1]
+    eps_rows = torch.equal(sampler.sample_eps(seed, half, L, dev, rb),
+                           sampler.sample_eps(seed, B, L, dev)[rb:rb + half])
+    z_plain, _ = sampler.fused_sample_kl_ref(seed, mu, lv, cfg.model.eps_scale, rb)
+    masks = torch.equal(bernoulli_mask(seed, 0xD409, 0.3, (half, cfg.model.max_len), dev, rb),
+                        bernoulli_mask(seed, 0xD409, 0.3, (B, cfg.model.max_len), dev)[rb:rb + half])
+    out["noise"] = {"row_base": rb, "rows": mu.shape[0], "eps_rows_bit_for_bit": eps_rows, "masks_bit_for_bit": masks,
+                    "z_rel_err": max_abs(z, z_plain) / z_plain.abs().max().item()}
+    try:
+        make_train_chunk(cfg, CHUNK, mesh=mesh)
+        out["chunk_refusal"] = None
+    except ValueError as e:
+        out["chunk_refusal"] = str(e)
+    # (f) the 2-rank state saved (the first rank writes), and rank 1's own
+    # copy of what it holds; the 1-process checkpoint restored on the mesh
+    mgr = ckpt.make_manager(os.path.join(root, "mesh_ckpt"), mesh=mesh)
+    out["saved"] = mgr.save(state.step, state)
+    if rank == 1:
+        torch.save(ckpt.state_payload(state), os.path.join(root, "rank1_state.pt"))
+    one_dir = os.path.join(root, "one_ckpt")
+    up = ckpt.make_manager(one_dir).restore_latest(init_state(cfg, seed=SEED + 1, device=dev))
+    saved = torch.load(os.path.join(one_dir, "1", ckpt.STATE_FILE), weights_only=True)
+    out["up_bit_for_bit"] = payload_diffs(ckpt.state_payload(up), saved)
+    # (e) the latent workloads over the mesh, greedy
+    emodel = init_state(cfg, seed=SEED, device=dev).params
+    reset_counts()
+    out["prior"] = sample_prior(emodel, cfg.model, B, torch.Generator().manual_seed(SEED + 27), charset=charset,
+                                mesh=mesh)
+    out["decode"] = decode_latents(emodel, cfg.model, z_np, charset=charset, batch=B, mesh=mesh)
+    torch.cuda.synchronize()
+    out["latent_launches"] = {k: v for k, v in counts().items() if v}
+    # codes of this rank's rows, for the margin check of any string that differs
+    z_prior = torch.randn(B, cfg.model.latent_dim, generator=torch.Generator().manual_seed(SEED + 27))
+    rows = slice(rank * half, (rank + 1) * half)
+    out["gaps"] = {}
+    for name, zz in (("prior", z_prior), ("decode", torch.from_numpy(z_np))):
+        z_local = zz[rows].to(dev)
+        codes = generate(emodel, cfg.model, z_local, torch.Generator().manual_seed(0), charset=charset,
+                         row_base=rows.start)[0]
+        out["gaps"][name] = margin_gap(emodel, cfg.model, z_local, codes)
+    return out
+
+
+def gloo_world_checks(dev, gpu, ds) -> dict:
+    """Phase 27 (c), (e), (f): two gloo ranks on the one card, spawned,
+    against this process's 1-process runs on the same inputs. (c) one eager
+    zinc250k step, global B=256, 128 rows a rank: each rank's all-reduced
+    gradients within the bf16 gate of the 1-process step's, the metrics
+    (post_std_batch and acc_nonpad among them) within DP_METRIC_REL, rank
+    r's eps drawn for rows 128 r .. (and the masks' rows); the chunk
+    refused on a gloo group. (e) sample_prior(256) and decode_latents
+    greedy over the ranks: the 1-process strings, or every differing code
+    a near-tie within MARGIN. (f) the 2-rank state saved and restored here,
+    and this process's checkpoint restored on the ranks, bit for bit."""
+    from molvax_torch.io import checkpoint as ckpt
+    from molvax_torch.latent import decode_latents
+
+    root = fresh_dir("gloo")
+    cfg = effective_config(get_preset("zinc250k"), ds)
+    charset = ds.charset
+    codes_np = next(BatchIterator(ds, B, seed=0, device="cpu"))[0].numpy()
+    z_np = np.random.default_rng(SEED + 28).standard_normal((B, cfg.model.latent_dim)).astype(np.float32)
+    state = init_state(cfg, seed=SEED, device=dev)
+    seen = []
+    with recorded_grads(seen):
+        state, metrics = make_train_step(cfg)(state, torch.from_numpy(codes_np).to(dev))
+    names = [n for n, _ in state.params.named_parameters()]
+    torch.save({"grads": {n: g.float().cpu() for n, g in zip(names, seen[0]) if g is not None},
+                "metrics": {k: v.item() for k, v in metrics.items()}}, os.path.join(root, "one_step.pt"))
+    ckpt.make_manager(os.path.join(root, "one_ckpt")).save(1, state)
+    emodel = init_state(cfg, seed=SEED, device=dev).params
+    prior_one = sample_prior(emodel, cfg.model, B, torch.Generator().manual_seed(SEED + 27), charset=charset)
+    decode_one = decode_latents(emodel, cfg.model, z_np, batch=B, charset=charset)
+    torch.cuda.synchronize()
+
+    t0 = time.perf_counter()
+    ctx = torch.multiprocessing.start_processes(phase27_rank, args=(DP_RANKS, root, cfg, charset, codes_np, z_np),
+                                                nprocs=DP_RANKS, join=False, start_method="spawn")
+    try:
+        while not ctx.join(timeout=5):
+            if time.perf_counter() - t0 > 600:
+                raise AssertionError("the gloo ranks of phase 27 outlived 600 s")
+    finally:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.kill()
+            proc.join(30)
+    ranks_s = time.perf_counter() - t0
+    ranks = [torch.load(os.path.join(root, f"rank{r}.pt"), weights_only=False) for r in range(DP_RANKS)]
+    half = B // DP_RANKS
+    for r, o in enumerate(ranks):
+        worst_grad = max(o["grad_rel"].items(), key=lambda kv: kv[1])
+        worst_metric = max(o["metric_rel"].items(), key=lambda kv: kv[1])
+        say("phase27", check="c", rank=r, mesh=json.dumps(o["mesh"][0]), data_rank=o["mesh"][1], device=o["mesh"][2],
+            backend="gloo", rows=o["noise"]["rows"], launches=json.dumps(o["launches"]),
+            max_grad_rel_err=f"{worst_grad[1]:.3e}", worst_grad=worst_grad[0], grad_rel_tol=DP_GRAD_REL,
+            max_metric_rel_err=f"{worst_metric[1]:.3e}", worst_metric=worst_metric[0],
+            post_std_batch_rel_err=f"{o['metric_rel']['post_std_batch']:.3e}",
+            acc_nonpad_rel_err=f"{o['metric_rel']['acc_nonpad']:.3e}", metric_rel_tol=DP_METRIC_REL)
+        say("phase27", check="c", rank=r, eps_row_base=o["noise"]["row_base"],
+            eps_rows_bit_for_bit=o["noise"]["eps_rows_bit_for_bit"], masks_bit_for_bit=o["noise"]["masks_bit_for_bit"],
+            z_rel_err_plain=f"{o['noise']['z_rel_err']:.3e}", chunk_refused=json.dumps(o["chunk_refusal"]))
+        if worst_grad[1] > DP_GRAD_REL or worst_metric[1] > DP_METRIC_REL:
+            raise AssertionError(f"rank {r}: gradient {worst_grad}, metric {worst_metric}")
+        if (o["noise"]["row_base"] != r * half or o["noise"]["rows"] != half or not o["noise"]["eps_rows_bit_for_bit"]
+                or not o["noise"]["masks_bit_for_bit"] or not o["noise"]["z_rel_err"] <= SAMPLER_REL):
+            raise AssertionError(f"rank {r}: the noise of its rows {o['noise']}")
+        if not o["chunk_refusal"] or "cannot be captured" not in o["chunk_refusal"]:
+            raise AssertionError(f"rank {r}: make_train_chunk on a gloo group: {o['chunk_refusal']}")
+        if not all(o["launches"].get(k) for k in ("fused_encode", "fused_sample_kl", "gru_stack_rec")):
+            raise AssertionError(f"rank {r}: the DP step launched {o['launches']}")
+    out = {"ranks_s": ranks_s, "launches": ranks[1]["launches"], "latent_launches": ranks[1]["latent_launches"]}
+    # (e)
+    for name, want in (("prior", prior_one), ("decode", decode_one)):
+        differing = [sum(a != b for a, b in zip(o[name], want)) for o in ranks]
+        gaps = [o["gaps"][name] for o in ranks]
+        say("phase27", check="e", call=f"{'sample_prior' if name == 'prior' else 'decode_latents'}(mesh=)", n=B,
+            differing_strings_by_rank=json.dumps(differing), ranks_agree=ranks[0][name] == ranks[1][name],
+            max_margin_gap_by_rank=json.dumps([f"{g:.3e}" for g in gaps]), margin=MARGIN,
+            launches=json.dumps(ranks[1]["latent_launches"]))
+        if ranks[0][name] != ranks[1][name] or any(len(o[name]) != B for o in ranks):
+            raise AssertionError(f"{name}: the ranks returned different strings")
+        if any(differing) and max(gaps) > MARGIN:
+            raise AssertionError(f"{name}: {differing} strings differ from the 1-process call beyond a near-tie")
+    if not ranks[1]["latent_launches"].get("fused_generate_persistent"):
+        raise AssertionError(f"the mesh decodes launched {ranks[1]['latent_launches']}")
+    # (f)
+    saved_by_ranks = load_payload(os.path.join(root, "mesh_ckpt"), 1)
+    restored = ckpt.make_manager(os.path.join(root, "mesh_ckpt")).restore_latest(init_state(cfg, seed=SEED + 2,
+                                                                                             device=dev))
+    held = torch.load(os.path.join(root, "rank1_state.pt"), weights_only=True)
+    down = payload_diffs(ckpt.state_payload(restored), held)
+    same_file = payload_diffs(saved_by_ranks, held)
+    say("phase27", check="f", saved_on_ranks=json.dumps([o["saved"] for o in ranks]),
+        mesh_to_1_differences=json.dumps(down), rank1_state_vs_file=json.dumps(same_file),
+        one_to_mesh_differences=json.dumps([o["up_bit_for_bit"] for o in ranks]),
+        ranks_s=f"{ranks_s:.1f}", card=json.dumps(gpu))
+    if down or same_file or any(o["up_bit_for_bit"] for o in ranks) or not all(o["saved"] for o in ranks):
+        raise AssertionError("a checkpoint across the mesh did not restore bit for bit")
+    return out
+
+
+def phase27(dev, gpu, model, codes, ds) -> dict:
+    """Data parallelism on the card: (d) the row-offset kernels, (a) and
+    (b) an NCCL world of one rank in this process, (c), (e) and (f) two
+    gloo ranks on the card in spawned processes."""
+    t0 = time.perf_counter()
+    out = {"d": row_base_checks(model, codes, dev, gpu)}
+    out.update(nccl_world_checks(dev, gpu, ds))
+    out["gloo"] = gloo_world_checks(dev, gpu, ds)
+    say("phase27", phase_s=f"{time.perf_counter() - t0:.1f}", card=json.dumps(gpu))
+    return out
+
+
 def entry(name, source, replaces, launches, err, ms, plain_ms, bnd, library_ms, **extra) -> dict:
     """One kernel of the ``kernels`` line."""
     return {"name": name, "route": "cuda", "source": f"molvax_torch/kernels/csrc/{source}",
@@ -3308,6 +3812,9 @@ def main() -> int:
     phase26(dev, gpu)
     say("phase26", phase_s=f"{time.perf_counter() - t0:.1f}")
 
+    # -- 27. data parallelism -------------------------------------------------
+    p27 = phase27(dev, gpu, model, codes, ds)
+
     beam_counts = decodes["beam"]
     print(json.dumps({"kernels": [
         # launches of the serving path (phase 5); errors: the largest margin
@@ -3317,7 +3824,9 @@ def main() -> int:
               launches_by_instance={"persistent": serve_counts["fused_generate_persistent"],
                                     "row_block": serve_counts["fused_generate_row_block"]},
               ms_row_block=ms_gen_row_block, setup_ms=ms_gen_setup, plan=dataclasses.asdict(gen_plan),
-              max_margin_gap_by_batch={str(k): max(v) for k, v in gaps.items()}, row_block_moses_scaled=gen_moses),
+              max_margin_gap_by_batch={str(k): max(v) for k, v in gaps.items()}, row_block_moses_scaled=gen_moses,
+              row_base_checks={k: p27["d"][k] for k in ("persistent", "row_block")},
+              launches_dp_latent=p27["gloo"]["latent_launches"].get("fused_generate", 0)),
         # event ms (what a caller waits) beside the device time a call
         entry("fused_encode", "conv_enc.cu", "molvax/kernels/conv_enc.py:181", train_counts["fused_encode"],
               enc_kernel_err, times["fused_encode"][0], times["fused_encode"][1], bounds["fused_encode"], None,
@@ -3327,7 +3836,9 @@ def main() -> int:
         entry("fused_sample_kl", "sampler.cu", "molvax/kernels/sampler.py:91", train_counts["fused_sample_kl"],
               sampler_err, times["fused_sample_kl"][0], times["fused_sample_kl"][1], bounds["fused_sample_kl"],
               None, device_ms_per_launch=dev_call["fused_sample_kl"][0] / 1e3,
-              profiler_device_kernels_per_call=dev_call["fused_sample_kl"][1]),
+              profiler_device_kernels_per_call=dev_call["fused_sample_kl"][1], row_base_checks=p27["d"]["sampler"],
+              launches_dp_train=p27["b"]["launches"].get("fused_sample_kl", 0),
+              launches_dp_gloo_step=p27["gloo"]["launches"].get("fused_sample_kl", 0)),
         # the stack: per layer the input-gate GEMM and the recurrence forward,
         # the sweep and the GEMM of the cotangent backward, one dW GEMM
         entry("gru_stack_scan_fwd", "gru_stack.cu", "molvax/kernels/gru_stack.py:552",

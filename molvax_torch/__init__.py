@@ -27,8 +27,12 @@ decode, interpolation, property optimization in z, the aggregate
 posterior); evaluation (``train.evaluate``: the reference's report, key
 for key, on the EMA weights) and the CLI (``python3 -m molvax_torch.cli``,
 installed as ``molvax-torch``: every ``molvax`` subcommand), with the debug
-guards of ``utils`` (``debug_mode``, ``assert_finite``, ``checked``). Data
-parallelism is not ported yet.
+guards of ``utils`` (``debug_mode``, ``assert_finite``, ``checked``); and
+data parallelism (``parallel``: the reference's mesh over
+``torch.distributed``, NCCL on cards and gloo on the CPU; ``mesh=`` on the
+steps, the chunk, ``train``, the ``BatchIterator``, the checkpoints and the
+latent workloads; every draw keyed by its global row). With it the port
+does everything the JAX package does.
 """
 
 __version__ = "0.1.0"

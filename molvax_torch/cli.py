@@ -9,6 +9,14 @@ The device: ``MOLVAX_PLATFORM=cpu`` runs on the CPU; unset, ``cuda`` or
 ``gpu`` runs on the card, and a command that builds a model raises where
 there is none. A checkpoint directory is the port's own (``train()``'s
 ``config.json``, ``charset.json``, ``<step>/state.pt`` and ``best/``).
+
+Under ``torchrun`` (``torchrun --nproc_per_node=N -m molvax_torch.cli
+train ...``) ``train`` joins the world (NCCL, one card a rank; gloo on the
+CPU with ``MOLVAX_PLATFORM=cpu``, the counterpart of the reference's
+``MOLVAX_CPU_DEVICES``) and trains data-parallel on the mesh ``train()``
+picks from the config's ``mesh``. The other commands take no mesh, as the
+reference's: rank 0 runs them, and the other ranks exit 0 having written
+nothing.
 """
 
 from __future__ import annotations
@@ -57,19 +65,32 @@ def _generator(seed: int):
     return torch.Generator().manual_seed(seed)
 
 
+def _torchrun_rank() -> int:
+    """This process's rank where ``torchrun`` started it, else 0."""
+    return int(os.environ.get("RANK", "0")) if "WORLD_SIZE" in os.environ else 0
+
+
 def cmd_train(args) -> int:
+    import torch.distributed as dist
+
+    from .parallel import init_from_env
     from .train import train
 
     cfg = _load_cfg(args)
-    state, history = train(
-        cfg,
-        device=_platform_device(),
-        metrics_path=args.metrics,
-        max_steps=args.steps,
-        verbose=not args.quiet,
-    )
+    joined = not dist.is_initialized() and init_from_env(cpu=_platform_device() == "cpu")
+    try:
+        state, history = train(
+            cfg,
+            device=_platform_device(),
+            metrics_path=args.metrics,
+            max_steps=args.steps,
+            verbose=not args.quiet,
+        )
+    finally:
+        if joined:
+            dist.destroy_process_group()
     train_rows = [h for h in history if "loss" in h]
-    if train_rows:
+    if train_rows and _torchrun_rank() == 0:
         last = train_rows[-1]
         print(
             f"done: step {last['step']} loss {last['loss']:.3f} "
@@ -533,6 +554,8 @@ def main(argv=None) -> int:
     sp.set_defaults(fn=cmd_presets)
 
     args = p.parse_args(argv)
+    if args.fn is not cmd_train and _torchrun_rank() > 0:
+        return 0  # the reference's other commands take no mesh: rank 0 runs them
     return args.fn(args)
 
 

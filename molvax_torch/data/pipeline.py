@@ -14,6 +14,11 @@ each guarded by a CUDA event, so the host never rewrites a buffer that a
 copy is still reading). The codes are checked on the host against the
 charset once: a code at or past its size would make ``F.one_hot`` fail on
 the card with a device-side assert.
+
+Under a data-parallel mesh (``parallel.Mesh``) every rank walks the same
+global permutation from the same seed and takes its rows of each global
+batch (and of each batch of a stack): the union over the ranks is the
+1-rank batch row for row, and ``fast_forward`` replays the same positions.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ from typing import Iterator, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from ..parallel import local_rows
 from ..utils import PinnedStaging, resolve_device
 from .zinc import Dataset
 
@@ -30,7 +36,11 @@ from .zinc import Dataset
 class BatchIterator:
     """Infinite shuffled batch stream of (codes, properties or None) on
     ``device`` (the card unless the caller asks for the CPU): uint8 codes,
-    float32 properties where ``with_properties`` and the dataset has them."""
+    float32 properties where ``with_properties`` and the dataset has them.
+    With a data-parallel ``mesh`` (whose device it defaults to), each batch
+    is this rank's rows of the global ``batch_size`` (which must divide by
+    the data axis); with model ranks > 1, the ranks of one data index take
+    the same rows."""
 
     def __init__(
         self,
@@ -39,6 +49,7 @@ class BatchIterator:
         seed: int = 0,
         device: Optional[Union[str, torch.device]] = None,
         with_properties: bool = False,
+        mesh=None,
     ):
         if len(dataset) == 0:
             raise ValueError(
@@ -61,6 +72,13 @@ class BatchIterator:
             )
         self.dataset = dataset
         self.batch_size = batch_size
+        if mesh is not None and mesh.collective:
+            if device is not None and resolve_device(device) != mesh.device:
+                raise ValueError(f"BatchIterator: device {device} is not the mesh's {mesh.device}")
+            device = mesh.device
+            self._rows = local_rows(mesh, batch_size)
+        else:
+            self._rows = slice(None)
         self.device = resolve_device(device)
         self.with_properties = with_properties and dataset.properties is not None
         self._rng = np.random.default_rng(seed)
@@ -109,9 +127,9 @@ class BatchIterator:
         return self
 
     def __next__(self) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-        return self._put(self._next_indices())
+        return self._put(self._next_indices()[self._rows])
 
     def next_stack(self, k: int) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """k batches stacked to (k, B, T) (and (k, B, P)) for the chunked
         trainer: one host-to-device copy per k steps."""
-        return self._put(np.stack([self._next_indices() for _ in range(k)]))
+        return self._put(np.stack([self._next_indices()[self._rows] for _ in range(k)]))

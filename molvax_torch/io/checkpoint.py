@@ -33,6 +33,12 @@ reference's is:
 * EMA turned off over a checkpoint with one restores the rest and drops
   the saved EMA (the reference crashes there).
 
+Under a data-parallel mesh (``parallel.Mesh``) the first rank alone
+writes, and every rank waits for its write before going on; every rank
+restores from the same directory. The state is replicated and the save
+carries no mesh, so a checkpoint saved under one mesh restores under any
+other (N -> 1, 1 -> N) with no re-layout.
+
 These are the port's own checkpoints. Weights trained by the JAX package
 come across through ``io.convert`` (``state_dict_from_jax``), not here.
 """
@@ -45,6 +51,8 @@ import sys
 from typing import Dict, List, Optional
 
 import torch
+
+from ..parallel import broadcast_object
 
 STATE_FILE = "state.pt"
 _MOMENTS = ("step", "exp_avg", "exp_avg_sq")
@@ -118,13 +126,16 @@ def restore_into(template, payload: Dict):
 
 
 class CheckpointManager:
-    """Step directories under ``directory``, the newest ``keep`` kept."""
+    """Step directories under ``directory``, the newest ``keep`` kept. With a
+    data-parallel ``mesh`` a save is collective: every rank of the mesh
+    calls it, the first writes (module docstring)."""
 
-    def __init__(self, directory: str, keep: int = 3):
+    def __init__(self, directory: str, keep: int = 3, mesh=None):
         if keep < 1:
             raise ValueError(f"keep must be >= 1, got {keep}")
         self.directory = os.path.abspath(directory)
         self.keep = keep
+        self.mesh = mesh
         os.makedirs(self.directory, exist_ok=True)
 
     def _path(self, step: int) -> str:
@@ -143,7 +154,14 @@ class CheckpointManager:
         """Save ``state`` as ``step``; returns whether it did. As orbax's
         manager, a step at or below the latest is skipped unless ``force``:
         a forced save replaces that step and removes every later one (a
-        best-iterate save may carry a smaller step than a stale one)."""
+        best-iterate save may carry a smaller step than a stale one). Under
+        a mesh the first rank writes and every rank returns its answer
+        once the write is done."""
+        if self.mesh is None or not self.mesh.collective:
+            return self._save(step, state, force)
+        return broadcast_object(self.mesh, self._save(step, state, force) if self.mesh.is_main else None)
+
+    def _save(self, step: int, state, force: bool) -> bool:
         latest = self.latest_step()
         if latest is not None and step <= latest and not force:
             return False
@@ -177,5 +195,5 @@ class CheckpointManager:
         """Saves are synchronous here (orbax's may not be): nothing waits."""
 
 
-def make_manager(directory: str, keep: int = 3) -> CheckpointManager:
-    return CheckpointManager(directory, keep)
+def make_manager(directory: str, keep: int = 3, mesh=None) -> CheckpointManager:
+    return CheckpointManager(directory, keep, mesh)

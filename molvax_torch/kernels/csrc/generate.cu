@@ -75,6 +75,8 @@
 // Sampling noise is a counter-based 32-bit hash of (seed, t, row, class),
 // lowbias32 rounds; molvax_torch/kernels/generate.py computes the same bits
 // with torch integer ops, so kernel and plain version see identical noise.
+// The row is global: noise_row + the batch row, so a data-parallel rank
+// that decodes its share of a global batch draws that batch's noise.
 
 #include "common.cuh"
 #include "gemm.cuh"
@@ -93,7 +95,7 @@ fused_generate_kernel(const float* __restrict__ giz1,
                       const __nv_bfloat16* __restrict__ w,
                       const float* __restrict__ bias, int* __restrict__ codes,
                       int B, int T, int C, int H, int L, int greedy,
-                      uint32_t seed, float temperature) {
+                      uint32_t seed, float temperature, uint32_t noise_row) {
   extern __shared__ __align__(16) unsigned char smem[];
   const size_t G = 3 * (size_t)H;
   const size_t HG = (size_t)H * G;
@@ -188,7 +190,7 @@ fused_generate_kernel(const float* __restrict__ giz1,
       for (int r = 0; r < RB; ++r) {
         float s = acc[r] + b_out[c];
         if (!greedy) {
-          const uint32_t bits = noise_bits(seed, (uint32_t)t, (uint32_t)(row0 + r), (uint32_t)c);
+          const uint32_t bits = noise_bits(seed, (uint32_t)t, noise_row + (uint32_t)(row0 + r), (uint32_t)c);
           const float u = ((float)(bits >> 8) + 1.0f) * (1.0f / 16777216.0f);
           s = s / temperature + (-logf(-logf(u)));
         }
@@ -244,6 +246,7 @@ struct GenArgs {
   int row_base, row_end, greedy;  // the batch rows of this launch
   uint32_t seed;
   float temperature;
+  uint32_t noise_row;             // the global index of batch row 0 (the noise's row)
 };
 
 // A block's packed weights, in bf16 elements, rows of K + GEN_KPAD (the
@@ -364,7 +367,7 @@ __device__ __forceinline__ void head_codes(const GenArgs& a, const float (&acc)[
       if (cls < a.C) {
         float v = acc[3 + n][e] + __ldg(b_out + cls);
         if (!a.greedy) {
-          const uint32_t bits = noise_bits(a.seed, (uint32_t)t, (uint32_t)row[e], (uint32_t)cls);
+          const uint32_t bits = noise_bits(a.seed, (uint32_t)t, a.noise_row + (uint32_t)row[e], (uint32_t)cls);
           const float u = ((float)(bits >> 8) + 1.0f) * (1.0f / 16777216.0f);
           v = v / a.temperature + (-logf(-logf(u)));
         }
@@ -557,11 +560,12 @@ extern "C" size_t molvax_fused_generate_smem(int C, int H, int L) {
 }
 
 // Launches on `stream` and returns the launch's cudaError_t (0 = success).
+// Batch row r draws the sampling noise of global row noise_row + r.
 extern "C" int molvax_fused_generate(const float* giz1, const float* start,
                                      const void* w, const float* bias,
                                      int* codes, int B, int T, int C, int H,
                                      int L, int greedy, unsigned int seed,
-                                     float temperature, void* stream) {
+                                     float temperature, unsigned int noise_row, void* stream) {
   if (B <= 0 || T <= 0 || C <= 0 || H <= 0 || L <= 0) return (int)cudaErrorInvalidValue;
   const size_t smem = molvax_fused_generate_smem(C, H, L);
   cudaError_t err = cudaFuncSetAttribute(
@@ -570,26 +574,28 @@ extern "C" int molvax_fused_generate(const float* giz1, const float* start,
   const dim3 grid((B + RB - 1) / RB);
   fused_generate_kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
       giz1, start, static_cast<const __nv_bfloat16*>(w), bias, codes, B, T, C, H, L,
-      greedy, seed, temperature);
+      greedy, seed, temperature, noise_row);
   return (int)cudaGetLastError();
 }
 
 // The persistent decode of batch rows [row_base, row_end) (one launch of a
 // plan's slices; kernels/generate.py::generate_plan): g groups of `rows`
 // rows, q = ceil(H / 8) blocks a group. hbuf (L, 2, Bp, K) and flags (g)
-// come zeroed. Returns the launch's cudaError_t.
+// come zeroed. Batch row r draws the sampling noise of global row
+// noise_row + r. Returns the launch's cudaError_t.
 extern "C" int molvax_generate_persistent(const float* giz1, const float* start, const void* w,
                                           const float* bias, void* hbuf, int* flags, int* codes, int B,
                                           int T, int C, int H, int L, int K, int Bp, int q, int g, int rows,
                                           int row_base, int row_end, int greedy, unsigned int seed,
-                                          float temperature, void* stream) {
+                                          float temperature, unsigned int noise_row, void* stream) {
   if (B <= 0 || T <= 0 || C <= 0 || C > GEN_NOUT || H <= 0 || L < 1 || L > GEN_LAYERS || K % 32 ||
       K < H || q != (H + GEN_UNITS - 1) / GEN_UNITS || g <= 0 || rows <= 0 || rows % 16 ||
       rows > GEN_MAX_ROWS || row_base < 0 || row_end > B || row_end <= row_base ||
       row_base + g * rows > Bp)
     return (int)cudaErrorInvalidValue;
   const GenArgs a{giz1, start, static_cast<const __nv_bfloat16*>(w), bias, static_cast<__nv_bfloat16*>(hbuf),
-                  flags, codes, B, T, C, H, K, Bp, q, rows, row_base, row_end, greedy, seed, temperature};
+                  flags, codes, B, T, C, H, K, Bp, q, rows, row_base, row_end, greedy, seed, temperature,
+                  noise_row};
   const size_t smem = gen_block_elems(C, K, L) * sizeof(__nv_bfloat16);
   const int blocks = g * q, threads = rows / 16 * 32;
   switch (L) {

@@ -1,9 +1,11 @@
 // Fused reparameterization sampler + per-row KL in one pass.
 //
 // Replaces molvax/kernels/sampler.py::fused_sample_kl (the Pallas TPU
-// kernel) and computes what it computes, per batch row b and latent dim d:
-//   u1  = (top24(noise_bits(seed, 0, b, d)) + 1) / 2^24     in (0, 1]
-//   u2  =  top24(noise_bits(seed, 1, b, d)) / 2^24          in [0, 1)
+// kernel) and computes what it computes, per batch row b and latent dim d,
+// with r = row_base + b the row's global index (a data-parallel rank's
+// rows of the global batch; row_base 0 in one process):
+//   u1  = (top24(noise_bits(seed, 0, r, d)) + 1) / 2^24     in (0, 1]
+//   u2  =  top24(noise_bits(seed, 1, r, d)) / 2^24          in [0, 1)
 //   eps = sqrt(-2 log u1) cos(2 pi u2)                       Box-Muller
 //   z   = mu + eps_scale exp(logvar / 2) eps
 //   kl  = -1/2 sum_d (1 + logvar - mu^2 - exp(logvar))
@@ -41,7 +43,7 @@ constexpr int SAMPLER_ROWS = 4;  // warps (batch rows) a block
 __global__ void __launch_bounds__(SAMPLER_ROWS * 32)
 fused_sample_kl_kernel(const float* __restrict__ mu, const float* __restrict__ logvar,
                        float* __restrict__ z, float* __restrict__ kl, int B, int Lz,
-                       const uint32_t* __restrict__ seed_ptr, float eps_scale) {
+                       const uint32_t* __restrict__ seed_ptr, float eps_scale, uint32_t row_base) {
   const int lane = threadIdx.x & 31;
   const int b = blockIdx.x * SAMPLER_ROWS + (threadIdx.x >> 5);
   if (b >= B) return;  // the whole warp: no barrier follows
@@ -53,8 +55,8 @@ fused_sample_kl_kernel(const float* __restrict__ mu, const float* __restrict__ l
   for (int d = lane; d < Lz; d += 32) {
     const size_t i = (size_t)b * Lz + d;
     const float m = mu[i], lv = logvar[i];
-    const uint32_t bits1 = noise_bits(seed, 0u, (uint32_t)b, (uint32_t)d);
-    const uint32_t bits2 = noise_bits(seed, 1u, (uint32_t)b, (uint32_t)d);
+    const uint32_t bits1 = noise_bits(seed, 0u, row_base + (uint32_t)b, (uint32_t)d);
+    const uint32_t bits2 = noise_bits(seed, 1u, row_base + (uint32_t)b, (uint32_t)d);
     const float u1 = ((float)(bits1 >> 8) + 1.0f) * scale24;
     const float u2 = (float)(bits2 >> 8) * scale24;
     const float eps = sqrtf(-2.0f * logf(u1)) * cosf(two_pi * u2);
@@ -68,13 +70,14 @@ fused_sample_kl_kernel(const float* __restrict__ mu, const float* __restrict__ l
 }  // namespace
 
 // Launches on `stream` and returns the launch's cudaError_t (0 = success).
-// `seed` points at the seed's low 32-bit word on the device.
+// `seed` points at the seed's low 32-bit word on the device; `row_base` is
+// the global index of mu's first row.
 extern "C" int molvax_fused_sample_kl(const float* mu, const float* logvar, float* z,
                                       float* kl, int B, int Lz, const unsigned int* seed,
-                                      float eps_scale, void* stream) {
+                                      float eps_scale, unsigned int row_base, void* stream) {
   if (B <= 0 || Lz <= 0 || seed == nullptr) return (int)cudaErrorInvalidValue;
   const int blocks = (B + SAMPLER_ROWS - 1) / SAMPLER_ROWS;
   fused_sample_kl_kernel<<<blocks, SAMPLER_ROWS * 32, 0, static_cast<cudaStream_t>(stream)>>>(
-      mu, logvar, z, kl, B, Lz, seed, eps_scale);
+      mu, logvar, z, kl, B, Lz, seed, eps_scale, row_base);
   return (int)cudaGetLastError();
 }

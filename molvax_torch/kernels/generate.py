@@ -23,7 +23,10 @@ row-block decode any width.
 
 Sampling draws Gumbel-max noise from a counter-based 32-bit hash of
 (seed, step, batch row, class) (``noise_bits``): the kernel and the plain
-version draw identical noise, so the two can be compared exactly. Like the
+version draw identical noise, so the two can be compared exactly. The row
+is the global one, ``row_base`` plus the row of the call: a data-parallel
+rank decoding its rows of a global batch (``row_base`` the global index of
+its first row) draws the noise the one-process decode draws for them. Like the
 TPU kernel's on-chip PRNG, the stream is seed-deterministic but differs
 from the reference's ``jax.random`` stream.
 """
@@ -118,10 +121,11 @@ def fold_in_range(seed: int, start: int, count: int) -> np.ndarray:
     return _mix32((h + data) & _MASK32).numpy().astype(np.uint32)
 
 
-def gumbel_noise(seed: int, t: int, batch: int, classes: int, device) -> torch.Tensor:
-    """(batch, classes) fp32 Gumbel(0, 1) noise of step t:
+def gumbel_noise(seed: int, t: int, batch: int, classes: int, device, row_base: int = 0) -> torch.Tensor:
+    """(batch, classes) fp32 Gumbel(0, 1) noise of step t for the global
+    rows ``row_base`` .. ``row_base + batch - 1``:
     u = (top24(bits) + 1) / 2**24 in (0, 1], g = -log(-log(u))."""
-    return _gumbel(seed, t, torch.arange(batch, dtype=torch.int64, device=device), classes)
+    return _gumbel(seed, t, torch.arange(row_base, row_base + batch, dtype=torch.int64, device=device), classes)
 
 
 def _gumbel(seed: int, t: int, rows: torch.Tensor, classes: int) -> torch.Tensor:
@@ -190,10 +194,12 @@ def fused_generate_ref(
     temperature: float = 1.0,
     force_codes: Optional[torch.Tensor] = None,
     return_scores: bool = False,
+    row_base: int = 0,
 ):
     """The kernel's math in plain torch ops: z_emb (B, Lz) -> codes (B, T)
     int32. Operands are rounded to bf16 and multiplied in fp32, so products
-    are exact and sums accumulate in fp32, as in the kernel.
+    are exact and sums accumulate in fp32, as in the kernel. ``row_base``:
+    the global index of z_emb's first row (the sampling noise's row).
 
     ``force_codes`` (B, T) feeds those codes back instead of the chosen
     ones, and ``return_scores`` also returns the per-step scores (B, T, C)
@@ -233,7 +239,7 @@ def fused_generate_ref(
                 x = hs[li]
             s = round_to(x, bf) @ w_out + b_out
             if not greedy:
-                s = s / temperature + gumbel_noise(seed, t, B, C, dev)
+                s = s / temperature + gumbel_noise(seed, t, B, C, dev, row_base)
             if scores is not None:
                 scores[:, t] = s
             code = torch.argmax(s, dim=-1)
@@ -442,35 +448,39 @@ def _count(instance: str) -> None:
 
 
 def _launch_row_block(giz1, start, w, b, codes, C: int, H: int, L: int, greedy: bool, seed: int,
-                      temperature: float) -> None:
-    """One launch of the row-block decode over all B rows."""
+                      temperature: float, row_base: int) -> None:
+    """One launch of the row-block decode over all B rows, the first of
+    them global row ``row_base`` (the noise's)."""
     B, T = codes.shape
     if w.numel() != C * 3 * H + H * 3 * H + (L - 1) * 2 * H * 3 * H + H * C or b.numel() != 3 * H + (L - 1) * 6 * H + C:
         raise ValueError("fused_generate: packed weights do not match the decoder's sizes")
     fn = _build.function(
         "molvax_fused_generate",
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_uint32, ctypes.c_float, ctypes.c_void_p],
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_uint32, ctypes.c_float, ctypes.c_uint32,
+                                                       ctypes.c_void_p],
     )
     err = fn(giz1.data_ptr(), start.data_ptr(), w.data_ptr(), b.data_ptr(), codes.data_ptr(),
-             B, T, C, H, L, int(bool(greedy)), seed & _MASK32, float(temperature), _stream(codes))
+             B, T, C, H, L, int(bool(greedy)), seed & _MASK32, float(temperature), row_base & _MASK32,
+             _stream(codes))
     _build.check(err, "fused_generate (row-block)")
     _count("row_block")
 
 
 def _launch_persistent(giz1, start, w, b, hbuf, codes, plan: GeneratePlan, base: int, end: int, C: int, H: int,
-                       L: int, greedy: bool, seed: int, temperature: float) -> None:
+                       L: int, greedy: bool, seed: int, temperature: float, row_base: int) -> None:
     """One cooperative launch of the persistent decode over batch rows
-    [base, end): hbuf (L, 2, Bp, K) bf16 zeros, shared by the slices."""
+    [base, end): hbuf (L, 2, Bp, K) bf16 zeros, shared by the slices.
+    Batch row r draws the noise of global row ``row_base + r``."""
     B, T = codes.shape
     if w.shape != (plan.q, _block_elems(C, plan.K, L)) or b.numel() != (2 * L - 1) * 3 * H + C:
         raise ValueError("fused_generate: packed weights do not match the plan")
     fn = _build.function("molvax_generate_persistent",
                          [ctypes.c_void_p] * 7 + [ctypes.c_int] * 13 + [ctypes.c_uint32, ctypes.c_float,
-                                                                        ctypes.c_void_p])
+                                                                        ctypes.c_uint32, ctypes.c_void_p])
     flags = torch.zeros(plan.g, dtype=torch.int32, device=codes.device)
     err = fn(giz1.data_ptr(), start.data_ptr(), w.data_ptr(), b.data_ptr(), hbuf.data_ptr(), flags.data_ptr(),
              codes.data_ptr(), B, T, C, H, L, plan.K, hbuf.shape[2], plan.q, plan.g, plan.rows, base, end,
-             int(bool(greedy)), seed & _MASK32, float(temperature), _stream(codes))
+             int(bool(greedy)), seed & _MASK32, float(temperature), row_base & _MASK32, _stream(codes))
     _build.check(err, "fused_generate (persistent)")
     _count("persistent")
 
@@ -509,11 +519,11 @@ def _setup(model, z_emb: torch.Tensor, plan: Optional[GeneratePlan]):
 
 
 def _decode(model, cfg, z_emb: torch.Tensor, seed: int, greedy: bool, temperature: float,
-            row_block: bool = False) -> torch.Tensor:
+            row_block: bool = False, row_base: int = 0) -> torch.Tensor:
     """The decode on the instance that ``generate_plan`` picks for the card
     of ``z_emb`` (the row-block decode where it returns None, or where
     ``row_block``): the set-up, then the launches (one per slice of the
-    plan)."""
+    plan). ``row_base``: the global index of z_emb's first row."""
     B, T = z_emb.shape[0], cfg.max_len
     # sizes from the weights themselves: the kernels read by these
     C, H, L = model.linear_4.out_features, model.gru.hidden_size, model.gru.num_layers
@@ -525,13 +535,13 @@ def _decode(model, cfg, z_emb: torch.Tensor, seed: int, greedy: bool, temperatur
             raise ValueError(f"fused_generate: giz1 {tuple(giz1.shape)} {giz1.dtype} != ({B}, {3 * H}) fp32")
         codes = torch.empty(B, T, dtype=torch.int32, device=dev)
         if plan is None:
-            _launch_row_block(giz1, start, w, b, codes, C, H, L, greedy, seed, temperature)
+            _launch_row_block(giz1, start, w, b, codes, C, H, L, greedy, seed, temperature, row_base)
             return codes
         span = plan.g * plan.rows
         hbuf = torch.zeros(L, 2, plan.slices * span, plan.K, dtype=_BF, device=dev)
         for base in range(0, B, span):
             _launch_persistent(giz1, start, w, b, hbuf, codes, plan, base, min(B, base + span), C, H, L, greedy,
-                               seed, temperature)
+                               seed, temperature, row_base)
     return codes
 
 
@@ -542,6 +552,7 @@ def fused_generate(
     seed: int = 0,
     greedy: bool = True,
     temperature: float = 1.0,
+    row_base: int = 0,
 ) -> torch.Tensor:
     """z_emb (B, Lz) [already selu(linear_3(z))] -> codes (B, T) int32.
 
@@ -549,9 +560,11 @@ def fused_generate(
     persistent decode once per slice of ``generate_plan`` (once at B=256,
     ``zinc250k`` width), or the row-block decode once where no plan fits.
     On the CPU it runs ``fused_generate_ref``. ``temperature`` is a runtime
-    argument: changing it rebuilds nothing."""
+    argument: changing it rebuilds nothing. ``row_base``: the global index
+    of z_emb's first row, whose sampling noise row 0 draws (a data-parallel
+    rank's share of a global batch)."""
     if z_emb.device.type == "cpu":
-        return fused_generate_ref(model, cfg, z_emb, seed, greedy, temperature)
+        return fused_generate_ref(model, cfg, z_emb, seed, greedy, temperature, row_base=row_base)
     if z_emb.device.type != "cuda":
         raise ValueError(f"fused_generate: unsupported device {z_emb.device}")
     if z_emb.dim() != 2 or z_emb.shape[0] == 0:
@@ -560,4 +573,4 @@ def fused_generate(
         raise ValueError("fused_generate: model and z_emb are on different devices")
     if not greedy and not temperature > 0:
         raise ValueError(f"fused_generate: temperature must be > 0, got {temperature}")
-    return _decode(model, cfg, z_emb, seed, greedy, temperature)
+    return _decode(model, cfg, z_emb, seed, greedy, temperature, row_base=row_base)

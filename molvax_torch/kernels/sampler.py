@@ -31,11 +31,13 @@ launches = 0
 Seed = Union[int, torch.Tensor]
 
 
-def sample_eps(seed: Seed, batch: int, dim: int, device) -> torch.Tensor:
+def sample_eps(seed: Seed, batch: int, dim: int, device, row_base: int = 0) -> torch.Tensor:
     """(batch, dim) fp32 standard normals of ``seed``: Box-Muller on
     u1 = (top24(bits(seed, 0, row, d)) + 1) / 2**24 in (0, 1] and
-    u2 = top24(bits(seed, 1, row, d)) / 2**24 in [0, 1)."""
-    rows = torch.arange(batch, dtype=torch.int64, device=device)[:, None]
+    u2 = top24(bits(seed, 1, row, d)) / 2**24 in [0, 1), for the global
+    rows ``row_base`` .. ``row_base + batch - 1`` (a data-parallel rank's
+    rows of the global batch; 0 in one process)."""
+    rows = torch.arange(row_base, row_base + batch, dtype=torch.int64, device=device)[:, None]
     dims = torch.arange(dim, dtype=torch.int64, device=device)[None, :]
     scale = 1.0 / (1 << 24)
     u1 = ((noise_bits(seed, 0, rows, dims) >> 8).to(torch.float32) + 1.0) * scale
@@ -44,13 +46,14 @@ def sample_eps(seed: Seed, batch: int, dim: int, device) -> torch.Tensor:
 
 
 def fused_sample_kl_ref(
-    seed: Seed, mu: torch.Tensor, logvar: torch.Tensor, eps_scale: float = 1.0
+    seed: Seed, mu: torch.Tensor, logvar: torch.Tensor, eps_scale: float = 1.0, row_base: int = 0
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The plain version: (z (B, L), kl (B,)), fp32. Differentiable by
     autograd, which gives the closed form of ``sample_kl_backward``.
     ``seed``: a Python int, or a one-element integer tensor on mu's device
-    (the kernel's operand), which gives the same bits."""
-    eps = sample_eps(seed, mu.shape[0], mu.shape[1], mu.device)
+    (the kernel's operand), which gives the same bits. ``row_base``: the
+    global index of mu's first row (``sample_eps``)."""
+    eps = sample_eps(seed, mu.shape[0], mu.shape[1], mu.device, row_base)
     z = mu + eps_scale * torch.exp(0.5 * logvar) * eps
     kl = -0.5 * torch.sum(1.0 + logvar - mu * mu - torch.exp(logvar), dim=-1)
     return z, kl
@@ -72,9 +75,11 @@ def _check_device(mu: torch.Tensor, logvar: torch.Tensor) -> None:
         raise ValueError("fused_sample_kl: mu and logvar are on different devices")
 
 
-def _sample_kernel(seed: torch.Tensor, mu: torch.Tensor, logvar: torch.Tensor, eps_scale: float):
+def _sample_kernel(seed: torch.Tensor, mu: torch.Tensor, logvar: torch.Tensor, eps_scale: float,
+                   row_base: int = 0):
     """One launch of the kernel; ``seed`` a one-element int32 or int64
-    tensor on mu's device, read by the kernel as its low 32 bits."""
+    tensor on mu's device, read by the kernel as its low 32 bits;
+    ``row_base`` the global index of mu's first row, a 32-bit scalar."""
     global launches
     _check_device(mu, logvar)
     if mu.dim() != 2 or mu.shape != logvar.shape or mu.shape[0] == 0:
@@ -89,11 +94,12 @@ def _sample_kernel(seed: torch.Tensor, mu: torch.Tensor, logvar: torch.Tensor, e
     kl = torch.empty(B, device=mu.device)
     fn = _build.function(
         "molvax_fused_sample_kl",
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p],
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p, ctypes.c_float, ctypes.c_uint32,
+                                                       ctypes.c_void_p],
     )
     err = fn(
         mu.data_ptr(), logvar.data_ptr(), z.data_ptr(), kl.data_ptr(), B, L, seed.data_ptr(),
-        float(eps_scale), gru_stack._stream(mu),
+        float(eps_scale), row_base & 0xFFFFFFFF, gru_stack._stream(mu),
     )
     _build.check(err, "fused_sample_kl")
     launches += 1
@@ -102,26 +108,28 @@ def _sample_kernel(seed: torch.Tensor, mu: torch.Tensor, logvar: torch.Tensor, e
 
 class _FusedSampleKL(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, seed, mu, logvar, eps_scale):
+    def forward(ctx, seed, mu, logvar, eps_scale, row_base):
         if mu.device.type == "cpu":
-            z, kl = fused_sample_kl_ref(seed, mu, logvar, eps_scale)
+            z, kl = fused_sample_kl_ref(seed, mu, logvar, eps_scale, row_base)
         else:
             if not isinstance(seed, torch.Tensor):
                 seed = seed_word(seed, mu.device)
-            z, kl = _sample_kernel(seed, mu, logvar, eps_scale)
+            z, kl = _sample_kernel(seed, mu, logvar, eps_scale, row_base)
         ctx.save_for_backward(z, mu, logvar)
         return z, kl
 
     @staticmethod
     def backward(ctx, g_z, g_kl):
-        return (None, *sample_kl_backward(*ctx.saved_tensors, g_z, g_kl), None)
+        return (None, *sample_kl_backward(*ctx.saved_tensors, g_z, g_kl), None, None)
 
 
 def fused_sample_kl(
-    seed: Seed, mu: torch.Tensor, logvar: torch.Tensor, eps_scale: float = 1.0
+    seed: Seed, mu: torch.Tensor, logvar: torch.Tensor, eps_scale: float = 1.0, row_base: int = 0
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(seed, mu, logvar) -> (z, per-row KL), differentiable in mu and
     logvar. ``seed``: a one-element integer tensor on mu's device (the train
     step's, read from its schedule vector), or a Python int, which a CUDA
-    call first puts on the card (a fill, no copy from the host)."""
-    return _FusedSampleKL.apply(seed, mu, logvar, eps_scale)
+    call first puts on the card (a fill, no copy from the host).
+    ``row_base``: the global index of mu's first row, so that a
+    data-parallel rank draws the eps of its rows of the global batch."""
+    return _FusedSampleKL.apply(seed, mu, logvar, eps_scale, row_base)

@@ -20,6 +20,12 @@ generation kernel is never taken when ``constrained=True``.
 Host-side draws (z from the prior, the reparameterization noise, the
 sampling seed) come from a ``torch.Generator``; its stream differs from
 ``jax.random``'s, so tests hand both packages the same numpy inputs.
+
+``mesh=`` on ``sample_prior`` and ``sample_aggregate`` decodes data-parallel
+(``parallel.map_rows``): every rank draws the global z and the noise seed
+from a generator in the same state, decodes its rows of z with the noise
+of their global rows (``row_base``), and every rank gets all the strings,
+those of the 1-rank call.
 """
 
 from __future__ import annotations
@@ -36,6 +42,7 @@ from ..nn.decoder import decode, latent_embed
 from ..nn.encoder import linear
 from ..nn.gru import gru_stack_step
 from ..nn.vae import encode as vae_encode, reparameterize
+from ..parallel import map_rows
 from .constrain import build_tables
 from .embed import encode_codes_chunked
 
@@ -58,6 +65,7 @@ def generate(
     temperature: float = 1.0,
     constrained: bool = False,
     charset: Charset = DEFAULT_CHARSET,
+    row_base: int = 0,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """z (B, latent) -> (codes (B, T) int32, logits (B, T, C) or None).
 
@@ -67,7 +75,9 @@ def generate(
     (``greedy=False``) draws Gumbel-max noise keyed by a seed drawn from
     ``generator``, identical on both routes (``kernels.generate.noise_bits``).
     ``constrained=True`` masks every step through the valence automaton
-    (module docstring) and always returns the logits."""
+    (module docstring) and always returns the logits. ``row_base``: the
+    global index of z's first row, which keys its sampling noise (a
+    data-parallel rank's share of a global batch)."""
     from ..kernels.generate import (
         fused_generate,
         generation_kernel_supported,
@@ -87,7 +97,7 @@ def generate(
     def scores_of(logits_t, t):
         if greedy:
             return logits_t
-        return logits_t / temperature + gumbel_noise(seed, t, B, C, z.device)
+        return logits_t / temperature + gumbel_noise(seed, t, B, C, z.device, row_base)
 
     with torch.no_grad():
         if cfg.decoder_conditioning == "repeat_z":
@@ -103,7 +113,8 @@ def generate(
 
         z_emb = latent_embed(model, cfg, z)
         if cfg.use_pallas_generation and not constrained and generation_kernel_supported(cfg, z.device):
-            codes = fused_generate(model, cfg, z_emb, seed, greedy=greedy, temperature=temperature)
+            codes = fused_generate(model, cfg, z_emb, seed, greedy=greedy, temperature=temperature,
+                                   row_base=row_base)
             return codes, None
 
         gru = model.gru
@@ -140,16 +151,31 @@ def sample_prior(
     temperature: float = 1.0,
     scale: float = 1.0,
     constrained: bool = False,
+    mesh=None,
 ) -> List[str]:
     """Decode n latents from the prior z ~ N(0, scale^2 I) to SMILES strings.
-    z is drawn from ``generator`` on its device, then moved to the model's."""
+    z is drawn from ``generator`` on its device, then moved to the model's.
+    ``mesh`` decodes data-parallel over its 'data' axis (n must divide by
+    it; every rank passes a generator in the same state): the strings of
+    the 1-rank call, on every rank."""
     generator = generator if generator is not None else _default_generator()
     z = scale * torch.randn(n, cfg.latent_dim, generator=generator, device=generator.device)
-    codes, _ = generate(
-        model, cfg, z.to(model.device), generator, greedy=greedy,
-        temperature=temperature, constrained=constrained, charset=charset,
-    )
-    return decode_codes(codes, charset)
+    return _decode_over(model, cfg, z, generator, greedy, temperature, constrained, charset, mesh)
+
+
+def _decode_over(model, cfg, z: torch.Tensor, generator, greedy: bool, temperature: float, constrained: bool,
+                 charset: Charset, mesh) -> List[str]:
+    """``generate`` of z's rows on the model's device, data-parallel over
+    ``mesh`` where one is given (the reference's divisibility check), as
+    strings."""
+    if mesh is not None and mesh.collective and z.shape[0] % mesh.data:
+        raise ValueError(f"batch {z.shape[0]} not divisible by mesh data axis {mesh.data}")
+
+    def decode_rows(part: torch.Tensor, row_base: int) -> torch.Tensor:
+        return generate(model, cfg, part.to(model.device), generator, greedy=greedy, temperature=temperature,
+                        constrained=constrained, charset=charset, row_base=row_base)[0]
+
+    return decode_codes(map_rows(mesh, z, decode_rows), charset)
 
 
 def fit_aggregate_posterior(
@@ -188,17 +214,15 @@ def sample_aggregate(
     greedy: bool = True,
     temperature: float = 1.0,
     constrained: bool = False,
+    mesh=None,
 ) -> List[str]:
     """Decode n latents z = mean + chol @ eps, eps ~ N(0, I) drawn from
-    ``generator`` on its device (``fit_aggregate_posterior``), to SMILES."""
+    ``generator`` on its device (``fit_aggregate_posterior``), to SMILES.
+    ``mesh`` as ``sample_prior``'s."""
     generator = generator if generator is not None else _default_generator()
     eps = torch.randn(n, cfg.latent_dim, generator=generator, device=generator.device)
     z = mean[None, :] + eps.to(mean.device) @ chol.T
-    codes, _ = generate(
-        model, cfg, z.to(model.device), generator, greedy=greedy,
-        temperature=temperature, constrained=constrained, charset=charset,
-    )
-    return decode_codes(codes, charset)
+    return _decode_over(model, cfg, z, generator, greedy, temperature, constrained, charset, mesh)
 
 
 def reconstruct(

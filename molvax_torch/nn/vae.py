@@ -13,7 +13,10 @@ Where the reference threads a JAX key, the port threads a 32-bit seed: the
 sampler's eps (fused or plain: ``kernels.sampler.sample_eps``) and the
 scheduled-sampling and word-dropout masks draw from the counter hash of
 ``kernels.generate.noise_bits`` keyed by it, so a step is deterministic and
-resumable on any device. The seed, and the
+resumable on any device. Every draw is keyed by the batch row's global
+index: a data-parallel rank passes ``row_base``, the global index of its
+first row, and draws the noise of its rows of the global batch (0 in one
+process). The seed, and the
 scheduled-sampling probability, may be Python numbers or one-element
 tensors on the model's device: a train step reads them from vectors on
 the card, so nothing in it waits for the host (and a CUDA Graph of steps
@@ -112,12 +115,13 @@ _WD_SALT = 0xD409
 Prob = Union[float, torch.Tensor]
 
 
-def bernoulli_mask(seed: Seed, salt: int, p: Prob, shape, device) -> torch.Tensor:
+def bernoulli_mask(seed: Seed, salt: int, p: Prob, shape, device, row_base: int = 0) -> torch.Tensor:
     """(B, T) bool mask, True with probability ``p``, from the counter hash:
-    u = top24(noise_bits(seed, salt, row, t)) / 2**24 in [0, 1), mask = u < p.
-    Exactly all False at p = 0 and all True at p = 1. ``p`` a float or a 0-d
-    fp32 tensor (compared in fp32 either way)."""
-    rows = torch.arange(shape[0], dtype=torch.int64, device=device)[:, None]
+    u = top24(noise_bits(seed, salt, row, t)) / 2**24 in [0, 1), mask = u < p,
+    for the global rows ``row_base`` .. ``row_base + B - 1``. Exactly all
+    False at p = 0 and all True at p = 1. ``p`` a float or a 0-d fp32
+    tensor (compared in fp32 either way)."""
+    rows = torch.arange(row_base, row_base + shape[0], dtype=torch.int64, device=device)[:, None]
     cols = torch.arange(shape[1], dtype=torch.int64, device=device)[None, :]
     u = (noise_bits(seed, salt, rows, cols) >> 8).to(torch.float32) * (1.0 / (1 << 24))
     return u < p
@@ -139,6 +143,7 @@ def forward(
     codes: torch.Tensor,
     ss_prob: Optional[Prob] = None,
     wd_prob: Optional[float] = None,
+    row_base: int = 0,
 ) -> VAEOutput:
     """The training forward: codes (B, T) -> VAEOutput.
 
@@ -154,25 +159,27 @@ def forward(
     decode (no gradient) predicts each character, and each teacher input is
     replaced by its prediction with probability ss_prob. ``wd_prob`` zeroes
     each teacher input's one-hot row with probability wd_prob (word
-    dropout). Pass None, not 0, when off."""
+    dropout). Pass None, not 0, when off. ``row_base``: the global index of
+    the first row of ``codes`` (a data-parallel rank's share), which keys
+    every draw."""
     kl = None
     if cfg.use_pallas and matmul_dtype(cfg, codes.device) == torch.bfloat16:
         mu, logvar = conv_enc.fused_encode(model, cfg, codes)
-        z, kl = sampler.fused_sample_kl(seed, mu, logvar, cfg.eps_scale)
+        z, kl = sampler.fused_sample_kl(seed, mu, logvar, cfg.eps_scale, row_base)
     else:
         mu, logvar = encode(model, cfg, codes)
-        eps = sampler.sample_eps(seed, mu.shape[0], mu.shape[1], mu.device)
+        eps = sampler.sample_eps(seed, mu.shape[0], mu.shape[1], mu.device, row_base)
         z = mu + cfg.eps_scale * torch.exp(0.5 * logvar) * eps
     teacher = codes if cfg.decoder_conditioning == "teacher_forced" else None
     if ss_prob is not None and teacher is not None:
         with torch.no_grad():
             pred = decode(model, cfg, z.detach(), teacher).argmax(dim=-1).to(codes.dtype)
-        mix = bernoulli_mask(seed, _SS_SALT, ss_prob, codes.shape, codes.device)
+        mix = bernoulli_mask(seed, _SS_SALT, ss_prob, codes.shape, codes.device, row_base)
         teacher = torch.where(mix, pred, codes)
     if wd_prob is not None and teacher is not None:
         # drop to the zero vector, not to the pad character (a real symbol)
         toh = one_hot(teacher, cfg.charset_size)
-        drop = bernoulli_mask(seed, _WD_SALT, wd_prob, teacher.shape, teacher.device)
+        drop = bernoulli_mask(seed, _WD_SALT, wd_prob, teacher.shape, teacher.device, row_base)
         logits = _decode(model, cfg, z, toh.masked_fill(drop[..., None], 0.0))
     else:
         logits = decode(model, cfg, z, teacher)

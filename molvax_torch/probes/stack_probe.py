@@ -546,7 +546,7 @@ def _sampler_seed(sampler, seed: int, device):
     one-element tensor on the card where the kernel reads it from device
     memory, the int itself where the kernel takes it by value (older
     checkouts timed with ``--root``)."""
-    if "ctypes.c_uint32" in inspect.getsource(sampler._sample_kernel):
+    if "seed.data_ptr()" not in inspect.getsource(sampler._sample_kernel):
         return seed
     return torch.full((), seed, dtype=torch.int32, device=device)
 

@@ -28,6 +28,7 @@ from ..data.native import decode_codes_native
 from ..data.smiles_check import chem_valid, chem_valid_fraction
 from ..latent.sample import generate
 from ..nn.vae import encode
+from ..parallel import map_rows
 
 
 def split_generator(generator: Optional[torch.Generator], n: int, device) -> List[torch.Generator]:
@@ -178,17 +179,24 @@ def reconstruction_metrics(
     generator: Optional[torch.Generator] = None,
     n: int = 256,
     charset: Optional[Charset] = None,
+    mesh=None,
 ) -> Dict[str, float]:
     """Free-running round trip of the first ``n`` rows of ``dataset``
     (encode -> z = mu -> greedy decode, ``latent.sample.generate``; on a
     card at a width ``generate_plan`` lays out, one persistent
     ``fused_generate`` decode): the exact-match string rate, the per-char
     accuracy over all T positions, and over the non-pad ones (the honest
-    number: the pad tail is ~2/3 of T on ZINC-length strings)."""
+    number: the pad tail is ~2/3 of T on ZINC-length strings). Under a
+    data-parallel ``mesh`` each rank round-trips its share of the rows and
+    every rank scores all of them (``parallel.map_rows``)."""
     charset = charset or dataset.charset
     codes_np = np.asarray(dataset.codes[:n])
-    mu = _encode_mu(model, cfg, codes_np)
-    out_codes, _ = generate(model, cfg.model, mu, generator, greedy=True, charset=charset)
+
+    def round_trip(part: np.ndarray, row_base: int) -> torch.Tensor:
+        mu = _encode_mu(model, cfg, part)
+        return generate(model, cfg.model, mu, generator, greedy=True, charset=charset, row_base=row_base)[0]
+
+    out_codes = map_rows(mesh, codes_np, round_trip)
     exact, hit, nonpad_acc = _round_trip(codes_np, out_codes.cpu().numpy(), charset)
     return {"recon_exact": exact, "recon_char_acc": float(np.mean(hit)), "recon_char_acc_nonpad": nonpad_acc}
 

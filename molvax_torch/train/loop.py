@@ -24,6 +24,20 @@ non-blocking copy; step i of the call reads element i as 0-d tensors
 step of a chunk run one program on the same operands, and a CUDA Graph of
 K steps (``make_train_chunk``, the reference's ``lax.scan`` of the step)
 replays with each chunk's values.
+
+Data parallelism (``parallel``): the steps, the chunk and ``train`` take a
+``mesh``. A rank runs the step on its rows of the global batch, every draw
+keyed by the rows' global index (``row_base``), and between the backward
+and the update one all-reduce of the flattened gradients divided by the
+data size (``parallel.GradientMean``): the psum GSPMD inserts in the
+reference. The metrics are the global batch's (``train.loss``). An
+explicit all-reduce and not ``DistributedDataParallel``: the step calls the
+functional ``forward``, never ``model(...)``, so DDP's per-iteration
+preparation would not run; DDP's reducer keeps per-iteration host
+bookkeeping that a hand-captured CUDA Graph of K steps does not replay; and
+the explicit reduce is exactly the reference's psum. With no mesh (or a
+1-rank mesh without a world) nothing of this runs and the step is the
+one-process step.
 """
 
 from __future__ import annotations
@@ -49,6 +63,7 @@ from ..data import BatchIterator, load_dataset
 from ..io import checkpoint as ckpt_io
 from ..kernels.generate import fold_in, fold_in_range
 from ..nn.vae import MolecularVAE, forward
+from ..parallel import GradientMean, Mesh, agree_any, barrier, make_mesh, replicate, world_size
 from ..utils import PinnedStaging, resolve_device
 from .evaluate import reconstruction_metrics
 from .loss import vae_loss
@@ -257,7 +272,7 @@ def init_state(
 # -- steps ---------------------------------------------------------------------
 
 
-def _loss(cfg, out, codes, beta, props):
+def _loss(cfg, out, codes, beta, props, mesh=None):
     return vae_loss(
         cfg.model,
         out.logits,
@@ -270,6 +285,7 @@ def _loss(cfg, out, codes, beta, props):
         property_loss_weight=cfg.train.property_loss_weight,
         kl=out.kl,
         kl_free_bits=cfg.train.kl.free_bits,
+        mesh=mesh,
     )
 
 
@@ -308,20 +324,27 @@ def _device_values(values: np.ndarray, device: torch.device, staging: Dict) -> t
     return staging[device].copy(values.shape, torch.int32, lambda buf: np.copyto(buf, values))
 
 
-def step_body(cfg, state: TrainState, codes: torch.Tensor, props: Optional[torch.Tensor], seed, beta, ss, lr):
+def step_body(cfg, state: TrainState, codes: torch.Tensor, props: Optional[torch.Tensor], seed, beta, ss, lr,
+              mesh: Optional[Mesh] = None, grad_mean: Optional[GradientMean] = None):
     """One optimizer step on ``state`` in place: the forward at ``seed``
     (with scheduled-sampling probability ``ss`` where the config has it),
     the ELBO at ``beta``, backward, clip and Adam at ``lr``, the EMA. Each
     value a Python number or a 0-d tensor on the model's device. Returns
     the metrics, 0-d tensors on the device. Advances no counter: the
-    caller does."""
+    caller does. Under a data-parallel ``mesh``, ``codes`` are this rank's
+    rows of the global batch: the draws are those of their global rows,
+    ``grad_mean`` averages the gradients over the data axis before the
+    update, and the metrics are the global batch's."""
     model, opt = state.params, state.opt_state
     use_ss = cfg.train.scheduled_sampling > 0
     wd = cfg.train.word_dropout if cfg.train.word_dropout > 0 else None
-    out = forward(model, cfg.model, seed, codes, ss_prob=ss if use_ss else None, wd_prob=wd)
-    loss, metrics = _loss(cfg, out, codes, beta, props)
+    row_base = 0 if mesh is None else mesh.row_base(codes.shape[0])
+    out = forward(model, cfg.model, seed, codes, ss_prob=ss if use_ss else None, wd_prob=wd, row_base=row_base)
+    loss, metrics = _loss(cfg, out, codes, beta, props, mesh)
     opt.zero_grad()
     loss.backward()
+    if grad_mean is not None:
+        grad_mean([p.grad for p in opt.params])
     opt.update(lr)
     ema, decay = state.ema_params, cfg.train.ema_decay
     if decay > 0 and ema is not None:
@@ -331,21 +354,36 @@ def step_body(cfg, state: TrainState, codes: torch.Tensor, props: Optional[torch
     return {k: v.detach() for k, v in metrics.items()}
 
 
-def make_train_step(cfg):
+def _data_parallel(mesh: Optional[Mesh]) -> Optional[Mesh]:
+    """The mesh whose collectives a step makes, or None: a 1-rank mesh
+    without a world makes none, and the step is the one-process step."""
+    if mesh is not None and not mesh.member:
+        raise ValueError(f"rank {mesh.rank} is outside the mesh {mesh}: it takes no step")
+    return mesh if mesh is not None and mesh.collective else None
+
+
+def make_train_step(cfg, mesh: Optional[Mesh] = None):
     """(state, codes (B, T), props (B, P) or None) -> (state, metrics).
 
     One optimizer step: the step's values from ``schedule_vectors`` (one
     pinned non-blocking copy to a card), then ``step_body``. Metrics are
-    0-d tensors on the model's device (reading one waits for the step)."""
+    0-d tensors on the model's device (reading one waits for the step).
+    Under a data-parallel ``mesh`` the codes are this rank's rows of the
+    global batch (``parallel.shard_batch``, ``BatchIterator(mesh=)``) and
+    the step is the global batch's (``step_body``); ``grad_mean`` on the
+    returned function is its gradients' all-reduce (None without one)."""
     staging: Dict = {}
+    mesh = _data_parallel(mesh)
+    grad_mean = None if mesh is None else GradientMean(mesh)
 
     def train_step(state: TrainState, codes: torch.Tensor, props: Optional[torch.Tensor] = None):
         values = schedule_vectors(cfg, state.base_seed, state.step, state.opt_state.count, 1)
         seeds, beta, ss, lr = unpack(_device_values(values, codes.device, staging))
-        metrics = step_body(cfg, state, codes, props, seeds[0], beta[0], ss[0], lr[0])
+        metrics = step_body(cfg, state, codes, props, seeds[0], beta[0], ss[0], lr[0], mesh, grad_mean)
         state.opt_state.count += 1
         return state._replace(step=state.step + 1), metrics
 
+    train_step.grad_mean = grad_mean
     return train_step
 
 
@@ -365,7 +403,8 @@ class CapturedChunk:
     rewritten by every replay."""
 
     def __init__(self, cfg, k: int, state: TrainState, codes_stack: torch.Tensor,
-                 props_stack: Optional[torch.Tensor], values: np.ndarray):
+                 props_stack: Optional[torch.Tensor], values: np.ndarray, mesh: Optional[Mesh] = None,
+                 grad_mean: Optional[GradientMean] = None):
         dev = codes_stack.device
         self.key = _chunk_key(state, codes_stack, props_stack)
         self.written = _state_tensors(state)
@@ -380,15 +419,15 @@ class CapturedChunk:
         stream.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(stream):
             warm = copy.deepcopy(state)
-            step_body(cfg, warm, self.codes[0], props(0), seeds[0], beta[0], ss[0], lr[0])
+            step_body(cfg, warm, self.codes[0], props(0), seeds[0], beta[0], ss[0], lr[0], mesh, grad_mean)
             del warm
         torch.cuda.current_stream(dev).wait_stream(stream)
         torch.cuda.synchronize(dev)
         self.graph = torch.cuda.CUDAGraph()
         t0 = time.perf_counter()
         with torch.cuda.graph(self.graph, stream=stream):
-            steps = [step_body(cfg, state, self.codes[i], props(i), seeds[i], beta[i], ss[i], lr[i])
-                     for i in range(k)]
+            steps = [step_body(cfg, state, self.codes[i], props(i), seeds[i], beta[i], ss[i], lr[i], mesh,
+                               grad_mean) for i in range(k)]
             self.metrics = {name: torch.stack([m[name] for m in steps]) for name in steps[0]}
         self.capture_seconds = time.perf_counter() - t0
 
@@ -427,7 +466,8 @@ def _chunk_key(state: TrainState, codes_stack, props_stack) -> Tuple:
     return (tuple(t.data_ptr() for t in _state_tensors(state)), tuple(codes_stack.shape), codes_stack.dtype, props)
 
 
-def make_train_chunk(cfg, chunk: int, device: Optional[Union[str, torch.device]] = None):
+def make_train_chunk(cfg, chunk: int, device: Optional[Union[str, torch.device]] = None,
+                     mesh: Optional[Mesh] = None):
     """(state, codes_stack (K, B, T), props_stack (K, B, P) or None) ->
     (state, metrics stacked (K, ...)), with ``state.step`` advanced by
     K = ``chunk``: the reference's fused multi-step trainer
@@ -442,11 +482,26 @@ def make_train_chunk(cfg, chunk: int, device: Optional[Union[str, torch.device]]
     the graph's buffers, rewritten by the next call: read or copy them
     before it. Every configuration is captured (each sampler path reads its
     seed on the device); the chunk never falls back to eager steps. On the
-    CPU (``device="cpu"``) the chunk is K eager steps through the same body."""
+    CPU (``device="cpu"``) the chunk is K eager steps through the same body.
+
+    Under a data-parallel ``mesh`` (its device by default) the stack holds
+    this rank's rows of each global batch (``parallel.shard_stacked_batch``,
+    ``BatchIterator(mesh=).next_stack``) and each step is the global batch's
+    (``step_body``). On a card the group must be NCCL's: the gradients'
+    all-reduce is captured in the graph, on one flat buffer made before the
+    capture. A gloo group cannot be captured, and the chunk raises there
+    (it never falls back to eager steps); on the CPU it is K eager steps."""
     if chunk < 1:
         raise ValueError(f"make_train_chunk: chunk must be >= 1, got {chunk}")
-    dev = resolve_device(device)
-    step = make_train_step(cfg)
+    mesh = _data_parallel(mesh)
+    if mesh is not None and device is not None and resolve_device(device) != mesh.device:
+        raise ValueError(f"make_train_chunk: device {device} is not the mesh's {mesh.device}")
+    dev = mesh.device if mesh is not None else resolve_device(device)
+    if mesh is not None and dev.type == "cuda" and torch.distributed.get_backend(mesh.group) != "nccl":
+        raise ValueError(f"make_train_chunk: the mesh's {torch.distributed.get_backend(mesh.group)} group cannot be "
+                         "captured in a CUDA Graph; a chunk on a card needs an NCCL group (eager steps: "
+                         "make_train_step)")
+    step = make_train_step(cfg, mesh)
     graphs: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
 
     def check(state, codes_stack, props_stack):
@@ -469,24 +524,30 @@ def make_train_chunk(cfg, chunk: int, device: Optional[Union[str, torch.device]]
         values = schedule_vectors(cfg, state.base_seed, state.step, state.opt_state.count, chunk)
         captured = graphs.get(state.params)
         if captured is None or captured.key != _chunk_key(state, codes_stack, props_stack):
-            captured = graphs[state.params] = CapturedChunk(cfg, chunk, state, codes_stack, props_stack, values)
+            captured = graphs[state.params] = CapturedChunk(cfg, chunk, state, codes_stack, props_stack, values, mesh,
+                                                            step.grad_mean)
         metrics = captured.replay(codes_stack, props_stack, values)
         state.opt_state.count += chunk
         return state._replace(step=state.step + chunk), metrics
 
     train_chunk.graphs = graphs
+    train_chunk.grad_mean = step.grad_mean
     return train_chunk
 
 
-def make_eval_step(cfg):
+def make_eval_step(cfg, mesh: Optional[Mesh] = None):
     """Teacher-forced eval: (state, codes, props or None) -> metrics, at
-    beta = 1, with a fixed seed disjoint from the train steps', no update."""
+    beta = 1, with a fixed seed disjoint from the train steps', no update.
+    Under a data-parallel ``mesh`` the codes are this rank's rows and the
+    metrics the global batch's."""
+    mesh = _data_parallel(mesh)
 
     def eval_step(state: TrainState, codes: torch.Tensor, props: Optional[torch.Tensor] = None):
         seed = fold_in(state.base_seed, _EVAL_SALT)
+        row_base = 0 if mesh is None else mesh.row_base(codes.shape[0])
         with torch.no_grad():
-            out = forward(state.params, cfg.model, seed, codes)
-            _, metrics = _loss(cfg, out, codes, 1.0, props)
+            out = forward(state.params, cfg.model, seed, codes, row_base=row_base)
+            _, metrics = _loss(cfg, out, codes, 1.0, props, mesh)
         return metrics
 
     return eval_step
@@ -519,6 +580,29 @@ def _warn(msg: str) -> None:
     print(f"[molvax] {msg}", file=sys.stderr)
 
 
+def choose_mesh(cfg, device: Optional[Union[str, torch.device]] = None) -> Mesh:
+    """``train``'s mesh when the caller gives none, the reference's choice
+    (``molvax/train/loop.py:315-335``) over the ranks of the
+    ``torch.distributed`` world (1 without one): the configured
+    ``data_axis x model_axis`` mesh where the world holds it and the batch
+    divides by its data axis; else the largest power of two of ranks that
+    divides the batch, with the reference's warning where a mesh was
+    configured. Every rank of the world calls it (``make_mesh``)."""
+    n_dev = world_size()
+    batch = cfg.train.batch_size
+    want = cfg.mesh.data_axis * cfg.mesh.model_axis
+    if want > 1 and want <= n_dev and batch % cfg.mesh.data_axis == 0:
+        return make_mesh(cfg.mesh, device=device)
+    # auto: largest power-of-two device count dividing the batch
+    use = 1
+    while use * 2 <= n_dev and batch % (use * 2) == 0:
+        use *= 2
+    if want > 1 and (n_dev == 1 or torch.distributed.get_rank() == 0):
+        print(f"[molvax] configured mesh {cfg.mesh.data_axis}x{cfg.mesh.model_axis} unusable here "
+              f"(devices={n_dev}, batch={batch}); using an auto {use}-device data mesh", file=sys.stderr)
+    return make_mesh(ranks=range(use), device=device)
+
+
 def train(
     cfg,
     dataset=None,
@@ -527,12 +611,24 @@ def train(
     metrics_path: Optional[str] = None,
     max_steps: Optional[int] = None,
     verbose: bool = True,
-) -> Tuple[TrainState, list]:
+    mesh: Optional[Mesh] = None,
+) -> Tuple[Optional[TrainState], list]:
     """End-to-end training per config (the reference's ``train``,
     ``loop.py:286-740``). Returns (final state, metric history).
 
-    Runs on ``device``, the card unless the caller asks for the CPU (data
-    parallelism is not ported). The K-step chunk (``make_train_chunk``, one
+    Runs data-parallel over ``mesh`` (``parallel.make_mesh``); without one,
+    over the mesh that ``choose_mesh`` picks from ``cfg.mesh`` and the ranks of
+    the ``torch.distributed`` world, as the reference picks from its
+    devices: in one process without a world, the 1-rank mesh, on
+    ``device`` (the card unless the caller asks for the CPU). A rank
+    outside the mesh takes no step and returns (None, []) at once. Under a
+    mesh every rank takes its rows of each global batch (and of the eval
+    batches and the probe's), the metrics logged are the global batch's,
+    the first rank alone writes files (the checkpoints, ``charset.json``,
+    ``config.json``, the metrics file, ``best/`` and ``probe.json``) with a
+    barrier after each save, and a stop (SIGTERM, the collapse guard) is
+    agreed by every rank at the same chunk boundary; every rank restores
+    from the same directory. The K-step chunk (``make_train_chunk``, one
     CUDA Graph on the card) runs wherever ``step + K <= total``, single
     steps of ``make_train_step`` the tail; each step is logged at its own
     cadence from the chunk's stacked metrics, pulled to the host in one
@@ -557,8 +653,17 @@ def train(
     posterior-collapse guard reads ``post_std_batch`` at log cadence.
     Nothing falls back: a checkpoint that cannot be restored raises
     (``io.checkpoint``), and the chunk never gives way to eager steps."""
-    dev = resolve_device(device)
     t = cfg.train
+    if mesh is None:
+        mesh = choose_mesh(cfg, device)
+    elif device is not None and resolve_device(device) != mesh.device:
+        raise ValueError(f"train: device {device} is not the mesh's {mesh.device}")
+    if not mesh.member:
+        return None, []
+    dev = mesh.device
+    dp = _data_parallel(mesh)
+    main = mesh.is_main
+    warn = _warn if main else (lambda msg: None)
     if dataset is None:
         dataset = load_dataset(cfg.data.source, max_len=cfg.data.max_len, synthetic_n=cfg.data.n_synthetic,
                                seed=cfg.data.seed, with_properties=cfg.model.n_properties > 0,
@@ -567,44 +672,47 @@ def train(
     if eval_dataset is None and t.eval_every:
         dataset, eval_dataset = dataset.split(cfg.data.test_fraction, cfg.data.seed)
     with_props = cfg.model.n_properties > 0
-    it = BatchIterator(dataset, t.batch_size, seed=t.seed, device=dev, with_properties=with_props)
-    state = init_state(cfg, device=dev)
-    train_step = make_train_step(cfg)
+    it = BatchIterator(dataset, t.batch_size, seed=t.seed, device=dev, with_properties=with_props, mesh=dp)
+    state = replicate(dp, init_state(cfg, device=dev))
+    train_step = make_train_step(cfg, dp)
     total_steps = max_steps if max_steps is not None else (t.steps or t.epochs * max(it.steps_per_epoch, 1))
 
     manager = None
     if t.checkpoint_dir:
-        manager = ckpt_io.make_manager(t.checkpoint_dir, keep=t.keep_checkpoints)
-        # inference decodes with the exact table the model was trained on,
-        # and the directory alone is enough to restore
-        with open(os.path.join(t.checkpoint_dir, "charset.json"), "w") as f:
-            json.dump(list(dataset.charset.chars), f)
-        with open(os.path.join(t.checkpoint_dir, "config.json"), "w") as f:
-            json.dump(to_dict(cfg), f, indent=1)
+        manager = ckpt_io.make_manager(t.checkpoint_dir, keep=t.keep_checkpoints, mesh=dp)
+        if main:
+            # inference decodes with the exact table the model was trained
+            # on, and the directory alone is enough to restore
+            with open(os.path.join(t.checkpoint_dir, "charset.json"), "w") as f:
+                json.dump(list(dataset.charset.chars), f)
+            with open(os.path.join(t.checkpoint_dir, "config.json"), "w") as f:
+                json.dump(to_dict(cfg), f, indent=1)
+        barrier(dp)
         restored = manager.restore_latest(state)
         if restored is not None:
             state = restored
 
     eval_step = eval_it = None
     if t.eval_every and t.eval_batches > 0 and eval_dataset is not None and len(eval_dataset) > 0:
-        eval_step = make_eval_step(cfg)
-        eval_it = BatchIterator(eval_dataset, t.batch_size, seed=t.seed + 1, device=dev, with_properties=with_props)
+        eval_step = make_eval_step(cfg, dp)
+        eval_it = BatchIterator(eval_dataset, t.batch_size, seed=t.seed + 1, device=dev, with_properties=with_props,
+                                mesh=dp)
     if t.eval_roundtrip_n > 0 and eval_step is None:
-        _warn("eval_roundtrip_n > 0 needs eval_every > 0, eval_batches > 0 and a held-out split; "
+        warn("eval_roundtrip_n > 0 needs eval_every > 0, eval_batches > 0 and a held-out split; "
               "the round-trip probe will not run")
 
     chunk = max(1, t.train_chunk_size)
     if chunk > 1:
         for name, every in (("eval_every", t.eval_every), ("checkpoint_every", t.checkpoint_every)):
             if every and every < chunk:
-                _warn(f"{name}={every} < train_chunk_size={chunk}: actions fire at chunk boundaries, at most "
+                warn(f"{name}={every} < train_chunk_size={chunk}: actions fire at chunk boundaries, at most "
                       "once per chunk (raise the cadence or shrink the chunk)")
-    train_chunk = make_train_chunk(cfg, chunk, device=dev) if chunk > 1 else None
+    train_chunk = make_train_chunk(cfg, chunk, device=dev, mesh=dp) if chunk > 1 else None
 
     select_best = t.select_best
     best = {"metric": -1.0, "params": None, "ema": None, "step": -1}
     if select_best and (t.eval_roundtrip_n <= 0 or eval_step is None):
-        _warn("select_best needs eval_every > 0, eval_batches > 0, eval_roundtrip_n > 0 and a held-out split; "
+        warn("select_best needs eval_every > 0, eval_batches > 0, eval_roundtrip_n > 0 and a held-out split; "
               "falling back to last-step selection")
         select_best = False
     best_dir = os.path.join(t.checkpoint_dir, "best") if t.checkpoint_dir else None
@@ -615,7 +723,7 @@ def train(
             prior = json.load(f)
         best["metric"] = float(prior.get("metric", -1.0))
         best["step"] = int(prior.get("step", -1))
-        _warn(f"select_best: existing best/ has probe {best['metric']:.4f} at step {best['step']}; this run only "
+        warn(f"select_best: existing best/ has probe {best['metric']:.4f} at step {best['step']}; this run only "
               "replaces it if beaten")
 
     def consider_best(metric: float, st: TrainState, at_step: int) -> None:
@@ -630,13 +738,14 @@ def train(
     guard_floor = t.collapse_std_floor
     guard = {"warned": False}
     if guard_floor > 0 and t.log_every <= 0:
-        _warn("collapse_std_floor set but log_every=0: the guard only checks at log cadence and will never fire")
+        warn("collapse_std_floor set but log_every=0: the guard only checks at log cadence and will never fire")
 
     def collapse_check(entry: dict) -> None:
         v, s = entry.get("post_std_batch"), entry["step"]
         if guard_floor <= 0 or v is None or s < t.collapse_guard_after:
             return
-        if v >= guard_floor:
+        # every rank logs the same global rows and agrees on each verdict
+        if not agree_any(dp, v < guard_floor):
             guard["warned"] = False
             return
         msg = (f"[molvax] posterior collapse detected at step {s}: post_std_batch={v:.4g} < "
@@ -651,16 +760,17 @@ def train(
                 msg += f" — checkpointed at step {step_now}"
             raise PosteriorCollapseError(msg)
         if not guard["warned"]:
-            print(msg + " - continuing (collapse_abort=False)", file=sys.stderr)
+            if main:
+                print(msg + " - continuing (collapse_abort=False)", file=sys.stderr)
             guard["warned"] = True
 
     def roundtrip_probe(st: TrainState) -> Dict[str, float]:
         """The free-running round-trip probe on the weights inference reads."""
         gen = torch.Generator().manual_seed(fold_in(st.base_seed, _PROBE_SALT))
         return reconstruction_metrics(ema_eval_state(st).params, cfg, eval_dataset, gen,
-                                      n=min(t.eval_roundtrip_n, len(eval_dataset)))
+                                      n=min(t.eval_roundtrip_n, len(eval_dataset)), mesh=dp)
 
-    logger = MetricsLogger(metrics_path, stream=sys.stderr if verbose else False)
+    logger = MetricsLogger(metrics_path if main else None, stream=sys.stderr if verbose and main else False)
     history = []
     last_probe = {"step": -1, "metric": -1.0}
     stop = {"flag": False}
@@ -727,8 +837,8 @@ def train(
                 history.append(logger.log(step_now, mean))
             if manager is not None and _cadence_crossed(t.checkpoint_every, prev_step, step_now):
                 manager.save(step_now, state)
-            if stop["flag"]:
-                _warn(f"signal received: checkpointing at step {step_now} and stopping")
+            if agree_any(dp, stop["flag"]):
+                warn(f"signal received: checkpointing at step {step_now} and stopping")
                 break
         if manager is not None:
             manager.save(step_now, state)
@@ -743,7 +853,7 @@ def train(
                 consider_best(final_metric, state, step_now)
             if best["params"] is not None:
                 if best["step"] != step_now:
-                    _warn(f"select_best: step {best['step']} probe {best['metric']:.4f} beats final step "
+                    warn(f"select_best: step {best['step']} probe {best['metric']:.4f} beats final step "
                           f"{step_now} ({final_metric:.4f}); returning it")
                 # the winner into the state's own tensors; the Adam state
                 # stays the last step's (best/ is for inference, resume
@@ -755,14 +865,15 @@ def train(
                         state.ema_params[n].copy_(e)
                 state = state._replace(step=best["step"])
                 if manager is not None:
-                    best_mgr = ckpt_io.make_manager(best_dir, keep=1)
+                    best_mgr = ckpt_io.make_manager(best_dir, keep=1, mesh=dp)
                     # forced: a stale best/ may hold a later step
                     best_mgr.save(best["step"], state, force=True)
                     best_mgr.wait_until_finished()
-                    with open(best_meta_path, "w") as f:
-                        json.dump({"step": best["step"], "metric": best["metric"]}, f)
+                    if main:
+                        with open(best_meta_path, "w") as f:
+                            json.dump({"step": best["step"], "metric": best["metric"]}, f)
             elif best["step"] >= 0:
-                _warn(f"select_best: existing best/ (probe {best['metric']:.4f} at step {best['step']}) stands; "
+                warn(f"select_best: existing best/ (probe {best['metric']:.4f} at step {best['step']}) stands; "
                       "this run did not beat it")
                 # train() returns the selected iterate: the standing winner,
                 # unless best/ is incompatible with this config (failing
@@ -770,11 +881,13 @@ def train(
                 try:
                     restored = ckpt_io.make_manager(best_dir, keep=1).restore_latest(init_state(cfg, device=dev))
                 except ValueError as e:
-                    _warn(f"select_best: standing best/ is incompatible with this config ({e}); returning this "
+                    warn(f"select_best: standing best/ is incompatible with this config ({e}); returning this "
                           "run's final state instead")
                     restored = None
                 if restored is not None:
                     state = restored
+        # no rank leaves before the first has written all its files
+        barrier(dp)
     finally:
         # the handlers and the log are restored and closed even when the
         # loop raises: a stale handler would leave the process unkillable

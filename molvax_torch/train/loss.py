@@ -1,9 +1,15 @@
 """KL-annealed ELBO (+ optional multi-task property loss) and metrics.
 
 Port of ``molvax/train/loss.py``: per-molecule sums, batch mean; everything
-fp32 whatever the matmul dtype. 'ce' is the per-character cross-entropy of
-the decoder's distribution, 'bce' the compact port's binary cross-entropy
+fp32 whatever the matmul dtype. the decoder's distribution, 'bce' the compact port's binary cross-entropy
 of the softmax against the one-hot.
+
+Under a data-parallel mesh (``parallel.Mesh``) the metrics are those of the
+global batch, as the reference's GSPMD step computes them: the means of
+per-row values averaged over the ranks' equal shards, ``acc_nonpad`` from
+the global hits and non-pad count, ``post_std_batch`` from the global sums
+of mu, mu^2 and exp(logvar) (``global_metrics``, one all-reduce). The loss
+stays the rank's own mean: the gradients' all-reduce averages it.
 """
 
 from __future__ import annotations
@@ -11,6 +17,7 @@ from __future__ import annotations
 from typing import Dict, Optional, Tuple, Union
 
 import torch
+import torch.distributed
 
 from ..data.featurize import one_hot
 from ..nn.property_head import normalize_targets
@@ -61,6 +68,40 @@ def post_std_batch(mu: torch.Tensor, logvar: torch.Tensor, eps_scale: float) -> 
     return torch.sqrt(var_z).mean()
 
 
+def global_metrics(metrics: Dict[str, torch.Tensor], mesh, logits: torch.Tensor, codes: torch.Tensor,
+                   mu: torch.Tensor, logvar: torch.Tensor, eps_scale: float,
+                   pad_index: int = 0) -> Dict[str, torch.Tensor]:
+    """``metrics`` of a rank's shard made those of the global batch over
+    ``mesh``'s data axis, on the device, in one all-reduce (module
+    docstring). ``beta`` is the same on every rank and stays."""
+    with torch.no_grad():
+        means = [k for k in metrics if k not in ("beta", "acc_nonpad", "post_std_batch")]
+        hit = (logits.argmax(dim=-1) == codes).float()
+        nonpad = (codes != pad_index).float()
+        mu, logvar = mu.float(), logvar.float()
+        parts = [torch.stack([metrics[k].detach().float() for k in means]),
+                 torch.stack([(hit * nonpad).sum(), nonpad.sum()]),
+                 mu.sum(dim=0), (mu * mu).sum(dim=0), torch.exp(logvar).sum(dim=0)]
+        sizes = [p.numel() for p in parts]
+        total = torch.cat(parts)
+        torch.distributed.all_reduce(total, group=mesh.group)
+        mean_sums, acc_sums, s_mu, s_mu2, s_var = total.split(sizes)
+        rows = mu.shape[0] * mesh.data
+        mean_mu = s_mu / rows
+        var_z = torch.clamp(s_mu2 / rows - mean_mu * mean_mu, min=0.0) + (eps_scale**2) * (s_var / rows)
+        out = {}
+        for k in metrics:
+            if k in means:
+                out[k] = mean_sums[means.index(k)] / mesh.data
+            elif k == "acc_nonpad":
+                out[k] = acc_sums[0] / torch.clamp(acc_sums[1], min=1.0)
+            elif k == "post_std_batch":
+                out[k] = torch.sqrt(var_z).mean()
+            else:
+                out[k] = metrics[k]
+    return out
+
+
 def vae_loss(
     cfg,
     logits: torch.Tensor,
@@ -73,12 +114,16 @@ def vae_loss(
     property_loss_weight: float = 1.0,
     kl: Optional[torch.Tensor] = None,
     kl_free_bits: float = 0.0,
+    mesh=None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """(scalar loss, metrics of batch means). ``kl`` may come precomputed
     (the fused sampler). ``kl_free_bits`` > 0 floors each latent dim's KL at
     that many nats in the loss only; the 'kl' metric stays the true KL.
     ``beta``: a float, or a 0-d fp32 tensor on the loss device (a train
-    step's, read from its schedule vector on the card)."""
+    step's, read from its schedule vector on the card). ``mesh``: a
+    data-parallel mesh whose data axis has more than one rank makes the
+    metrics the global batch's (``global_metrics``); the loss stays this
+    rank's."""
     if cfg.recon_loss == "ce":
         recon = recon_ce(logits, codes)
     else:
@@ -109,4 +154,6 @@ def vae_loss(
         for i in range(cfg.n_properties):
             metrics[f"prop_mse_{i}"] = per_prop[i]
         metrics["loss"] = loss
+    if mesh is not None and mesh.collective and mesh.data > 1:
+        metrics = global_metrics(metrics, mesh, logits, codes, mu, logvar, cfg.eps_scale)
     return loss, metrics

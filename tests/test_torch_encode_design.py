@@ -349,7 +349,7 @@ def test_sampler_wrapper_hands_the_kernel_its_inputs(monkeypatch):
     assert ops.ops == ["aten.empty.memory_format"] * 2
     name, args = calls[0]
     assert name == "molvax_fused_sample_kl" and sampler.launches == before + 1
-    assert args == (mu.data_ptr(), lv.data_ptr(), z.data_ptr(), kl.data_ptr(), 6, 292, seed.data_ptr(), 0.5, 1234)
+    assert args == (mu.data_ptr(), lv.data_ptr(), z.data_ptr(), kl.data_ptr(), 6, 292, seed.data_ptr(), 0.5, 0, 1234)
     assert z.shape == (6, 292) and kl.shape == (6,)
     for a, b in zip(sampler.fused_sample_kl_ref(seed, mu, lv, 0.5), sampler.fused_sample_kl_ref(5, mu, lv, 0.5)):
         assert torch.equal(a, b)

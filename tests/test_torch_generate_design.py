@@ -253,7 +253,7 @@ def _plain_launches(monkeypatch, C, H, L, sms=SMS):
     counts as its launch would."""
     calls = []
 
-    def persistent(giz1, start, w, b, hbuf, codes, plan, base, end, C_, H_, L_, greedy, seed, temperature):
+    def persistent(giz1, start, w, b, hbuf, codes, plan, base, end, C_, H_, L_, greedy, seed, temperature, row_base):
         assert (C_, H_, L_) == (C, H, L) and plan.K == kg._up(H, 32)
         assert hbuf.shape == (L, 2, plan.slices * plan.g * plan.rows, plan.K) and hbuf.dtype == BF
         assert not hbuf.any() and base % (plan.g * plan.rows) == 0 and end <= codes.shape[0]
@@ -262,11 +262,11 @@ def _plain_launches(monkeypatch, C, H, L, sms=SMS):
         bh, bi, b_out = b[: L * G].reshape(L, G), b[L * G: (2 * L - 1) * G].reshape(L - 1, G), b[(2 * L - 1) * G:]
         layers = [(None if l == 0 else w_ih[l - 1], None if l == 0 else bi[l - 1], w_hh[l], bh[l]) for l in range(L)]
         codes[base:end] = _compose(giz1[base:end], start, wc, layers, w_out, b_out, codes.shape[1],
-                                   torch.arange(base, end), seed, greedy, temperature)
+                                   torch.arange(base, end) + row_base, seed, greedy, temperature)
         calls.append(("persistent", base, end))
         kg._count("persistent")
 
-    def row_block(giz1, start, w, b, codes, C_, H_, L_, greedy, seed, temperature):
+    def row_block(giz1, start, w, b, codes, C_, H_, L_, greedy, seed, temperature, row_base):
         assert (C_, H_, L_) == (C, H, L)
         G, mats, bs, off, boff = 3 * H, [], [], 0, 0
         for n in [C] + [H] * (2 * L - 1) + [H]:
@@ -280,7 +280,7 @@ def _plain_launches(monkeypatch, C, H, L, sms=SMS):
         layers = [(None, None, mats[1], bs[0])] + [
             (mats[2 * l], bs[2 * l - 1], mats[2 * l + 1], bs[2 * l]) for l in range(1, L)]
         codes.copy_(_compose(giz1, start, mats[0], layers, mats[-1], bs[-1], codes.shape[1],
-                             torch.arange(codes.shape[0]), seed, greedy, temperature))
+                             torch.arange(codes.shape[0]) + row_base, seed, greedy, temperature))
         calls.append(("row_block", 0, codes.shape[0]))
         kg._count("row_block")
 

@@ -31,8 +31,8 @@ train = C.TrainConfig(batch_size=8, train_chunk_size=2 if mode == "fast" else 1,
 if mode == "slow":  # each step long enough for two signals to land inside it
     real = loop.make_train_step
 
-    def slow(cfg):
-        step = real(cfg)
+    def slow(cfg, mesh=None):
+        step = real(cfg, mesh)
 
         def run(*args):
             time.sleep(0.5)
