@@ -29,7 +29,7 @@ import numpy as np
 import torch
 
 from ..parallel import local_rows
-from ..utils import PinnedStaging, resolve_device
+from ..utils import PinnedStaging, resolve_device, span
 from .zinc import Dataset
 
 
@@ -87,7 +87,7 @@ class BatchIterator:
         self.epoch = 0
         self.steps_per_epoch = len(dataset) // batch_size
         cuda = self.device.type == "cuda"
-        self._stage = (PinnedStaging(self.device), PinnedStaging(self.device)) if cuda else None
+        self._stage = tuple(PinnedStaging(self.device, wait_span="data.stage_wait") for _ in range(2)) if cuda else None
 
     def fast_forward(self, n_batches: int) -> None:
         """Advance the (deterministic) shuffle position by n_batches without
@@ -132,4 +132,5 @@ class BatchIterator:
     def next_stack(self, k: int) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """k batches stacked to (k, B, T) (and (k, B, P)) for the chunked
         trainer: one host-to-device copy per k steps."""
-        return self._put(np.stack([self._next_indices()[self._rows] for _ in range(k)]))
+        with span("data.next_stack"):
+            return self._put(np.stack([self._next_indices()[self._rows] for _ in range(k)]))

@@ -26,6 +26,11 @@ sampling seed) come from a ``torch.Generator``; its stream differs from
 from a generator in the same state, decodes its rows of z with the noise
 of their global rows (``row_base``), and every rank gets all the strings,
 those of the 1-rank call.
+
+Under a running profiler a request is marked in spans (``utils.span``):
+``sample.draw_z``, ``sample.decode`` (and on the scan route, per step,
+``sample.step`` holding ``sample.noise`` and ``sample.select``), then
+``sample.to_host``, where the host waits for the card, and ``sample.strings``.
 """
 
 from __future__ import annotations
@@ -43,6 +48,7 @@ from ..nn.encoder import linear
 from ..nn.gru import gru_stack_step
 from ..nn.vae import encode as vae_encode, reparameterize
 from ..parallel import map_rows
+from ..utils import span
 from .constrain import build_tables
 from .embed import encode_codes_chunked
 
@@ -78,14 +84,21 @@ def generate(
     (module docstring) and always returns the logits. ``row_base``: the
     global index of z's first row, which keys its sampling noise (a
     data-parallel rank's share of a global batch)."""
+    if charset.size != cfg.charset_size:
+        raise ValueError(f"charset size {charset.size} != model charset_size {cfg.charset_size}")
+    with span("sample.decode"):
+        return _generate(model, cfg, z, generator, greedy, temperature, constrained, charset, row_base)
+
+
+def _generate(model, cfg, z: torch.Tensor, generator: Optional[torch.Generator], greedy: bool, temperature: float,
+              constrained: bool, charset: Charset, row_base: int) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """``generate``'s decode, after its checks."""
     from ..kernels.generate import (
         fused_generate,
         generation_kernel_supported,
         gumbel_noise,
     )
 
-    if charset.size != cfg.charset_size:
-        raise ValueError(f"charset size {charset.size} != model charset_size {cfg.charset_size}")
     generator = generator if generator is not None else _default_generator()
     seed = _draw_seed(generator)
     B, T, C = z.shape[0], cfg.max_len, cfg.charset_size
@@ -97,7 +110,9 @@ def generate(
     def scores_of(logits_t, t):
         if greedy:
             return logits_t
-        return logits_t / temperature + gumbel_noise(seed, t, B, C, z.device, row_base)
+        with span("sample.noise"):
+            noise = gumbel_noise(seed, t, B, C, z.device, row_base)
+        return logits_t / temperature + noise
 
     with torch.no_grad():
         if cfg.decoder_conditioning == "repeat_z":
@@ -106,10 +121,11 @@ def generate(
             scores = logits
             if not greedy:
                 scores = torch.stack([scores_of(logits[:, t], t) for t in range(T)], dim=1)
-            if constrained:
-                # non-autoregressive logits, sequential constrained selection
-                return kauto.auto_step(itab, state, scores.float().contiguous(), T - 1), logits
-            return torch.argmax(scores, dim=-1).to(torch.int32), logits
+            with span("sample.select"):
+                if constrained:
+                    # non-autoregressive logits, sequential constrained selection
+                    return kauto.auto_step(itab, state, scores.float().contiguous(), T - 1), logits
+                return torch.argmax(scores, dim=-1).to(torch.int32), logits
 
         z_emb = latent_embed(model, cfg, z)
         if cfg.use_pallas_generation and not constrained and generation_kernel_supported(cfg, z.device):
@@ -127,17 +143,19 @@ def generate(
         codes = torch.empty(B, T, dtype=torch.int32, device=z.device)
         logits = torch.empty(B, T, C, device=z.device)
         for t in range(T):
-            x_t = torch.cat([z_emb, prev], dim=-1)
-            hs, out = gru_stack_step(gru, hs, x_t)
-            logits_t = linear(out, model.linear_4.weight, model.linear_4.bias)
-            scores = scores_of(logits_t, t)
-            if constrained:
-                code_t = kauto.auto_step(itab, state, scores.contiguous(), T - 1 - t)[:, 0]
-            else:
-                code_t = torch.argmax(scores, dim=-1)
-            codes[:, t] = code_t.to(torch.int32)
-            logits[:, t] = logits_t
-            prev = one_hot(code_t, C)
+            with span("sample.step"):
+                x_t = torch.cat([z_emb, prev], dim=-1)
+                hs, out = gru_stack_step(gru, hs, x_t)
+                logits_t = linear(out, model.linear_4.weight, model.linear_4.bias)
+                scores = scores_of(logits_t, t)
+                with span("sample.select"):
+                    if constrained:
+                        code_t = kauto.auto_step(itab, state, scores.contiguous(), T - 1 - t)[:, 0]
+                    else:
+                        code_t = torch.argmax(scores, dim=-1)
+                codes[:, t] = code_t.to(torch.int32)
+                logits[:, t] = logits_t
+                prev = one_hot(code_t, C)
     return codes, logits
 
 
@@ -159,7 +177,8 @@ def sample_prior(
     it; every rank passes a generator in the same state): the strings of
     the 1-rank call, on every rank."""
     generator = generator if generator is not None else _default_generator()
-    z = scale * torch.randn(n, cfg.latent_dim, generator=generator, device=generator.device)
+    with span("sample.draw_z"):
+        z = scale * torch.randn(n, cfg.latent_dim, generator=generator, device=generator.device)
     return _decode_over(model, cfg, z, generator, greedy, temperature, constrained, charset, mesh)
 
 
@@ -175,7 +194,11 @@ def _decode_over(model, cfg, z: torch.Tensor, generator, greedy: bool, temperatu
         return generate(model, cfg, part.to(model.device), generator, greedy=greedy, temperature=temperature,
                         constrained=constrained, charset=charset, row_base=row_base)[0]
 
-    return decode_codes(map_rows(mesh, z, decode_rows), charset)
+    codes = map_rows(mesh, z, decode_rows)
+    with span("sample.to_host"):  # the host waits here for the decode on the card
+        codes = codes.cpu()
+    with span("sample.strings"):
+        return decode_codes(codes, charset)
 
 
 def fit_aggregate_posterior(

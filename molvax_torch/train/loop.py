@@ -64,7 +64,7 @@ from ..io import checkpoint as ckpt_io
 from ..kernels.generate import fold_in, fold_in_range
 from ..nn.vae import MolecularVAE, forward
 from ..parallel import GradientMean, Mesh, agree_any, barrier, make_mesh, replicate, world_size
-from ..utils import PinnedStaging, resolve_device
+from ..utils import PinnedStaging, resolve_device, span
 from .evaluate import reconstruction_metrics
 from .loss import vae_loss
 from .metrics import MetricsLogger, host_rows
@@ -408,7 +408,7 @@ class CapturedChunk:
         dev = codes_stack.device
         self.key = _chunk_key(state, codes_stack, props_stack)
         self.written = _state_tensors(state)
-        self.staging = PinnedStaging(dev)
+        self.staging = PinnedStaging(dev, wait_span="train.stage_wait")
         self.codes = codes_stack.clone()
         self.props = None if props_stack is None else props_stack.clone()
         self.values = torch.empty((4, k), dtype=torch.int32, device=dev)
@@ -439,11 +439,12 @@ class CapturedChunk:
         advanced again here, so what is keyed by a weight's version (the
         persistent decode's packed weights, ``kernels.generate``) sees the
         new weights."""
-        self.codes.copy_(codes_stack)
-        if self.props is not None:
-            self.props.copy_(props_stack)
-        self.staging.copy(values.shape, torch.int32, lambda buf: np.copyto(buf, values), out=self.values)
-        self.graph.replay()
+        with span("train.replay"):
+            self.codes.copy_(codes_stack)
+            if self.props is not None:
+                self.props.copy_(props_stack)
+            self.staging.copy(values.shape, torch.int32, lambda buf: np.copyto(buf, values), out=self.values)
+            self.graph.replay()
         for t in self.written:
             increment_version(t)
         return self.metrics
@@ -514,21 +515,23 @@ def make_train_chunk(cfg, chunk: int, device: Optional[Union[str, torch.device]]
             raise ValueError(f"make_train_chunk: the chunk runs on {dev}; the model and the stack must lie there")
 
     def train_chunk(state: TrainState, codes_stack: torch.Tensor, props_stack: Optional[torch.Tensor] = None):
-        check(state, codes_stack, props_stack)
-        if dev.type != "cuda":
-            per_step = []
-            for i in range(chunk):
-                state, m = step(state, codes_stack[i], None if props_stack is None else props_stack[i])
-                per_step.append(m)
-            return state, {name: torch.stack([m[name] for m in per_step]) for name in per_step[0]}
-        values = schedule_vectors(cfg, state.base_seed, state.step, state.opt_state.count, chunk)
-        captured = graphs.get(state.params)
-        if captured is None or captured.key != _chunk_key(state, codes_stack, props_stack):
-            captured = graphs[state.params] = CapturedChunk(cfg, chunk, state, codes_stack, props_stack, values, mesh,
-                                                            step.grad_mean)
-        metrics = captured.replay(codes_stack, props_stack, values)
-        state.opt_state.count += chunk
-        return state._replace(step=state.step + chunk), metrics
+        with span("train.chunk"):
+            check(state, codes_stack, props_stack)
+            if dev.type != "cuda":
+                per_step = []
+                for i in range(chunk):
+                    state, m = step(state, codes_stack[i], None if props_stack is None else props_stack[i])
+                    per_step.append(m)
+                return state, {name: torch.stack([m[name] for m in per_step]) for name in per_step[0]}
+            values = schedule_vectors(cfg, state.base_seed, state.step, state.opt_state.count, chunk)
+            captured = graphs.get(state.params)
+            if captured is None or captured.key != _chunk_key(state, codes_stack, props_stack):
+                with span("train.capture"):
+                    captured = graphs[state.params] = CapturedChunk(cfg, chunk, state, codes_stack, props_stack,
+                                                                    values, mesh, step.grad_mean)
+            metrics = captured.replay(codes_stack, props_stack, values)
+            state.opt_state.count += chunk
+            return state._replace(step=state.step + chunk), metrics
 
     train_chunk.graphs = graphs
     train_chunk.grad_mean = step.grad_mean

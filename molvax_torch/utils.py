@@ -1,4 +1,10 @@
-"""Device and dtype resolution for the port, and the debug guards.
+"""Device and dtype resolution for the port, its profiler spans, and the
+debug guards.
+
+``span(name)`` marks a region of the program's host work in a running
+``torch.profiler`` trace as ``molvax:<name>``, on the clock of the device
+activity it records. With no profiler running it is one shared null
+context and calls no torch op, so a span may sit in a per-step host loop.
 
 The guards (``debug_mode``, ``assert_finite``, ``checked``) are the
 reference's ``molvax/utils.py`` in torch's idiom: anomaly detection makes a
@@ -48,6 +54,20 @@ def round_to(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return x.to(dtype).float()
 
 
+SPAN_PREFIX = "molvax:"
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """``with span("sample.step"): ...``: the region as ``molvax:<name>``
+    in whatever ``torch.profiler`` is running (the benchmark's, the
+    operator's ``train.profiling.trace``, a user's own); the null context
+    when none is."""
+    if not torch.autograd._profiler_enabled():
+        return _NO_SPAN
+    return torch.profiler.record_function(SPAN_PREFIX + name)
+
+
 class PinnedStaging:
     """Host-to-device copies through a ring of pinned host buffers.
 
@@ -59,12 +79,15 @@ class PinnedStaging:
     batch while the card still copies the last one, and never rewrites a
     buffer that a copy is still reading. Waiting on an event is not a
     stream or device synchronisation (``torch.cuda.set_sync_debug_mode``
-    lets it pass); in steady state the event has long completed."""
+    lets it pass); in steady state the event has long completed. Where
+    the ring has a ``wait_span`` name, that wait is a span of that name: the
+    time the host is held back by copies still in the card's queue."""
 
-    def __init__(self, device: Union[str, torch.device], slots: int = 2):
+    def __init__(self, device: Union[str, torch.device], slots: int = 2, wait_span: Optional[str] = None):
         self.device = torch.device(device)
         if self.device.type != "cuda":
             raise ValueError(f"PinnedStaging: {self.device} is not a CUDA device")
+        self.wait_span = wait_span
         self._bufs = [None] * slots
         self._events = [None] * slots
         self._next = 0
@@ -73,7 +96,8 @@ class PinnedStaging:
         i = self._next
         self._next = (i + 1) % len(self._bufs)
         if self._events[i] is not None:
-            self._events[i].synchronize()
+            with _NO_SPAN if self.wait_span is None else span(self.wait_span):
+                self._events[i].synchronize()
         buf = self._bufs[i]
         if buf is None or tuple(buf.shape) != tuple(shape) or buf.dtype != dtype:
             buf = self._bufs[i] = torch.empty(tuple(shape), dtype=dtype, pin_memory=True)

@@ -1,64 +1,17 @@
-"""The port's profiling module against molvax.train.profiling, on the CPU:
-FLOP counts for every preset, MFU arithmetic, the peak table and its
-override, the step timer, and a trace written with a named span."""
-
-import json
+"""The port's profiling module on the CPU: the H100's peaks, the bound
+arithmetic and the step timer. The program's spans and their trace are
+``test_torch_tracing.py``'s."""
 
 import pytest
 import torch
 
-import molvax.config as jcfg_mod
-import molvax.train.profiling as jprof
-import molvax_torch.config as tcfg_mod
 from molvax_torch.train import profiling as prof
 
 
-@pytest.mark.parametrize("name", sorted(tcfg_mod.PRESETS))
-def test_flops_per_smiles_equal_the_reference(name):
-    tcfg, jcfg = tcfg_mod.get_preset(name).model, jcfg_mod.get_preset(name).model
-    assert prof.forward_flops_per_smiles(tcfg) == jprof.forward_flops_per_smiles(jcfg)
-    assert prof.train_flops_per_smiles(tcfg) == jprof.train_flops_per_smiles(jcfg)
-    assert prof.train_flops_per_smiles(tcfg) > 0
-
-
-def test_flops_follow_the_options():
-    """Property head, repeat_z conditioning and the charset orientation
-    change the count as in the reference."""
-    base = tcfg_mod.ModelConfig()
-    for kw in (dict(n_properties=3), dict(decoder_conditioning="repeat_z"),
-               dict(conv_orientation="charset", conv_kernels=(9, 9, 11))):
-        t = tcfg_mod.ModelConfig(**kw)
-        assert prof.forward_flops_per_smiles(t) == jprof.forward_flops_per_smiles(jcfg_mod.ModelConfig(**kw))
-        assert prof.forward_flops_per_smiles(t) != prof.forward_flops_per_smiles(base)
-
-
-def test_mfu_arithmetic(monkeypatch):
-    cfg = tcfg_mod.get_preset("zinc250k").model
-    fps = prof.train_flops_per_smiles(cfg)
-    monkeypatch.setenv("MOLVAX_PEAK_TFLOPS", "500")
-    out = prof.mfu(2000.0, cfg)
-    assert out["flops_per_smiles"] == fps
-    assert out["tflops_sustained"] == pytest.approx(fps * 2000.0 / 1e12)
-    assert out["mfu"] == pytest.approx(out["tflops_sustained"] / 500.0)
-    monkeypatch.delenv("MOLVAX_PEAK_TFLOPS")
-    cpu = prof.mfu(2000.0, cfg, device="cpu")
-    assert cpu["mfu"] == 0.0 and cpu["tflops_sustained"] == out["tflops_sustained"]
-
-
-def test_peak_table_and_override(monkeypatch):
-    monkeypatch.delenv("MOLVAX_PEAK_TFLOPS", raising=False)
-    h100 = prof.PEAKS["NVIDIA H100 80GB HBM3"]
-    assert h100 is prof.H100_SXM
+def test_peak_table_and_override():
+    h100 = prof.H100_SXM
     assert (h100.bf16_tflops, h100.fp32_tflops, h100.int32_tops, h100.hbm_tb_s) == (989.0, 67.0, 33.5, 3.35)
     assert h100.tf32_tflops == 494.7
-    assert "NVIDIA A100-SXM4-80GB" not in prof.PEAKS
-    assert prof.device_peak_tflops("cpu") is None
-    if not torch.cuda.is_available():
-        with pytest.raises(RuntimeError, match="CUDA is not available"):
-            prof.device_peak_tflops()  # None means the card
-    monkeypatch.setenv("MOLVAX_PEAK_TFLOPS", "123.5")
-    assert prof.device_peak_tflops() == 123.5
-    assert prof.device_peak_tflops("cpu") == 123.5
 
 
 def test_bound_ms_is_the_larger_time():
@@ -80,20 +33,3 @@ def test_step_timer_on_a_cpu_function():
     drained = []
     prof.step_timer(fn, torch.ones(4), steps=2, rounds=1, fetch=drained.append)
     assert len(drained) == 2
-
-
-def test_cost_summary_counts_matmul_flops():
-    a, b = torch.ones(8, 16), torch.ones(16, 4)
-    out = prof.cost_summary(torch.matmul, a, b)
-    assert out["flops"] == 2 * 8 * 16 * 4
-    assert "sol_step_s" not in out  # a CPU tensor has no peak
-
-
-def test_trace_and_annotate_write_a_chrome_trace(tmp_path):
-    with prof.trace(str(tmp_path)):
-        with prof.annotate("molvax_probe_span"):
-            torch.ones(8, 8) @ torch.ones(8, 8)
-    files = list(tmp_path.glob("trace_*.json"))
-    assert len(files) == 1
-    events = json.loads(files[0].read_text())["traceEvents"]
-    assert any(ev.get("name") == "molvax_probe_span" for ev in events)
