@@ -218,7 +218,19 @@ phases, each printed on its own lines:
      and decode_latents greedy over the ranks equal to the 1-process
      strings (or a near-tie within MARGIN); (f) the ranks' checkpoint
      restored by this process, and this process's restored by the ranks,
-     bit for bit.
+     bit for bit;
+ 28. the scan route's decode as one CUDA Graph (latent.sample's
+     CapturedDecode) at B=256, greedy, T=1.0 and T=0.7: five calls a key,
+     op by op until the key's third call captures its graph, three seeds
+     replayed; codes and logits of every call equal to the op-by-op loop
+     bit for bit; auto_step 120 a call (121 in the capturing call: its step
+     before the capture), and 120 auto_step kernels a replay in the
+     profiler's trace; a key of its own under the plain automaton (0
+     auto_step launches, equal to its loop and to the kernel's replay); the
+     device activities the profiler records in a replay and in the loop; a
+     key's first call, its capturing call, a replay and the loop, ms a
+     request. (Phases 17, 18 and 24-26 decode through the graph where a key
+     comes back: phase 17 counts its replays' auto_step kernels too.)
 
 Any failure raises and exits non-zero. Without CUDA it exits 2 and prints
 no result. The line before the card's is the ``kernels`` JSON: each kernel
@@ -260,6 +272,7 @@ from molvax_torch.kernels import gru as kgru
 from molvax_torch.kernels import generate as kg
 from molvax_torch.latent import constrain as kcon
 from molvax_torch.latent.beam import beam_generate, beam_reconstruct
+from molvax_torch.latent import sample as ls
 from molvax_torch.latent.sample import generate, reconstruct, sample_prior
 from molvax_torch.nn.decoder import decoder_input_size, latent_embed, teacher_inputs
 from molvax_torch.nn.encoder import conv_input_channels, encoder_params, flat_conv_dim
@@ -1339,6 +1352,24 @@ def phase17(model, qcfg, dev) -> dict:
         if bad or len(strings) != B:
             raise AssertionError(f"constrained sample_prior ({name}): invalid strings {bad[:5]}")
         out[name] = got
+    # the greedy key again until its graph is captured (latent.sample), then
+    # replays: the profiler records T auto_step kernels a replay, and the
+    # counter counts T a replay
+    z = torch.from_numpy(np.random.default_rng(SEED + 17).standard_normal((B, qcfg.latent_dim))
+                         .astype(np.float32)).to(dev)
+    caps = ls.graph_captures
+    while ls.graph_captures == caps:
+        generate(model, qcfg, z, constrained=True)
+    reset_counts()
+    reps = ls.graph_replays
+    per = profiled_kernels_per_call("auto_step", lambda: generate(model, qcfg, z, constrained=True), T, alone=False)
+    replays, counted = ls.graph_replays - reps, counts()["auto_step"]
+    say("phase17", check="auto_step_in_replays", mode="greedy", replays=replays, counted=counted,
+        profiler_auto_step_per_replay=per)
+    if per != T or counted != T * replays:
+        raise AssertionError(f"constrained replays: the profiler {per} auto_step a replay, counted {counted} "
+                             f"in {replays} replays, expected {T}")
+    out["replay_auto_step"] = per
     reset_counts()
     beams = beam_reconstruct(model, qcfg, SMILES, beam=BEAM, constrained=True)
     torch.cuda.synchronize()
@@ -1376,22 +1407,22 @@ def phase17(model, qcfg, dev) -> dict:
     return out
 
 
-def profiled_kernels_per_call(name: str, fn, per_call: int, sessions: int = 5) -> float:
+def profiled_kernels_per_call(name: str, fn, per_call: int, sessions: int = 5, alone: bool = True) -> float:
     """Device kernels per call that torch.profiler records of wrapper
     ``name`` (kernel ``name``_kernel), whose call fn makes ``per_call``
     counted launches; 0.0 where no session recorded any. Every session must
-    record that kernel and nothing else (no preparation kernel or copy
-    around it) and no more of it than the calls launch. The profiler at
-    times loses a kernel at a session's edge (seen: 9 of 10 in every
-    session of a process on an H100 80GB HBM3), so the count a call is that
-    of a session of 20 calls less that of one of 10, over 10; up to
-    ``sessions`` pairs run until it is ``per_call``, and failing that the
-    check fails."""
+    record no more of that kernel than the calls launch and, ``alone``,
+    nothing else (no preparation kernel or copy around it); otherwise the
+    other activities are left out. The profiler at times loses a kernel at
+    a session's edge (seen: 9 of 10 in every session of a process on an
+    H100 80GB HBM3), so the count a call is that of a session of 20 calls
+    less that of one of 10, over 10; up to ``sessions`` pairs run until it
+    is ``per_call``, and failing that the check fails."""
     def session(calls: int) -> int:
         got = device_kernels(lambda: [fn() for _ in range(calls)])
         foreign = {k: n for k, n in got.items() if f"{name}_kernel" not in k}
         n = sum(got.values()) - sum(foreign.values())
-        if foreign or n > calls * per_call:
+        if (alone and foreign) or n > calls * per_call:
             raise AssertionError(f"{name}: the profiler recorded {got} for {calls} calls of {per_call} launches")
         return n
 
@@ -2646,7 +2677,10 @@ def phase25(dev, gpu, ds) -> dict:
     check_eval_report(p_report, "evaluate(property_joint)", n_properties=prop.model.n_properties)
     n_opt = min(64, len(p_held))
     dec = decode_launches(n_opt, prop.model, dev)
-    want_opt = {**{k: 2 * v for k, v in dec.items()}, "auto_step": 2 * T}
+    # the two constrained decodes share a key; were the second to capture its
+    # graph (latent.sample), the step that runs before the capture would
+    # launch auto_step once more
+    want_opt = {**{k: 2 * v for k, v in dec.items()}, "auto_step": 2 * T + (ls._CAPTURE_AT_CALL == 2)}
     got_opt = [c["launches"] for c in p_calls["optimization_metrics"]]
     say("phase25", preset=prop.name, trained_steps=p_state.step, corpus_and_train_s=f"{corpus_s:.2f}",
         held_out_rows=len(p_held), optimization_launches=json.dumps(got_opt).replace(" ", ""),
@@ -3287,6 +3321,102 @@ def phase27(dev, gpu, model, codes, ds) -> dict:
     return out
 
 
+def phase28(model, qcfg, dev, gpu) -> dict:
+    """The scan route's decode as one CUDA Graph (``latent.sample.CapturedDecode``)
+    at B=256: greedy, T=1.0 and T=0.7, five calls of a key (each its own z
+    and generator seed): the calls before ``_CAPTURE_AT_CALL`` op by op,
+    then one capture and replays, each call's codes and logits equal to the
+    op-by-op loop (``_eager_scan``) bit for bit; auto_step T a call, once
+    more in the capturing call (its step before the capture); the profiler's
+    auto_step kernels a replay (T); a key of its own under the plain
+    automaton, equal to its loop and to the kernel's replay; the device
+    activities the profiler records in a replay and in the loop; a key's
+    first call, its capturing call, a replay and the loop, ms a request."""
+    t0 = time.perf_counter()
+    T, C = qcfg.max_len, qcfg.charset_size
+    at = ls._CAPTURE_AT_CALL
+    rng = np.random.default_rng(SEED + 28)
+    zs = [torch.from_numpy(rng.standard_normal((B, qcfg.latent_dim)).astype(np.float32)).to(dev) for _ in range(5)]
+    seeds = [SEED + 280 + i for i in range(len(zs))]
+    ls._graphs.pop(model, None)  # phase 17 decoded these keys
+
+    def served(z, seed, greedy, temp):
+        return generate(model, qcfg, z, torch.Generator().manual_seed(seed), greedy=greedy, temperature=temp,
+                        constrained=True)
+
+    def eager(z, seed, greedy, temp):
+        with torch.no_grad():
+            return ls._eager_scan(model, qcfg, z, ls._draw_seed(torch.Generator().manual_seed(seed)), greedy, temp,
+                                  True, DEFAULT_CHARSET, 0)
+
+    out = {}
+    want_launches = [T + (i + 1 == at) for i in range(len(zs))]
+    for name, greedy, temp in (("greedy", True, 1.0), ("T1.0", False, 1.0), ("T0.7", False, 0.7)):
+        caps, reps = ls.graph_captures, ls.graph_replays
+        same, launches = [], []
+        for z, seed in zip(zs, seeds):
+            reset_counts()
+            codes, logits = served(z, seed, greedy, temp)
+            launches.append(counts()["auto_step"])
+            codes_e, logits_e = eager(z, seed, greedy, temp)
+            same.append(bool(torch.equal(codes, codes_e) and torch.equal(logits, logits_e)))
+        torch.cuda.synchronize()
+        got = {"captures": ls.graph_captures - caps, "replays": ls.graph_replays - reps}
+        say("phase28", mode=name, B=B, T=T, calls=len(zs), capture_at_call=at, **got,
+            equal_to_loop=json.dumps(same), auto_step_per_call=json.dumps(launches))
+        if got != {"captures": 1, "replays": len(zs) - at} or not all(same) or launches != want_launches:
+            raise AssertionError(f"captured decode ({name}): {got}, equal to the loop {same}, auto_step {launches}, "
+                                 f"expected {want_launches}")
+        out[name] = got
+    # what runs in a replay: the profiler's auto_step kernels beside the counter
+    reset_counts()
+    reps = ls.graph_replays
+    per = profiled_kernels_per_call("auto_step", lambda: served(zs[1], seeds[1], False, 1.0), T, alone=False)
+    replays, counted = ls.graph_replays - reps, counts()["auto_step"]
+    say("phase28", check="auto_step_in_replays", mode="T1.0", replays=replays, counted=counted,
+        profiler_auto_step_per_replay=per)
+    if per != T or counted != T * replays:
+        raise AssertionError(f"replays: the profiler {per} auto_step a replay, counted {counted} in {replays}")
+    # the plain automaton: a key of its own, the same codes
+    caps = ls.graph_captures
+    with plain_automaton():
+        reset_counts()
+        for _ in range(at):
+            codes_p, logits_p = served(zs[0], seeds[0], False, 1.0)
+        plain_launches = counts()["auto_step"]
+        codes_pe, logits_pe = eager(zs[0], seeds[0], False, 1.0)
+    codes_k, logits_k = served(zs[0], seeds[0], False, 1.0)
+    torch.cuda.synchronize()
+    plain = {"captures": ls.graph_captures - caps, "auto_step": plain_launches,
+             "equal_to_its_loop": bool(torch.equal(codes_p, codes_pe) and torch.equal(logits_p, logits_pe)),
+             "equal_to_kernel_route": bool(torch.equal(codes_p, codes_k) and torch.equal(logits_p, logits_k))}
+    say("phase28", check="plain_automaton_own_capture", **plain)
+    if plain != {"captures": 1, "auto_step": 0, "equal_to_its_loop": True, "equal_to_kernel_route": True}:
+        raise AssertionError(f"captured decode under the plain automaton: {plain}")
+    # device activities a request, as the profiler records them
+    rec = {"replay": sum(device_kernels(lambda: served(zs[1], seeds[1], False, 1.0)).values()),
+           "loop": sum(device_kernels(lambda: eager(zs[1], seeds[1], False, 1.0)).values())}
+    say("phase28", profiled_device_activities="T1.0", replay=rec["replay"], loop=rec["loop"],
+        replay_per_step=f"{rec['replay'] / T:.2f}", loop_per_step=f"{rec['loop'] / T:.2f}")
+    # ms a request at T=1.0: a key's first call, its capturing call, a replay, the loop
+    ls._graphs.pop(model, None)
+    ms = {}
+    for i in range(at):
+        torch.cuda.synchronize()
+        a = time.perf_counter()
+        served(zs[2], seeds[2], False, 1.0)
+        torch.cuda.synchronize()
+        ms[("first_call", "second_call")[i] if i < at - 1 else "capture_call"] = (time.perf_counter() - a) * 1e3
+    ms.update(replay=time_ms(lambda: served(zs[2], seeds[2], False, 1.0)),
+              loop=time_ms(lambda: eager(zs[2], seeds[2], False, 1.0), warmup=1, reps=3))
+    say("phase28", times="T1.0", B=B, **{f"{k}_ms": f"{v:.3f}" for k, v in ms.items()},
+        replay_smiles_per_s=f"{B / (ms['replay'] / 1e3):.1f}", loop_smiles_per_s=f"{B / (ms['loop'] / 1e3):.1f}",
+        card=json.dumps(gpu))
+    say("phase28", phase_s=f"{time.perf_counter() - t0:.1f}")
+    out.update(plain=plain, profiled=rec, replay_auto_step=per, ms=ms)
+    return out
+
+
 def entry(name, source, replaces, launches, err, ms, plain_ms, bnd, library_ms, **extra) -> dict:
     """One kernel of the ``kernels`` line."""
     return {"name": name, "route": "cuda", "source": f"molvax_torch/kernels/csrc/{source}",
@@ -3814,6 +3944,9 @@ def main() -> int:
 
     # -- 27. data parallelism -------------------------------------------------
     p27 = phase27(dev, gpu, model, codes, ds)
+
+    # -- 28. the scan route's decode as one CUDA Graph ----------------------
+    phase28(model, qfull_cfg, dev, gpu)
 
     beam_counts = decodes["beam"]
     print(json.dumps({"kernels": [

@@ -153,7 +153,7 @@ def select_advance(tb: Tables, st: ConState, scores: torch.Tensor, rem) -> Tuple
     First-argmax at -inf for illegal tokens; a NaN among the legal scores
     gives code 0 (pad)."""
     m = step_mask_rem(tb, st, rem)
-    sc = torch.where(m, scores, torch.tensor(-float("inf"), dtype=scores.dtype, device=scores.device))
+    sc = torch.where(m, scores, -float("inf"))
     mx = torch.amax(sc, dim=1, keepdim=True)
     cidx = torch.arange(tb.n, dtype=torch.int32, device=scores.device)[None, :]
     code = torch.amin(torch.where(sc == mx, cidx, tb.n), dim=1)

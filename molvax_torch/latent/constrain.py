@@ -403,7 +403,7 @@ def step_mask_rem(tb: Tables, st: ConState, rem: Union[int, torch.Tensor]) -> to
 
     ok_dot = (
         outside & prev_ok & (st.pend == 0) & (st.sp == 0) & (r == 0)
-        & torch.as_tensor(rem >= 1, device=dev)
+        & (rem >= 1)
     )[:, None] & tb.is_dot[None, :]
 
     # --- bracket atoms ----------------------------------------------------

@@ -27,15 +27,34 @@ from a generator in the same state, decodes its rows of z with the noise
 of their global rows (``row_base``), and every rank gets all the strings,
 those of the 1-rank call.
 
+On a card the scan route's T steps become one CUDA Graph (``CapturedDecode``)
+once a key (``_decode_key``: the shape, the mode, the charset, the matmul
+settings, the weights' addresses, the automaton's step function, the device)
+comes back: a key's first two calls run them op by op, as the CPU does
+(``_scan``), its third captures them, and every later call replays the
+graph. A replay draws the noise of the request's seed from a device tensor,
+so it decodes what the op-by-op loop decodes, bit for bit. A key called once
+or twice thus pays no capture (``evaluate()`` decodes each of its keys at
+most twice, on a new copy of the model where it reads EMA weights), and a
+key that keeps coming back pays one, at its third call.
+``graph_captures`` and ``graph_replays`` count the graphs made and the
+decodes that replayed a graph an earlier call made. A model's decodes on a
+card share their graphs' static buffers, so they must not run from several
+threads at once.
+
 Under a running profiler a request is marked in spans (``utils.span``):
-``sample.draw_z``, ``sample.decode`` (and on the scan route, per step,
-``sample.step`` holding ``sample.noise`` and ``sample.select``), then
+``sample.draw_z``, ``sample.decode`` (and on the scan route ``sample.capture``
+and ``sample.replay`` on a card; per step, where the steps run op by op and
+inside a capture, ``sample.step`` holding ``sample.noise`` and
+``sample.select``), then
 ``sample.to_host``, where the host waits for the card, and ``sample.strings``.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+import collections
+import weakref
+from typing import List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -48,9 +67,25 @@ from ..nn.encoder import linear
 from ..nn.gru import gru_stack_step
 from ..nn.vae import encode as vae_encode, reparameterize
 from ..parallel import map_rows
-from ..utils import span
+from ..utils import capture_graph, matmul_dtype, span
 from .constrain import build_tables
 from .embed import encode_codes_chunked
+
+
+# scan-route decodes on a card (``CapturedDecode``): graphs captured, and
+# decodes that replayed a graph captured by an earlier call
+graph_captures = 0
+graph_replays = 0
+
+# a key's call that captures its graph: the calls before it run op by op
+_CAPTURE_AT_CALL = 3
+# keys a model keeps, counted or captured; the least recently used goes
+# first. A full evaluate() (beam, the temperature sweep, optimization with
+# and without the automaton) of a strict-fp32 model decodes 10 keys on the
+# scan route in 13 calls (tests/test_torch_decode_graph.py counts them), so
+# a repeated report finds all of its keys again.
+_KEYS_PER_MODEL = 10
+_graphs: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
 
 
 def _default_generator() -> torch.Generator:
@@ -93,70 +128,207 @@ def generate(
 def _generate(model, cfg, z: torch.Tensor, generator: Optional[torch.Generator], greedy: bool, temperature: float,
               constrained: bool, charset: Charset, row_base: int) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """``generate``'s decode, after its checks."""
-    from ..kernels.generate import (
-        fused_generate,
-        generation_kernel_supported,
-        gumbel_noise,
-    )
+    from ..kernels.generate import fused_generate, generation_kernel_supported
 
     generator = generator if generator is not None else _default_generator()
     seed = _draw_seed(generator)
-    B, T, C = z.shape[0], cfg.max_len, cfg.charset_size
-    itab = state = None
-    if constrained:
-        itab = kauto.pack_tables(build_tables(charset)).to(z.device)
-        state = kauto.new_state(B, T, z.device)
-
-    def scores_of(logits_t, t):
-        if greedy:
-            return logits_t
-        with span("sample.noise"):
-            noise = gumbel_noise(seed, t, B, C, z.device, row_base)
-        return logits_t / temperature + noise
-
+    T = cfg.max_len
     with torch.no_grad():
         if cfg.decoder_conditioning == "repeat_z":
             # one non-autoregressive pass: the decoder never sees its outputs
             logits = decode(model, cfg, z)
             scores = logits
             if not greedy:
-                scores = torch.stack([scores_of(logits[:, t], t) for t in range(T)], dim=1)
+                scores = torch.stack([_scores(logits[:, t], t, seed, temperature, row_base) for t in range(T)], dim=1)
             with span("sample.select"):
                 if constrained:
                     # non-autoregressive logits, sequential constrained selection
+                    itab, state = _automaton(charset, z.shape[0], T, z.device)
                     return kauto.auto_step(itab, state, scores.float().contiguous(), T - 1), logits
                 return torch.argmax(scores, dim=-1).to(torch.int32), logits
 
-        z_emb = latent_embed(model, cfg, z)
         if cfg.use_pallas_generation and not constrained and generation_kernel_supported(cfg, z.device):
-            codes = fused_generate(model, cfg, z_emb, seed, greedy=greedy, temperature=temperature,
-                                   row_base=row_base)
+            codes = fused_generate(model, cfg, latent_embed(model, cfg, z), seed, greedy=greedy,
+                                   temperature=temperature, row_base=row_base)
             return codes, None
+        return _scan_route(model, cfg, z, seed, greedy, temperature, constrained, charset, row_base)
 
-        gru = model.gru
-        hs = torch.zeros(gru.num_layers, B, cfg.gru_hidden, device=z.device)
-        prev = (
-            model.start_token.float()[None, :].expand(B, C)
-            if model.start_token is not None
-            else torch.zeros(B, C, device=z.device)
-        )
-        codes = torch.empty(B, T, dtype=torch.int32, device=z.device)
-        logits = torch.empty(B, T, C, device=z.device)
-        for t in range(T):
-            with span("sample.step"):
-                x_t = torch.cat([z_emb, prev], dim=-1)
-                hs, out = gru_stack_step(gru, hs, x_t)
-                logits_t = linear(out, model.linear_4.weight, model.linear_4.bias)
-                scores = scores_of(logits_t, t)
-                with span("sample.select"):
-                    if constrained:
-                        code_t = kauto.auto_step(itab, state, scores.contiguous(), T - 1 - t)[:, 0]
-                    else:
-                        code_t = torch.argmax(scores, dim=-1)
-                codes[:, t] = code_t.to(torch.int32)
-                logits[:, t] = logits_t
-                prev = one_hot(code_t, C)
+
+def _automaton(charset: Charset, B: int, T: int, device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The valence automaton's packed tables and the packed initial state of
+    B rows (``kernels.automaton``), on ``device``."""
+    return kauto.pack_tables(build_tables(charset)).to(device), kauto.new_state(B, T, device)
+
+
+def _scores(logits_t: torch.Tensor, t: int, seed: Union[int, torch.Tensor], temperature: Optional[float],
+            row_base: int) -> torch.Tensor:
+    """Step t's selection scores: the logits (``temperature`` None, greedy),
+    or logits / temperature + the Gumbel noise of the step's global rows."""
+    from ..kernels.generate import gumbel_noise
+
+    if temperature is None:
+        return logits_t
+    with span("sample.noise"):
+        noise = gumbel_noise(seed, t, logits_t.shape[0], logits_t.shape[1], logits_t.device, row_base)
+    return logits_t / temperature + noise
+
+
+def _scan(model, cfg, z: torch.Tensor, seed: Union[int, torch.Tensor], temperature: Optional[float],
+          itab: Optional[torch.Tensor], state: Optional[torch.Tensor], row_base: int, codes: torch.Tensor,
+          logits: torch.Tensor, steps: Optional[int] = None) -> None:
+    """The scan route's decode over its buffers: z's embedding, then the
+    first ``steps`` (all T by default) steps of the fp32 GRU, the head, the
+    scores (``_scores``; ``temperature`` None is greedy) and the selection,
+    into codes[:, t] (B, T) int32 and logits[:, t] (B, T, C). With ``itab``
+    each step goes through one ``auto_step``, which advances the packed
+    automaton ``state`` in place. ``seed`` is a Python int or a 0-d int64
+    tensor on z's device (``kernels.generate.seed_word``): the same noise.
+    ``_eager_scan`` runs it op by op; ``CapturedDecode`` captures it."""
+    B, T, C = z.shape[0], cfg.max_len, cfg.charset_size
+    gru = model.gru
+    z_emb = latent_embed(model, cfg, z)
+    hs = torch.zeros(gru.num_layers, B, cfg.gru_hidden, device=z.device)
+    prev = (
+        model.start_token.float()[None, :].expand(B, C)
+        if model.start_token is not None
+        else torch.zeros(B, C, device=z.device)
+    )
+    for t in range(T if steps is None else steps):
+        with span("sample.step"):
+            x_t = torch.cat([z_emb, prev], dim=-1)
+            hs, out = gru_stack_step(gru, hs, x_t)
+            logits_t = linear(out, model.linear_4.weight, model.linear_4.bias)
+            scores = _scores(logits_t, t, seed, temperature, row_base)
+            with span("sample.select"):
+                if itab is not None:
+                    code_t = kauto.auto_step(itab, state, scores.contiguous(), T - 1 - t)[:, 0]
+                else:
+                    code_t = torch.argmax(scores, dim=-1)
+            codes[:, t] = code_t.to(torch.int32)
+            logits[:, t] = logits_t
+            prev = one_hot(code_t, C)
+
+
+def _eager_scan(model, cfg, z: torch.Tensor, seed: Union[int, torch.Tensor], greedy: bool, temperature: float,
+                constrained: bool, charset: Charset, row_base: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The scan route's decode op by op, on fresh buffers: the CPU's route
+    and a key's first call on a card, and what a replay must equal.
+    (codes, logits)."""
+    B, T, C = z.shape[0], cfg.max_len, cfg.charset_size
+    itab, state = _automaton(charset, B, T, z.device) if constrained else (None, None)
+    codes = torch.empty(B, T, dtype=torch.int32, device=z.device)
+    logits = torch.empty(B, T, C, device=z.device)
+    _scan(model, cfg, z, seed, None if greedy else temperature, itab, state, row_base, codes, logits)
     return codes, logits
+
+
+def _decode_key(model, cfg, z: torch.Tensor, greedy: bool, temperature: float, constrained: bool,
+                charset: Charset, row_base: int) -> tuple:
+    """What a captured decode bakes in: z's shape and type, T and C, the
+    mode (``greedy``, ``temperature``, ``constrained``, ``row_base``), the
+    charset, the matmul type and torch's fp32 matmul settings (they pick
+    the cuBLAS kernels), the address, shape and type of every parameter
+    (the graph reads the decoder's weights where they lie, so in-place
+    updates need no new capture; a moved weight does), the automaton's step
+    function (the kernel's wrapper or its plain version) and the device."""
+    weights = tuple((p.data_ptr(), tuple(p.shape), p.dtype) for p in model.parameters())
+    return (tuple(z.shape), z.dtype, cfg.max_len, cfg.charset_size, greedy, temperature, constrained, row_base,
+            charset.chars, matmul_dtype(cfg, z.device), torch.get_float32_matmul_precision(),
+            torch.backends.cuda.matmul.allow_tf32, weights, kauto.auto_step, z.device)
+
+
+class CapturedDecode:
+    """The scan route's T steps of one key (``_decode_key``) captured in one
+    CUDA Graph, replayed per request.
+
+    The graph reads a static z, a 0-d int64 noise seed, the automaton's
+    tables (packed once here) and the model's weights in place, resets the
+    automaton state from a kept initial state, and writes static codes and
+    logits; everything it makes between them lives in its private memory
+    pool, which its steps share. It writes none of the model's tensors.
+    Before capture the first step runs for real on the capturing stream
+    (``utils.capture_graph``), and counts its one ``auto_step`` launch; the
+    capture records T launches that do not run, and each replay counts
+    them (T, or 0 under the plain automaton)."""
+
+    def __init__(self, model, cfg, z: torch.Tensor, greedy: bool, temperature: float, constrained: bool,
+                 charset: Charset, row_base: int):
+        dev = z.device
+        B, T, C = z.shape[0], cfg.max_len, cfg.charset_size
+        self.z = z.clone()
+        self.seed = torch.zeros((), dtype=torch.int64, device=dev)
+        self.itab = self.state0 = self.state = None
+        if constrained:
+            self.itab, self.state0 = _automaton(charset, B, T, dev)
+            self.state = self.state0.clone()
+        self.codes = torch.empty(B, T, dtype=torch.int32, device=dev)
+        self.logits = torch.empty(B, T, C, device=dev)
+
+        def run(steps: Optional[int] = None) -> None:
+            if self.state is not None:
+                self.state.copy_(self.state0)
+            _scan(model, cfg, self.z, self.seed, None if greedy else temperature, self.itab, self.state, row_base,
+                  self.codes, self.logits, steps)
+
+        def body() -> int:
+            before = kauto.step_launches
+            run()
+            recorded, kauto.step_launches = kauto.step_launches - before, before
+            return recorded
+
+        self.graph, self.launches, _ = capture_graph(dev, lambda: run(1), body)
+
+    def replay(self, z: torch.Tensor, seed: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One request: z into the static z, the seed into the seed tensor,
+        one replay; (codes, logits) are copies, since the next replay
+        rewrites the graph's own."""
+        with span("sample.replay"):
+            self.z.copy_(z)
+            self.seed.fill_(seed)
+            self.graph.replay()
+        kauto.step_launches += self.launches
+        return self.codes.clone(), self.logits.clone()
+
+
+def _entry(model, key: tuple, make):
+    """The model's entry of ``key`` and whether ``make()`` made it now:
+    (None, False) for the key's calls before its ``_CAPTURE_AT_CALL``-th,
+    which the caller runs op by op; at that call (``make()``, True); later
+    (that entry, False). A model keeps ``_KEYS_PER_MODEL`` keys, the least
+    recently used dropped first; its entries go with it."""
+    entries = _graphs.setdefault(model, collections.OrderedDict())
+    entry = entries.pop(key, 0)  # the calls so far, or the key's graph
+    made = isinstance(entry, int) and entry + 1 >= _CAPTURE_AT_CALL
+    if made:
+        entry = make()
+    entries[key] = entry + 1 if isinstance(entry, int) else entry
+    while len(entries) > _KEYS_PER_MODEL:
+        entries.popitem(last=False)
+    return (None if isinstance(entry, int) else entry), made
+
+
+def _scan_route(model, cfg, z: torch.Tensor, seed: int, greedy: bool, temperature: float, constrained: bool,
+                charset: Charset, row_base: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The scan route: op by op on the CPU and at a key's first calls on a
+    card (``_entry``); the key's graph, once captured, replayed."""
+    global graph_captures, graph_replays
+
+    if z.device.type != "cuda":
+        return _eager_scan(model, cfg, z, seed, greedy, temperature, constrained, charset, row_base)
+
+    def capture() -> CapturedDecode:
+        with span("sample.capture"):
+            return CapturedDecode(model, cfg, z, greedy, temperature, constrained, charset, row_base)
+
+    entry, made = _entry(model, _decode_key(model, cfg, z, greedy, temperature, constrained, charset, row_base),
+                         capture)
+    if entry is None:
+        return _eager_scan(model, cfg, z, seed, greedy, temperature, constrained, charset, row_base)
+    if made:
+        graph_captures += 1
+    else:
+        graph_replays += 1
+    return entry.replay(z, seed)
 
 
 def sample_prior(

@@ -64,7 +64,7 @@ from ..io import checkpoint as ckpt_io
 from ..kernels.generate import fold_in, fold_in_range
 from ..nn.vae import MolecularVAE, forward
 from ..parallel import GradientMean, Mesh, agree_any, barrier, make_mesh, replicate, world_size
-from ..utils import PinnedStaging, resolve_device, span
+from ..utils import PinnedStaging, capture_graph, resolve_device, span
 from .evaluate import reconstruction_metrics
 from .loss import vae_loss
 from .metrics import MetricsLogger, host_rows
@@ -415,21 +415,17 @@ class CapturedChunk:
         self.staging.copy(values.shape, torch.int32, lambda buf: np.copyto(buf, values), out=self.values)
         seeds, beta, ss, lr = unpack(self.values)
         props = (lambda i: None) if self.props is None else (lambda i: self.props[i])
-        stream = torch.cuda.Stream(dev)
-        stream.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(stream):
-            warm = copy.deepcopy(state)
-            step_body(cfg, warm, self.codes[0], props(0), seeds[0], beta[0], ss[0], lr[0], mesh, grad_mean)
-            del warm
-        torch.cuda.current_stream(dev).wait_stream(stream)
-        torch.cuda.synchronize(dev)
-        self.graph = torch.cuda.CUDAGraph()
-        t0 = time.perf_counter()
-        with torch.cuda.graph(self.graph, stream=stream):
+
+        def warm() -> None:
+            step_body(cfg, copy.deepcopy(state), self.codes[0], props(0), seeds[0], beta[0], ss[0], lr[0], mesh,
+                      grad_mean)
+
+        def body() -> dict:
             steps = [step_body(cfg, state, self.codes[i], props(i), seeds[i], beta[i], ss[i], lr[i], mesh,
                                grad_mean) for i in range(k)]
-            self.metrics = {name: torch.stack([m[name] for m in steps]) for name in steps[0]}
-        self.capture_seconds = time.perf_counter() - t0
+            return {name: torch.stack([m[name] for m in steps]) for name in steps[0]}
+
+        self.graph, self.metrics, self.capture_seconds = capture_graph(dev, warm, body)
 
     def replay(self, codes_stack: torch.Tensor, props_stack: Optional[torch.Tensor], values: np.ndarray):
         """The per-chunk host work: one copy of the stack into the static

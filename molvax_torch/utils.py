@@ -1,5 +1,6 @@
-"""Device and dtype resolution for the port, its profiler spans, and the
-debug guards.
+"""Device and dtype resolution for the port, its profiler spans, the
+CUDA Graph capture that the train chunk and the scan decode share
+(``capture_graph``), and the debug guards.
 
 ``span(name)`` marks a region of the program's host work in a running
 ``torch.profiler`` trace as ``molvax:<name>``, on the clock of the device
@@ -17,7 +18,8 @@ from __future__ import annotations
 
 import contextlib
 import functools
-from typing import Optional, Union
+import time
+from typing import Any, Callable, Optional, Tuple, Union
 
 import torch
 
@@ -109,6 +111,26 @@ class PinnedStaging:
         event.record(torch.cuda.current_stream(self.device))
         self._events[i] = event
         return out
+
+
+def capture_graph(device: Union[str, torch.device], warm: Callable[[], None],
+                  body: Callable[[], Any]) -> Tuple[torch.cuda.CUDAGraph, Any, float]:
+    """``body`` captured in one CUDA Graph on a side stream, after ``warm``
+    ran there for real: the warm work loads the kernel library and makes
+    cuBLAS' workspace for that stream, so that nothing in the capture is
+    made from host data. (the graph, what ``body`` returned, the seconds
+    the capture took, instantiation included)."""
+    stream = torch.cuda.Stream(device)
+    stream.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(stream):
+        warm()
+    torch.cuda.current_stream(device).wait_stream(stream)
+    torch.cuda.synchronize(device)
+    graph = torch.cuda.CUDAGraph()
+    t0 = time.perf_counter()
+    with torch.cuda.graph(graph, stream=stream):
+        out = body()
+    return graph, out, time.perf_counter() - t0
 
 
 @contextlib.contextmanager
