@@ -3,7 +3,7 @@
 training loop, constrained decoding, latent workloads, evaluation, CLI and
 data parallelism once on one CUDA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--phase 29]
 
 Run from the root of a checkout. It builds the hand-written kernels from
 ``molvax_torch/kernels/csrc/`` (into ``build/molvax_torch/``), makes
@@ -231,6 +231,19 @@ phases, each printed on its own lines:
      key's first call, its capturing call, a replay and the loop, ms a
      request. (Phases 17, 18 and 24-26 decode through the graph where a key
      comes back: phase 17 counts its replays' auto_step kernels too.)
+ 29. gvae_zinc (the Grammar VAE) at its published widths, with the
+     benchmark's seeded weights: the pushdown walk kernel against its plain
+     version on the same logits (the decode's, B=10,000, T=277, R=76) and
+     seed, sampled and greedy, and at a row_base on a slice, bit for bit,
+     one launch a call; sample_prior(10,000): one walk launch a request,
+     every string the derivation of its rule codes, the request's ms, the
+     walk's ms and the plain version's, peak device memory; the encoder
+     at B=500 on the corpus's rule codes through the kernel (its chunked
+     dense phase, ReLU; one launch), against the plain encoder; a K=16
+     train chunk at B=500 from the same weights: its first loss against
+     the plain reference's (perfbench/reference/grammar.py, fp32) within
+     GVAE_LOSS_REL, beside the reference in bf16 against itself in fp32.
+     ``--phase 29`` runs phase 1 and this phase alone.
 
 Any failure raises and exits non-zero. Without CUDA it exits 2 and prints
 no result. The line before the card's is the ``kernels`` JSON: each kernel
@@ -3466,6 +3479,110 @@ def probe_entries(p19: dict, p20: dict, route_comparison: dict) -> list:
     ]
 
 
+# the first loss of gvae_zinc's K=16 chunk (bf16 products) against the
+# plain reference's in fp32: relative gap; the reference in bf16 against
+# itself in fp32 is printed beside it (what the precision alone does)
+GVAE_LOSS_REL = 1e-3
+
+
+def phase29(dev, gpu) -> dict:
+    """gvae_zinc at its published widths (module docstring, phase 29)."""
+    from molvax_torch.data.grammar import ZINC_GRAMMAR, grammar_dataset
+    from molvax_torch.kernels import grammar_walk as kw
+    from perfbench.reference import grammar as rg
+    from perfbench.reference import model as pref
+    from perfbench.reference import noise as pnoise
+
+    t0 = time.perf_counter()
+    cfg = get_preset("gvae_zinc")
+    mcfg = cfg.model
+    conf = json.loads(open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "perfbench", "configs",
+                                        "gvae_zinc.json")).read())
+    sizes = dict(conf["sizes"], grammar=conf["grammar"], dense_activation=conf["dense_activation"])
+    w = rg.make_weights(sizes, SEED + 29, dev)
+    model = MolecularVAE(mcfg, device=dev)
+    model.load_state_dict(w, strict=True)
+    model.requires_grad_(False)
+    T, R, N = mcfg.max_len, mcfg.charset_size, 10_000
+    if _build.info is not None and _build.info.compiled:
+        say("phase29", walk_kernel_ptxas=json.dumps(ptxas_report(_build.info.log, "grammar_walk_kernel")))
+    rng = np.random.default_rng(SEED + 29)
+    z = torch.from_numpy(rng.standard_normal((N, mcfg.latent_dim)).astype(np.float32)).to(dev)
+    with torch.no_grad():
+        logits = torch.cat([ls.decode(model, mcfg, z[i:i + 2048]) for i in range(0, N, 2048)])
+    out = {}
+    for greedy, seed, rows, base in ((False, 0x9E3779B9, N, 0), (True, 0, N, 0), (False, 12345, 1000, 4000)):
+        part = logits[base:base + rows]
+        before = kw.launches
+        got = kw.walk(part, ZINC_GRAMMAR, seed, greedy, 1.0, base)
+        if kw.launches != before + 1:
+            raise AssertionError(f"the walk launched {kw.launches - before} times, expected 1")
+        want = kw.walk_ref(part, ZINC_GRAMMAR, seed, greedy, 1.0, base)
+        same = bool(torch.equal(got, want))
+        strings = ZINC_GRAMMAR.strings(got[:, T:].cpu().numpy())
+        derived = [ZINC_GRAMMAR.derive(r) or "" for r in got[:, :T].cpu().tolist()]
+        say("phase29", walk="greedy" if greedy else "sampled", rows=rows, row_base=base, identical_to_plain=same,
+            complete=sum(1 for x in strings if x), strings_are_derivations=strings == derived,
+            examples=json.dumps([x for x in strings if x][:3]))
+        if not same or strings != derived:
+            raise AssertionError("the walk kernel differs from its plain version")
+    walk_ms = time_ms(lambda: kw.walk(logits, ZINC_GRAMMAR, 7, False, 1.0))
+    plain_ms = time_ms(lambda: kw.walk_ref(logits, ZINC_GRAMMAR, 7, False, 1.0), warmup=0, reps=1)
+    decode_ms = time_ms(lambda: [ls.decode(model, mcfg, z[i:i + 2048]) for i in range(0, N, 2048)], reps=2)
+    del logits
+    torch.cuda.reset_peak_memory_stats(dev)
+    gen = torch.Generator().manual_seed(SEED + 290)
+    before = kw.launches
+    with torch.no_grad():
+        strings, codes = sample_prior(model, mcfg, N, gen, greedy=False, with_codes=True)
+    torch.cuda.synchronize()
+    if kw.launches != before + 1:
+        raise AssertionError(f"sample_prior launched the walk {kw.launches - before} times, expected 1")
+    if [ZINC_GRAMMAR.derive(r) or "" for r in codes.tolist()] != strings:
+        raise AssertionError("sample_prior's strings are not its derivations")
+    peak = torch.cuda.max_memory_allocated(dev)
+    request_ms = time_ms(lambda: sample_prior(model, mcfg, N, torch.Generator().manual_seed(1), greedy=False), reps=3)
+    out.update(walk_ms=walk_ms, walk_plain_ms=plain_ms, decode_ms=decode_ms, request_ms=request_ms, peak=peak)
+    say("phase29", rows=N, request_ms=f"{request_ms:.2f}", decode_ms=f"{decode_ms:.2f}", walk_ms=f"{walk_ms:.4f}",
+        walk_plain_ms=f"{plain_ms:.1f}", smiles_per_s=f"{N / request_ms * 1e3:.0f}",
+        complete=sum(1 for x in strings if x), peak_memory_gb=f"{peak / 1e9:.2f}",
+        walk_bound_us=f"{N * (4 * T * R + 3 * T) / 3.35e12 * 1e6:.1f}")
+    # the encoder on rule codes at the training batch: the kernel route
+    ds = grammar_dataset(ZINC_GRAMMAR, "synthetic_chem", T, 4096, SEED)
+    it = BatchIterator(ds, cfg.train.batch_size, seed=SEED, device=dev)
+    stack, _ = it.next_stack(CHUNK)
+    before = conv_enc.launches
+    with torch.no_grad():
+        mu_k, lv_k = conv_enc.fused_encode(model, mcfg, stack[0])
+        mu_p, lv_p = conv_enc.fused_encode_ref(model, mcfg, stack[0])
+    enc_launches = conv_enc.launches - before
+    enc_err = max(max_abs(mu_k, mu_p), max_abs(lv_k, lv_p))
+    say("phase29", encoder_B=stack.shape[1], encoder_launches=enc_launches, encoder_max_abs_err=f"{enc_err:.3e}")
+    if enc_launches != 1 or enc_err > ENCODER_TOL:
+        raise AssertionError(f"the encoder at gvae_zinc width: {enc_launches} launches, error {enc_err:.3e}")
+    # a K=16 chunk from the same weights: its first loss against the reference's
+    state_seed = 0x5EED29
+    state = init_state(cfg, seed=state_seed, device=dev, weights={k: v.clone() for k, v in w.items()})
+    chunk = make_train_chunk(cfg, CHUNK, device=dev)
+    before = conv_enc.launches
+    state, m = chunk(state, stack, None)
+    torch.cuda.synchronize()
+    first = float(m["loss"][0])
+    eps = pnoise.normal(int(pnoise.step_seeds(pnoise.fold_in(state_seed, 1), 0, 1)[0]), stack.shape[1],
+                        mcfg.latent_dim, dev)
+    with torch.no_grad(), pref.strict_fp32():
+        ref_loss = float(rg.loss_of(w, sizes, stack[0].long(), eps))
+        ref_bf16 = float(rg.loss_of(w, sizes, stack[0].long(), eps, q=pref.bf16))
+    rel, rel_bf16 = abs(first - ref_loss) / abs(ref_loss), abs(ref_bf16 - ref_loss) / abs(ref_loss)
+    say("phase29", chunk_K=CHUNK, batch=stack.shape[1], first_loss=f"{first:.6f}", reference=f"{ref_loss:.6f}",
+        rel_gap=f"{rel:.3e}", reference_bf16_rel_gap=f"{rel_bf16:.3e}", limit=GVAE_LOSS_REL,
+        losses=json.dumps([round(float(x), 4) for x in m["loss"]]), encoder_launches_in_chunk=conv_enc.launches - before,
+        seconds=f"{time.perf_counter() - t0:.1f}")
+    if not rel <= GVAE_LOSS_REL:
+        raise AssertionError(f"gvae_zinc's first loss {first} against the reference's {ref_loss}: {rel:.3e}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on a GPU", file=sys.stderr)
@@ -3520,6 +3637,12 @@ def main() -> int:
                                  "instances")
     for name, rep in sorted(probe_ptxas.items()):
         say("phase1", probe_kernel=name, **rep)
+    if sys.argv[1:] == ["--phase", "29"]:
+        phase29(dev, gpu)
+        print(gpu, flush=True)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                                 "count": torch.cuda.device_count()}}), flush=True)
+        return 0
 
     # -- 2. weights ----------------------------------------------------------
     full = get_preset("zinc250k")
@@ -3947,6 +4070,7 @@ def main() -> int:
 
     # -- 28. the scan route's decode as one CUDA Graph ----------------------
     phase28(model, qfull_cfg, dev, gpu)
+    phase29(dev, gpu)
 
     beam_counts = decodes["beam"]
     print(json.dumps({"kernels": [

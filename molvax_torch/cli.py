@@ -104,7 +104,9 @@ def _restore(cfg: Config, ckpt_dir: str, args=None):
 
     ``config.json`` (the run's effective config) becomes the base, with
     ``--override`` on top; ``charset.json`` is the decode table the model
-    was trained on, and ``charset_size`` follows it. A run with
+    was trained on, and ``charset_size`` follows it (a grammar config's
+    table is its grammar, which ``grammar.json`` must match: the charset
+    returned is then the ``Grammar``). A run with
     ``select_best`` (by the checkpoint's own config) is served from
     ``best/``, or from the top level where ``best/`` holds no checkpoint.
     The weights are copied into a fresh state's tensors in place
@@ -115,6 +117,7 @@ def _restore(cfg: Config, ckpt_dir: str, args=None):
 
     from .config import from_dict
     from .data import DEFAULT_CHARSET, Charset
+    from .data.grammar import Grammar, grammar_of
     from .io import checkpoint as ckpt_io
     from .train import init_state
     from .train.loop import ema_eval_state
@@ -127,9 +130,14 @@ def _restore(cfg: Config, ckpt_dir: str, args=None):
             cfg = apply_overrides(cfg, _parse_overrides(args.override))
         print(f"[molvax] restored config from {cfg_path} (name={cfg.name})", file=sys.stderr)
 
-    charset = DEFAULT_CHARSET
+    charset = grammar_of(cfg.model) or DEFAULT_CHARSET
     cs_path = os.path.join(ckpt_dir, "charset.json")
-    if os.path.exists(cs_path):
+    g_path = os.path.join(ckpt_dir, "grammar.json")
+    if isinstance(charset, Grammar) and os.path.exists(g_path):
+        with open(g_path) as f:
+            if tuple(json.load(f)) != charset.chars:
+                raise SystemExit(f"{g_path}: the checkpoint's rules are not those of {charset.name}")
+    elif os.path.exists(cs_path):
         with open(cs_path) as f:
             charset = Charset(chars=tuple(json.load(f)))
     if charset.size != cfg.model.charset_size:
@@ -159,7 +167,11 @@ def _restore(cfg: Config, ckpt_dir: str, args=None):
 
 def _dataset(cfg: Config, with_properties: bool = False):
     from .data import load_dataset
+    from .data.grammar import grammar_dataset, grammar_of
 
+    grammar = grammar_of(cfg.model)
+    if grammar is not None:
+        return grammar_dataset(grammar, cfg.data.source, cfg.model.max_len, cfg.data.n_synthetic, cfg.data.seed)
     return load_dataset(
         cfg.data.source,
         max_len=cfg.data.max_len,

@@ -5,7 +5,10 @@ same seven presets, ``PRESETS``, ``get_preset``, ``to_dict``, ``from_dict``
 and ``apply_overrides``. The port imports nothing of the ``molvax``
 package, so it keeps this copy;
 ``tests/test_torch_support.py::test_presets_are_the_reference_table``
-holds it to the reference field by field. The classes are not the
+holds it to the reference field by field. The port adds two fields of its
+own, each at a default that leaves the reference's presets as they are
+(``alphabet``, ``dense_activation``), and one preset of its own,
+``gvae_zinc``: the Grammar VAE, which the reference does not run. The classes are not the
 reference's objects: build each package's config from the same preset name
 or keyword arguments, never hand one package's config to the other.
 
@@ -113,6 +116,15 @@ class ModelConfig:
     # kernels serving oversize shapes (4xGRU-1024) and interpret mode.
     # 'per_layer'/'fused_stack' pin one path for A/Bs and other hardware.
     gru_kernel: str = "auto"
+    # Port-only. What a code is: 'charset' (a character of the charset) or
+    # 'zinc_grammar' (a production rule of the Grammar VAE's ZINC grammar,
+    # data/grammar.py: the one-hot is over the rules, the likelihood is the
+    # grammar-masked softmax, decoding is the pushdown walk).
+    alphabet: str = "charset"
+    # Port-only. The activation of the encoder's dense layer and of the
+    # decoder's latent embedding: SELU (the ChemVAE lineage) or ReLU (the
+    # Grammar VAE's Keras model).
+    dense_activation: str = "selu"
 
     def __post_init__(self):
         assert self.conv_orientation in ("seq", "charset")
@@ -120,6 +132,9 @@ class ModelConfig:
         assert self.gru_kernel in ("auto", "per_layer", "fused_stack")
         assert self.decoder_conditioning in ("teacher_forced", "repeat_z")
         assert self.recon_loss in ("ce", "bce")
+        assert self.alphabet in ("charset", "zinc_grammar")
+        assert self.dense_activation in ("selu", "relu")
+        assert self.alphabet == "charset" or self.recon_loss == "ce", "a grammar's likelihood is the masked softmax"
         assert len(self.conv_channels) == len(self.conv_kernels)
         for stats in (self.property_mean, self.property_std):
             assert stats is None or len(stats) == self.n_properties
@@ -448,6 +463,46 @@ def latent_workloads() -> Config:
     )
 
 
+def gvae_zinc() -> Config:
+    """Port-only preset: the Grammar VAE at its published ZINC widths
+    (Kusner et al. 2017, arXiv:1703.01925; its code's models/model_zinc.py
+    and train_zinc.py). A molecule is the leftmost derivation of its SMILES
+    in the 76-rule ZINC grammar, padded to 277 steps with the padding rule
+    (data/grammar.py); Conv1D 9/9/10 filters of kernels 9/9/11 and a dense
+    435 with ReLU, latent 56 at epsilon_std 0.01; Dense(56, ReLU) on z
+    repeated over the steps into 3 x GRU-501 and a dense head over the 76
+    rules; the grammar-masked softmax as the likelihood (a categorical ELBO
+    with a constant KL weight of 1); batch 500. Decoding is the pushdown
+    walk over one non-autoregressive pass of logits
+    (kernels/grammar_walk.py). The corpus is the offline chemistry corpus
+    (ZINC itself is not in the repository)."""
+    return Config(
+        name="gvae_zinc",
+        model=ModelConfig(
+            max_len=277,
+            charset_size=76,
+            latent_dim=56,
+            enc_hidden=435,
+            gru_hidden=501,
+            gru_layers=3,
+            decoder_conditioning="repeat_z",
+            recon_loss="ce",
+            eps_scale=0.01,
+            compute_dtype="bfloat16",
+            use_pallas=True,
+            alphabet="zinc_grammar",
+            dense_activation="relu",
+        ),
+        train=TrainConfig(
+            batch_size=500,
+            epochs=100,
+            train_chunk_size=16,
+            kl=KLScheduleConfig(kind="constant", beta_max=1.0),
+        ),
+        data=DataConfig(source="synthetic_chem", n_synthetic=250_000, max_len=277),
+    )
+
+
 PRESETS = {
     f.__name__: f
     for f in (
@@ -458,6 +513,7 @@ PRESETS = {
         property_joint,
         moses_scaled,
         latent_workloads,
+        gvae_zinc,
     )
 }
 
@@ -468,9 +524,20 @@ def get_preset(name: str) -> Config:
     return PRESETS[name]()
 
 
+# the port's own ModelConfig fields and their defaults
+PORT_ONLY_DEFAULTS = {"alphabet": "charset", "dense_activation": "selu"}
+
+
 def to_dict(cfg: Config) -> dict:
-    """Config -> plain JSON-serializable dict (tuples become lists)."""
-    return dataclasses.asdict(cfg)
+    """Config -> plain JSON-serializable dict (tuples become lists). A
+    port-only field appears only where it differs from its default, so a
+    character config's dict is the reference's (its ``from_dict`` reads
+    it; ``from_dict`` here fills a missing one with its default)."""
+    d = dataclasses.asdict(cfg)
+    for field, default in PORT_ONLY_DEFAULTS.items():
+        if d["model"][field] == default:
+            del d["model"][field]
+    return d
 
 
 def from_dict(d: dict) -> Config:

@@ -4,7 +4,10 @@ Port of ``molvax/kernels/conv_enc.py:114-205``. ``fused_encode`` maps codes
 (B, T) to (mu, logvar) in one cooperative launch of the hand-written kernel
 ``csrc/conv_enc.cu``: the conv stack a warp per row (the first conv a
 gather by the codes, the later ones on the tensor cores), the dense layer
-and the heads in row tiles, a grid barrier between the phases. The kernel
+(SELU, or ReLU: ``ModelConfig.dense_activation``) and the heads in row
+tiles, a grid barrier between the phases; a dense layer whose rows are too
+long to stage whole (the Grammar VAE's F = 2,510) stages W_0 in chunks of
+columns. The kernel
 reads the model's own fp32 parameters and the codes in their own integer
 type, so the wrapper prepares nothing: it allocates the outputs and the
 scratch and launches. Its plain version is the port's encoder on the
@@ -88,7 +91,7 @@ def _encode_kernel(cfg, codes: torch.Tensor, params) -> Tuple[torch.Tensor, torc
     fn = _build.function(
         "molvax_fused_encode",
         [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-         ctypes.c_void_p] + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [ctypes.c_void_p],
+         ctypes.c_void_p] + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + [ctypes.c_void_p],
     )
     sms, smem = gru_stack.plan_limits(dev)
     err = fn(
@@ -97,7 +100,7 @@ def _encode_kernel(cfg, codes: torch.Tensor, params) -> Tuple[torch.Tensor, torc
         ptrs(*(params[2 * i + 1].data_ptr() for i in range(n_conv))),
         n_conv, ints(*cfg.conv_channels), ints(*cfg.conv_kernels),
         *(t.data_ptr() for t in (w0, b0, w_mu, b_mu, w_lv, b_lv, mu, logvar, scratch)),
-        B, T, C, int(cfg.conv_orientation == "seq"), E, Lz, sms, smem,
+        B, T, C, int(cfg.conv_orientation == "seq"), E, Lz, int(cfg.dense_activation == "relu"), sms, smem,
         gru_stack._stream(codes),
     )
     if err == NO_LAYOUT:

@@ -6,7 +6,8 @@
 //            charset as channels, 'charset' along the charset with the
 //            positions as channels; a code outside [0, C) is a zero row
 //   h_i    = bf16(relu(conv_i(h_{i-1}) + b_i))   VALID convs, torch layout
-//   h2     = selu(flatten(h_N) @ W_0^T + b_0)     channel-major flatten
+//   h2     = act(flatten(h_N) @ W_0^T + b_0)      channel-major flatten; act
+//            SELU, or ReLU (relu != 0: the Grammar VAE)
 //   mu     = h2 @ W_mu^T + b_mu, logvar = h2 @ W_lv^T + b_lv  (fp32 heads)
 // Conv and dense products take bf16 operands and sum in fp32; the heads are
 // fp32, as in the TPU kernel. The backward is not a kernel: the wrapper
@@ -28,8 +29,12 @@
 //   B. the dense layer on the tensor cores: tiles of 32 rows x 32 units, so
 //      a W_0 element is read once per row tile, not once per row, rounded
 //      to bf16 as its fragment is built; the 8 warps split K and sum their
-//      partial tiles in a fixed order; + b_0, SELU; h2 fp32 (B, Ep) to
-//      scratch. The block's first head tile's W is copied as it ends;
+//      partial tiles in a fixed order; + b_0, SELU (or ReLU); h2 fp32 (B, Ep)
+//      to scratch. The block's first head tile's W is copied as it ends.
+//      Where a tile's W_0 rows do not fit beside its h3 rows (a long
+//      sequence: F = 2,510 at T = 277), W_0 comes in chunks of kc columns,
+//      a multiple of WARPS x 16, so each warp takes the k16 steps it takes
+//      on whole rows, in the same order: the sums are the same;
 //   C. the heads as 3xTF32 split products (csrc/gemm.cuh fp32_k8): tiles of
 //      32 rows x 40 outputs of [mu | logvar], K split over the warps, the
 //      partial tiles summed in a fixed order; + bias.
@@ -61,6 +66,7 @@ struct EncArgs {
   const void* codes;
   int code_kind;
   int team;          // warps a row in phase A (team_warps)
+  int relu;          // the dense layer's activation: ReLU, else SELU
   const float* conv_w[MAX_CONV];
   const float* conv_b[MAX_CONV];
   const float* w0;   // (E, F)
@@ -79,6 +85,8 @@ __device__ __forceinline__ uint32_t bf16x2(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
 }
+
+__device__ __forceinline__ float relu_f(float x) { return x > 0.0f ? x : 0.0f; }
 
 __device__ __forceinline__ float selu_f(float x) {
   const float alpha = 1.6732632423543772f;
@@ -200,6 +208,22 @@ __device__ __forceinline__ void head_w_copy(const EncArgs& a, unsigned char* sme
   if (h.lv_rows) span_copy(smem + lv_region(a, h), h.lv, bar);
 }
 
+// columns k0 .. k0 + kn - 1 of W_0's rows n0 .. n0 + rows - 1, a span a row
+// of L.wpitch bytes from dw_off: by warp 0, a lane a row
+__device__ __forceinline__ void dense_w_chunk_copy(const EncArgs& a, unsigned char* smem, uint64_t* bar, int n0,
+                                                   int rows, int k0, int kn) {
+  const int lane = threadIdx.x & 31;
+  const Span sp = lane < rows ? span_of(a.w0 + (size_t)(n0 + lane) * a.d.F() + k0, (size_t)kn * 4)
+                              : Span{0, 0u, 0u};
+  const uint32_t total = __reduce_add_sync(0xffffffffu, sp.bytes);
+  if (lane == 0) {
+    fence_async_shared();
+    mbar_expect(bar, total);
+  }
+  __syncwarp();
+  if (sp.bytes) span_copy(smem + a.L.dw_off + lane * a.L.wpitch, sp, bar);
+}
+
 // rows m0 .. m0 + TM - 1 (those below B) of a (B, ld) scratch array of
 // `esize`-byte elements into shared memory rows of `pitch` bytes: a row a
 // copy, by warp 0 (rows 16-byte aligned by construction)
@@ -272,9 +296,9 @@ __device__ void phase_conv(const EncArgs& a, unsigned char* smem, Bars& bars) {
   fence_async_global();  // h3 is read by the dense phase's bulk copies
 }
 
-// B. h2 = selu(h3 . W_0^T + b_0), tiles of TM x TN_DENSE. The block's last
+// B. h2 = act(h3 . W_0^T + b_0), tiles of TM x TN_DENSE. The block's last
 // dense tile, once its products are done, starts the copy of its first
-// head tile's W.
+// head tile's W. W_0 whole rows (kc = F) or in chunks of kc columns.
 __device__ void phase_dense(const EncArgs& a, unsigned char* smem, Bars& bars) {
   const EncDims& d = a.d;
   const EncLayout& L = a.L;
@@ -291,33 +315,53 @@ __device__ void phase_dense(const EncArgs& a, unsigned char* smem, Bars& bars) {
     const int nb = n0 + tid % TN_DENSE;  // the unit of this thread's outputs below
     const float bias = nb < E ? a.b0[nb] : 0.0f;
     if (warp == 0) tile_rows_copy(smem, sa * 2, a.h3, Fp, 2, m0, d.B, bars.bar + BAR_H3);
-    if (tid == 0 && !(L.pre_dense && tile == (int)blockIdx.x)) dense_w_copy(a, smem, bars.bar + BAR_DW, tile);
-    bars.wait(BAR_H3);
-    bars.wait(BAR_DW);
-    // W_0's rows (fp32, unpadded), each rounded to bf16 as its fragment is built
-    const float* w = reinterpret_cast<const float*>(smem + L.dw_off +
-                                                    (reinterpret_cast<uintptr_t>(dense_w_rows(a, tile)) & 15));
-    const float* wrow[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) wrow[j] = w + (size_t)(j * 8 + g) * F + 2 * t;
     float acc[2][4][4] = {};
-    for (int s = warp; s < Fp / 16; s += WARPS) {
-      const int kk = s * 16;
-      uint32_t af[2][4];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) ldmatrix_x4(af[i], sA + (i * 16 + (lane & 15)) * sa + kk + (lane >> 4) * 8);
-      // W_0 has no padding column: its columns from F on are read as 0
-      const int k0 = kk + 2 * t;
+    const int rows_n = min(TN_DENSE, E - n0);
+    for (int c0 = 0; c0 < F; c0 += L.kc) {  // one pass over whole rows (kc = F), or a pass a chunk
+      const int kn = min(L.kc, F - c0);
+      if (L.kc >= F) {
+        if (tid == 0 && !(L.pre_dense && tile == (int)blockIdx.x)) dense_w_copy(a, smem, bars.bar + BAR_DW, tile);
+      } else if (warp == 0) {
+        dense_w_chunk_copy(a, smem, bars.bar + BAR_DW, n0, rows_n, c0, kn);
+      }
+      if (c0 == 0) bars.wait(BAR_H3);
+      bars.wait(BAR_DW);
+      // W_0's rows (fp32, unpadded), each rounded to bf16 as its fragment is
+      // built; wrow[j] is at column c0 + 2t (a row past the tile's: row 0's)
+      const float* wrow[4];
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const float* q = wrow[j] + kk;
-        const uint32_t bfr[2] = {bf16x2(k0 < F ? q[0] : 0.0f, k0 + 1 < F ? q[1] : 0.0f),
-                                 bf16x2(k0 + 8 < F ? q[8] : 0.0f, k0 + 9 < F ? q[9] : 0.0f)};
-#pragma unroll
-        for (int i = 0; i < 2; ++i) mma_bf16(acc[i][j], af[i], bfr);
+        const int n = j * 8 + g;
+        if (L.kc >= F) {
+          const float* w = reinterpret_cast<const float*>(
+              smem + L.dw_off + (reinterpret_cast<uintptr_t>(dense_w_rows(a, tile)) & 15));
+          wrow[j] = w + (size_t)n * F + 2 * t;
+        } else {
+          const int r = n < rows_n ? n : 0;
+          const float* src = a.w0 + (size_t)(n0 + r) * F + c0;
+          wrow[j] = reinterpret_cast<const float*>(smem + L.dw_off + r * L.wpitch +
+                                                   (reinterpret_cast<uintptr_t>(src) & 15)) + 2 * t;
+        }
       }
+      const int s_end = c0 + kn >= F ? Fp / 16 : (c0 + kn) / 16;
+      for (int s = c0 / 16 + warp; s < s_end; s += WARPS) {
+        const int kk = s * 16;
+        uint32_t af[2][4];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) ldmatrix_x4(af[i], sA + (i * 16 + (lane & 15)) * sa + kk + (lane >> 4) * 8);
+        // W_0 has no padding column: its columns from F on are read as 0
+        const int k0 = kk + 2 * t;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float* q = wrow[j] + (kk - c0);
+          const uint32_t bfr[2] = {bf16x2(k0 < F ? q[0] : 0.0f, k0 + 1 < F ? q[1] : 0.0f),
+                                   bf16x2(k0 + 8 < F ? q[8] : 0.0f, k0 + 9 < F ? q[9] : 0.0f)};
+#pragma unroll
+          for (int i = 0; i < 2; ++i) mma_bf16(acc[i][j], af[i], bfr);
+        }
+      }
+      __syncthreads();  // every warp done with this chunk of W_0 before the next lands over it
     }
-    __syncthreads();
     if (tid == 0 && tile + (int)gridDim.x >= L.tiles_dense && (int)blockIdx.x < L.tiles_head)
       head_w_copy(a, smem, bars.bar + BAR_HW, blockIdx.x);
 #pragma unroll
@@ -335,7 +379,7 @@ __device__ void phase_dense(const EncArgs& a, unsigned char* smem, Bars& bars) {
       float s = part[m * PART_D + n];
       for (int w = 1; w < WARPS; ++w) s += part[(w * TM + m) * PART_D + n];
       if (m0 + m < d.B && n0 + n < Ep)  // h2's padding columns zero: the heads read them
-        a.h2[(size_t)(m0 + m) * Ep + n0 + n] = n0 + n < E ? selu_f(s + bias) : 0.0f;
+        a.h2[(size_t)(m0 + m) * Ep + n0 + n] = n0 + n < E ? (a.relu ? relu_f(s + bias) : selu_f(s + bias)) : 0.0f;
     }
     __syncthreads();
   }
@@ -437,8 +481,8 @@ extern "C" int molvax_fused_encode(const void* codes, int code_kind, const void*
                                    const void* const* conv_b, int n_conv, const int* cout, const int* ksize,
                                    const float* w0, const float* b0, const float* wmu, const float* bmu,
                                    const float* wlv, const float* blv, float* mu, float* logvar, void* scratch,
-                                   int B, int T, int C, int seq, int E, int Lz, int grid, int smem_limit,
-                                   void* stream) {
+                                   int B, int T, int C, int seq, int E, int Lz, int relu, int grid,
+                                   int smem_limit, void* stream) {
   if (n_conv < 1 || n_conv > MAX_CONV || grid < 1 || code_kind < CODE_U8 || code_kind > CODE_I64)
     return (int)cudaErrorInvalidValue;
   EncArgs a;
@@ -456,8 +500,14 @@ extern "C" int molvax_fused_encode(const void* codes, int code_kind, const void*
   a.d.B = B;
   a.d.E = E;
   a.d.Lz = Lz;
-  a.team = team_warps(B, grid);
-  a.L = enc_layout(a.d, a.team, code_bytes(code_kind), (size_t)smem_limit);
+  a.relu = relu;
+  // the warps a row that the batch gives, or more where its teams' buffers
+  // do not fit (a long sequence at a large batch): fewer rows at once, the
+  // same sums
+  for (a.team = team_warps(B, grid);; a.team *= 2) {
+    a.L = enc_layout(a.d, a.team, code_bytes(code_kind), (size_t)smem_limit);
+    if (a.L.ok || a.team >= WARPS) break;
+  }
   if (!a.L.ok) return ENC_NO_LAYOUT;
   a.codes = codes;
   a.code_kind = code_kind;

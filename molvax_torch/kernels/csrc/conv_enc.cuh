@@ -278,6 +278,9 @@ struct EncLayout {
   int pad_a;                 // dense: padding of the h3 rows
   size_t dw_off;             // dense: h3 tile (then the partial tiles) at 0, W_0's rows at dw_off
   int pre_dense;             // W_0's first tile copied during phase A (dw_off above phase A's region)
+  int kc;                    // dense: W_0's columns a copy (F: whole rows, one span; else chunks of kc
+                             // columns, a multiple of WARPS * 16, a span a row of wpitch bytes)
+  size_t wpitch;
   int pad_h;                 // heads: padding of the h2 rows
   size_t hw_off;             // heads: h2 tile (then the partial tiles) at 0, the heads' rows at hw_off
   size_t bar_off;            // the mbarriers
@@ -335,6 +338,19 @@ ENC_HD EncLayout enc_layout(const EncDims& d, int ts, int code_size, size_t smem
   L.pre_dense = max_z(L.smem_conv, a_bytes) + wspan_d <= smem_limit;
   L.dw_off = L.pre_dense ? up16(max_z(L.smem_conv, a_bytes)) : a_bytes;
   L.smem_dense = L.dw_off + wspan_d;
+  L.kc = d.F();
+  // rows too long for a tile's W_0 beside its h3 rows (a long sequence):
+  // W_0 in chunks of columns, the widest that fits
+  for (int kc = (d.F() - 1) / (WARPS * 16) * (WARPS * 16); kc > 0 && L.dw_off + wspan_d > smem_limit;
+       kc -= WARPS * 16) {
+    const size_t pitch = up16((size_t)kc * 4) + 16;
+    if (up16(a_bytes + TN_DENSE * pitch) + NBAR * 8 <= smem_limit) {
+      L.kc = kc;
+      L.wpitch = pitch;
+      L.smem_dense = a_bytes + TN_DENSE * pitch;
+      break;
+    }
+  }
   L.pad_h = row_pad(e8, 4);
   L.hw_off = up16(max_z(part_d, max_z((size_t)TM * (e8 + L.pad_h) * 4, part_h)));
   L.smem_head = L.hw_off + span_bytes((size_t)TN_HEAD * d.E * 4) + 32;  // W_mu's and W_lv's spans

@@ -26,6 +26,7 @@ import torch.nn.functional as F
 
 from ..data.charset import DEFAULT_CHARSET, Charset
 from ..data.featurize import decode_codes, encode_smiles, one_hot
+from ..data.grammar import grammar_of
 from ..kernels import automaton as kauto
 from ..nn.decoder import latent_embed
 from ..nn.encoder import linear
@@ -56,7 +57,13 @@ def beam_generate(
 
     Deterministic; ``beam=1`` reproduces greedy decoding. A 'repeat_z'
     decoder is non-autoregressive, so its per-position argmax is the mode:
-    beam search reduces to greedy there and routes to ``generate``."""
+    beam search reduces to greedy there and routes to ``generate``. A
+    grammar config raises: its decode is the pushdown walk, which beam
+    search does not run."""
+    grammar = grammar_of(cfg)
+    if grammar is not None:
+        raise ValueError(f"beam search does not run on a {grammar.name} config (its decode is the grammar's "
+                         "pushdown walk); use generate or sample_prior")
     B, K = z.shape[0], beam
     T, C = cfg.max_len, cfg.charset_size
     dev = z.device
@@ -141,6 +148,8 @@ def beam_reconstruct(
     constrained: bool = False,
 ) -> List[str]:
     """encode -> mu -> beam-search decode -> strings."""
+    if grammar_of(cfg) is not None:
+        beam_generate(model, cfg, None)  # raises: no beam search on a grammar config
     codes = torch.from_numpy(encode_smiles(smiles, charset, cfg.max_len)).to(model.device)
     with torch.no_grad():
         mu, _ = vae_encode(model, cfg, codes)

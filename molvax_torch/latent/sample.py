@@ -42,11 +42,24 @@ decodes that replayed a graph an earlier call made. A model's decodes on a
 card share their graphs' static buffers, so they must not run from several
 threads at once.
 
+A grammar config (``ModelConfig.alphabet``, the Grammar VAE) takes one
+route for ``generate``, ``sample_prior``, ``sample_aggregate`` and
+``reconstruct`` (greedy: the masked argmax): the 'repeat_z' decoder's one
+pass of logits through the stack kernels (``decode``, in blocks of
+``GRAMMAR_DECODE_ROWS`` rows), then one launch of the pushdown walk
+(``kernels.grammar_walk.walk``: the noise, the grammar's mask, the first
+maximum, the stack, the rule and terminal codes; its plain version on the
+CPU), one copy to the host and a table lookup to strings
+(``Grammar.strings``). Its codes are rule codes. ``constrained=True`` and
+beam search raise ``ValueError`` there: the valence automaton works on
+characters, the walk's mask is the grammar's own.
+
 Under a running profiler a request is marked in spans (``utils.span``):
 ``sample.draw_z``, ``sample.decode`` (and on the scan route ``sample.capture``
 and ``sample.replay`` on a card; per step, where the steps run op by op and
 inside a capture, ``sample.step`` holding ``sample.noise`` and
-``sample.select``), then
+``sample.select``; on the grammar route ``sample.select`` holding
+``sample.walk``), then
 ``sample.to_host``, where the host waits for the card, and ``sample.strings``.
 """
 
@@ -61,7 +74,9 @@ import torch
 
 from ..data.charset import DEFAULT_CHARSET, Charset
 from ..data.featurize import decode_codes, encode_smiles, one_hot
+from ..data.grammar import grammar_of
 from ..kernels import automaton as kauto
+from ..kernels import grammar_walk as kwalk
 from ..nn.decoder import decode, latent_embed
 from ..nn.encoder import linear
 from ..nn.gru import gru_stack_step
@@ -86,6 +101,12 @@ _CAPTURE_AT_CALL = 3
 # a repeated report finds all of its keys again.
 _KEYS_PER_MODEL = 10
 _graphs: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+# rows of z a grammar decode sends through the stack kernels at once: the
+# forward stores its residuals (~6 MB a row at gvae_zinc's widths), and the
+# recurrence's plan takes 1,024 rows a launch at H=501, so blocks of 2,048
+# rows bound the memory without adding recurrence launches
+GRAMMAR_DECODE_ROWS = 2048
 
 
 def _default_generator() -> torch.Generator:
@@ -119,10 +140,32 @@ def generate(
     (module docstring) and always returns the logits. ``row_base``: the
     global index of z's first row, which keys its sampling noise (a
     data-parallel rank's share of a global batch)."""
+    if grammar_of(cfg) is not None:
+        with span("sample.decode"):
+            out, logits = _grammar_generate(model, cfg, z, generator, greedy, temperature, constrained, row_base)
+        return out[:, : cfg.max_len].to(torch.int32), logits
     if charset.size != cfg.charset_size:
         raise ValueError(f"charset size {charset.size} != model charset_size {cfg.charset_size}")
     with span("sample.decode"):
         return _generate(model, cfg, z, generator, greedy, temperature, constrained, charset, row_base)
+
+
+def _grammar_generate(model, cfg, z: torch.Tensor, generator: Optional[torch.Generator], greedy: bool,
+                      temperature: float, constrained: bool, row_base: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A grammar config's decode: (the walk's (B, 3T) uint8 rule and
+    terminal codes, the logits (B, T, R))."""
+    grammar = grammar_of(cfg)
+    if constrained:
+        raise ValueError(f"constrained=True: the valence automaton works on characters, and a {grammar.name} "
+                         "config decodes under its grammar's own mask (the pushdown walk)")
+    generator = generator if generator is not None else _default_generator()
+    seed = _draw_seed(generator)
+    with torch.no_grad():
+        logits = torch.empty(z.shape[0], cfg.max_len, cfg.charset_size, device=z.device)
+        for i in range(0, z.shape[0], GRAMMAR_DECODE_ROWS):
+            logits[i:i + GRAMMAR_DECODE_ROWS] = decode(model, cfg, z[i:i + GRAMMAR_DECODE_ROWS])
+        with span("sample.select"), span("sample.walk"):
+            return kwalk.walk(logits, grammar, seed, greedy, temperature, row_base), logits
 
 
 def _generate(model, cfg, z: torch.Tensor, generator: Optional[torch.Generator], greedy: bool, temperature: float,
@@ -342,25 +385,42 @@ def sample_prior(
     scale: float = 1.0,
     constrained: bool = False,
     mesh=None,
-) -> List[str]:
+    with_codes: bool = False,
+):
     """Decode n latents from the prior z ~ N(0, scale^2 I) to SMILES strings.
     z is drawn from ``generator`` on its device, then moved to the model's.
     ``mesh`` decodes data-parallel over its 'data' axis (n must divide by
     it; every rank passes a generator in the same state): the strings of
-    the 1-rank call, on every rank."""
+    the 1-rank call, on every rank. ``with_codes``: (strings, the decode's
+    codes (n, T) on the host: rule codes on a grammar config)."""
     generator = generator if generator is not None else _default_generator()
     with span("sample.draw_z"):
         z = scale * torch.randn(n, cfg.latent_dim, generator=generator, device=generator.device)
-    return _decode_over(model, cfg, z, generator, greedy, temperature, constrained, charset, mesh)
+    return _decode_over(model, cfg, z, generator, greedy, temperature, constrained, charset, mesh, with_codes)
 
 
 def _decode_over(model, cfg, z: torch.Tensor, generator, greedy: bool, temperature: float, constrained: bool,
-                 charset: Charset, mesh) -> List[str]:
+                 charset: Charset, mesh, with_codes: bool = False):
     """``generate`` of z's rows on the model's device, data-parallel over
     ``mesh`` where one is given (the reference's divisibility check), as
-    strings."""
+    strings; with ``with_codes`` (strings, the codes (B, T) on the host,
+    from the same copy)."""
     if mesh is not None and mesh.collective and z.shape[0] % mesh.data:
         raise ValueError(f"batch {z.shape[0]} not divisible by mesh data axis {mesh.data}")
+    grammar = grammar_of(cfg)
+    if grammar is not None:
+
+        def walk_rows(part: torch.Tensor, row_base: int) -> torch.Tensor:
+            with span("sample.decode"):
+                return _grammar_generate(model, cfg, part.to(model.device), generator, greedy, temperature,
+                                         constrained, row_base)[0]
+
+        packed = map_rows(mesh, z, walk_rows)
+        with span("sample.to_host"):
+            packed = packed.cpu()
+        with span("sample.strings"):
+            strings = grammar.strings(packed[:, cfg.max_len:].numpy())
+        return (strings, packed[:, : cfg.max_len]) if with_codes else strings
 
     def decode_rows(part: torch.Tensor, row_base: int) -> torch.Tensor:
         return generate(model, cfg, part.to(model.device), generator, greedy=greedy, temperature=temperature,
@@ -370,7 +430,8 @@ def _decode_over(model, cfg, z: torch.Tensor, generator, greedy: bool, temperatu
     with span("sample.to_host"):  # the host waits here for the decode on the card
         codes = codes.cpu()
     with span("sample.strings"):
-        return decode_codes(codes, charset)
+        strings = decode_codes(codes, charset)
+    return (strings, codes) if with_codes else strings
 
 
 def fit_aggregate_posterior(
@@ -431,9 +492,15 @@ def reconstruct(
     """encode -> (mu, or z sampled around it) -> greedy free-running decode
     -> strings."""
     generator = generator if generator is not None else _default_generator()
-    codes = torch.from_numpy(encode_smiles(smiles, charset, cfg.max_len)).to(model.device)
+    grammar = grammar_of(cfg)
+    if grammar is not None:
+        codes = torch.from_numpy(grammar.encode(smiles, cfg.max_len)[0]).to(model.device)
+    else:
+        codes = torch.from_numpy(encode_smiles(smiles, charset, cfg.max_len)).to(model.device)
     with torch.no_grad():
         mu, logvar = vae_encode(model, cfg, codes)
         z = reparameterize(mu, logvar, cfg.eps_scale, generator) if stochastic else mu
+    if grammar is not None:
+        return _decode_over(model, cfg, z, generator, True, 1.0, False, charset, None)
     out_codes, _ = generate(model, cfg, z, generator, greedy=True, charset=charset)
     return decode_codes(out_codes, charset)

@@ -14,11 +14,10 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
-import torch.nn.functional as F
 
 from ..kernels import gru as kgru
 from ..utils import matmul_dtype
-from .encoder import linear
+from .encoder import dense_act, linear
 from .gru import gru_forward, gru_layers
 
 
@@ -29,9 +28,10 @@ def decoder_input_size(cfg) -> int:
 
 
 def latent_embed(model, cfg, z: torch.Tensor) -> torch.Tensor:
-    """selu(linear_3(z)), shared by training decode and generation."""
+    """selu(linear_3(z)) (relu with ``dense_activation='relu'``), shared by
+    training decode and generation."""
     cd = matmul_dtype(cfg, z.device)
-    return F.selu(linear(z, model.linear_3.weight, model.linear_3.bias, cd))
+    return dense_act(cfg)(linear(z, model.linear_3.weight, model.linear_3.bias, cd))
 
 
 def teacher_inputs(

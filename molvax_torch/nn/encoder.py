@@ -1,7 +1,8 @@
 """Conv1d encoder stack -> (mu, logvar) heads.
 
 Port of ``molvax/nn/encoder.py``: three VALID Conv1d layers with ReLU,
-flatten (channel-major), Linear + SELU, then the mu and logvar heads. Both
+flatten (channel-major), Linear + SELU (or ReLU: ``dense_activation``),
+then the mu and logvar heads. Both
 conv orientations of the reference lineage: 'seq' convolves along the T
 positions with the charset as channels, 'charset' along the charset axis with
 the positions as channels. Weights are in torch layout (``nn.Linear``
@@ -98,6 +99,12 @@ def conv1d(
     return out + bias[None, :, None]
 
 
+def dense_act(cfg):
+    """The activation of the encoder's dense layer and the decoder's latent
+    embedding (``ModelConfig.dense_activation``)."""
+    return F.relu if cfg.dense_activation == "relu" else F.selu
+
+
 def conv_input_channels(cfg) -> int:
     return cfg.charset_size if cfg.conv_orientation == "seq" else cfg.max_len
 
@@ -144,7 +151,7 @@ def encode_with(
         h = F.relu(conv1d(h, params[2 * i], params[2 * i + 1], compute_dtype))
     h = h.reshape(h.shape[0], -1)
     w0, b0, w_mu, b_mu, w_lv, b_lv = params[2 * n_conv :]
-    h = F.selu(linear(h, w0, b0, compute_dtype))
+    h = dense_act(cfg)(linear(h, w0, b0, compute_dtype))
     return linear(h, w_mu, b_mu), linear(h, w_lv, b_lv)
 
 

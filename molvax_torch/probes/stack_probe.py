@@ -390,7 +390,8 @@ ENC_VARIANTS = {
     "no_first_conv": [("conv_enc.cuh", "  conv_first(d, reinterpret_cast", "  if (d.n < 0) conv_first(d, reinterpret_cast")],
     "no_conv_mma": [("conv_enc.cuh", "    conv_mma(d, s, reinterpret_cast", "    if (s < 0) conv_mma(d, s, reinterpret_cast")],
     "no_flush": [("conv_enc.cuh", "  FOR_TEAM(w, wit, ts) flush_row(", "  FOR_TEAM(w, wit, ts) if (d.n < 0) flush_row(")],
-    "no_dense_mma": [("conv_enc.cu", "for (int s = warp; s < Fp / 16; s += WARPS)", "for (int s = warp; s < 0 * Fp; s += WARPS)")],
+    "no_dense_mma": [("conv_enc.cu", "for (int s = c0 / 16 + warp; s < s_end; s += WARPS)",
+                      "for (int s = c0 / 16 + warp; s < 0 * s_end; s += WARPS)")],
     "no_head_mma": [("conv_enc.cu", "for (int s = warp; s < E8 / 8; s += WARPS)", "for (int s = warp; s < 0 * E8; s += WARPS)")],
     "no_grid_sync": [("conv_enc.cu", "  grid.sync();  // h3 complete", "  __syncthreads();"),
                      ("conv_enc.cu", "  grid.sync();  // h2 complete", "  __syncthreads();")],
@@ -430,7 +431,7 @@ TIMELINE = [
     ("conv_enc.cuh", "    team_sync(team, ts);\n    uint16_t* tmp = cur;", "    team_sync(team, ts);\n    STAMP(6 + s);\n    uint16_t* tmp = cur;"),
     ("conv_enc.cuh", "  team_sync(team, ts);  // the buffers are the next row's",
      "  team_sync(team, ts);  // the buffers are the next row's\n  STAMP(10);"),
-    ("conv_enc.cu", "    bars.wait(BAR_H3);\n    bars.wait(BAR_DW);\n", "    bars.wait(BAR_H3);\n    bars.wait(BAR_DW);\n    STAMP(13);\n"),
+    ("conv_enc.cu", "      bars.wait(BAR_DW);\n", "      bars.wait(BAR_DW);\n      STAMP(13);\n"),
     ("conv_enc.cu", "    if (tid == 0 && tile + (int)gridDim.x >= L.tiles_dense",
      "    STAMP(14);\n    if (tid == 0 && tile + (int)gridDim.x >= L.tiles_dense"),
     ("conv_enc.cu", "    bars.wait(BAR_H2);\n    bars.wait(BAR_HW);\n", "    bars.wait(BAR_H2);\n    bars.wait(BAR_HW);\n    STAMP(17);\n"),

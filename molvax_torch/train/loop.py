@@ -60,6 +60,7 @@ from torch.autograd.graph import increment_version
 
 from ..config import to_dict
 from ..data import BatchIterator, load_dataset
+from ..data.grammar import grammar_dataset, grammar_of
 from ..io import checkpoint as ckpt_io
 from ..kernels.generate import fold_in, fold_in_range
 from ..nn.vae import MolecularVAE, forward
@@ -638,7 +639,10 @@ def train(
     from ``dataset``) with the weights inference reads (the EMA where there
     is one, for both) and logs metrics prefixed ``eval_``.
 
-    With ``cfg.train.checkpoint_dir`` set: ``charset.json`` and
+    A grammar config (``ModelConfig.alphabet``) trains on its grammar's
+    corpus (``data.grammar.grammar_dataset``, rows of rule codes) unless a
+    dataset is given. With ``cfg.train.checkpoint_dir`` set:
+    ``charset.json`` (``grammar.json``, the rules, on a grammar config) and
     ``config.json`` beside the checkpoints; the latest checkpoint restored
     and the data and eval streams fast-forwarded to it, so a resumed run
     takes the batches an uninterrupted one would; a checkpoint at the
@@ -663,7 +667,10 @@ def train(
     dp = _data_parallel(mesh)
     main = mesh.is_main
     warn = _warn if main else (lambda msg: None)
-    if dataset is None:
+    grammar = grammar_of(cfg.model)
+    if dataset is None and grammar is not None:
+        dataset = grammar_dataset(grammar, cfg.data.source, cfg.model.max_len, cfg.data.n_synthetic, cfg.data.seed)
+    elif dataset is None:
         dataset = load_dataset(cfg.data.source, max_len=cfg.data.max_len, synthetic_n=cfg.data.n_synthetic,
                                seed=cfg.data.seed, with_properties=cfg.model.n_properties > 0,
                                property_source=cfg.data.property_source)
@@ -682,7 +689,8 @@ def train(
         if main:
             # inference decodes with the exact table the model was trained
             # on, and the directory alone is enough to restore
-            with open(os.path.join(t.checkpoint_dir, "charset.json"), "w") as f:
+            table = "charset.json" if grammar is None else "grammar.json"
+            with open(os.path.join(t.checkpoint_dir, table), "w") as f:
                 json.dump(list(dataset.charset.chars), f)
             with open(os.path.join(t.checkpoint_dir, "config.json"), "w") as f:
                 json.dump(to_dict(cfg), f, indent=1)

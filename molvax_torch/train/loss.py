@@ -1,8 +1,14 @@
 """KL-annealed ELBO (+ optional multi-task property loss) and metrics.
 
 Port of ``molvax/train/loss.py``: per-molecule sums, batch mean; everything
-fp32 whatever the matmul dtype. the decoder's distribution, 'bce' the compact port's binary cross-entropy
-of the softmax against the one-hot.
+fp32 whatever the matmul dtype. 'ce' is the cross-entropy of the decoder's
+distribution, 'bce' the compact port's binary cross-entropy of the softmax
+against the one-hot. On a grammar config (``ModelConfig.alphabet``) the
+reconstruction term is the Grammar VAE's masked softmax
+(``recon_ce_masked``): at each step the logits are masked to the rules of
+the nonterminal that the true rule expands (a padding step to the padding
+rule alone, so it adds nothing), and the accuracies are of the masked
+logits over the steps that are not padding.
 
 Under a data-parallel mesh (``parallel.Mesh``) the metrics are those of the
 global batch, as the reference's GSPMD step computes them: the means of
@@ -20,6 +26,7 @@ import torch
 import torch.distributed
 
 from ..data.featurize import one_hot
+from ..data.grammar import grammar_of
 from ..nn.property_head import normalize_targets
 
 
@@ -28,6 +35,20 @@ def recon_ce(logits: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
     logp = torch.log_softmax(logits.float(), dim=-1)
     nll = -torch.gather(logp, -1, codes.long()[..., None])
     return nll[..., 0].sum(dim=-1)
+
+
+def masked_logits(logits: torch.Tensor, codes: torch.Tensor, grammar) -> torch.Tensor:
+    """(B, T, R) fp32 logits with every rule that does not expand the
+    nonterminal of the true rule at its step set to -inf."""
+    tab = grammar.tables(logits.device)
+    legal = tab["masks"][tab["lhs"][codes.long()]]
+    return logits.float().masked_fill(~legal, float("-inf"))
+
+
+def recon_ce_masked(logits: torch.Tensor, codes: torch.Tensor, grammar) -> torch.Tensor:
+    """Per-sample summed cross-entropy of the grammar-masked softmax:
+    logits (B, T, R), rule codes (B, T) -> (B,)."""
+    return recon_ce(masked_logits(logits, codes, grammar), codes)
 
 
 def recon_bce(logits: torch.Tensor, codes: torch.Tensor, charset_size: int) -> torch.Tensor:
@@ -124,7 +145,12 @@ def vae_loss(
     data-parallel mesh whose data axis has more than one rank makes the
     metrics the global batch's (``global_metrics``); the loss stays this
     rank's."""
-    if cfg.recon_loss == "ce":
+    grammar = grammar_of(cfg)
+    pad = 0
+    if grammar is not None:
+        logits, pad = masked_logits(logits, codes, grammar), grammar.pad_rule
+        recon = recon_ce(logits, codes)
+    elif cfg.recon_loss == "ce":
         recon = recon_ce(logits, codes)
     else:
         recon = recon_bce(logits, codes, cfg.charset_size)
@@ -143,7 +169,7 @@ def vae_loss(
         # made on the device: a tensor from host data is a blocking copy
         "beta": beta if isinstance(beta, torch.Tensor) else torch.full((), float(beta), device=loss.device),
     }
-    metrics["acc"], metrics["acc_nonpad"] = recon_accuracy(logits, codes)
+    metrics["acc"], metrics["acc_nonpad"] = recon_accuracy(logits, codes, pad)
     metrics["post_std_batch"] = post_std_batch(mu, logvar, cfg.eps_scale)
     if properties_pred is not None and properties_true is not None:
         target = normalize_targets(cfg, properties_true)
@@ -155,5 +181,5 @@ def vae_loss(
             metrics[f"prop_mse_{i}"] = per_prop[i]
         metrics["loss"] = loss
     if mesh is not None and mesh.collective and mesh.data > 1:
-        metrics = global_metrics(metrics, mesh, logits, codes, mu, logvar, cfg.eps_scale)
+        metrics = global_metrics(metrics, mesh, logits, codes, mu, logvar, cfg.eps_scale, pad)
     return loss, metrics

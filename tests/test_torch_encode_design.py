@@ -240,6 +240,21 @@ def test_layout_fits_the_card_at_every_preset(host, preset, B):
         assert big["team"] == 1 and big["ok"] == 1 and big["pre_dense"] == 0
 
 
+@pytest.mark.parametrize("B", [1, 64, 500])
+def test_layout_fits_gvae_zinc_with_its_dense_rows_in_chunks(host, B):
+    """gvae_zinc's encoder (T=277, C=76: F = 2,510, whose W_0 rows for a
+    dense tile take 321 KB whole) fits an H100 block with W_0 staged in
+    chunks of columns, at its training batch of 500 too; the batch's
+    teams of warps are those of any other config, and the tiles one
+    pass's count."""
+    cfg = get_preset("gvae_zinc").model
+    lay = layout(host, cfg, B)
+    assert lay["ok"] == 1 and lay["smem"] <= SMEM and lay["pre_dense"] == 0, lay
+    assert lay["smem_dense"] < 32 * 2510 * 4, lay  # W_0's tile rows are not staged whole
+    assert (lay["F"], lay["Fp"]) == (2510, 2512) and lay["team"] == {1: 8, 64: 8, 500: 2}[B]
+    assert lay["tiles_dense"] == -(-B // 32) * -(-cfg.enc_hidden // 32)
+
+
 def test_no_layout_where_the_card_has_too_little_shared_memory(host):
     """A stack whose staged weights outgrow the card has no layout, nor a
     dense layer whose rows do; the wrapper raises for both (below)."""
@@ -247,7 +262,9 @@ def test_no_layout_where_the_card_has_too_little_shared_memory(host):
     assert layout(host, wide, 256)["ok"] == 0
     long_rows = ModelConfig(max_len=400, conv_channels=(9, 9, 10))  # F = 3,740
     assert layout(host, long_rows, 256)["ok"] == 0
-    assert layout(host, ZINC, 256, smem=150_000)["ok"] == 0  # a card with less shared memory
+    # a card with less shared memory than the head phase's 127,504 bytes (the
+    # dense phase fits in less, its W_0 staged in chunks of columns)
+    assert layout(host, ZINC, 256, smem=120_000)["ok"] == 0
 
 
 class _Ops(TorchDispatchMode):
@@ -310,9 +327,9 @@ def test_encoder_wrapper_hands_the_kernel_the_models_own_tensors(monkeypatch, dt
     assert list(args[7:13]) == [p.data_ptr() for p in params[2 * n :]]
     assert args[13:15] == (mu.data_ptr(), logvar.data_ptr())
     assert mu.shape == logvar.shape == (6, cfg.latent_dim) and mu.dtype == torch.float32
-    B, T, C, seq, E, Lz, sms, smem = args[16:24]
-    assert (B, T, C, seq, E, Lz) == (6, cfg.max_len, cfg.charset_size, 1, cfg.enc_hidden, cfg.latent_dim)
-    assert (sms, smem) == gru_stack.plan_limits("cpu") and args[24] == 1234
+    B, T, C, seq, E, Lz, relu, sms, smem = args[16:25]
+    assert (B, T, C, seq, E, Lz, relu) == (6, cfg.max_len, cfg.charset_size, 1, cfg.enc_hidden, cfg.latent_dim, 0)
+    assert (sms, smem) == gru_stack.plan_limits("cpu") and args[25] == 1234
     assert conv_enc.scratch_bytes(cfg, 6) == 6 * 944 * 2 + 6 * 440 * 4
 
 

@@ -59,11 +59,15 @@ def normal(shape, seed: int) -> np.ndarray:
 
 
 def test_presets_are_the_reference_table():
-    assert sorted(tcfg_mod.PRESETS) == sorted(jcfg_mod.PRESETS)
+    """Every reference preset is the port's, field for field, once the
+    port-only fields are dropped at their defaults; the port's own presets
+    are exactly gvae_zinc."""
+    assert set(tcfg_mod.PRESETS) - set(jcfg_mod.PRESETS) == {"gvae_zinc"}
     for name in jcfg_mod.PRESETS:
-        assert dataclasses.asdict(tcfg_mod.get_preset(name)) == dataclasses.asdict(
-            jcfg_mod.get_preset(name)
-        ), name
+        port = dataclasses.asdict(tcfg_mod.get_preset(name))
+        for field, default in tcfg_mod.PORT_ONLY_DEFAULTS.items():
+            assert port["model"].pop(field) == default, (name, field)
+        assert port == dataclasses.asdict(jcfg_mod.get_preset(name)), name
 
 
 def test_charset_is_the_reference_charset():
@@ -101,7 +105,9 @@ def test_port_config_classes_are_not_the_reference_objects():
     """The hazard of two copies: configs do not cross packages."""
     jc, tc = configs()
     assert type(jc) is not type(tc)
-    assert dataclasses.asdict(jc) == dataclasses.asdict(tc)
+    port = dataclasses.asdict(tc)
+    assert {k: port.pop(k) for k in tcfg_mod.PORT_ONLY_DEFAULTS} == tcfg_mod.PORT_ONLY_DEFAULTS
+    assert dataclasses.asdict(jc) == port
 
 
 def test_paired_models_hold_identical_weights():
