@@ -3,7 +3,7 @@
 training loop, constrained decoding, latent workloads, evaluation, CLI and
 data parallelism once on one CUDA card.
 
-    python3 chip_smoke.py [--phase 29]
+    python3 chip_smoke.py [--phase 28 | --phase 29]
 
 Run from the root of a checkout. It builds the hand-written kernels from
 ``molvax_torch/kernels/csrc/`` (into ``build/molvax_torch/``), makes
@@ -220,17 +220,26 @@ phases, each printed on its own lines:
      restored by this process, and this process's restored by the ranks,
      bit for bit;
  28. the scan route's decode as one CUDA Graph (latent.sample's
-     CapturedDecode) at B=256, greedy, T=1.0 and T=0.7: five calls a key,
-     op by op until the key's third call captures its graph, three seeds
-     replayed; codes and logits of every call equal to the op-by-op loop
-     bit for bit; auto_step 120 a call (121 in the capturing call: its step
-     before the capture), and 120 auto_step kernels a replay in the
-     profiler's trace; a key of its own under the plain automaton (0
-     auto_step launches, equal to its loop and to the kernel's replay); the
-     device activities the profiler records in a replay and in the loop; a
-     key's first call, its capturing call, a replay and the loop, ms a
-     request. (Phases 17, 18 and 24-26 decode through the graph where a key
-     comes back: phase 17 counts its replays' auto_step kernels too.)
+     CapturedDecode) and its noise table: the table kernel
+     (kernels.generate.gumbel_table, csrc/noise.cu) bit for bit its plain
+     version at (T, B, C) = (120, 256, 37) and at B=528 from row_base
+     4000, its seed an int, an int64 and an int32 tensor, one launch a
+     call, with its ms, device ms and bound; then at B=256, greedy, T=1.0,
+     T=0.7 and T=1.0 at row_base 128: five calls a key, op by op until the
+     key's third call captures its graph, three seeds replayed; codes and
+     logits of every call equal to the op-by-op loop and to the loop that
+     draws the per-step noise, bit for bit; auto_step 120 a call (121 in
+     the capturing call: its step before the capture), the noise table 1
+     a sampled call (2 in the capturing call), and 120 auto_step kernels
+     and 1 table kernel a replay in the profiler's trace; a key of its own
+     under the plain automaton (0 auto_step launches, equal to its loop
+     and to the kernel's replay); the device activities the profiler
+     records in a replay, in the loop and in the per-step-noise loop, a
+     replay's device ms (queued behind a sleep); a key's first call, its
+     capturing call, a replay and both loops, ms a request. (Phases 17, 18
+     and 24-26 decode through the graph where a key comes back: phase 17
+     counts its replays' auto_step kernels and each decode's noise tables
+     too.) ``--phase 28`` runs phases 1, 2 and this phase alone.
  29. gvae_zinc (the Grammar VAE) at its published widths, with the
      benchmark's seeded weights: the pushdown walk kernel against its plain
      version on the same logits (the decode's, B=10,000, T=277, R=76) and
@@ -288,8 +297,8 @@ from molvax_torch.latent.beam import beam_generate, beam_reconstruct
 from molvax_torch.latent import sample as ls
 from molvax_torch.latent.sample import generate, reconstruct, sample_prior
 from molvax_torch.nn.decoder import decoder_input_size, latent_embed, teacher_inputs
-from molvax_torch.nn.encoder import conv_input_channels, encoder_params, flat_conv_dim
-from molvax_torch.nn.gru import gru_layers
+from molvax_torch.nn.encoder import conv_input_channels, encoder_params, flat_conv_dim, linear
+from molvax_torch.nn.gru import gru_layers, gru_stack_step
 from molvax_torch.nn.vae import MolecularVAE, encode
 from molvax_torch.probes import auto_loop_probe, gru_experiments, proto_gi_kernel
 from molvax_torch.probes.stack_probe import device_kernels, device_ms, queued_ms
@@ -1352,16 +1361,18 @@ def phase17(model, qcfg, dev) -> dict:
     gen = torch.Generator().manual_seed(SEED + 17)
     for name, greedy, temp in (("greedy", True, 1.0), ("T1.0", False, 1.0), ("T0.7", False, 0.7)):
         reset_counts()
+        tables = kg.noise_table_launches
         strings = sample_prior(model, qcfg, B, gen, greedy=greedy, temperature=temp, constrained=True)
         torch.cuda.synchronize()
-        got = counts()
+        got, tables = counts(), kg.noise_table_launches - tables
         bad = [x for x in strings if not chem_valid(x)]
         say("phase17", call="sample_prior", mode=name, n=len(strings), chem_valid=f"{len(strings) - len(bad)}/{len(strings)}",
             distinct=len(set(strings)), examples=json.dumps(strings[:3]), auto_step=got["auto_step"],
-            fused_generate=got["fused_generate"])
+            fused_generate=got["fused_generate"], gumbel_table=tables)
         want = {"auto_step": T}
-        if any(v != want.get(k, 0) for k, v in got.items()):
-            raise AssertionError(f"constrained sample_prior ({name}): launch counts {got}, expected {want}")
+        if any(v != want.get(k, 0) for k, v in got.items()) or tables != (0 if greedy else 1):
+            raise AssertionError(f"constrained sample_prior ({name}): launch counts {got}, gumbel_table {tables}, "
+                                 f"expected {want} and {0 if greedy else 1} table")
         if bad or len(strings) != B:
             raise AssertionError(f"constrained sample_prior ({name}): invalid strings {bad[:5]}")
         out[name] = got
@@ -3334,62 +3345,156 @@ def phase27(dev, gpu, model, codes, ds) -> dict:
     return out
 
 
+# the noise table's shapes held to its plain version: (T, B, C, row_base)
+NOISE_TABLE_SHAPES = ((120, B, 37, 0), (120, 528, 37, 4000))
+NOISE_SEED = 0x9E3779B9  # past 2**31: its int32 bit pattern is negative
+
+
+def per_step_noise_loop(model, cfg, z, seed: int, greedy: bool, temp: float, row_base: int = 0):
+    """The constrained scan-route decode op by op with the per-step
+    ``gumbel_noise`` drawn inside each step, as the decode drew its noise
+    before the table (``kernels.generate.gumbel_table``): (codes, logits)."""
+    rows, T, C = z.shape[0], cfg.max_len, cfg.charset_size
+    itab, state = ls._automaton(DEFAULT_CHARSET, rows, T, z.device)
+    codes = torch.empty(rows, T, dtype=torch.int32, device=z.device)
+    logits = torch.empty(rows, T, C, device=z.device)
+    with torch.no_grad():
+        z_emb = latent_embed(model, cfg, z)
+        hs = torch.zeros(model.gru.num_layers, rows, cfg.gru_hidden, device=z.device)
+        prev = (model.start_token.float()[None, :].expand(rows, C) if model.start_token is not None
+                else torch.zeros(rows, C, device=z.device))
+        for t in range(T):
+            hs, out = gru_stack_step(model.gru, hs, torch.cat([z_emb, prev], dim=-1))
+            logits_t = linear(out, model.linear_4.weight, model.linear_4.bias)
+            scores = logits_t if greedy else logits_t / temp + kg.gumbel_noise(seed, t, rows, C, z.device, row_base)
+            code_t = kauto.auto_step(itab, state, scores.contiguous(), T - 1 - t)[:, 0]
+            codes[:, t] = code_t.to(torch.int32)
+            logits[:, t] = logits_t
+            prev = one_hot(code_t, C)
+    return codes, logits
+
+
+def noise_table_checks(dev) -> dict:
+    """The noise table (``kernels.generate.gumbel_table``, ``csrc/noise.cu``)
+    at each of ``NOISE_TABLE_SHAPES``, its seed an int, a 0-d int64 tensor
+    and an int32 bit pattern: bit for bit its plain version, which is bit
+    for bit the stack of the per-step ``gumbel_noise`` on the card, one
+    launch a call; then at (T, B, C) = (120, 256, 37) its event ms, its
+    device ms by the profiler and queued behind a sleep (with the seed's
+    fill), the plain version's ms and the bound (bytes written)."""
+    out = {}
+    for steps, rows, classes, base in NOISE_TABLE_SHAPES:
+        forms = {"int": NOISE_SEED, "int64": torch.full((), NOISE_SEED, dtype=torch.int64, device=dev),
+                 "int32_bits": torch.full((), NOISE_SEED - (1 << 32), dtype=torch.int32, device=dev)}
+        want = kg.gumbel_table_ref(NOISE_SEED, steps, rows, classes, dev, base)
+        stacked = torch.stack([kg.gumbel_noise(NOISE_SEED, t, rows, classes, dev, base) for t in range(steps)])
+        before = kg.noise_table_launches
+        same = {name: bool(torch.equal(kg.gumbel_table(seed, steps, rows, classes, dev, base), want))
+                for name, seed in forms.items()}
+        launches = kg.noise_table_launches - before
+        plain_is_stack = bool(torch.equal(want, stacked))
+        say("phase28", check="noise_table", T=steps, B=rows, C=classes, row_base=base,
+            identical_to_plain=json.dumps(same), plain_identical_to_per_step_stack=plain_is_stack, launches=launches)
+        if not all(same.values()) or not plain_is_stack or launches != len(forms):
+            raise AssertionError(f"noise table at {(steps, rows, classes, base)}: {same}, plain is the per-step "
+                                 f"stack {plain_is_stack}, {launches} launches for {len(forms)} calls")
+        out[f"T{steps}_B{rows}_C{classes}_rb{base}"] = same
+    steps, rows, classes, _ = NOISE_TABLE_SHAPES[0]
+
+    def call():
+        return kg.gumbel_table(NOISE_SEED, steps, rows, classes, dev)
+
+    prof_ms, prof_n = device_ms(call, "gumbel_table_kernel")
+    times = {"ms": time_ms(call), "device_ms_profiler": prof_ms / prof_n if prof_n else "not_measured",
+             "device_ms_queued_with_seed_fill": queued_ms(call),
+             "plain_ms": time_ms(lambda: kg.gumbel_table_ref(NOISE_SEED, steps, rows, classes, dev)),
+             "bound_ms": profiling.bound_ms(0.0, 4.0 * steps * rows * classes, 1.0)[0]}
+    say("phase28", times="noise_table", T=steps, B=rows, C=classes,
+        **{k: (f"{v:.6g}" if isinstance(v, float) else v) for k, v in times.items()})
+    return {"identical": out, **times}
+
+
 def phase28(model, qcfg, dev, gpu) -> dict:
     """The scan route's decode as one CUDA Graph (``latent.sample.CapturedDecode``)
-    at B=256: greedy, T=1.0 and T=0.7, five calls of a key (each its own z
-    and generator seed): the calls before ``_CAPTURE_AT_CALL`` op by op,
-    then one capture and replays, each call's codes and logits equal to the
-    op-by-op loop (``_eager_scan``) bit for bit; auto_step T a call, once
-    more in the capturing call (its step before the capture); the profiler's
-    auto_step kernels a replay (T); a key of its own under the plain
-    automaton, equal to its loop and to the kernel's replay; the device
-    activities the profiler records in a replay and in the loop; a key's
-    first call, its capturing call, a replay and the loop, ms a request."""
+    at B=256 and its noise table: first ``noise_table_checks``; then
+    greedy, T=1.0, T=0.7 and T=1.0 at row_base 128, five calls of a key
+    (each its own z and generator seed): the calls before
+    ``_CAPTURE_AT_CALL`` op by op, then one capture and replays, each
+    call's codes and logits equal, bit for bit, to the op-by-op loop
+    (``_eager_scan``) and to the loop that draws the per-step noise
+    (``per_step_noise_loop``); auto_step T a call, once more in the
+    capturing call (its step before the capture); the noise table once a
+    sampled call, twice in the capturing call (its step before the capture
+    makes one of one step), never greedy; the profiler's auto_step kernels
+    (T) and noise table kernels (1) a replay; a key of its own under the
+    plain automaton, equal to its loop and to the kernel's replay; the
+    device activities the profiler records in a replay, in the loop and in
+    the per-step-noise loop, a replay's device ms (``queued_ms``); a key's first call, its
+    capturing call, a replay, the loop and the per-step-noise loop, ms a
+    request."""
     t0 = time.perf_counter()
     T, C = qcfg.max_len, qcfg.charset_size
     at = ls._CAPTURE_AT_CALL
+    table = noise_table_checks(dev)
     rng = np.random.default_rng(SEED + 28)
     zs = [torch.from_numpy(rng.standard_normal((B, qcfg.latent_dim)).astype(np.float32)).to(dev) for _ in range(5)]
     seeds = [SEED + 280 + i for i in range(len(zs))]
     ls._graphs.pop(model, None)  # phase 17 decoded these keys
 
-    def served(z, seed, greedy, temp):
+    def served(z, seed, greedy, temp, row_base=0):
         return generate(model, qcfg, z, torch.Generator().manual_seed(seed), greedy=greedy, temperature=temp,
-                        constrained=True)
+                        constrained=True, row_base=row_base)
 
-    def eager(z, seed, greedy, temp):
+    def drawn(seed):
+        return ls._draw_seed(torch.Generator().manual_seed(seed))
+
+    def eager(z, seed, greedy, temp, row_base=0):
         with torch.no_grad():
-            return ls._eager_scan(model, qcfg, z, ls._draw_seed(torch.Generator().manual_seed(seed)), greedy, temp,
-                                  True, DEFAULT_CHARSET, 0)
+            return ls._eager_scan(model, qcfg, z, drawn(seed), greedy, temp, True, DEFAULT_CHARSET, row_base)
 
-    out = {}
+    def loop(z, seed, greedy, temp, row_base=0):
+        return per_step_noise_loop(model, qcfg, z, drawn(seed), greedy, temp, row_base)
+
+    out = {"noise_table": table}
     want_launches = [T + (i + 1 == at) for i in range(len(zs))]
-    for name, greedy, temp in (("greedy", True, 1.0), ("T1.0", False, 1.0), ("T0.7", False, 0.7)):
+    for name, greedy, temp, base in (("greedy", True, 1.0, 0), ("T1.0", False, 1.0, 0), ("T0.7", False, 0.7, 0),
+                                     ("T1.0_row_base", False, 1.0, 128)):
         caps, reps = ls.graph_captures, ls.graph_replays
-        same, launches = [], []
+        same, same_loop, launches, tables = [], [], [], []
         for z, seed in zip(zs, seeds):
             reset_counts()
-            codes, logits = served(z, seed, greedy, temp)
+            before = kg.noise_table_launches
+            codes, logits = served(z, seed, greedy, temp, base)
             launches.append(counts()["auto_step"])
-            codes_e, logits_e = eager(z, seed, greedy, temp)
+            tables.append(kg.noise_table_launches - before)
+            codes_e, logits_e = eager(z, seed, greedy, temp, base)
             same.append(bool(torch.equal(codes, codes_e) and torch.equal(logits, logits_e)))
+            codes_l, logits_l = loop(z, seed, greedy, temp, base)
+            same_loop.append(bool(torch.equal(codes, codes_l) and torch.equal(logits, logits_l)))
         torch.cuda.synchronize()
         got = {"captures": ls.graph_captures - caps, "replays": ls.graph_replays - reps}
-        say("phase28", mode=name, B=B, T=T, calls=len(zs), capture_at_call=at, **got,
-            equal_to_loop=json.dumps(same), auto_step_per_call=json.dumps(launches))
-        if got != {"captures": 1, "replays": len(zs) - at} or not all(same) or launches != want_launches:
-            raise AssertionError(f"captured decode ({name}): {got}, equal to the loop {same}, auto_step {launches}, "
-                                 f"expected {want_launches}")
+        want_tables = [0 if greedy else 1 + (i + 1 == at) for i in range(len(zs))]
+        say("phase28", mode=name, B=B, T=T, row_base=base, calls=len(zs), capture_at_call=at, **got,
+            equal_to_loop=json.dumps(same), equal_to_per_step_noise_loop=json.dumps(same_loop),
+            auto_step_per_call=json.dumps(launches), gumbel_table_per_call=json.dumps(tables))
+        if (got != {"captures": 1, "replays": len(zs) - at} or not all(same) or not all(same_loop)
+                or launches != want_launches or tables != want_tables):
+            raise AssertionError(f"captured decode ({name}): {got}, equal to the loop {same}, to the per-step-noise "
+                                 f"loop {same_loop}, auto_step {launches}, expected {want_launches}, gumbel_table "
+                                 f"{tables}, expected {want_tables}")
         out[name] = got
-    # what runs in a replay: the profiler's auto_step kernels beside the counter
+    # what runs in a replay: the profiler's auto_step and noise table kernels beside the counters
     reset_counts()
-    reps = ls.graph_replays
+    reps, tables = ls.graph_replays, kg.noise_table_launches
     per = profiled_kernels_per_call("auto_step", lambda: served(zs[1], seeds[1], False, 1.0), T, alone=False)
-    replays, counted = ls.graph_replays - reps, counts()["auto_step"]
-    say("phase28", check="auto_step_in_replays", mode="T1.0", replays=replays, counted=counted,
-        profiler_auto_step_per_replay=per)
-    if per != T or counted != T * replays:
-        raise AssertionError(f"replays: the profiler {per} auto_step a replay, counted {counted} in {replays}")
+    per_table = profiled_kernels_per_call("gumbel_table", lambda: served(zs[1], seeds[1], False, 1.0), 1,
+                                          alone=False)
+    replays, counted, tables = ls.graph_replays - reps, counts()["auto_step"], kg.noise_table_launches - tables
+    say("phase28", check="kernels_in_replays", mode="T1.0", replays=replays, auto_step_counted=counted,
+        profiler_auto_step_per_replay=per, gumbel_table_counted=tables, profiler_gumbel_table_per_replay=per_table)
+    if per != T or counted != T * replays or per_table != 1 or tables != replays:
+        raise AssertionError(f"replays: the profiler {per} auto_step and {per_table} gumbel_table a replay, counted "
+                             f"{counted} and {tables} in {replays}")
     # the plain automaton: a key of its own, the same codes
     caps = ls.graph_captures
     with plain_automaton():
@@ -3406,12 +3511,20 @@ def phase28(model, qcfg, dev, gpu) -> dict:
     say("phase28", check="plain_automaton_own_capture", **plain)
     if plain != {"captures": 1, "auto_step": 0, "equal_to_its_loop": True, "equal_to_kernel_route": True}:
         raise AssertionError(f"captured decode under the plain automaton: {plain}")
-    # device activities a request, as the profiler records them
-    rec = {"replay": sum(device_kernels(lambda: served(zs[1], seeds[1], False, 1.0)).values()),
-           "loop": sum(device_kernels(lambda: eager(zs[1], seeds[1], False, 1.0)).values())}
-    say("phase28", profiled_device_activities="T1.0", replay=rec["replay"], loop=rec["loop"],
-        replay_per_step=f"{rec['replay'] / T:.2f}", loop_per_step=f"{rec['loop'] / T:.2f}")
-    # ms a request at T=1.0: a key's first call, its capturing call, a replay, the loop
+    # device activities a request, as the profiler records them; a replay's device ms, queued
+    runs = {"replay": lambda: served(zs[1], seeds[1], False, 1.0),
+            "loop": lambda: eager(zs[1], seeds[1], False, 1.0),
+            "per_step_noise_loop": lambda: loop(zs[1], seeds[1], False, 1.0)}
+    rec = {k: device_kernels(fn) for k, fn in runs.items()}
+    replay_device_ms = queued_ms(runs["replay"])
+    say("phase28", profiled_device_activities="T1.0", **{k: sum(v.values()) for k, v in rec.items()},
+        **{f"{k}_per_step": f"{sum(v.values()) / T:.2f}" for k, v in rec.items()},
+        replay_device_ms_queued=f"{replay_device_ms:.3f}")
+    names = {}
+    for name, n in rec["replay"].items():
+        names[name[:60]] = names.get(name[:60], 0) + n
+    say("phase28", replay_device_activities=json.dumps(dict(sorted(names.items(), key=lambda kv: -kv[1]))))
+    # ms a request at T=1.0: a key's first call, its capturing call, a replay, the loops
     ls._graphs.pop(model, None)
     ms = {}
     for i in range(at):
@@ -3421,12 +3534,14 @@ def phase28(model, qcfg, dev, gpu) -> dict:
         torch.cuda.synchronize()
         ms[("first_call", "second_call")[i] if i < at - 1 else "capture_call"] = (time.perf_counter() - a) * 1e3
     ms.update(replay=time_ms(lambda: served(zs[2], seeds[2], False, 1.0)),
-              loop=time_ms(lambda: eager(zs[2], seeds[2], False, 1.0), warmup=1, reps=3))
+              loop=time_ms(lambda: eager(zs[2], seeds[2], False, 1.0), warmup=1, reps=3),
+              per_step_noise_loop=time_ms(lambda: loop(zs[2], seeds[2], False, 1.0), warmup=1, reps=3))
     say("phase28", times="T1.0", B=B, **{f"{k}_ms": f"{v:.3f}" for k, v in ms.items()},
         replay_smiles_per_s=f"{B / (ms['replay'] / 1e3):.1f}", loop_smiles_per_s=f"{B / (ms['loop'] / 1e3):.1f}",
         card=json.dumps(gpu))
     say("phase28", phase_s=f"{time.perf_counter() - t0:.1f}")
-    out.update(plain=plain, profiled=rec, replay_auto_step=per, ms=ms)
+    out.update(plain=plain, profiled={k: sum(v.values()) for k, v in rec.items()}, replay_device_ms=replay_device_ms,
+               replay_auto_step=per, replay_gumbel_table=per_table, ms=ms)
     return out
 
 
@@ -3639,10 +3754,7 @@ def main() -> int:
         say("phase1", probe_kernel=name, **rep)
     if sys.argv[1:] == ["--phase", "29"]:
         phase29(dev, gpu)
-        print(gpu, flush=True)
-        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
-                                                 "count": torch.cuda.device_count()}}), flush=True)
-        return 0
+        return done(gpu)
 
     # -- 2. weights ----------------------------------------------------------
     full = get_preset("zinc250k")
@@ -3654,6 +3766,9 @@ def main() -> int:
     say("phase2", preset="zinc250k", T=cfg.max_len, C=cfg.charset_size, latent=cfg.latent_dim,
         gru=f"{cfg.gru_layers}x{cfg.gru_hidden}", compute_dtype=cfg.compute_dtype,
         params=sum(p.numel() for p in model.parameters()))
+    if sys.argv[1:] == ["--phase", "28"]:
+        phase28(model, get_preset("zinc250k_quality").model, dev, gpu)
+        return done(gpu)
 
     # -- 3, 4. generation kernel against plain version -----------------------
     rng = np.random.default_rng(SEED + 1)
@@ -4191,12 +4306,14 @@ def main() -> int:
                                                                              "persistent_pair_ms": v[1]}
                                   for (md, l), v in route_cmp.items()}),
     ]}), flush=True)
+    return done(gpu)
+
+
+def done(gpu) -> int:
+    """The run's last lines: the card's, then the device JSON line."""
     print(gpu, flush=True)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu",
-        "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count(),
-    }}), flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}), flush=True)
     return 0
 
 

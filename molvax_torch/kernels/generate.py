@@ -28,7 +28,10 @@ is the global one, ``row_base`` plus the row of the call: a data-parallel
 rank decoding its rows of a global batch (``row_base`` the global index of
 its first row) draws the noise the one-process decode draws for them. Like the
 TPU kernel's on-chip PRNG, the stream is seed-deterministic but differs
-from the reference's ``jax.random`` stream.
+from the reference's ``jax.random`` stream. ``gumbel_table`` draws the noise
+of all T steps of a scan-route decode (``latent.sample``) at once, in one
+launch of ``csrc/noise.cu``, bit for bit the stack of the per-step
+``gumbel_noise``.
 """
 
 from __future__ import annotations
@@ -51,6 +54,8 @@ from .gru_stack import SMS, SMEM, _PAD_BYTES, _stream, _up, card_limits
 launches = 0
 persistent_launches = 0  # the persistent decode (csrc/generate.cu gen_persistent_kernel)
 row_block_launches = 0  # the row-block decode, for widths no plan takes (fused_generate_kernel)
+# launches of gumbel_table's kernel (csrc/noise.cu): one a sampled scan-route decode
+noise_table_launches = 0
 
 _MASK32 = 0xFFFFFFFF
 
@@ -96,11 +101,12 @@ def seed_word(seed: Union[int, torch.Tensor], device) -> torch.Tensor:
     return torch.full((), seed & _MASK32, dtype=torch.int64, device=device)
 
 
-def noise_bits(seed: Union[int, torch.Tensor], t: int, rows: torch.Tensor, classes: torch.Tensor) -> torch.Tensor:
+def noise_bits(seed: Union[int, torch.Tensor], t: Union[int, torch.Tensor], rows: torch.Tensor,
+               classes: torch.Tensor) -> torch.Tensor:
     """uint32 bits (in int64) for every (row, class) pair of step t, as the
-    kernel's ``noise_bits``. ``rows`` (B, 1) and ``classes`` (1, C) broadcast.
-    ``seed`` is a Python int or a one-element integer tensor on the rows'
-    device (``seed_word``)."""
+    kernel's ``noise_bits``. ``rows`` (B, 1) and ``classes`` (1, C) broadcast
+    (and an int64 tensor of steps ``t`` with them). ``seed`` is a Python int
+    or a one-element integer tensor on the rows' device (``seed_word``)."""
     h = _mix32(seed_word(seed, rows.device))
     h = _mix32((h + rows) & _MASK32)
     h = _mix32((h + t) & _MASK32)
@@ -131,9 +137,50 @@ def gumbel_noise(seed: int, t: int, batch: int, classes: int, device, row_base: 
 def _gumbel(seed: int, t: int, rows: torch.Tensor, classes: int) -> torch.Tensor:
     """``gumbel_noise`` of the batch rows ``rows`` (R,) int64: (R, classes)."""
     cls = torch.arange(classes, dtype=torch.int64, device=rows.device)[None, :]
-    bits = noise_bits(seed, t, rows[:, None], cls)
+    return _gumbel_of(noise_bits(seed, t, rows[:, None], cls))
+
+
+def _gumbel_of(bits: torch.Tensor) -> torch.Tensor:
+    """Gumbel(0, 1) noise from hash bits (int64 uint32 values), elementwise."""
     u = ((bits >> 8).to(torch.float32) + 1.0) * (1.0 / (1 << 24))
     return -torch.log(-torch.log(u))
+
+
+def gumbel_table_ref(seed: Union[int, torch.Tensor], steps: int, batch: int, classes: int, device,
+                     row_base: int = 0) -> torch.Tensor:
+    """(steps, batch, classes) fp32: ``gumbel_noise`` of steps 0 .. steps - 1
+    in one pass of torch ops, bit for bit their stack (t enters the hash as
+    one added word, so the hash of (seed, row) is shared by every step)."""
+    ar = functools.partial(torch.arange, dtype=torch.int64, device=device)
+    return _gumbel_of(noise_bits(seed, ar(steps)[:, None, None], ar(row_base, row_base + batch)[None, :, None],
+                                 ar(classes)[None, None, :]))
+
+
+def gumbel_table(seed: Union[int, torch.Tensor], steps: int, batch: int, classes: int, device,
+                 row_base: int = 0) -> torch.Tensor:
+    """The sampling noise of a decode's first ``steps`` steps, (steps, batch,
+    classes) fp32 contiguous, ``gumbel_table_ref``'s bits: on CUDA one launch
+    of ``csrc/noise.cu``, which reads the seed from device memory (a Python
+    int is first put there by a fill, no copy from the host; a one-element
+    int32 or int64 tensor on the device is read as its low 32 bits, so a
+    CUDA Graph replays with the seed written into it); elsewhere the plain
+    version."""
+    global noise_table_launches
+    device = torch.device(device)
+    if device.type != "cuda":
+        return gumbel_table_ref(seed, steps, batch, classes, device, row_base)
+    table = torch.empty(steps, batch, classes, device=device)
+    if not isinstance(seed, torch.Tensor):
+        seed = seed_word(seed, table.device)
+    if seed.numel() != 1 or seed.device != table.device or seed.dtype not in (torch.int32, torch.int64):
+        raise ValueError("gumbel_table: the seed must be a Python int or a one-element int32 or int64 tensor on "
+                         f"{table.device}")
+    fn = _build.function("molvax_gumbel_table", [ctypes.c_void_p] + [ctypes.c_int] * 3 + [
+        ctypes.c_void_p, ctypes.c_uint32, ctypes.c_void_p])
+    err = fn(table.data_ptr(), steps, batch, classes, seed.data_ptr(), row_base & _MASK32, _stream(table))
+    _build.check(err, "gumbel_table")
+    noise_table_launches += 1
+    return table
 
 
 # -- shared set-up -----------------------------------------------------------

@@ -15,7 +15,11 @@ noise) go through one ``kernels.automaton.auto_step`` with n=1, which masks
 the illegal tokens, picks the first maximum and advances the automaton: the
 hand-written kernel on CUDA, its plain version on the CPU. A 'repeat_z'
 decoder takes one ``auto_step`` with n=T over its precomputed scores. The
-generation kernel is never taken when ``constrained=True``.
+generation kernel is never taken when ``constrained=True``. A sampled decode
+of either makes the Gumbel noise of all T steps once, before its steps: one
+(T, B, C) table (``kernels.generate.gumbel_table``: one launch of
+``csrc/noise.cu`` on a card, its plain version on the CPU), bit for bit the
+per-step ``gumbel_noise``; step t reads ``table[t]``.
 
 Host-side draws (z from the prior, the reparameterization noise, the
 sampling seed) come from a ``torch.Generator``; its stream differs from
@@ -56,9 +60,10 @@ characters, the walk's mask is the grammar's own.
 
 Under a running profiler a request is marked in spans (``utils.span``):
 ``sample.draw_z``, ``sample.decode`` (and on the scan route ``sample.capture``
-and ``sample.replay`` on a card; per step, where the steps run op by op and
-inside a capture, ``sample.step`` holding ``sample.noise`` and
-``sample.select``; on the grammar route ``sample.select`` holding
+and ``sample.replay`` on a card; where the steps run op by op and inside a
+capture, ``sample.noise`` once a sampled decode, around its noise table,
+then ``sample.step`` a step, holding ``sample.select``; on the grammar
+route ``sample.select`` holding
 ``sample.walk``), then
 ``sample.to_host``, where the host waits for the card, and ``sample.strings``.
 """
@@ -76,6 +81,7 @@ from ..data.charset import DEFAULT_CHARSET, Charset
 from ..data.featurize import decode_codes, encode_smiles, one_hot
 from ..data.grammar import grammar_of
 from ..kernels import automaton as kauto
+from ..kernels import generate as kgen
 from ..kernels import grammar_walk as kwalk
 from ..nn.decoder import decode, latent_embed
 from ..nn.encoder import linear
@@ -171,8 +177,6 @@ def _grammar_generate(model, cfg, z: torch.Tensor, generator: Optional[torch.Gen
 def _generate(model, cfg, z: torch.Tensor, generator: Optional[torch.Generator], greedy: bool, temperature: float,
               constrained: bool, charset: Charset, row_base: int) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """``generate``'s decode, after its checks."""
-    from ..kernels.generate import fused_generate, generation_kernel_supported
-
     generator = generator if generator is not None else _default_generator()
     seed = _draw_seed(generator)
     T = cfg.max_len
@@ -182,7 +186,9 @@ def _generate(model, cfg, z: torch.Tensor, generator: Optional[torch.Generator],
             logits = decode(model, cfg, z)
             scores = logits
             if not greedy:
-                scores = torch.stack([_scores(logits[:, t], t, seed, temperature, row_base) for t in range(T)], dim=1)
+                with span("sample.noise"):
+                    table = kgen.gumbel_table(seed, T, z.shape[0], cfg.charset_size, z.device, row_base)
+                scores = logits / temperature + table.transpose(0, 1)
             with span("sample.select"):
                 if constrained:
                     # non-autoregressive logits, sequential constrained selection
@@ -190,9 +196,9 @@ def _generate(model, cfg, z: torch.Tensor, generator: Optional[torch.Generator],
                     return kauto.auto_step(itab, state, scores.float().contiguous(), T - 1), logits
                 return torch.argmax(scores, dim=-1).to(torch.int32), logits
 
-        if cfg.use_pallas_generation and not constrained and generation_kernel_supported(cfg, z.device):
-            codes = fused_generate(model, cfg, latent_embed(model, cfg, z), seed, greedy=greedy,
-                                   temperature=temperature, row_base=row_base)
+        if cfg.use_pallas_generation and not constrained and kgen.generation_kernel_supported(cfg, z.device):
+            codes = kgen.fused_generate(model, cfg, latent_embed(model, cfg, z), seed, greedy=greedy,
+                                        temperature=temperature, row_base=row_base)
             return codes, None
         return _scan_route(model, cfg, z, seed, greedy, temperature, constrained, charset, row_base)
 
@@ -203,31 +209,22 @@ def _automaton(charset: Charset, B: int, T: int, device) -> Tuple[torch.Tensor, 
     return kauto.pack_tables(build_tables(charset)).to(device), kauto.new_state(B, T, device)
 
 
-def _scores(logits_t: torch.Tensor, t: int, seed: Union[int, torch.Tensor], temperature: Optional[float],
-            row_base: int) -> torch.Tensor:
-    """Step t's selection scores: the logits (``temperature`` None, greedy),
-    or logits / temperature + the Gumbel noise of the step's global rows."""
-    from ..kernels.generate import gumbel_noise
-
-    if temperature is None:
-        return logits_t
-    with span("sample.noise"):
-        noise = gumbel_noise(seed, t, logits_t.shape[0], logits_t.shape[1], logits_t.device, row_base)
-    return logits_t / temperature + noise
-
-
 def _scan(model, cfg, z: torch.Tensor, seed: Union[int, torch.Tensor], temperature: Optional[float],
           itab: Optional[torch.Tensor], state: Optional[torch.Tensor], row_base: int, codes: torch.Tensor,
           logits: torch.Tensor, steps: Optional[int] = None) -> None:
     """The scan route's decode over its buffers: z's embedding, then the
     first ``steps`` (all T by default) steps of the fp32 GRU, the head, the
-    scores (``_scores``; ``temperature`` None is greedy) and the selection,
-    into codes[:, t] (B, T) int32 and logits[:, t] (B, T, C). With ``itab``
-    each step goes through one ``auto_step``, which advances the packed
-    automaton ``state`` in place. ``seed`` is a Python int or a 0-d int64
-    tensor on z's device (``kernels.generate.seed_word``): the same noise.
-    ``_eager_scan`` runs it op by op; ``CapturedDecode`` captures it."""
+    scores and the selection, into codes[:, t] (B, T) int32 and logits[:, t]
+    (B, T, C). The scores are the logits (``temperature`` None, greedy), or
+    logits / temperature + the step's slice of the noise table, made once
+    before the steps (``kernels.generate.gumbel_table``, the noise of the
+    global rows from ``row_base``). With ``itab`` each step goes through one
+    ``auto_step``, which advances the packed automaton ``state`` in place.
+    ``seed`` is a Python int or a 0-d int64 tensor on z's device
+    (``kernels.generate.seed_word``): the same noise. ``_eager_scan`` runs
+    it op by op; ``CapturedDecode`` captures it."""
     B, T, C = z.shape[0], cfg.max_len, cfg.charset_size
+    n = T if steps is None else steps
     gru = model.gru
     z_emb = latent_embed(model, cfg, z)
     hs = torch.zeros(gru.num_layers, B, cfg.gru_hidden, device=z.device)
@@ -236,12 +233,16 @@ def _scan(model, cfg, z: torch.Tensor, seed: Union[int, torch.Tensor], temperatu
         if model.start_token is not None
         else torch.zeros(B, C, device=z.device)
     )
-    for t in range(T if steps is None else steps):
+    table = None
+    if temperature is not None:
+        with span("sample.noise"):
+            table = kgen.gumbel_table(seed, n, B, C, z.device, row_base)
+    for t in range(n):
         with span("sample.step"):
             x_t = torch.cat([z_emb, prev], dim=-1)
             hs, out = gru_stack_step(gru, hs, x_t)
             logits_t = linear(out, model.linear_4.weight, model.linear_4.bias)
-            scores = _scores(logits_t, t, seed, temperature, row_base)
+            scores = logits_t if table is None else logits_t / temperature + table[t]
             with span("sample.select"):
                 if itab is not None:
                     code_t = kauto.auto_step(itab, state, scores.contiguous(), T - 1 - t)[:, 0]
@@ -290,9 +291,11 @@ class CapturedDecode:
     logits; everything it makes between them lives in its private memory
     pool, which its steps share. It writes none of the model's tensors.
     Before capture the first step runs for real on the capturing stream
-    (``utils.capture_graph``), and counts its one ``auto_step`` launch; the
-    capture records T launches that do not run, and each replay counts
-    them (T, or 0 under the plain automaton)."""
+    (``utils.capture_graph``), and counts its one ``auto_step`` launch and,
+    sampled, its one noise table's (``kernels.generate.gumbel_table``, of
+    one step); the capture records T ``auto_step`` launches and one table's
+    at the graph's head, which do not run, and each replay counts them (T,
+    or 0 under the plain automaton; 1 table sampled, 0 greedy)."""
 
     def __init__(self, model, cfg, z: torch.Tensor, greedy: bool, temperature: float, constrained: bool,
                  charset: Charset, row_base: int):
@@ -313,10 +316,11 @@ class CapturedDecode:
             _scan(model, cfg, self.z, self.seed, None if greedy else temperature, self.itab, self.state, row_base,
                   self.codes, self.logits, steps)
 
-        def body() -> int:
-            before = kauto.step_launches
+        def body() -> Tuple[int, int]:
+            before = kauto.step_launches, kgen.noise_table_launches
             run()
-            recorded, kauto.step_launches = kauto.step_launches - before, before
+            recorded = kauto.step_launches - before[0], kgen.noise_table_launches - before[1]
+            kauto.step_launches, kgen.noise_table_launches = before
             return recorded
 
         self.graph, self.launches, _ = capture_graph(dev, lambda: run(1), body)
@@ -329,7 +333,8 @@ class CapturedDecode:
             self.z.copy_(z)
             self.seed.fill_(seed)
             self.graph.replay()
-        kauto.step_launches += self.launches
+        kauto.step_launches += self.launches[0]
+        kgen.noise_table_launches += self.launches[1]
         return self.codes.clone(), self.logits.clone()
 
 

@@ -4,8 +4,9 @@ With no profiler running a span is one shared null context and calls no
 profiler op. Under a profiler each span is a ``molvax:<name>`` range in its
 events, on the clock of the device activity it records: the data layer's
 ``next_stack``, the chunk, and a sample request split into its z draw, its
-decode (per step on the scan route: the step, its Gumbel noise, its
-selection), the codes' copy to the host and the string decode. No JAX: the
+decode (on the scan route the Gumbel noise once, before the steps, then
+per step the step and its selection), the codes' copy to the host and the
+string decode. No JAX: the
 spans are the port's alone.
 """
 
@@ -95,18 +96,18 @@ def test_sample_prior_records_the_request_spans(greedy, constrained):
                                                         greedy=greedy, constrained=constrained))
     assert len(strings) == 5
     assert counts == {"sample.draw_z": 1, "sample.decode": 1, "sample.step": T, "sample.select": T,
-                      "sample.to_host": 1, "sample.strings": 1, **({} if greedy else {"sample.noise": T})}
+                      "sample.to_host": 1, "sample.strings": 1, **({} if greedy else {"sample.noise": 1})}
 
 
 @pytest.mark.parametrize("constrained", [False, True], ids=["free", "constrained"])
 def test_a_repeat_z_decode_selects_once(constrained):
     """The non-autoregressive decode has no step loop: one selection over
-    all T scores, T noise draws."""
+    all T scores, one noise table of all T steps."""
     cfg = _cfg(decoder_conditioning="repeat_z", learned_start=False)
     model = _model(cfg)
     _, counts, _ = _profiled(lambda: sample_prior(model, cfg, 4, torch.Generator().manual_seed(2), greedy=False,
                                                   constrained=constrained))
-    assert counts == {"sample.draw_z": 1, "sample.decode": 1, "sample.noise": T, "sample.select": 1,
+    assert counts == {"sample.draw_z": 1, "sample.decode": 1, "sample.noise": 1, "sample.select": 1,
                       "sample.to_host": 1, "sample.strings": 1}
 
 
@@ -122,8 +123,9 @@ def test_a_request_nests_its_steps_in_its_decode():
         by["molvax:sample.strings"]
     steps = by["molvax:sample.step"]
     assert all(decode.start <= s.start and s.end <= decode.end for s in steps)
-    for name in ("molvax:sample.noise", "molvax:sample.select"):
-        assert all(any(s.start <= r.start and r.end <= s.end for s in steps) for r in by[name])
+    (noise,) = by["molvax:sample.noise"]  # the decode's noise table, before its first step
+    assert decode.start <= noise.start and noise.end <= min(s.start for s in steps)
+    assert all(any(s.start <= r.start and r.end <= s.end for s in steps) for r in by["molvax:sample.select"])
     assert decode.end <= to_host.start and to_host.end <= strings.start
 
 
