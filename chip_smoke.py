@@ -3602,7 +3602,8 @@ GVAE_LOSS_REL = 1e-3
 
 def phase29(dev, gpu) -> dict:
     """gvae_zinc at its published widths (module docstring, phase 29)."""
-    from molvax_torch.data.grammar import ZINC_GRAMMAR, grammar_dataset
+    from molvax_torch.data.alphabet import grammar_dataset
+    from molvax_torch.data.grammar import ZINC_GRAMMAR
     from molvax_torch.kernels import grammar_walk as kw
     from perfbench.reference import grammar as rg
     from perfbench.reference import model as pref

@@ -103,10 +103,9 @@ def _restore(cfg: Config, ckpt_dir: str, args=None):
     """Restore (cfg, state, charset) from a checkpoint directory.
 
     ``config.json`` (the run's effective config) becomes the base, with
-    ``--override`` on top; ``charset.json`` is the decode table the model
-    was trained on, and ``charset_size`` follows it (a grammar config's
-    table is its grammar, which ``grammar.json`` must match: the charset
-    returned is then the ``Grammar``). A run with
+    ``--override`` on top; the table the model was trained on
+    (``data.alphabet.read_table``) is the charset returned, and
+    ``charset_size`` follows it. A run with
     ``select_best`` (by the checkpoint's own config) is served from
     ``best/``, or from the top level where ``best/`` holds no checkpoint.
     The weights are copied into a fresh state's tensors in place
@@ -116,8 +115,7 @@ def _restore(cfg: Config, ckpt_dir: str, args=None):
     import json
 
     from .config import from_dict
-    from .data import DEFAULT_CHARSET, Charset
-    from .data.grammar import Grammar, grammar_of
+    from .data.alphabet import read_table
     from .io import checkpoint as ckpt_io
     from .train import init_state
     from .train.loop import ema_eval_state
@@ -130,16 +128,10 @@ def _restore(cfg: Config, ckpt_dir: str, args=None):
             cfg = apply_overrides(cfg, _parse_overrides(args.override))
         print(f"[molvax] restored config from {cfg_path} (name={cfg.name})", file=sys.stderr)
 
-    charset = grammar_of(cfg.model) or DEFAULT_CHARSET
-    cs_path = os.path.join(ckpt_dir, "charset.json")
-    g_path = os.path.join(ckpt_dir, "grammar.json")
-    if isinstance(charset, Grammar) and os.path.exists(g_path):
-        with open(g_path) as f:
-            if tuple(json.load(f)) != charset.chars:
-                raise SystemExit(f"{g_path}: the checkpoint's rules are not those of {charset.name}")
-    elif os.path.exists(cs_path):
-        with open(cs_path) as f:
-            charset = Charset(chars=tuple(json.load(f)))
+    try:
+        charset = read_table(ckpt_dir, cfg.model)
+    except ValueError as e:
+        raise SystemExit(str(e)) from None
     if charset.size != cfg.model.charset_size:
         cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, charset_size=charset.size))
     # best/ only when this checkpoint's own config selects it: a later run
@@ -165,23 +157,6 @@ def _restore(cfg: Config, ckpt_dir: str, args=None):
     return cfg, ema_eval_state(state), charset
 
 
-def _dataset(cfg: Config, with_properties: bool = False):
-    from .data import load_dataset
-    from .data.grammar import grammar_dataset, grammar_of
-
-    grammar = grammar_of(cfg.model)
-    if grammar is not None:
-        return grammar_dataset(grammar, cfg.data.source, cfg.model.max_len, cfg.data.n_synthetic, cfg.data.seed)
-    return load_dataset(
-        cfg.data.source,
-        max_len=cfg.data.max_len,
-        synthetic_n=cfg.data.n_synthetic,
-        seed=cfg.data.seed,
-        with_properties=with_properties,
-        property_source=cfg.data.property_source,
-    )
-
-
 def cmd_sample(args) -> int:
     from .data import valid_fraction
     from .latent import sample_prior
@@ -191,9 +166,10 @@ def cmd_sample(args) -> int:
     if args.aggregate:
         # z from a Gaussian fitted to the aggregate posterior over the
         # training corpus instead of N(0, I)
+        from .data.alphabet import corpus
         from .latent import fit_aggregate_posterior, sample_aggregate
 
-        ds = _dataset(cfg)
+        ds = corpus(cfg)
         mean, chol = fit_aggregate_posterior(state.params, cfg.model, ds.codes)
         smiles = sample_aggregate(
             state.params, cfg.model, args.n, _generator(args.seed), mean, chol, charset=charset,
@@ -247,11 +223,12 @@ def cmd_reconstruct(args) -> int:
 def cmd_evaluate(args) -> int:
     import json
 
+    from .data.alphabet import corpus
     from .train.evaluate import evaluate
 
     cfg = _load_cfg(args)
     cfg, state, charset = _restore(cfg, args.ckpt, args)
-    dataset = _dataset(cfg, with_properties=cfg.model.n_properties > 0)
+    dataset = corpus(cfg, with_properties=cfg.model.n_properties > 0)
     train_ds = None
     if args.holdout:
         # the held-out split; the novelty reference and the aggregate fit
@@ -391,9 +368,10 @@ def cmd_decode(args) -> int:
 def cmd_export_data(args) -> int:
     """Export a corpus to the chemvae .h5 layout."""
     from .data import export_h5
+    from .data.alphabet import corpus
 
     cfg = _load_cfg(args)
-    dataset = _dataset(cfg, with_properties=args.properties)
+    dataset = corpus(cfg, with_properties=args.properties)
     export_h5(dataset, args.out, test_fraction=cfg.data.test_fraction, seed=cfg.data.seed)
     props = "" if dataset.properties is None else f", properties {dataset.properties.shape[1]}"
     print(f"wrote {args.out}: {len(dataset)} molecules, charset {dataset.charset.size}{props}")

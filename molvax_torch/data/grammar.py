@@ -29,9 +29,9 @@ Built from the rules:
 
 A nonterminal with no rule of its own (``class``) ends a derivation as
 incomplete: its step and every later one take the padding rule, and the
-row's string is empty. ``Grammar`` stands where a ``Charset`` stands on a
-character config: ``size`` (the rules), ``chars`` (the rules as text, for
-a checkpoint's ``grammar.json``) and ``in`` (a terminal character).
+row's string is empty. ``Grammar`` stands where a ``Charset`` stands
+(``data/alphabet.py``): ``size`` (the rules), ``chars`` (the rules as text,
+``grammar.json``), ``pad_index`` (the padding rule) and ``in`` (a terminal).
 """
 
 from __future__ import annotations
@@ -121,7 +121,6 @@ chain -> chain branched_atom
 chain -> chain bond branched_atom
 Nothing -> None"""
 
-ALPHABETS = ("charset", "zinc_grammar")
 MAX_RHS = 4  # the longest right-hand side: branch -> '(' bond chain ')'
 
 Rule = Tuple[str, Tuple[str, ...]]
@@ -197,6 +196,8 @@ class Grammar:
     def pad_rule(self) -> int:
         """The padding rule (the last, ``Nothing -> None``)."""
         return self.size - 1
+
+    pad_index = pad_rule  # the pad code, as ``Charset.pad_index``
 
     @property
     def nothing(self) -> int:
@@ -482,41 +483,3 @@ class _Parser:
 
 
 ZINC_GRAMMAR = Grammar("zinc_grammar", _read(ZINC_RULES))
-
-
-def grammar_of(model_cfg) -> Optional[Grammar]:
-    """The grammar a model config decodes in, or None for a character config."""
-    alphabet = getattr(model_cfg, "alphabet", "charset")
-    if alphabet == "charset":
-        return None
-    if alphabet == "zinc_grammar":
-        return ZINC_GRAMMAR
-    raise ValueError(f"unknown alphabet {alphabet!r}; have {ALPHABETS}")
-
-
-def grammar_dataset(grammar: Grammar, source: str, max_len: int, n: int, seed: int = 0):
-    """A corpus of ``grammar``'s rule codes (a ``zinc.Dataset`` whose
-    ``charset`` is the grammar): the chemically valid synthetic molecules
-    ('synthetic_chem'; 'synthetic' too, whose grammar-level strings need
-    not parse) or a SMILES file, each row its derivation padded to
-    ``max_len``. Rows that do not parse or whose derivation is longer are
-    dropped and counted (a message says how many)."""
-    import os
-    import sys
-
-    from .zinc import Dataset
-
-    if source in ("synthetic", "synthetic_chem"):
-        from .molgen import random_smiles
-
-        smiles = random_smiles(n, seed=seed)
-    elif os.path.exists(source):
-        with open(source) as f:
-            smiles = [line.split()[0].split(",")[0] for line in f if line.strip()]
-    else:
-        raise FileNotFoundError(f"dataset source {source!r} not found (use 'synthetic_chem' for the offline corpus)")
-    codes, dropped = grammar.encode(smiles, max_len, strict=False)
-    if dropped:
-        print(f"[molvax_torch] {grammar.name}: dropped {dropped} of {len(smiles)} rows (no parse, or a derivation "
-              f"longer than {max_len})", file=sys.stderr)
-    return Dataset(codes=codes, charset=grammar)

@@ -24,15 +24,12 @@ from typing import List, Tuple
 import torch
 import torch.nn.functional as F
 
-from ..data.charset import DEFAULT_CHARSET, Charset
-from ..data.featurize import decode_codes, encode_smiles, one_hot
-from ..data.grammar import grammar_of
+from ..data.alphabet import DEFAULT_CHARSET, Charset, Grammar, alphabet_of, strings
+from ..data.featurize import one_hot
 from ..kernels import automaton as kauto
-from ..nn.decoder import latent_embed
-from ..nn.encoder import linear
-from ..nn.gru import gru_stack_step
-from ..nn.vae import encode as vae_encode
+from ..nn.decoder import decoder_start, decoder_step, latent_embed
 from .constrain import build_tables
+from .embed import posterior_of
 from .sample import generate
 
 _NEG = -1e30  # additive -inf that stays nan-free under summation
@@ -60,9 +57,8 @@ def beam_generate(
     beam search reduces to greedy there and routes to ``generate``. A
     grammar config raises: its decode is the pushdown walk, which beam
     search does not run."""
-    grammar = grammar_of(cfg)
-    if grammar is not None:
-        raise ValueError(f"beam search does not run on a {grammar.name} config (its decode is the grammar's "
+    if isinstance(alphabet := alphabet_of(cfg, charset), Grammar):
+        raise ValueError(f"beam search does not run on a {alphabet.name} config (its decode is the grammar's "
                          "pushdown walk); use generate or sample_prior")
     B, K = z.shape[0], beam
     T, C = cfg.max_len, cfg.charset_size
@@ -92,15 +88,8 @@ def beam_generate(
             best = logp.gather(-1, codes.long()[..., None])[..., 0].sum(-1)
             return codes, best
 
-        gru = model.gru
-        L, H = gru.num_layers, cfg.gru_hidden
         z_tiled = torch.repeat_interleave(latent_embed(model, cfg, z), K, dim=0)  # (B*K, E)
-        hs = torch.zeros(L, B * K, H, device=dev)
-        prev = (
-            model.start_token.float()[None, :].expand(B * K, C)
-            if model.start_token is not None
-            else torch.zeros(B * K, C, device=dev)
-        )
+        hs, prev = decoder_start(model, cfg, B * K, dev)
         # only beam 0 is live at t=0, so the top K are K distinct first tokens
         scores = torch.full((B, K), _NEG, device=dev)
         scores[:, 0] = 0.0
@@ -112,9 +101,7 @@ def beam_generate(
         row0 = (torch.arange(B, device=dev) * K)[:, None]
 
         for t in range(T):
-            x_t = torch.cat([z_tiled, prev], dim=-1)
-            hs, out = gru_stack_step(gru, hs, x_t)
-            logits_t = linear(out, model.linear_4.weight, model.linear_4.bias)  # (B*K, C)
+            hs, logits_t = decoder_step(model, hs, z_tiled, prev)  # logits (B*K, C)
             if constrained:
                 logits_t = torch.where(kauto.auto_mask(itab, state, T - 1 - t), logits_t, _NEG)
             logp = F.log_softmax(logits_t, dim=-1)
@@ -148,10 +135,6 @@ def beam_reconstruct(
     constrained: bool = False,
 ) -> List[str]:
     """encode -> mu -> beam-search decode -> strings."""
-    if grammar_of(cfg) is not None:
-        beam_generate(model, cfg, None)  # raises: no beam search on a grammar config
-    codes = torch.from_numpy(encode_smiles(smiles, charset, cfg.max_len)).to(model.device)
-    with torch.no_grad():
-        mu, _ = vae_encode(model, cfg, codes)
+    mu, _ = posterior_of(model, cfg, smiles, charset)
     out_codes, _ = beam_generate(model, cfg, mu, beam=beam, constrained=constrained, charset=charset)
-    return decode_codes(out_codes, charset)
+    return strings(out_codes, cfg, charset)

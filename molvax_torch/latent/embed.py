@@ -22,8 +22,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..data.charset import DEFAULT_CHARSET, Charset
-from ..data.featurize import decode_codes, encode_smiles
+from ..data.alphabet import DEFAULT_CHARSET, Alphabet, Charset, encode, strings
 from ..nn.vae import encode as vae_encode
 from ..parallel import map_rows
 
@@ -56,6 +55,12 @@ def encode_codes_chunked(model, cfg, codes, batch: int = 512, mesh=None) -> Tupl
     return np.concatenate(mus, axis=0), np.concatenate(logvars, axis=0)
 
 
+def posterior_of(model, cfg, smiles, charset: Optional[Alphabet] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """SMILES -> (mu, logvar) on the model's device, in one batch."""
+    with torch.no_grad():
+        return vae_encode(model, cfg, torch.from_numpy(encode(smiles, cfg, charset)).to(model.device))
+
+
 def encode_corpus(
     model, cfg, smiles: List[str], charset: Charset = DEFAULT_CHARSET, batch: int = 256, mesh=None
 ) -> Tuple[np.ndarray, np.ndarray]:
@@ -63,7 +68,7 @@ def encode_corpus(
     latent_dim). ``mu`` is the embedding downstream models should consume
     (the reparameterized sample only adds decoder-facing noise). ``mesh``:
     each chunk data-parallel (module docstring)."""
-    return encode_codes_chunked(model, cfg, encode_smiles(smiles, charset, cfg.max_len), batch=batch, mesh=mesh)
+    return encode_codes_chunked(model, cfg, encode(smiles, cfg, charset), batch=batch, mesh=mesh)
 
 
 def decode_latents(
@@ -105,7 +110,7 @@ def decode_latents(
 
     out: List[str] = []
     for lo in range(0, z.shape[0], batch):
-        out.extend(decode_codes(map_rows(mesh, z[lo : lo + batch], decode_rows), charset))
+        out.extend(strings(map_rows(mesh, z[lo : lo + batch], decode_rows), cfg, charset))
     return out
 
 

@@ -13,9 +13,8 @@ from typing import List, Optional
 
 import torch
 
-from ..data.charset import DEFAULT_CHARSET, Charset
-from ..data.featurize import decode_codes, encode_smiles
-from ..nn.vae import encode as vae_encode
+from ..data.alphabet import DEFAULT_CHARSET, Charset, strings
+from .embed import posterior_of
 from .sample import generate
 
 
@@ -51,10 +50,8 @@ def interpolate(
     """Decode ``steps`` waypoints, the endpoints' means included, greedily
     (``latent.sample.generate``); ``constrained=True`` decodes each under
     the valence automaton, so every point of the path is chemically valid."""
-    codes = torch.from_numpy(encode_smiles([smiles_a, smiles_b], charset, cfg.max_len)).to(model.device)
-    with torch.no_grad():
-        mu, _ = vae_encode(model, cfg, codes)
+    mu, _ = posterior_of(model, cfg, [smiles_a, smiles_b], charset)
     t = torch.linspace(0.0, 1.0, steps, device=mu.device)[:, None]
     zs = (slerp if spherical else lerp)(mu[0][None, :], mu[1][None, :], t)
     out_codes, _ = generate(model, cfg, zs, generator, greedy=True, constrained=constrained, charset=charset)
-    return decode_codes(out_codes, charset)
+    return strings(out_codes, cfg, charset)

@@ -12,10 +12,9 @@ from typing import Callable, List, NamedTuple, Optional, Tuple
 
 import torch
 
-from ..data.charset import DEFAULT_CHARSET
-from ..data.featurize import decode_codes, encode_smiles
+from ..data.alphabet import strings
 from ..nn.property_head import denormalize_properties, predict_properties
-from ..nn.vae import encode as vae_encode
+from .embed import posterior_of
 from .sample import generate
 
 
@@ -88,10 +87,7 @@ def optimize_from_smiles(
     """Encode the seeds -> optimize -> greedy decode. Returns (smiles_out,
     result); ``constrained=True`` decodes under the valence automaton, so
     the strings are chemically valid by construction."""
-    charset = charset or DEFAULT_CHARSET
-    codes = torch.from_numpy(encode_smiles(smiles, charset, cfg.max_len)).to(model.device)
-    with torch.no_grad():
-        mu, _ = vae_encode(model, cfg, codes)
+    mu, _ = posterior_of(model, cfg, smiles, charset)
     result = optimize_z(model, cfg, mu, objective=objective, steps=steps, lr=lr)
     out_codes, _ = generate(model, cfg, result.z, generator, greedy=True, constrained=constrained, charset=charset)
-    return decode_codes(out_codes, charset), result
+    return strings(out_codes, cfg, charset), result

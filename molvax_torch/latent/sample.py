@@ -77,20 +77,17 @@ from typing import List, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from ..data.charset import DEFAULT_CHARSET, Charset
-from ..data.featurize import decode_codes, encode_smiles, one_hot
-from ..data.grammar import grammar_of
+from ..data.alphabet import DEFAULT_CHARSET, Charset, Grammar, alphabet_of, strings
+from ..data.featurize import one_hot
 from ..kernels import automaton as kauto
 from ..kernels import generate as kgen
 from ..kernels import grammar_walk as kwalk
-from ..nn.decoder import decode, latent_embed
-from ..nn.encoder import linear
-from ..nn.gru import gru_stack_step
-from ..nn.vae import encode as vae_encode, reparameterize
+from ..nn.decoder import decode, decoder_start, decoder_step, latent_embed
+from ..nn.vae import reparameterize
 from ..parallel import map_rows
 from ..utils import capture_graph, matmul_dtype, span
 from .constrain import build_tables
-from .embed import encode_codes_chunked
+from .embed import encode_codes_chunked, posterior_of
 
 
 # scan-route decodes on a card (``CapturedDecode``): graphs captured, and
@@ -146,21 +143,22 @@ def generate(
     (module docstring) and always returns the logits. ``row_base``: the
     global index of z's first row, which keys its sampling noise (a
     data-parallel rank's share of a global batch)."""
-    if grammar_of(cfg) is not None:
+    if isinstance(alphabet := alphabet_of(cfg, charset), Grammar):
         with span("sample.decode"):
-            out, logits = _grammar_generate(model, cfg, z, generator, greedy, temperature, constrained, row_base)
+            out, logits = _grammar_generate(model, cfg, alphabet, z, generator, greedy, temperature, constrained,
+                                            row_base)
         return out[:, : cfg.max_len].to(torch.int32), logits
-    if charset.size != cfg.charset_size:
-        raise ValueError(f"charset size {charset.size} != model charset_size {cfg.charset_size}")
+    if alphabet.size != cfg.charset_size:
+        raise ValueError(f"charset size {alphabet.size} {'<' if alphabet.size < cfg.charset_size else '>'} model "
+                         f"charset_size {cfg.charset_size}: pass the charset the model was trained on")
     with span("sample.decode"):
-        return _generate(model, cfg, z, generator, greedy, temperature, constrained, charset, row_base)
+        return _generate(model, cfg, z, generator, greedy, temperature, constrained, alphabet, row_base)
 
 
-def _grammar_generate(model, cfg, z: torch.Tensor, generator: Optional[torch.Generator], greedy: bool,
-                      temperature: float, constrained: bool, row_base: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """A grammar config's decode: (the walk's (B, 3T) uint8 rule and
-    terminal codes, the logits (B, T, R))."""
-    grammar = grammar_of(cfg)
+def _grammar_generate(model, cfg, grammar: Grammar, z: torch.Tensor, generator, greedy: bool, temperature: float,
+                      constrained: bool, row_base: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A grammar config's decode in ``grammar``: (the walk's (B, 3T) uint8
+    rule and terminal codes, the logits (B, T, R))."""
     if constrained:
         raise ValueError(f"constrained=True: the valence automaton works on characters, and a {grammar.name} "
                          "config decodes under its grammar's own mask (the pushdown walk)")
@@ -225,23 +223,15 @@ def _scan(model, cfg, z: torch.Tensor, seed: Union[int, torch.Tensor], temperatu
     it op by op; ``CapturedDecode`` captures it."""
     B, T, C = z.shape[0], cfg.max_len, cfg.charset_size
     n = T if steps is None else steps
-    gru = model.gru
     z_emb = latent_embed(model, cfg, z)
-    hs = torch.zeros(gru.num_layers, B, cfg.gru_hidden, device=z.device)
-    prev = (
-        model.start_token.float()[None, :].expand(B, C)
-        if model.start_token is not None
-        else torch.zeros(B, C, device=z.device)
-    )
+    hs, prev = decoder_start(model, cfg, B, z.device)
     table = None
     if temperature is not None:
         with span("sample.noise"):
             table = kgen.gumbel_table(seed, n, B, C, z.device, row_base)
     for t in range(n):
         with span("sample.step"):
-            x_t = torch.cat([z_emb, prev], dim=-1)
-            hs, out = gru_stack_step(gru, hs, x_t)
-            logits_t = linear(out, model.linear_4.weight, model.linear_4.bias)
+            hs, logits_t = decoder_step(model, hs, z_emb, prev)
             scores = logits_t if table is None else logits_t / temperature + table[t]
             with span("sample.select"):
                 if itab is not None:
@@ -412,31 +402,23 @@ def _decode_over(model, cfg, z: torch.Tensor, generator, greedy: bool, temperatu
     from the same copy)."""
     if mesh is not None and mesh.collective and z.shape[0] % mesh.data:
         raise ValueError(f"batch {z.shape[0]} not divisible by mesh data axis {mesh.data}")
-    grammar = grammar_of(cfg)
-    if grammar is not None:
-
-        def walk_rows(part: torch.Tensor, row_base: int) -> torch.Tensor:
-            with span("sample.decode"):
-                return _grammar_generate(model, cfg, part.to(model.device), generator, greedy, temperature,
-                                         constrained, row_base)[0]
-
-        packed = map_rows(mesh, z, walk_rows)
-        with span("sample.to_host"):
-            packed = packed.cpu()
-        with span("sample.strings"):
-            strings = grammar.strings(packed[:, cfg.max_len:].numpy())
-        return (strings, packed[:, : cfg.max_len]) if with_codes else strings
+    walk = isinstance(alphabet := alphabet_of(cfg, charset), Grammar)
 
     def decode_rows(part: torch.Tensor, row_base: int) -> torch.Tensor:
-        return generate(model, cfg, part.to(model.device), generator, greedy=greedy, temperature=temperature,
-                        constrained=constrained, charset=charset, row_base=row_base)[0]
+        part = part.to(model.device)
+        if not walk:
+            return generate(model, cfg, part, generator, greedy=greedy, temperature=temperature,
+                            constrained=constrained, charset=charset, row_base=row_base)[0]
+        with span("sample.decode"):
+            return _grammar_generate(model, cfg, alphabet, part, generator, greedy, temperature, constrained,
+                                     row_base)[0]
 
-    codes = map_rows(mesh, z, decode_rows)
+    out = map_rows(mesh, z, decode_rows)
     with span("sample.to_host"):  # the host waits here for the decode on the card
-        codes = codes.cpu()
-    with span("sample.strings"):
-        strings = decode_codes(codes, charset)
-    return (strings, codes) if with_codes else strings
+        out = out.cpu()
+    with span("sample.strings"):  # the walk's terminal codes follow its T rule codes: one table lookup
+        smiles = alphabet.strings(out[:, cfg.max_len:].numpy()) if walk else strings(out, charset=alphabet)
+    return (smiles, out[:, : cfg.max_len]) if with_codes else smiles
 
 
 def fit_aggregate_posterior(
@@ -497,15 +479,6 @@ def reconstruct(
     """encode -> (mu, or z sampled around it) -> greedy free-running decode
     -> strings."""
     generator = generator if generator is not None else _default_generator()
-    grammar = grammar_of(cfg)
-    if grammar is not None:
-        codes = torch.from_numpy(grammar.encode(smiles, cfg.max_len)[0]).to(model.device)
-    else:
-        codes = torch.from_numpy(encode_smiles(smiles, charset, cfg.max_len)).to(model.device)
-    with torch.no_grad():
-        mu, logvar = vae_encode(model, cfg, codes)
-        z = reparameterize(mu, logvar, cfg.eps_scale, generator) if stochastic else mu
-    if grammar is not None:
-        return _decode_over(model, cfg, z, generator, True, 1.0, False, charset, None)
-    out_codes, _ = generate(model, cfg, z, generator, greedy=True, charset=charset)
-    return decode_codes(out_codes, charset)
+    mu, logvar = posterior_of(model, cfg, smiles, charset)
+    z = reparameterize(mu, logvar, cfg.eps_scale, generator) if stochastic else mu
+    return _decode_over(model, cfg, z, generator, True, 1.0, False, charset, None)

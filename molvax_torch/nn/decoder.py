@@ -11,14 +11,14 @@ over all steps. Returns logits.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from ..kernels import gru as kgru
 from ..utils import matmul_dtype
 from .encoder import dense_act, linear
-from .gru import gru_forward, gru_layers
+from .gru import gru_forward, gru_layers, gru_stack_step
 
 
 def decoder_input_size(cfg) -> int:
@@ -32,6 +32,22 @@ def latent_embed(model, cfg, z: torch.Tensor) -> torch.Tensor:
     training decode and generation."""
     cd = matmul_dtype(cfg, z.device)
     return dense_act(cfg)(linear(z, model.linear_3.weight, model.linear_3.bias, cd))
+
+
+def decoder_start(model, cfg, B: int, device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A free-running decode's first state: zero hidden states (L, B, H), and
+    as the last one-hot (B, C) the learned start vector, or zeros."""
+    hs = torch.zeros(model.gru.num_layers, B, cfg.gru_hidden, device=device)
+    if model.start_token is None:
+        return hs, torch.zeros(B, cfg.charset_size, device=device)
+    return hs, model.start_token.float()[None, :].expand(B, cfg.charset_size)
+
+
+def decoder_step(model, hs: torch.Tensor, z_emb: torch.Tensor, prev: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A free-running fp32 step, the scan decode's and beam search's: (hidden
+    state (L, B, H), z's embedding, the last one-hot) -> (hidden state, logits)."""
+    hs, out = gru_stack_step(model.gru, hs, torch.cat([z_emb, prev], dim=-1))
+    return hs, linear(out, model.linear_4.weight, model.linear_4.bias)
 
 
 def teacher_inputs(

@@ -22,9 +22,8 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from ..data.charset import DEFAULT_CHARSET, Charset
-from ..data.featurize import decode_codes, is_valid_smiles
-from ..data.native import decode_codes_native
+from ..data.alphabet import DEFAULT_CHARSET, Charset, strings
+from ..data.featurize import is_valid_smiles
 from ..data.smiles_check import chem_valid, chem_valid_fraction
 from ..latent.sample import generate
 from ..nn.vae import encode
@@ -40,11 +39,12 @@ def split_generator(generator: Optional[torch.Generator], n: int, device) -> Lis
     return [torch.Generator(device=device).manual_seed(s) for s in seeds]
 
 
-def _round_trip(codes_np: np.ndarray, out_np: np.ndarray, charset: Charset):
+def _round_trip(codes_np: np.ndarray, out_np: np.ndarray, cfg, charset: Charset):
     """(exact-match string rate, per-position hits, non-pad accuracy)."""
-    exact = float(np.mean([a == b for a, b in zip(decode_codes(codes_np, charset), decode_codes(out_np, charset))]))
+    exact = float(np.mean([a == b for a, b in zip(strings(codes_np, cfg.model, charset),
+                                                  strings(out_np, cfg.model, charset))]))
     hit = out_np == codes_np
-    nonpad = codes_np != 0
+    nonpad = codes_np != charset.pad_index
     return exact, hit, float(hit[nonpad].mean()) if nonpad.any() else 1.0
 
 
@@ -58,7 +58,7 @@ def novelty_reference(dataset, cap: int = 50000) -> set:
     """The decoded training-string set against which novelty is scored.
     Build it once per ``evaluate`` and pass it to the metric functions as
     ``train_set``."""
-    return set(decode_codes_native(dataset.codes[: min(len(dataset), cap)], dataset.charset))
+    return set(strings(dataset.codes[: min(len(dataset), cap)], charset=dataset.charset))
 
 
 def _sample_quality(smiles, valid_smiles, train_set: Optional[set]):
@@ -117,18 +117,12 @@ def generation_metrics(
     ``generator``."""
     if charset is None:
         charset = train_dataset.charset if train_dataset is not None else DEFAULT_CHARSET
-    if charset.size < cfg.model.charset_size:
-        raise ValueError(
-            f"charset size {charset.size} < model charset_size "
-            f"{cfg.model.charset_size}: pass the training charset (the "
-            "DEFAULT_CHARSET fallback cannot decode a larger model's codes)"
-        )
     if train_set is None and train_dataset is not None:
         train_set = novelty_reference(train_dataset)
     g_z, g_g = split_generator(generator, 2, model.device)
     z = torch.randn(n, cfg.model.latent_dim, generator=g_z, device=model.device)
     codes, _ = generate(model, cfg.model, z, g_g, greedy=False, temperature=temperature, charset=charset)
-    smiles = decode_codes(codes, charset)
+    smiles = strings(codes, cfg.model, charset)
     valid, uniq, novelty, mean_len = _sample_quality(
         smiles, [s for s in smiles if is_valid_smiles(s, charset)], train_set
     )
@@ -162,7 +156,7 @@ def constrained_generation_metrics(
     z = torch.randn(n, cfg.model.latent_dim, generator=g_z, device=model.device)
     codes, _ = generate(model, cfg.model, z, g_g, greedy=False, temperature=temperature, constrained=True,
                         charset=charset)
-    smiles = decode_codes(codes, charset)
+    smiles = strings(codes, cfg.model, charset)
     valid, uniq, novelty, mean_len = _sample_quality(smiles, [s for s in smiles if chem_valid(s)], train_set)
     return {
         "con_chem_valid": valid,
@@ -197,7 +191,7 @@ def reconstruction_metrics(
         return generate(model, cfg.model, mu, generator, greedy=True, charset=charset, row_base=row_base)[0]
 
     out_codes = map_rows(mesh, codes_np, round_trip)
-    exact, hit, nonpad_acc = _round_trip(codes_np, out_codes.cpu().numpy(), charset)
+    exact, hit, nonpad_acc = _round_trip(codes_np, out_codes.cpu().numpy(), cfg, charset)
     return {"recon_exact": exact, "recon_char_acc": float(np.mean(hit)), "recon_char_acc_nonpad": nonpad_acc}
 
 
@@ -218,7 +212,7 @@ def beam_reconstruction_metrics(
     codes_np = np.asarray(dataset.codes[:n])
     mu = _encode_mu(model, cfg, codes_np)
     out_codes, _ = beam_generate(model, cfg.model, mu, beam=beam)
-    exact, _, nonpad_acc = _round_trip(codes_np, out_codes.cpu().numpy(), charset)
+    exact, _, nonpad_acc = _round_trip(codes_np, out_codes.cpu().numpy(), cfg, charset)
     return {"recon_beam_exact": exact, "recon_beam_char_acc_nonpad": nonpad_acc}
 
 
@@ -257,19 +251,13 @@ def interpolation_metrics(
     zs = (slerp if spherical else lerp)(z0[:, None, :], z1[:, None, :], t)  # (pairs, steps, L)
     out_codes, _ = generate(model, cfg.model, zs.reshape(-1, zs.shape[-1]), g_gen, greedy=True, charset=charset)
     out_np = out_codes.cpu().numpy()
-    smiles = decode_codes(out_np, charset)
+    smiles = strings(out_np, cfg.model, charset)
     paths = [smiles[i * steps : (i + 1) * steps] for i in range(n_pairs)]
-    inputs = decode_codes(codes_np, charset)
 
     valid = float(np.mean([is_valid_smiles(s, charset) for p in paths for s in p]))
-    ends = [(p[0], inputs[i]) for i, p in enumerate(paths)] + [
-        (p[-1], inputs[n_pairs + i]) for i, p in enumerate(paths)
-    ]
-    exact = float(np.mean([a == b for a, b in ends]))
+    # the paths' ends against their inputs: z0's rows, then z1's, as codes_np
     end_codes = out_np.reshape(n_pairs, steps, -1)
-    end_pred = np.concatenate([end_codes[:, 0], end_codes[:, -1]], axis=0)
-    nonpad = codes_np != 0
-    char = float((end_pred == codes_np)[nonpad].mean()) if nonpad.any() else 1.0
+    exact, _, char = _round_trip(codes_np, np.concatenate([end_codes[:, 0], end_codes[:, -1]]), cfg, charset)
     distinct = float(np.mean([len(set(p)) / steps for p in paths]))
     return {
         "interp_valid": valid,
@@ -378,8 +366,8 @@ def optimization_metrics(
     for con in variants if variants is not None else (constrained,):
         seed_codes, _ = generate(model, cfg.model, mu, g1, greedy=True, constrained=con, charset=charset)
         opt_codes, _ = generate(model, cfg.model, result.z, g2, greedy=True, constrained=con, charset=charset)
-        seed_smiles = decode_codes(seed_codes, charset)
-        opt_smiles = decode_codes(opt_codes, charset)
+        seed_smiles = strings(seed_codes, cfg.model, charset)
+        opt_smiles = strings(opt_codes, cfg.model, charset)
         lifts = []
         chem_ok = 0
         for s0, s1 in zip(seed_smiles, opt_smiles):

@@ -59,8 +59,8 @@ import torch
 from torch.autograd.graph import increment_version
 
 from ..config import to_dict
-from ..data import BatchIterator, load_dataset
-from ..data.grammar import grammar_dataset, grammar_of
+from ..data import BatchIterator
+from ..data.alphabet import corpus, write_table
 from ..io import checkpoint as ckpt_io
 from ..kernels.generate import fold_in, fold_in_range
 from ..nn.vae import MolecularVAE, forward
@@ -639,11 +639,9 @@ def train(
     from ``dataset``) with the weights inference reads (the EMA where there
     is one, for both) and logs metrics prefixed ``eval_``.
 
-    A grammar config (``ModelConfig.alphabet``) trains on its grammar's
-    corpus (``data.grammar.grammar_dataset``, rows of rule codes) unless a
-    dataset is given. With ``cfg.train.checkpoint_dir`` set:
-    ``charset.json`` (``grammar.json``, the rules, on a grammar config) and
-    ``config.json`` beside the checkpoints; the latest checkpoint restored
+    Without a dataset it trains on ``data.alphabet.corpus(cfg)``. With
+    ``cfg.train.checkpoint_dir`` set: the table (``data.alphabet.write_table``)
+    and ``config.json`` beside the checkpoints; the latest checkpoint restored
     and the data and eval streams fast-forwarded to it, so a resumed run
     takes the batches an uninterrupted one would; a checkpoint at the
     cadence and at the end; on SIGTERM / SIGINT the current chunk or step
@@ -667,13 +665,8 @@ def train(
     dp = _data_parallel(mesh)
     main = mesh.is_main
     warn = _warn if main else (lambda msg: None)
-    grammar = grammar_of(cfg.model)
-    if dataset is None and grammar is not None:
-        dataset = grammar_dataset(grammar, cfg.data.source, cfg.model.max_len, cfg.data.n_synthetic, cfg.data.seed)
-    elif dataset is None:
-        dataset = load_dataset(cfg.data.source, max_len=cfg.data.max_len, synthetic_n=cfg.data.n_synthetic,
-                               seed=cfg.data.seed, with_properties=cfg.model.n_properties > 0,
-                               property_source=cfg.data.property_source)
+    if dataset is None:
+        dataset = corpus(cfg, with_properties=cfg.model.n_properties > 0)
     cfg = effective_config(cfg, dataset)
     if eval_dataset is None and t.eval_every:
         dataset, eval_dataset = dataset.split(cfg.data.test_fraction, cfg.data.seed)
@@ -689,9 +682,7 @@ def train(
         if main:
             # inference decodes with the exact table the model was trained
             # on, and the directory alone is enough to restore
-            table = "charset.json" if grammar is None else "grammar.json"
-            with open(os.path.join(t.checkpoint_dir, table), "w") as f:
-                json.dump(list(dataset.charset.chars), f)
+            write_table(t.checkpoint_dir, dataset.charset)
             with open(os.path.join(t.checkpoint_dir, "config.json"), "w") as f:
                 json.dump(to_dict(cfg), f, indent=1)
         barrier(dp)

@@ -25,8 +25,8 @@ from typing import Dict, Optional, Tuple, Union
 import torch
 import torch.distributed
 
+from ..data.alphabet import Grammar, alphabet_of
 from ..data.featurize import one_hot
-from ..data.grammar import grammar_of
 from ..nn.property_head import normalize_targets
 
 
@@ -145,9 +145,8 @@ def vae_loss(
     data-parallel mesh whose data axis has more than one rank makes the
     metrics the global batch's (``global_metrics``); the loss stays this
     rank's."""
-    grammar = grammar_of(cfg)
     pad = 0
-    if grammar is not None:
+    if isinstance(grammar := alphabet_of(cfg), Grammar):
         logits, pad = masked_logits(logits, codes, grammar), grammar.pad_rule
         recon = recon_ce(logits, codes)
     elif cfg.recon_loss == "ce":

@@ -7,9 +7,10 @@ port's grammar tables equal the reference's; parsing then deriving gives
 back every string of the chemistry corpus; the encoder, the decoder's
 logits, the grammar-masked loss and every gradient match the reference;
 the plain walk gives the reference's walk; ``sample_prior``,
-``generate``, ``reconstruct`` and ``train()`` run on a grammar config, and
-so do the CLI's ``train`` and ``sample``; ``constrained=True`` and beam
-search raise.
+``generate``, ``reconstruct``, ``train()`` (its round-trip probe too),
+``evaluate()`` and the latent workloads run on a grammar config, and so do
+the CLI's ``train`` and ``sample``; ``constrained=True`` and beam search
+raise.
 
 Tolerances, each with its reason: the port runs these comparisons in
 strict fp32 (``compute_dtype='float32'``), so only the order of its sums
@@ -31,14 +32,16 @@ import torch
 from molvax_torch import cli
 from molvax_torch.config import apply_overrides, get_preset
 from molvax_torch.data.grammar import ZINC_GRAMMAR as G
-from molvax_torch.data.grammar import grammar_dataset
+from molvax_torch.data.alphabet import grammar_dataset
 from molvax_torch.data.molgen import random_smiles
 from molvax_torch.kernels import grammar_walk as kw
-from molvax_torch.latent import beam_generate, beam_reconstruct, sample_prior
+from molvax_torch.latent import (beam_generate, beam_reconstruct, decode_latents, encode_corpus, interpolate,
+                                  optimize_from_smiles, sample_prior)
 from molvax_torch.latent.sample import generate, reconstruct
 from molvax_torch.nn.decoder import decode
 from molvax_torch.nn.vae import MolecularVAE, encode, forward
-from molvax_torch.train import train
+from molvax_torch.train import init_state, train
+from molvax_torch.train.evaluate import evaluate, reconstruction_metrics
 from molvax_torch.train.loss import vae_loss
 from perfbench.reference import grammar as rg
 from perfbench.reference import model as pref
@@ -276,6 +279,65 @@ def test_constrained_and_beam_raise_on_a_grammar_config():
         beam_generate(model, cfg.model, z)
     with pytest.raises(ValueError, match="zinc_grammar"):
         beam_reconstruct(model, cfg.model, ["CCO"])
+
+
+def test_evaluate_reports_on_a_grammar_config():
+    """``evaluate()`` decodes through the grammar; the round trip scores the
+    rule codes against the padding rule, its strings are the derivations';
+    the automaton and beam search raise as ``generate`` does."""
+    cfg = small_cfg()
+    state = init_state(cfg, device="cpu")
+    ds = grammar_dataset(G, "synthetic_chem", cfg.model.max_len, 400, 0)
+    report = evaluate(state, cfg, ds, torch.Generator().manual_seed(1), n_prior=32, constrained=False)
+    for k in ("gen_valid", "gen_novelty", "recon_exact", "recon_char_acc_nonpad", "post_prior_w2", "interp_valid",
+              "interp_endpoint_char", "agg_valid", "agg_unique"):
+        assert np.isfinite(report[k]), k
+    model = state.params
+    m = reconstruction_metrics(model, cfg, ds, n=16)
+    codes = ds.codes[:16]
+    with torch.no_grad():
+        out = generate(model, cfg.model, encode(model, cfg.model, torch.from_numpy(codes))[0])[0].numpy()
+    keep = codes != G.pad_rule
+    assert m["recon_char_acc_nonpad"] == pytest.approx(float((out == codes)[keep].mean()))
+    want = [G.derive(r) or "" for r in out.tolist()]
+    assert m["recon_exact"] == pytest.approx(np.mean([a == G.derive(b) for a, b in zip(want, codes.tolist())]))
+    with pytest.raises(ValueError, match="zinc_grammar"):
+        evaluate(state, cfg, ds, n_prior=8, constrained=True)
+    with pytest.raises(ValueError, match="zinc_grammar"):
+        evaluate(state, cfg, ds, n_prior=8, constrained=False, beam=3)
+
+
+def test_train_runs_its_round_trip_probe_on_a_grammar_config():
+    cfg = apply_overrides(small_cfg(), {"train.eval_every": 4, "train.eval_batches": 1, "train.eval_roundtrip_n": 8,
+                                        "data.test_fraction": 0.25})
+    state, history = train(cfg, device="cpu", max_steps=8, verbose=False)
+    probes = [h for h in history if "eval_recon_exact" in h]
+    assert state.step == 8 and [h["step"] for h in probes] == [4, 8]
+    assert all(0.0 <= h["eval_recon_char_acc_nonpad"] <= 1.0 for h in probes)
+
+
+def test_latent_workloads_run_on_a_grammar_config():
+    """``encode_corpus`` encodes derivations, ``decode_latents`` gives the
+    walk's strings, ``interpolate``'s ends decode as their molecules do."""
+    cfg = small_cfg()
+    model, _ = model_and_weights(cfg)
+    smiles = ["CCO", "c1ccccc1", "CC(=O)N", "ClC1CC1"]
+    mu, _ = encode_corpus(model, cfg.model, smiles, batch=3)
+    with torch.no_grad():
+        want, _ = encode(model, cfg.model, torch.from_numpy(G.encode(smiles, cfg.model.max_len)[0]))
+    assert mu.shape == (4, 8) and np.allclose(mu, want.numpy(), atol=ATOL)
+    out = decode_latents(model, cfg.model, want, batch=3)
+    assert out == reconstruct(model, cfg.model, smiles) and len(out) == 4
+    path = interpolate(model, cfg.model, smiles[0], smiles[1], steps=5, spherical=False)
+    assert len(path) == 5 and (path[0], path[-1]) == (out[0], out[1])
+
+
+def test_optimize_from_smiles_runs_on_a_grammar_config():
+    cfg = apply_overrides(small_cfg(), {"model.n_properties": 1})
+    model = MolecularVAE(cfg.model, device="cpu")
+    out, result = optimize_from_smiles(model, cfg.model, ["CCO", "c1ccccc1"], steps=3)
+    assert len(out) == 2 and result.z.shape == (2, 8)
+    assert out == decode_latents(model, cfg.model, result.z)
 
 
 def test_train_runs_on_the_grammar_corpus():
