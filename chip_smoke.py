@@ -220,7 +220,16 @@ phases, each printed on its own lines:
      restored by this process, and this process's restored by the ranks,
      bit for bit;
  28. the scan route's decode as one CUDA Graph (latent.sample's
-     CapturedDecode) and its noise table: the table kernel
+     CapturedDecode), its step kernels and its noise table: the step
+     kernels (kernels.generate.FusedStep, csrc/decode_step.cu) against
+     their plain versions at (B, preset) = (256, zinc250k), (1280,
+     zinc250k) and (256, moses_scaled) with seeded weights: the packing
+     bit for bit, z's gates, and over 8 sampled steps the hidden states
+     and logits within 1e-4, the scores and their first maximum bit for
+     bit, two runs bit for bit alike, 2 + (L + 1) launches; at (256,
+     zinc250k) a step's device ms, each kernel's, the plain version's and
+     the cuBLAS and elementwise chain's it replaces (decoder_step), and
+     the bound; the table kernel
      (kernels.generate.gumbel_table, csrc/noise.cu) bit for bit its plain
      version at (T, B, C) = (120, 256, 37) and at B=528 from row_base
      4000, its seed an int, an int64 and an int32 tensor, one launch a
@@ -228,14 +237,16 @@ phases, each printed on its own lines:
      T=0.7 and T=1.0 at row_base 128: five calls a key, op by op until the
      key's third call captures its graph, three seeds replayed; codes and
      logits of every call equal to the op-by-op loop and to the loop that
-     draws the per-step noise, bit for bit; auto_step 120 a call (121 in
-     the capturing call: its step before the capture), the noise table 1
-     a sampled call (2 in the capturing call), and 120 auto_step kernels
+     draws the per-step noise (both through the step kernels), bit for
+     bit; auto_step 120 a call (121 in the capturing call: its step before
+     the capture), the noise table 1 a sampled call (2 in the capturing
+     call), the step kernels 2 + 120 (L + 1) a call (2 + L + 1 more in
+     the capturing call), and 120 auto_step kernels
      and 1 table kernel a replay in the profiler's trace; a key of its own
      under the plain automaton (0 auto_step launches, equal to its loop
      and to the kernel's replay); the device activities the profiler
-     records in a replay, in the loop and in the per-step-noise loop, a
-     replay's device ms (queued behind a sleep); a key's first call, its
+     records in a replay (at most 8 a step), in the loop and in the
+     per-step-noise loop, a replay's device ms (queued behind a sleep); a key's first call, its
      capturing call, a replay and both loops, ms a request. (Phases 17, 18
      and 24-26 decode through the graph where a key comes back: phase 17
      counts its replays' auto_step kernels and each decode's noise tables
@@ -296,9 +307,9 @@ from molvax_torch.latent import constrain as kcon
 from molvax_torch.latent.beam import beam_generate, beam_reconstruct
 from molvax_torch.latent import sample as ls
 from molvax_torch.latent.sample import generate, reconstruct, sample_prior
-from molvax_torch.nn.decoder import decoder_input_size, latent_embed, teacher_inputs
+from molvax_torch.nn.decoder import decoder_input_size, decoder_step, latent_embed, teacher_inputs
 from molvax_torch.nn.encoder import conv_input_channels, encoder_params, flat_conv_dim, linear
-from molvax_torch.nn.gru import gru_layers, gru_stack_step
+from molvax_torch.nn.gru import gru_layers
 from molvax_torch.nn.vae import MolecularVAE, encode
 from molvax_torch.probes import auto_loop_probe, gru_experiments, proto_gi_kernel
 from molvax_torch.probes.stack_probe import device_kernels, device_ms, queued_ms
@@ -1480,6 +1491,8 @@ def device_ms_per_launch(fn, name: str, launches: int) -> tuple:
 def classify(name: str) -> str:
     if "auto_" in name:
         return "automaton"
+    if any(k in name for k in ("cell_kernel", "head_kernel", "pack_kernel")):
+        return "step_kernels"
     if any(k in name.lower() for k in ("gemm", "xmma", "cutlass", "sm90", "sm80")):
         return "gru_matmuls"
     return "other"
@@ -3353,25 +3366,154 @@ NOISE_SEED = 0x9E3779B9  # past 2**31: its int32 bit pattern is negative
 def per_step_noise_loop(model, cfg, z, seed: int, greedy: bool, temp: float, row_base: int = 0):
     """The constrained scan-route decode op by op with the per-step
     ``gumbel_noise`` drawn inside each step, as the decode drew its noise
-    before the table (``kernels.generate.gumbel_table``): (codes, logits)."""
+    before the table (``kernels.generate.gumbel_table``), through the same
+    step kernels (``kernels.generate.FusedStep``): (codes, logits)."""
     rows, T, C = z.shape[0], cfg.max_len, cfg.charset_size
     itab, state = ls._automaton(DEFAULT_CHARSET, rows, T, z.device)
     codes = torch.empty(rows, T, dtype=torch.int32, device=z.device)
     logits = torch.empty(rows, T, C, device=z.device)
     with torch.no_grad():
-        z_emb = latent_embed(model, cfg, z)
-        hs = torch.zeros(model.gru.num_layers, rows, cfg.gru_hidden, device=z.device)
-        prev = (model.start_token.float()[None, :].expand(rows, C) if model.start_token is not None
-                else torch.zeros(rows, C, device=z.device))
+        fused = kg.FusedStep(model, latent_embed(model, cfg, z))
+        h, h_out = fused.state(), fused.state()
+        scores = torch.empty(rows, C, device=z.device)
         for t in range(T):
-            hs, out = gru_stack_step(model.gru, hs, torch.cat([z_emb, prev], dim=-1))
-            logits_t = linear(out, model.linear_4.weight, model.linear_4.bias)
-            scores = logits_t if greedy else logits_t / temp + kg.gumbel_noise(seed, t, rows, C, z.device, row_base)
-            code_t = kauto.auto_step(itab, state, scores.contiguous(), T - 1 - t)[:, 0]
-            codes[:, t] = code_t.to(torch.int32)
-            logits[:, t] = logits_t
-            prev = one_hot(code_t, C)
+            noise = None if greedy else kg.gumbel_noise(seed, t, rows, C, z.device, row_base)
+            fused.step(h, h_out, None if t == 0 else codes[:, t - 1], logits[:, t], scores, noise, temp)
+            codes[:, t] = kauto.auto_step(itab, state, scores, T - 1 - t)[:, 0]
+            h, h_out = h_out, h
     return codes, logits
+
+
+# the decode step's kernels against their plain versions: (preset, rows)
+STEP_SHAPES = (("zinc250k", B), ("zinc250k", B * BEAM), ("moses_scaled", B))
+STEP_TOL = 1e-4  # 3xTF32 products against fp32 ones, sums in other orders; a bf16 or single TF32 product shows ~1e-2
+STEP_STEPS = 8
+# a step's device activities in a replay, at most: L = 3 cells, the head, auto_step, and the decode's set-up over T
+REPLAY_STEP_ACTIVITIES = 8
+
+
+def step_model(preset: str, dev, seed: int):
+    """A model of ``preset``'s widths from ``seed``, its learned start vector drawn too."""
+    cfg = get_preset(preset).model
+    torch.manual_seed(seed)
+    model = MolecularVAE(cfg, device=dev)
+    with torch.no_grad():
+        if model.start_token is not None:
+            model.start_token.normal_()
+    model.requires_grad_(False)
+    return cfg, model
+
+
+def step_flops(B_: int, H: int, L: int, C: int) -> float:
+    """A step's least operations: layer 0's h product (its z half once a
+    decode, its one-hot half a gather), the x and h products of the layers
+    above, the head."""
+    return 2.0 * B_ * (3 * H * H * (2 * L - 1) + H * C)
+
+
+def step_kernel_checks(dev, gpu) -> dict:
+    """The decode step's kernels (``kernels.generate.FusedStep``,
+    ``csrc/decode_step.cu``) at each of ``STEP_SHAPES``, seeded weights: the
+    packing bit for bit its plain version, z's gates and, over STEP_STEPS
+    steps from the kernels' own state and codes (sampled at T=0.7), the
+    hidden states and logits within STEP_TOL of the plain step's, the scores
+    torch's and the codes their first maximum bit for bit, the padding
+    columns zero, two runs bit for bit alike, 2 + (L + 1) launches; then at
+    the first shape a step's device ms (queued), each kernel's ms (profiler),
+    the plain version's and the library chain's (``decoder_step`` and the
+    head: cuBLAS and elementwise kernels) ms, and the bound."""
+    out = {}
+    for preset, rows in STEP_SHAPES:
+        cfg, model = step_model(preset, dev, SEED + 30)
+        _, L, H, C, Lz = kg.step_sizes(model, torch.empty(rows, 1))
+        g = torch.Generator(device=dev).manual_seed(SEED + rows)
+        z_emb = torch.randn(rows, Lz, device=dev, generator=g)
+
+        def run(n: int):
+            before = kg.decode_step_launches
+            fs = kg.FusedStep(model, z_emb)
+            h, codes, res = fs.state(), None, []
+            for t in range(n):
+                h_out, logits = torch.empty_like(h), torch.empty(rows, C, device=dev)
+                scores, code = torch.empty(rows, C, device=dev), torch.empty(rows, dtype=torch.int32, device=dev)
+                fs.step(h, h_out, codes, logits, scores, kg.gumbel_noise(SEED, t, rows, C, dev), 0.7, code)
+                res.append((h, codes, h_out, logits, scores, code))
+                h, codes = h_out, code
+            return fs, res, kg.decode_step_launches - before
+
+        with torch.no_grad():
+            fs, res, launches = run(STEP_STEPS)
+            _, res2, _ = run(STEP_STEPS)
+            ref = kg.pack_step_ref(model, z_emb)
+            got_w = [*fs.w.whh, *fs.w.wih[1:], *fs.w.bhh, *fs.w.bih, fs.w.wz, fs.w.wc, fs.w.w4, fs.w.b4, fs.w.z]
+            want_w = [*ref.whh, *ref.wih[1:], *ref.bhh, *ref.bih, ref.wz, ref.wc, ref.w4, ref.b4, ref.z]
+            pack_equal = all(torch.equal(a, b) for a, b in zip(got_w, want_w))
+            gz = kg.latent_gates_ref(model, z_emb)
+            gz_err = float((fs.gz.view(rows, 3, fs.Hp)[:, :, :H].reshape(rows, 3 * H) - gz).abs().max())
+            h_err = logit_err = 0.0
+            scores_same = codes_same = pads_zero = True
+            for t, (h, codes, h_out, logits, scores, code) in enumerate(res):
+                hs_ref, lg_ref = kg.decode_step_ref(model, h[:, :, :H], gz, codes)
+                h_err = max(h_err, float((h_out[:, :, :H] - hs_ref).abs().max()))
+                logit_err = max(logit_err, float((logits - lg_ref).abs().max()))
+                pads_zero &= bool(h_out[:, :, H:].abs().sum() == 0)
+                scores_same &= bool(torch.equal(scores, logits / 0.7 + kg.gumbel_noise(SEED, t, rows, C, dev)))
+                codes_same &= bool(torch.equal(code.long(), torch.argmax(scores, dim=-1)))
+            twice = all(torch.equal(a[3], b[3]) and torch.equal(a[2], b[2]) for a, b in zip(res, res2))
+        plans = {name: fs.plans[m] for name, m in (("gates", 0), ("layer0", 1), ("layers", 2))}
+        row = dict(pack_identical=pack_equal, gates_max_abs_err=gz_err, h_max_abs_err=h_err,
+                   logits_max_abs_err=logit_err, scores_identical=scores_same, codes_first_max=codes_same,
+                   pads_zero=pads_zero, two_runs_identical=twice, launches=launches)
+        say("phase28", check="step_kernels", preset=preset, B=rows, H=H, L=L, steps=STEP_STEPS,
+            plans=json.dumps(plans), **{k: (f"{v:.3e}" if isinstance(v, float) else v) for k, v in row.items()})
+        if not (pack_equal and scores_same and codes_same and pads_zero and twice and gz_err <= STEP_TOL
+                and h_err <= STEP_TOL and logit_err <= STEP_TOL and launches == 2 + STEP_STEPS * (L + 1)):
+            raise AssertionError(f"the step kernels at ({preset}, B={rows}): {row}")
+        out[f"{preset}_B{rows}"] = row
+    # times at the first shape: one step, and the library chain it replaces
+    preset, rows = STEP_SHAPES[0]
+    cfg, model = step_model(preset, dev, SEED + 30)
+    _, L, H, C, Lz = kg.step_sizes(model, torch.empty(rows, 1))
+    z_emb = torch.randn(rows, Lz, device=dev, generator=torch.Generator(device=dev).manual_seed(SEED))
+    with torch.no_grad():
+        fs = kg.FusedStep(model, z_emb)
+        h, h_out = fs.state(), fs.state()
+        logits, scores = torch.empty(rows, C, device=dev), torch.empty(rows, C, device=dev)
+        noise = kg.gumbel_noise(SEED, 0, rows, C, dev)
+        prev = torch.zeros(rows, dtype=torch.int32, device=dev)
+        hs = torch.zeros(L, rows, H, device=dev)
+        onehot = one_hot(prev.long(), C)
+        gz = kg.latent_gates_ref(model, z_emb)
+
+        def step():
+            fs.step(h, h_out, prev, logits, scores, noise, 1.0)
+
+        def library():
+            decoder_step(model, hs, z_emb, onehot)
+
+        reps = 20
+        t = {"step_device_ms_queued": queued_ms(lambda: [step() for _ in range(reps)]) / reps,
+             "step_ms_events": time_ms(step),
+             "library_device_ms_queued": queued_ms(library),  # ~60 launches: more would fill the launch queue
+             "library_ms_events": time_ms(library),
+             "plain_ms": time_ms(lambda: kg.decode_step_ref(model, hs, gz, prev)),
+             "setup_device_ms_queued": queued_ms(lambda: kg.FusedStep(model, z_emb))}
+        for name in ("cell_kernel", "head_kernel"):
+            ms, n = device_ms(lambda: [step() for _ in range(reps)], name)
+            t[f"{name}_device_ms_per_launch"] = ms / n if n else "not_measured"
+        for name in ("pack_kernel", "cell_kernel"):
+            ms, n = device_ms(lambda: kg.FusedStep(model, z_emb), name)
+            t[f"setup_{name}_device_ms"] = ms / n if n else "not_measured"
+        lib = device_kernels(library)
+        t["library_activities_per_step"] = sum(lib.values())
+    flops = step_flops(rows, H, L, C)
+    t["bound_ms_fma"] = flops / 67e12 * 1e3
+    t["bound_ms_3xtf32"] = flops / (494.7e12 / 3) * 1e3
+    t["gflop_per_step"] = flops / 1e9
+    say("phase28", times="step_kernels", preset=preset, B=rows, card=json.dumps(gpu),
+        **{k: (f"{v:.6g}" if isinstance(v, float) else v) for k, v in t.items()})
+    out["times"] = t
+    return out
 
 
 def noise_table_checks(dev) -> dict:
@@ -3436,6 +3578,7 @@ def phase28(model, qcfg, dev, gpu) -> dict:
     T, C = qcfg.max_len, qcfg.charset_size
     at = ls._CAPTURE_AT_CALL
     table = noise_table_checks(dev)
+    steps = step_kernel_checks(dev, gpu)
     rng = np.random.default_rng(SEED + 28)
     zs = [torch.from_numpy(rng.standard_normal((B, qcfg.latent_dim)).astype(np.float32)).to(dev) for _ in range(5)]
     seeds = [SEED + 280 + i for i in range(len(zs))]
@@ -3455,18 +3598,21 @@ def phase28(model, qcfg, dev, gpu) -> dict:
     def loop(z, seed, greedy, temp, row_base=0):
         return per_step_noise_loop(model, qcfg, z, drawn(seed), greedy, temp, row_base)
 
-    out = {"noise_table": table}
+    out = {"noise_table": table, "step_kernels": steps}
     want_launches = [T + (i + 1 == at) for i in range(len(zs))]
+    L = model.gru.num_layers  # the step kernels: 2 a decode, then L + 1 a step; the capturing call's first step besides
+    want_steps = [2 + T * (L + 1) + (i + 1 == at) * (2 + L + 1) for i in range(len(zs))]
     for name, greedy, temp, base in (("greedy", True, 1.0, 0), ("T1.0", False, 1.0, 0), ("T0.7", False, 0.7, 0),
                                      ("T1.0_row_base", False, 1.0, 128)):
         caps, reps = ls.graph_captures, ls.graph_replays
-        same, same_loop, launches, tables = [], [], [], []
+        same, same_loop, launches, tables, step_launches = [], [], [], [], []
         for z, seed in zip(zs, seeds):
             reset_counts()
-            before = kg.noise_table_launches
+            before, steps_before = kg.noise_table_launches, kg.decode_step_launches
             codes, logits = served(z, seed, greedy, temp, base)
             launches.append(counts()["auto_step"])
             tables.append(kg.noise_table_launches - before)
+            step_launches.append(kg.decode_step_launches - steps_before)
             codes_e, logits_e = eager(z, seed, greedy, temp, base)
             same.append(bool(torch.equal(codes, codes_e) and torch.equal(logits, logits_e)))
             codes_l, logits_l = loop(z, seed, greedy, temp, base)
@@ -3476,12 +3622,14 @@ def phase28(model, qcfg, dev, gpu) -> dict:
         want_tables = [0 if greedy else 1 + (i + 1 == at) for i in range(len(zs))]
         say("phase28", mode=name, B=B, T=T, row_base=base, calls=len(zs), capture_at_call=at, **got,
             equal_to_loop=json.dumps(same), equal_to_per_step_noise_loop=json.dumps(same_loop),
-            auto_step_per_call=json.dumps(launches), gumbel_table_per_call=json.dumps(tables))
+            auto_step_per_call=json.dumps(launches), gumbel_table_per_call=json.dumps(tables),
+            decode_step_per_call=json.dumps(step_launches))
         if (got != {"captures": 1, "replays": len(zs) - at} or not all(same) or not all(same_loop)
-                or launches != want_launches or tables != want_tables):
+                or launches != want_launches or tables != want_tables or step_launches != want_steps):
             raise AssertionError(f"captured decode ({name}): {got}, equal to the loop {same}, to the per-step-noise "
                                  f"loop {same_loop}, auto_step {launches}, expected {want_launches}, gumbel_table "
-                                 f"{tables}, expected {want_tables}")
+                                 f"{tables}, expected {want_tables}, decode step {step_launches}, expected "
+                                 f"{want_steps}")
         out[name] = got
     # what runs in a replay: the profiler's auto_step and noise table kernels beside the counters
     reset_counts()
@@ -3524,6 +3672,10 @@ def phase28(model, qcfg, dev, gpu) -> dict:
     for name, n in rec["replay"].items():
         names[name[:60]] = names.get(name[:60], 0) + n
     say("phase28", replay_device_activities=json.dumps(dict(sorted(names.items(), key=lambda kv: -kv[1]))))
+    replay_per_step = sum(rec["replay"].values()) / T
+    if not 0 < replay_per_step <= REPLAY_STEP_ACTIVITIES:
+        raise AssertionError(f"a replay records {replay_per_step:.2f} device activities a step, expected at most "
+                             f"{REPLAY_STEP_ACTIVITIES} (the step kernels, auto_step, one copy)")
     # ms a request at T=1.0: a key's first call, its capturing call, a replay, the loops
     ls._graphs.pop(model, None)
     ms = {}

@@ -32,15 +32,23 @@ from the reference's ``jax.random`` stream. ``gumbel_table`` draws the noise
 of all T steps of a scan-route decode (``latent.sample``) at once, in one
 launch of ``csrc/noise.cu``, bit for bit the stack of the per-step
 ``gumbel_noise``.
+
+``FusedStep`` is the scan route's fp32 decoder on a card (its last section):
+``csrc/decode_step.cu``'s packing and latent-gate launches once a decode,
+then one fused GRU-cell launch a layer and one head launch a step; its
+plain versions are ``pack_step_ref``, ``latent_gates_ref``,
+``code_gates_ref``, ``gate_ref`` and ``decode_step_ref``, and its launches
+count in ``decode_step_launches``.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import dataclasses
 import functools
 import weakref
-from typing import Optional, Tuple, Union
+from typing import List, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -216,9 +224,10 @@ def _layer_weights(model):
     )
 
 
-def _giz1(model, z_emb: torch.Tensor) -> torch.Tensor:
+def latent_gates_ref(model, z_emb: torch.Tensor) -> torch.Tensor:
     """The constant z part of layer 1's input gates, one fp32 GEMM outside
-    the decode loop, as in the reference wrapper: (B, 3H)."""
+    the decode loop, as in the reference wrapper: (B, 3H), b_ih included
+    (the fused step's latent-gate launch computes it too)."""
     w_z, b_ih1 = _layer_weights(model)[:2]
     return z_emb.float() @ w_z.T + b_ih1
 
@@ -259,7 +268,7 @@ def fused_generate_ref(
         _, _, w_c, layers, w_out, b_out = _layer_weights(model)
         B, C = z_emb.shape[0], w_c.shape[0]
         dev = z_emb.device
-        giz1 = _giz1(model, z_emb)
+        giz1 = latent_gates_ref(model, z_emb)
         w_c = round_to(w_c, bf)
         layers = [
             (None if w_ih is None else round_to(w_ih, bf), b_ih, round_to(w_hh, bf), b_hh)
@@ -558,7 +567,7 @@ def _setup(model, z_emb: torch.Tensor, plan: Optional[GeneratePlan]):
     persistent decode of ``plan`` (``_packed_blocks``) or, for None, for
     the row-block decode (``_pack``)."""
     C = model.linear_4.out_features
-    giz1 = _giz1(model, z_emb).contiguous()
+    giz1 = latent_gates_ref(model, z_emb).contiguous()
     start = _start(model, C, z_emb.device).contiguous()
     if plan is None:
         return (giz1, start, *_pack(model, z_emb.device))
@@ -621,3 +630,329 @@ def fused_generate(
     if not greedy and not temperature > 0:
         raise ValueError(f"fused_generate: temperature must be > 0, got {temperature}")
     return _decode(model, cfg, z_emb, seed, greedy, temperature, row_base=row_base)
+
+
+# -- the scan route's fp32 decoder step (csrc/decode_step.cu) ------------------
+#
+# The scan route (latent.sample's _scan: the constrained decode, the Gumbel
+# or greedy scan, evaluate()'s logit decodes) and beam search decode through
+# ``nn.decoder.decoder_step`` on the CPU. On a card one ``FusedStep`` a
+# decode runs the same fp32 math as hand-written kernels: a packing launch
+# and a latent-gate launch once a decode, then a step's L cell launches and
+# one head launch. Each kernel has a plain version here (``pack_step_ref``,
+# ``latent_gates_ref``, ``code_gates_ref``, ``gate_ref``, ``decode_step_ref``).
+
+# launches of csrc/decode_step.cu: a FusedStep's packing and latent gates (2),
+# then L + 1 a step; a CUDA Graph's replay counts what its capture recorded
+decode_step_launches = 0
+
+_SK = 32  # k a stage of the cell kernel: Hp and the padded latent width are multiples of it
+_SROW = _SK + 4  # words a staged row
+_SSTAGES = 3
+_CELL_ROWS, _CELL_UNITS = 128, 32  # the cell kernel's tile (CELL_BM, CELL_UN): Hp is a multiple of its units
+# shared-memory bytes of a cell block (CELL_SMEM): its 3-stage ring, or the cluster's sums where larger
+CELL_SMEM = 4 * max(_SSTAGES * (_CELL_ROWS + 3 * _CELL_UNITS) * _SROW, _CELL_ROWS * (4 * _CELL_UNITS + 8))
+_MAX_SLICES = 8  # blocks a cluster (the portable limit)
+# clusters of 1 .. 8 cell blocks an H100 80GB HBM3 holds at once (cudaOccupancyMaxActiveClusters,
+# one block an SM, 132 SMs in GPCs of unequal sizes): the planner's default; FusedStep plans from
+# the card's own (``card_clusters``)
+H100_CLUSTERS = (132, 66, 39, 30, 22, 17, 15, 15)
+# a wave's fixed cost (its first loads after the launch before it, the cluster's meeting, the gate
+# math) in k-tiles of a block's main loop: ~7 us against ~1.9 us a k-tile on an H100 at B=256
+_WAVE_KTILES = 3.6
+_CELL_GATES, _CELL_FIRST, _CELL_NEXT = 0, 1, 2
+
+
+def cell_tiles(B: int, Hp: int) -> int:
+    """The cell launch's tiles of 128 rows x 32 units (all three gate
+    columns of each unit) for B rows and Hp units."""
+    return (Hp // _CELL_UNITS) * -(-B // _CELL_ROWS)
+
+
+def plan_cost(slices: int, B: int, Hp: int, k_tiles: int, clusters: Tuple[int, ...]) -> float:
+    """A launch's time in k-tiles of a block's main loop with clusters of
+    ``slices`` blocks a tile, each a contiguous share of the k-tiles (the x
+    half, then the h half): its waves (tiles over the clusters the card
+    holds at once) times a wave's fixed cost and a block's k-tiles."""
+    return -(-cell_tiles(B, Hp) // clusters[slices - 1]) * (_WAVE_KTILES + -(-k_tiles // slices))
+
+
+@functools.lru_cache(maxsize=256)
+def cell_plan(B: int, Hp: int, k_tiles: int, clusters: Tuple[int, ...] = H100_CLUSTERS) -> int:
+    """The blocks a cluster of the cell launch for B rows, Hp (a multiple of
+    32) units and ``k_tiles`` k-tiles of 32 (x and h halves together) on a
+    card that holds ``clusters[s - 1]`` clusters of s blocks at once: of the
+    sizes s <= min(8, k_tiles), the least ``plan_cost``, then the smallest."""
+    if B < 1 or Hp < 1 or Hp % _SK or k_tiles < 1 or len(clusters) < _MAX_SLICES:
+        raise ValueError(f"cell_plan: B={B}, Hp={Hp}, k_tiles={k_tiles}, clusters={clusters}")
+    sizes = [s for s in range(1, min(_MAX_SLICES, k_tiles) + 1) if clusters[s - 1] >= 1]
+    return min(sizes, key=lambda s: (plan_cost(s, B, Hp, k_tiles, clusters), s))
+
+
+@functools.lru_cache(maxsize=8)
+def card_clusters(index: int) -> Tuple[int, ...]:
+    """Clusters of 1 .. 8 cell blocks card ``index`` holds at once
+    (cudaOccupancyMaxActiveClusters)."""
+    fn = _build.function("molvax_step_cell_clusters", [ctypes.c_int, ctypes.c_void_p])
+    out = []
+    with torch.cuda.device(index):
+        for s in range(1, _MAX_SLICES + 1):
+            n = ctypes.c_int(0)
+            _build.check(fn(s, ctypes.byref(n)), "decode step (cluster occupancy)")
+            out.append(n.value)
+    return tuple(out)
+
+
+class StepWeights(NamedTuple):
+    """The step kernels' operands, fp32, zero-padded (csrc/decode_step.cu's
+    layout): per layer W_hh (3 Hp, Hp) and b_hh, b_ih (3 Hp), and W_ih for
+    l >= 1, rows gate * Hp + unit (None at layer 0); W_iz, layer 0's z
+    columns (3 Hp, Kz); wc, its one-hot columns transposed (C, 3 Hp); W_out
+    (Cp, Hp) and b_out (Cp); z's embedding (B, Kz)."""
+
+    whh: List[torch.Tensor]
+    wih: List[Optional[torch.Tensor]]
+    bhh: List[torch.Tensor]
+    bih: List[torch.Tensor]
+    wz: torch.Tensor
+    wc: torch.Tensor
+    w4: torch.Tensor
+    b4: torch.Tensor
+    z: torch.Tensor
+
+
+def step_sizes(model, z_emb: torch.Tensor) -> Tuple[int, int, int, int, int]:
+    """(B, L, H, C, Lz) of a decode: the rows of z's embedding and the
+    decoder's sizes, from its weights."""
+    C, gru = model.linear_4.out_features, model.gru
+    return z_emb.shape[0], gru.num_layers, gru.hidden_size, C, gru.weight_ih_l0.shape[1] - C
+
+
+def _pad_jobs(model, z_emb: torch.Tensor):
+    """Each packed operand's source, its padded shape and its map (``PackJob``
+    of csrc/decode_step.cu): [(name, layer, src, (rg, R, Rp, qg, Q, Qp),
+    (sr, sq, off))]. Destination (rg Rp, qg Qp) dense; element (gr Rp + r,
+    gq Qp + q) is src[off + (gr R + r) sr + (gq Q + q) sq] for r < R, q < Q,
+    else 0."""
+    B, L, H, C, Lz = step_sizes(model, z_emb)
+    Hp, Kz, Cp = _up(H, _SK), _up(Lz, _SK), _up(C, 8)
+    gru = model.gru
+    jobs = []
+
+    def mat(name, li, w, K, Kp, off=0):  # (3H, .) columns off .. off + K -> (3 Hp, Kp)
+        jobs.append((name, li, w, (3, H, Hp, 1, K, Kp), (w.stride(0), w.stride(1), off)))
+
+    def vec(name, li, b, n, npad, groups=3):  # (groups n) -> (groups npad)
+        jobs.append((name, li, b, (1, 1, 1, groups, n, npad), (0, b.stride(0), 0)))
+
+    for li in range(L):
+        mat("whh", li, getattr(gru, f"weight_hh_l{li}"), H, Hp)
+        if li:
+            mat("wih", li, getattr(gru, f"weight_ih_l{li}"), H, Hp)
+        vec("bhh", li, getattr(gru, f"bias_hh_l{li}"), H, Hp)
+        vec("bih", li, getattr(gru, f"bias_ih_l{li}"), H, Hp)
+    w0 = gru.weight_ih_l0
+    mat("wz", 0, w0, Lz, Kz)
+    jobs.append(("wc", 0, w0, (1, C, C, 3, H, Hp), (w0.stride(1), w0.stride(0), Lz * w0.stride(1))))
+    w4 = model.linear_4.weight
+    jobs.append(("w4", 0, w4, (1, C, Cp, 1, H, Hp), (w4.stride(0), w4.stride(1), 0)))
+    vec("b4", 0, model.linear_4.bias, C, Cp, groups=1)
+    jobs.append(("z", 0, z_emb, (1, B, B, 1, Lz, Kz), (z_emb.stride(0), z_emb.stride(1), 0)))
+    return jobs
+
+
+def _gather_padded(src: torch.Tensor, shape, strides) -> torch.Tensor:
+    """A ``PackJob`` in torch ops: the padded dense matrix."""
+    rg, R, Rp, qg, Q, Qp = shape
+    sr, sq, off = strides
+    r, q = torch.arange(rg * Rp, device=src.device), torch.arange(qg * Qp, device=src.device)
+    gr, ri, gq, qi = r // Rp, r % Rp, q // Qp, q % Qp
+    ok = (ri < R)[:, None] & (qi < Q)[None, :]
+    idx = torch.where(ok, off + ((gr * R + ri) * sr)[:, None] + ((gq * Q + qi) * sq)[None, :], 0)
+    flat = torch.as_strided(src.detach(), (int(idx.max()) + 1,), (1,))  # the elements from src's first
+    return torch.where(ok, flat.float()[idx], 0.0)
+
+
+def _assemble(parts) -> StepWeights:
+    """[(name, layer, tensor)] -> StepWeights."""
+    by = collections.defaultdict(dict)
+    for name, li, t in parts:
+        by[name][li] = t
+    L = len(by["whh"])
+    return StepWeights([by["whh"][i] for i in range(L)], [by["wih"].get(i) for i in range(L)],
+                       [by["bhh"][i] for i in range(L)], [by["bih"][i] for i in range(L)], by["wz"][0],
+                       by["wc"][0], by["w4"][0], by["b4"][0][0], by["z"][0])
+
+
+def pack_step_ref(model, z_emb: torch.Tensor) -> StepWeights:
+    """The packing launch's output in torch ops (biases as (3 Hp,) and (Cp,))."""
+    parts = []
+    for name, li, src, shape, strides in _pad_jobs(model, z_emb):
+        t = _gather_padded(src, shape, strides)
+        parts.append((name, li, t.reshape(-1) if name in ("bhh", "bih") else t))
+    return _assemble(parts)
+
+
+def code_gates_ref(model, prev: Optional[torch.Tensor]) -> torch.Tensor:
+    """Layer 0's one-hot half of its input gates: the one-hot of ``prev``
+    (B,) times W_ic^T is row prev of W_ic^T, a gather, (B, 3H); at t = 0
+    (``prev`` None) the start vector's product, (1, 3H) (zeros without a
+    learned start)."""
+    w_c = _layer_weights(model)[2].float()  # (C, 3H)
+    if prev is not None:
+        return w_c[prev.long()]
+    return _start(model, w_c.shape[0], w_c.device)[None, :] @ w_c
+
+
+def decode_step_ref(model, hs: torch.Tensor, gz: torch.Tensor,
+                    prev: Optional[torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The fused step in plain torch ops: the hidden states (L, B, H), z's
+    gates (``latent_gates_ref``) and the last codes (B,) (None at t = 0: the
+    start vector) -> (hidden states, logits (B, C)); ``nn.decoder.decoder_step``'s
+    function with the one-hot product a gather and the z half hoisted."""
+    gru = model.gru
+    x, out = None, []
+    for li in range(gru.num_layers):
+        if li == 0:
+            gi = gz + code_gates_ref(model, prev)
+        else:
+            gi = x @ getattr(gru, f"weight_ih_l{li}").float().T + getattr(gru, f"bias_ih_l{li}").float()
+        h = hs[li]
+        x = gate_ref(gi, h @ getattr(gru, f"weight_hh_l{li}").float().T + getattr(gru, f"bias_hh_l{li}").float(), h)
+        out.append(x)
+    return torch.stack(out), x @ model.linear_4.weight.float().T + model.linear_4.bias.float()
+
+
+class _PackJob(ctypes.Structure):
+    """``PackJob`` of csrc/decode_step.cu."""
+
+    _fields_ = [("src", ctypes.c_void_p), ("dst", ctypes.c_void_p), ("sr", ctypes.c_longlong),
+                ("sq", ctypes.c_longlong), ("off", ctypes.c_longlong),
+                *((name, ctypes.c_int) for name in ("rg", "R", "Rp", "qg", "Q", "Qp"))]
+
+
+class _CellArgs(ctypes.Structure):
+    """``CellArgs`` of csrc/decode_step.cu."""
+
+    _fields_ = [*((name, ctypes.c_void_p) for name in ("x", "h", "wx", "wh", "bx", "bh", "gz", "wc", "code",
+                                                       "start", "out")),
+                *((name, ctypes.c_int) for name in ("B", "H", "Hp", "ldx", "C", "code_ld"))]
+
+
+class _HeadArgs(ctypes.Structure):
+    """``HeadArgs`` of csrc/decode_step.cu."""
+
+    _fields_ = [*((name, ctypes.c_void_p) for name in ("h", "w", "b", "logits", "scores", "noise", "code")),
+                ("inv_temp", ctypes.c_float),
+                *((name, ctypes.c_int) for name in ("B", "C", "Hp", "logits_ld", "code_ld"))]
+
+
+def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
+
+
+def _launched() -> None:
+    global decode_step_launches
+    decode_step_launches += 1
+
+
+class FusedStep:
+    """One decode's fp32 decoder on a card (csrc/decode_step.cu): made by two
+    launches, the packing of the weights and z's embedding (``StepWeights``)
+    and z's gates (B, 3 Hp); then ``step`` a step, L cell launches and one
+    head launch. The hidden states are (L, B, Hp) fp32 with zero padding
+    columns (``state``); a step reads one set and writes another (other
+    blocks still read h_t while h_{t+1} is written). The launches go to the
+    current stream; a CUDA Graph captures them as they are."""
+
+    def __init__(self, model, z_emb: torch.Tensor):
+        dev = z_emb.device
+        if dev.type != "cuda":
+            raise ValueError(f"FusedStep: z_emb on {dev}; the plain route is nn.decoder.decoder_step")
+        weights = [*model.gru.parameters(), *model.linear_4.parameters()]
+        if any(p.device != dev or p.dtype != torch.float32 for p in weights):
+            raise ValueError(f"FusedStep: the decoder's weights must be fp32 on {dev}")
+        if z_emb.dim() != 2 or z_emb.dtype != torch.float32 or z_emb.shape[0] == 0:
+            raise ValueError(f"FusedStep: z_emb must be (B>0, Lz) fp32, got {tuple(z_emb.shape)} {z_emb.dtype}")
+        self.B, self.L, self.H, self.C, self.Lz = step_sizes(model, z_emb)
+        if z_emb.shape[1] != self.Lz:
+            raise ValueError(f"FusedStep: z_emb has {z_emb.shape[1]} columns, the decoder takes {self.Lz}")
+        self.Hp, self.Kz = _up(self.H, _SK), _up(self.Lz, _SK)
+        held = card_clusters(torch.cuda.current_device() if dev.index is None else dev.index)
+        self.plans = {_CELL_GATES: cell_plan(self.B, self.Hp, self.Kz // _SK, held),
+                      _CELL_FIRST: cell_plan(self.B, self.Hp, self.Hp // _SK, held),
+                      _CELL_NEXT: cell_plan(self.B, self.Hp, 2 * self.Hp // _SK, held)}
+        start = model.start_token
+        self.start = None if start is None else start.detach().float().contiguous()
+        self.w = self._pack(model, z_emb)
+        self.gz = torch.empty(self.B, 3 * self.Hp, device=dev)
+        self._cell(_CELL_GATES, x=self.w.z, wx=self.w.wz, bx=self.w.bih[0], out=self.gz, ldx=self.Kz)
+
+    def _pack(self, model, z_emb: torch.Tensor) -> StepWeights:
+        jobs, parts, most = [], [], 0
+        for name, li, src, shape, strides in _pad_jobs(model, z_emb):
+            rg, _, Rp, qg, _, Qp = shape
+            dst = torch.empty(rg * Rp, qg * Qp, device=z_emb.device)
+            jobs.append(_PackJob(src.data_ptr(), dst.data_ptr(), *strides, *shape))
+            parts.append((name, li, dst.reshape(-1) if name in ("bhh", "bih") else dst))
+            most = max(most, dst.numel())
+        table = (_PackJob * len(jobs))(*jobs)
+        fn = _build.function("molvax_step_pack", [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+        _build.check(fn(ctypes.addressof(table), len(jobs), most, _stream(z_emb)), "decode step (pack)")
+        _launched()
+        return _assemble(parts)
+
+    def _cell(self, mode: int, x=None, h=None, wx=None, wh=None, bx=None, bh=None, out=None, ldx: int = 0,
+              code: Optional[torch.Tensor] = None) -> None:
+        code_ld = 0
+        if code is not None:
+            if code.dtype != torch.int32 or code.shape != (self.B,) or code.device != out.device:
+                raise ValueError(f"FusedStep: the last codes must be ({self.B},) int32 on {out.device}")
+            code_ld = code.stride(0)
+        first = mode == _CELL_FIRST
+        args = _CellArgs(_ptr(x), _ptr(h), _ptr(wx), _ptr(wh), _ptr(bx), _ptr(bh), _ptr(self.gz) if first else None,
+                         _ptr(self.w.wc) if first else None, _ptr(code), _ptr(self.start) if first else None,
+                         out.data_ptr(), self.B, self.H, self.Hp, ldx, self.C, code_ld)
+        fn = _build.function("molvax_step_cell", [ctypes.c_void_p] + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+        _build.check(fn(ctypes.addressof(args), mode, self.plans[mode], _stream(out)), "decode step (cell)")
+        _launched()
+
+    def state(self, *lead: int) -> torch.Tensor:
+        """Zero hidden states, (*lead, L, B, Hp) fp32: the decode's first."""
+        return torch.zeros(*lead, self.L, self.B, self.Hp, device=self.gz.device)
+
+    def step(self, h: torch.Tensor, h_out: torch.Tensor, prev: Optional[torch.Tensor], logits: torch.Tensor,
+             scores: Optional[torch.Tensor] = None, noise: Optional[torch.Tensor] = None, temperature: float = 1.0,
+             codes: Optional[torch.Tensor] = None) -> None:
+        """One step: the hidden states ``h`` (L, B, Hp) -> ``h_out`` (another
+        buffer), the logits into ``logits`` (B, C), a view whose rows may lie
+        apart (``logits[:, t]`` of the decode's (B, T, C)). ``prev`` (B,)
+        int32, a view too: the last codes, None at t = 0 (the start vector).
+        The scores are the logits, or with ``noise`` (B, C) the logits
+        times (1 / ``temperature``) plus the noise; ``scores`` (B, C)
+        receives them, and ``codes`` (B,) int32 their first maximum."""
+        shape = (self.L, self.B, self.Hp)
+        for name, t in (("h", h), ("h_out", h_out)):
+            if t.shape != shape or t.dtype != torch.float32 or not t.is_contiguous() or t.device != self.gz.device:
+                raise ValueError(f"FusedStep.step: {name} must be contiguous {shape} fp32 on {self.gz.device}")
+        if logits.shape != (self.B, self.C) or logits.stride(1) != 1 or logits.dtype != torch.float32:
+            raise ValueError(f"FusedStep.step: logits must be ({self.B}, {self.C}) fp32, rows contiguous")
+        for name, t in (("scores", scores), ("noise", noise)):
+            if t is not None and (t.shape != (self.B, self.C) or not t.is_contiguous() or t.dtype != torch.float32):
+                raise ValueError(f"FusedStep.step: {name} must be contiguous ({self.B}, {self.C}) fp32")
+        if codes is not None and (codes.shape != (self.B,) or codes.dtype != torch.int32):
+            raise ValueError(f"FusedStep.step: codes must be ({self.B},) int32")
+        w = self.w
+        for li in range(self.L):
+            if li == 0:
+                self._cell(_CELL_FIRST, h=h[0], wh=w.whh[0], bh=w.bhh[0], out=h_out[0], code=prev)
+            else:
+                self._cell(_CELL_NEXT, x=h_out[li - 1], h=h[li], wx=w.wih[li], wh=w.whh[li], bx=w.bih[li],
+                           bh=w.bhh[li], out=h_out[li], ldx=self.Hp)
+        inv = float(np.float32(1.0) / np.float32(temperature)) if noise is not None else 1.0
+        args = _HeadArgs(h_out[self.L - 1].data_ptr(), w.w4.data_ptr(), w.b4.data_ptr(), logits.data_ptr(),
+                         _ptr(scores), _ptr(noise), _ptr(codes), inv, self.B, self.C, self.Hp, logits.stride(0),
+                         0 if codes is None else codes.stride(0))
+        fn = _build.function("molvax_step_head", [ctypes.c_void_p, ctypes.c_void_p])
+        _build.check(fn(ctypes.addressof(args), _stream(logits)), "decode step (head)")
+        _launched()

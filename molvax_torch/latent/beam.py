@@ -2,7 +2,11 @@
 
 Port of ``molvax/latent/beam.py:45-214``. The beams ride the batch
 dimension: the fp32 GRU step runs once per timestep on (B*K, .) rows, and
-each step keeps the K best of the (B, K*C) candidates. With
+each step keeps the K best of the (B, K*C) candidates. The step is
+``nn.decoder.decoder_stepper``'s, the scan route's: ``decoder_step`` on the
+CPU and the hand-written step kernels on a card
+(``kernels.generate.FusedStep``), its hidden states reordered by parent
+with one index a step. With
 ``constrained=True`` the valence automaton masks each step's logits before
 ``log_softmax`` (``kernels.automaton.auto_mask``), and after the top-K the
 packed automaton rows are reordered by parent (one ``index_select``) and
@@ -25,9 +29,8 @@ import torch
 import torch.nn.functional as F
 
 from ..data.alphabet import DEFAULT_CHARSET, Charset, Grammar, alphabet_of, strings
-from ..data.featurize import one_hot
 from ..kernels import automaton as kauto
-from ..nn.decoder import decoder_start, decoder_step, latent_embed
+from ..nn.decoder import decoder_stepper, latent_embed
 from .constrain import build_tables
 from .embed import posterior_of
 from .sample import generate
@@ -89,7 +92,8 @@ def beam_generate(
             return codes, best
 
         z_tiled = torch.repeat_interleave(latent_embed(model, cfg, z), K, dim=0)  # (B*K, E)
-        hs, prev = decoder_start(model, cfg, B * K, dev)
+        stepper = decoder_stepper(model, cfg, z_tiled)
+        hs, tok = stepper.state(), None
         # only beam 0 is live at t=0, so the top K are K distinct first tokens
         scores = torch.full((B, K), _NEG, device=dev)
         scores[:, 0] = 0.0
@@ -101,7 +105,9 @@ def beam_generate(
         row0 = (torch.arange(B, device=dev) * K)[:, None]
 
         for t in range(T):
-            hs, logits_t = decoder_step(model, hs, z_tiled, prev)  # logits (B*K, C)
+            h_out, logits_t = torch.empty_like(hs), torch.empty(B * K, C, device=dev)
+            stepper.step(hs, h_out, tok, logits_t)  # logits (B*K, C)
+            hs = h_out
             if constrained:
                 logits_t = torch.where(kauto.auto_mask(itab, state, T - 1 - t), logits_t, _NEG)
             logp = F.log_softmax(logits_t, dim=-1)
@@ -116,7 +122,7 @@ def beam_generate(
             buf = buf.reshape(B * K, T)[src].reshape(B, K, T)
             buf[:, :, t] = token
             done = done.reshape(-1)[src].reshape(B, K) | (token == pad_id)
-            prev = one_hot(token.reshape(-1), C)
+            tok = token.reshape(-1)
             if constrained:
                 state = torch.index_select(state, 0, src)
                 kauto.auto_advance(itab, state, token.reshape(-1))

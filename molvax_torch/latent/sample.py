@@ -6,7 +6,12 @@ non-autoregressive pass (``nn.decoder.decode``). With
 ``cfg.use_pallas_generation`` on, a teacher-forced decoder, bf16 matmuls,
 ``constrained=False`` and tensors on CUDA, the whole decode is one launch of
 the hand-written generation kernel (``kernels/generate.py``) and no logits
-are materialized. Otherwise the fp32 scan runs as a plain loop over T.
+are materialized. Otherwise the fp32 scan runs as a loop over T of
+``nn.decoder.decoder_stepper``'s steps: on the CPU ``decoder_step`` in plain
+torch ops; on a card the hand-written step kernels of ``kernels.generate.FusedStep``
+(``csrc/decode_step.cu``: the packed weights and z's half of layer 0's
+gates once a decode, then one fused GRU-cell launch a layer and one head
+launch a step, in fp32 with 3xTF32 products), which beam search runs too.
 
 ``constrained=True`` threads the valence automaton (``latent/constrain.py``)
 through the decode, as the reference does: the GRU step stays the fp32
@@ -62,9 +67,10 @@ Under a running profiler a request is marked in spans (``utils.span``):
 ``sample.draw_z``, ``sample.decode`` (and on the scan route ``sample.capture``
 and ``sample.replay`` on a card; where the steps run op by op and inside a
 capture, ``sample.noise`` once a sampled decode, around its noise table,
-then ``sample.step`` a step, holding ``sample.select``; on the grammar
-route ``sample.select`` holding
-``sample.walk``), then
+then ``sample.step`` a step, holding ``sample.select`` (``auto_step``,
+or the CPU's first maximum; on a card with no automaton the head kernel
+selects); on the
+grammar route ``sample.select`` holding ``sample.walk``), then
 ``sample.to_host``, where the host waits for the card, and ``sample.strings``.
 """
 
@@ -78,11 +84,10 @@ import numpy as np
 import torch
 
 from ..data.alphabet import DEFAULT_CHARSET, Charset, Grammar, alphabet_of, strings
-from ..data.featurize import one_hot
 from ..kernels import automaton as kauto
 from ..kernels import generate as kgen
 from ..kernels import grammar_walk as kwalk
-from ..nn.decoder import decode, decoder_start, decoder_step, latent_embed
+from ..nn.decoder import decode, decoder_stepper, latent_embed
 from ..nn.vae import reparameterize
 from ..parallel import map_rows
 from ..utils import capture_graph, matmul_dtype, span
@@ -218,29 +223,41 @@ def _scan(model, cfg, z: torch.Tensor, seed: Union[int, torch.Tensor], temperatu
     before the steps (``kernels.generate.gumbel_table``, the noise of the
     global rows from ``row_base``). With ``itab`` each step goes through one
     ``auto_step``, which advances the packed automaton ``state`` in place.
-    ``seed`` is a Python int or a 0-d int64 tensor on z's device
-    (``kernels.generate.seed_word``): the same noise. ``_eager_scan`` runs
-    it op by op; ``CapturedDecode`` captures it."""
+    The step is ``nn.decoder.decoder_stepper``'s, picked by device once:
+    on a card the hand-written step kernels (``kernels.generate.FusedStep``:
+    its packing and z's gates, then per step its L cell launches and its
+    head, which writes logits[:, t] and either the scores for ``auto_step``
+    or, with no automaton, the first maximum into codes[:, t]), on the CPU
+    ``decoder_step``. Step t + 1 reads the code of step t where it lies
+    (``auto_step``'s outputs gathered into codes once, after the steps); the
+    hidden states alternate between two buffers. ``seed`` is a Python int
+    or a 0-d int64 tensor on z's device (``kernels.generate.seed_word``):
+    the same noise. ``_eager_scan`` runs it op by op; ``CapturedDecode``
+    captures it."""
     B, T, C = z.shape[0], cfg.max_len, cfg.charset_size
     n = T if steps is None else steps
     z_emb = latent_embed(model, cfg, z)
-    hs, prev = decoder_start(model, cfg, B, z.device)
     table = None
     if temperature is not None:
         with span("sample.noise"):
             table = kgen.gumbel_table(seed, n, B, C, z.device, row_base)
+    stepper = decoder_stepper(model, cfg, z_emb)
+    hbuf = stepper.state(2)
+    scores = None if itab is None else torch.empty(B, C, device=z.device)
+    picked, prev = [], None
     for t in range(n):
         with span("sample.step"):
-            hs, logits_t = decoder_step(model, hs, z_emb, prev)
-            scores = logits_t if table is None else logits_t / temperature + table[t]
-            with span("sample.select"):
-                if itab is not None:
-                    code_t = kauto.auto_step(itab, state, scores.contiguous(), T - 1 - t)[:, 0]
-                else:
-                    code_t = torch.argmax(scores, dim=-1)
-            codes[:, t] = code_t.to(torch.int32)
-            logits[:, t] = logits_t
-            prev = one_hot(code_t, C)
+            stepper.step(hbuf[t % 2], hbuf[(t + 1) % 2], prev, logits[:, t], scores,
+                         None if table is None else table[t], 1.0 if temperature is None else temperature,
+                         None if itab is not None else codes[:, t])
+            if itab is None:
+                prev = codes[:, t]
+            else:
+                with span("sample.select"):
+                    picked.append(kauto.auto_step(itab, state, scores, T - 1 - t))
+                prev = picked[-1][:, 0]
+    if picked:
+        codes[:, :n] = torch.cat(picked, dim=1)
 
 
 def _eager_scan(model, cfg, z: torch.Tensor, seed: Union[int, torch.Tensor], greedy: bool, temperature: float,
@@ -281,11 +298,13 @@ class CapturedDecode:
     logits; everything it makes between them lives in its private memory
     pool, which its steps share. It writes none of the model's tensors.
     Before capture the first step runs for real on the capturing stream
-    (``utils.capture_graph``), and counts its one ``auto_step`` launch and,
-    sampled, its one noise table's (``kernels.generate.gumbel_table``, of
-    one step); the capture records T ``auto_step`` launches and one table's
-    at the graph's head, which do not run, and each replay counts them (T,
-    or 0 under the plain automaton; 1 table sampled, 0 greedy)."""
+    (``utils.capture_graph``), and counts its one ``auto_step`` launch,
+    sampled its one noise table's (``kernels.generate.gumbel_table``, of
+    one step), and its step kernels' (``kernels.generate.decode_step_launches``:
+    2 + L + 1); the capture records T ``auto_step`` launches, one table's at
+    the graph's head and 2 + T (L + 1) step launches, which do not run, and
+    each replay counts them (T, or 0 under the plain automaton; 1 table
+    sampled, 0 greedy)."""
 
     def __init__(self, model, cfg, z: torch.Tensor, greedy: bool, temperature: float, constrained: bool,
                  charset: Charset, row_base: int):
@@ -306,11 +325,12 @@ class CapturedDecode:
             _scan(model, cfg, self.z, self.seed, None if greedy else temperature, self.itab, self.state, row_base,
                   self.codes, self.logits, steps)
 
-        def body() -> Tuple[int, int]:
-            before = kauto.step_launches, kgen.noise_table_launches
+        def body() -> Tuple[int, int, int]:
+            before = kauto.step_launches, kgen.noise_table_launches, kgen.decode_step_launches
             run()
-            recorded = kauto.step_launches - before[0], kgen.noise_table_launches - before[1]
-            kauto.step_launches, kgen.noise_table_launches = before
+            recorded = (kauto.step_launches - before[0], kgen.noise_table_launches - before[1],
+                        kgen.decode_step_launches - before[2])
+            kauto.step_launches, kgen.noise_table_launches, kgen.decode_step_launches = before
             return recorded
 
         self.graph, self.launches, _ = capture_graph(dev, lambda: run(1), body)
@@ -325,6 +345,7 @@ class CapturedDecode:
             self.graph.replay()
         kauto.step_launches += self.launches[0]
         kgen.noise_table_launches += self.launches[1]
+        kgen.decode_step_launches += self.launches[2]
         return self.codes.clone(), self.logits.clone()
 
 

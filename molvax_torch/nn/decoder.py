@@ -15,8 +15,10 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..data.featurize import one_hot
+from ..kernels import generate as kgen
 from ..kernels import gru as kgru
-from ..utils import matmul_dtype
+from ..utils import matmul_dtype, span
 from .encoder import dense_act, linear
 from .gru import gru_forward, gru_layers, gru_stack_step
 
@@ -48,6 +50,46 @@ def decoder_step(model, hs: torch.Tensor, z_emb: torch.Tensor, prev: torch.Tenso
     state (L, B, H), z's embedding, the last one-hot) -> (hidden state, logits)."""
     hs, out = gru_stack_step(model.gru, hs, torch.cat([z_emb, prev], dim=-1))
     return hs, linear(out, model.linear_4.weight, model.linear_4.bias)
+
+
+class PlainStep:
+    """``kernels.generate.FusedStep``'s interface over ``decoder_step``, the
+    CPU's step: hidden states (L, B, H), the last codes made one-hot, the
+    scores logits / temperature + noise as the plain scan computes them, the
+    first maximum under the span ``sample.select``."""
+
+    def __init__(self, model, cfg, z_emb: torch.Tensor):
+        self.model, self.z_emb, self.C = model, z_emb, cfg.charset_size
+        self.hs, self.start = decoder_start(model, cfg, z_emb.shape[0], z_emb.device)
+
+    def state(self, *lead: int) -> torch.Tensor:
+        """Zero hidden states, (*lead, L, B, H): the decode's first."""
+        return self.hs.new_zeros(*lead, *self.hs.shape)
+
+    def step(self, h: torch.Tensor, h_out: torch.Tensor, prev: Optional[torch.Tensor], logits: torch.Tensor,
+             scores: Optional[torch.Tensor] = None, noise: Optional[torch.Tensor] = None, temperature: float = 1.0,
+             codes: Optional[torch.Tensor] = None) -> None:
+        """``FusedStep.step``: ``h`` -> ``h_out``, the logits into ``logits``,
+        the scores into ``scores`` and their first maximum into ``codes``;
+        ``prev`` the last codes, None at t = 0 (the start vector)."""
+        hs, lg = decoder_step(self.model, h, self.z_emb, self.start if prev is None else one_hot(prev, self.C))
+        h_out.copy_(hs)
+        logits.copy_(lg)
+        sc = lg if noise is None else lg / temperature + noise
+        if scores is not None:
+            scores.copy_(sc)
+        if codes is not None:
+            with span("sample.select"):
+                codes.copy_(torch.argmax(sc, dim=-1))
+
+
+def decoder_stepper(model, cfg, z_emb: torch.Tensor):
+    """The free-running fp32 decoder of one decode, the scan route's and beam
+    search's: on a card the hand-written step kernels
+    (``kernels.generate.FusedStep``), elsewhere ``PlainStep``."""
+    if z_emb.device.type == "cuda":
+        return kgen.FusedStep(model, z_emb)
+    return PlainStep(model, cfg, z_emb)
 
 
 def teacher_inputs(

@@ -237,7 +237,7 @@ def test_plain_pieces_compose_to_the_plain_decode(greedy, temperature, learned_s
     z_emb = _z_emb(model, cfg, B)
     with torch.no_grad():
         _, _, w_c, lw, w_out, b_out = kg._layer_weights(model)
-        got = _compose(kg._giz1(model, z_emb), kg._start(model, cfg.charset_size, "cpu"), w_c, lw, w_out, b_out,
+        got = _compose(kg.latent_gates_ref(model, z_emb), kg._start(model, cfg.charset_size, "cpu"), w_c, lw, w_out, b_out,
                        cfg.max_len, torch.arange(B), 5, greedy, temperature)
     want = kg.fused_generate_ref(model, cfg, z_emb, 5, greedy, temperature)
     assert torch.equal(got, want)
