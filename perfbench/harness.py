@@ -3,11 +3,13 @@
 ``run_cell`` is the whole of a run in one process (one rank of a
 multi-chip cell: ``ranks.py`` starts them). The cell's traffic kind
 (``traffic/<kind>.py``) provides ``setup``, ``window``, ``release`` and
-``check``; the harness times the set-up from the process's start to the
-window's, reads the device's peak memory after the window and before the
-check, and reads each per-layer metric with its own reader
-(``metrics/<metric>.py``, ``read(run)``; None where it finds nothing)
-from the traced window and the window's own readings.
+``check``, and may provide ``first_use`` (set-up run before the profiler's
+start); the harness times the set-up from the process's start to the
+window's, and its parts (``Context.part``), reads the device's peak memory
+after the window and before the check, and reads each per-layer metric
+with its own reader (``metrics/<metric>.py``, ``read(run)``; None where it
+finds nothing) from the traced window, the window's own readings and the
+set-up's parts.
 """
 
 from __future__ import annotations
@@ -115,6 +117,22 @@ class Run:
     traced: Dict[str, float]  # counts of the traced window (units, steps, smiles, requests)
     spans: Dict[str, float]  # host seconds of each span in the traced window
     window: Dict[str, Any]  # the whole window's own readings (each request's latency), traced units first
+    parts: Dict[str, float] = dataclasses.field(default_factory=dict)  # the set-up's parts, seconds
+    world: int = 1  # the ranks of the cell; a reading is rank 0's
+
+    def span_ms(self, name: str, unit: str) -> Optional[float]:
+        """Host ms of the traced window's spans ``name`` (``Reading.span_s``)
+        a traced ``unit`` ('steps', 'requests'); None where the window holds
+        none of them or no such unit."""
+        units = self.traced.get(unit, 0)
+        if self.reading is None or not units or name not in self.reading.span_s:
+            return None
+        return 1e3 * self.reading.span_s[name] / units
+
+    def setup_part_s(self, names) -> Optional[float]:
+        """Seconds of the set-up's parts ``names`` together; None where it has none of them."""
+        got = [self.parts[n] for n in names if n in self.parts]
+        return sum(got) if got else None
 
 
 def traffic_module(kind: str):
@@ -145,10 +163,11 @@ def make_context(name: str, seed: int, device, mesh=None, rank: int = 0, world: 
 
 
 def run_cell(name: str, seed: int, seconds: float, trace: bool, device="cuda", t_start: Optional[float] = None,
-             mesh=None, rank: int = 0, world: int = 1) -> dict:
+             mesh=None, rank: int = 0, world: int = 1, parts: Optional[Dict[str, float]] = None) -> dict:
     """One run of cell ``name``: the result's fields, the checks as
-    (name, value, limit) and the set-up's parts. ``t_start``: the
-    ``time.perf_counter()`` of the process's start (default: now)."""
+    (name, value, limit), the set-up's parts and ``setup_s``. ``t_start``:
+    the ``time.perf_counter()`` of the process's start (default: now);
+    ``parts``: those of the set-up's parts that the caller timed before."""
     t_start = time.perf_counter() if t_start is None else t_start
     t0 = time.perf_counter()
     # one host thread: the idle workers of a pool spin on the cores that the
@@ -160,13 +179,19 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, device="cuda", t
         torch.cuda.reset_peak_memory_stats(dev)
     cuda_init = time.perf_counter() - t0
     ctx = make_context(name, seed, dev, mesh, rank, world)
-    ctx.parts["cuda_init"] = cuda_init
+    ctx.parts.update(parts or {})
+    ctx.parts["cuda_init"] = ctx.parts.get("cuda_init", 0.0) + cuda_init
+    kind = traffic_module(ctx.mix["kind"])
+    # set-up work that the profiler's first start would do first, and so take
+    # into its own part in a traced run, done before it, in every run
+    first_use = getattr(kind, "first_use", None)
+    if first_use is not None:
+        first_use(ctx)
     if trace:  # the profiler's first start takes seconds: once here, not in the window
         t0 = time.perf_counter()
         with Session(Spans(), dev):
             ctx.sync()
         ctx.part("profiler_init", t0)
-    kind = traffic_module(ctx.mix["kind"])
     kind.setup(ctx)
     ctx.sync()
     # what set-up made (the modules, the weights) moves out of the collector's
@@ -188,7 +213,8 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, device="cuda", t
     values = dict(out["metrics"], setup_s=setup_s)
     if trace:
         reading = tw.reading
-        run = Run(ctx.sizes, device_name(dev), reading, tw.extra, dict(ctx.spans.seconds), out.get("readings", {}))
+        run = Run(ctx.sizes, device_name(dev), reading, tw.extra, dict(ctx.spans.seconds), out.get("readings", {}),
+                  dict(ctx.parts), world)
         metrics = {}
         for m in spec.metrics(name, True):
             v = metric_reader(m["name"])(run)
@@ -205,6 +231,8 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, device="cuda", t
         "reading": tw.reading,
         "checks": checks,
         "parts": dict(ctx.parts),
+        "setup_s": setup_s,
+        "traced": dict(tw.extra),
         "notes": out.get("notes", {}),
         "device": device_name(dev),
     }

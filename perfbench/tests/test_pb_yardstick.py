@@ -82,3 +82,27 @@ def test_gru_bound_at_zinc250k():
     ms = 1e3 * yardstick.bound_s(yardstick.gru_train_ops_per_smiles(s) * 256,
                                  yardstick.gru_train_bytes_per_step(s, 256), H100)
     assert ms == pytest.approx(0.7025, rel=1e-3)
+
+
+def test_fp32_least_time_is_3xtf32_at_a_third_of_the_tf32_peak():
+    assert yardstick.peak(H100, "tf32_flops") == 495e12 and yardstick.peak(H100, "fp32_flops") == 67e12
+    assert yardstick.flops(H100, "fp32") == pytest.approx(165e12)
+    assert yardstick.flops(H100, "bf16") == 989e12 and yardstick.flops("cpu", "fp32") is None
+    s = sizes("zinc250k")
+    ops = yardstick.decode_ops_per_smiles(s) * 256
+    assert ops == pytest.approx(232.6e9, rel=1e-3)
+    ms = 1e3 * yardstick.bound_s(ops, yardstick.decode_bytes_per_request(s, 256, weight_bytes=4), H100, "fp32")
+    assert ms == pytest.approx(1.41, rel=1e-2)
+
+
+def test_the_constrained_decodes_two_rooflines_differ_by_the_peaks_ratio():
+    """``decode_roofline_fp32.sample`` reads the same work and busy time as
+    ``decode_roofline.sample``; where the decode is bound by its operations,
+    the two differ by 989 / 165."""
+    from perfbench.harness import Run, metric_reader
+    from perfbench.trace import Reading
+
+    run = Run(sizes("zinc250k"), H100, Reading(0.2, 0.1, {}, {}, {}, 1), {"requests": 8, "smiles": 2048}, {}, {})
+    bf16, fp32 = metric_reader("decode_roofline.sample")(run), metric_reader("decode_roofline_fp32.sample")(run)
+    assert fp32 / bf16 == pytest.approx(989 / 165) and fp32 / bf16 == pytest.approx(5.99, abs=5e-3)
+    assert fp32 == pytest.approx(100 * 1.41e-3 / 0.0125, rel=1e-2)

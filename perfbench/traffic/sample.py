@@ -9,7 +9,15 @@ Each request's latency runs from the call to its strings; the rate is all
 the strings of the window over its wall time.
 
 Set-up makes the weights from the seed (``weights.make``) and warms the
-mix's own request shape with one request of a seed the window never uses.
+mix's own request shape with requests of seeds the window never uses, as
+many as the request's route needs to reach its steady path
+(``warm_requests``): on the scan route (a constrained mix) a key runs op by
+op at its first two calls and is captured at its third, and every later
+call replays the graph (``molvax_torch.latent.sample``), so that route
+warms with ``WARM_SCAN`` requests; the generation kernel's route (an
+unconstrained mix) captures nothing and warms with one. The window notes
+the decode graphs that the program captured and replayed in it (its
+counters).
 
 The check, once the window has closed: a sample of the finished requests,
 drawn from the seed, with the one whose strings are longest in it. For
@@ -36,7 +44,13 @@ from .. import corpus, weights
 from ..reference import model as ref
 from ..reference import served
 
-_WARM = 2**32 - 1  # a request index no window reaches
+_WARM = 2**32 - 1  # a request index no window reaches; the warm requests count down from it
+WARM_SCAN = 3
+
+
+def warm_requests(mix: dict) -> int:
+    """The requests that bring the mix's route to its steady path."""
+    return WARM_SCAN if mix["constrained"] else 1
 
 
 def setup(ctx) -> None:
@@ -54,9 +68,10 @@ def setup(ctx) -> None:
     ctx.sync()
     t = ctx.part("weights", t)
     ctx.state["model"] = model
-    request(ctx, corpus.request_seed(ctx.seed, _WARM))
+    for k in range(warm_requests(ctx.mix)):
+        request(ctx, corpus.request_seed(ctx.seed, _WARM - k))
     ctx.sync()
-    ctx.part("warm_request", t)
+    ctx.part("warm_requests", t)
 
 
 def request(ctx, seed: int) -> List[str]:
@@ -71,7 +86,15 @@ def request(ctx, seed: int) -> List[str]:
                             constrained=mix["constrained"], mesh=ctx.mesh)
 
 
+def _graphs() -> Tuple[int, int]:
+    """The program's counts of decode graphs captured and replayed."""
+    from molvax_torch.latent import sample
+
+    return sample.graph_captures, sample.graph_replays
+
+
 def window(ctx, seconds: float, tw) -> dict:
+    graphs = _graphs()
     rng = np.random.default_rng([ctx.seed, 0x5A])
     lat, n, i = [], 0, 0
     kept: Optional[Tuple[int, List[str]]] = None  # a uniform draw over the requests (reservoir)
@@ -91,6 +114,7 @@ def window(ctx, seconds: float, tw) -> dict:
             longest = (i, size, strings)
         i += 1
     elapsed = time.perf_counter() - t0 - tw.paused
+    graphs = [b - a for a, b in zip(graphs, _graphs())]
     ctx.state["checked"] = [kept] + ([(longest[0], longest[2])] if longest[0] != kept[0] else [])
     return {
         "metrics": {"sample_smiles_per_s": n / elapsed,
@@ -99,7 +123,8 @@ def window(ctx, seconds: float, tw) -> dict:
         "attempted": i,
         "failed": 0,
         "readings": {"latency_s": lat},
-        "notes": {"latency_ms_p50_p90_p99_max": [1e3 * float(np.percentile(lat, q)) for q in (50, 90, 99, 100)]},
+        "notes": {"latency_ms_p50_p90_p99_max": [1e3 * float(np.percentile(lat, q)) for q in (50, 90, 99, 100)],
+                  "window_graph_captures_replays": graphs},
     }
 
 

@@ -21,6 +21,15 @@ Peaks come from the card's name alone (NVIDIA's data sheet, dense rates
 without sparsity, at the full power limit); nothing in the environment
 moves them. A card that the table does not name has no peak, and a share
 of the peak then reads nothing.
+
+A path that computes in fp32 is held to fp32's own least time, not to
+bf16's. The fastest way to fp32-accurate products on the card is 3xTF32:
+each operand split into a TF32 high part and a TF32 low part, and three
+TF32 products (hi hi, hi lo, lo hi) summed in fp32, so at most a third of
+the TF32 peak (165 TFLOP/s on an H100 SXM), which is above the 67 TFLOP/s
+of fp32 fused multiply-adds outside the tensor cores. A single TF32 pass
+rounds each operand to 10 bits of mantissa: that is not fp32, so its peak
+never bounds an fp32 path.
 """
 
 from __future__ import annotations
@@ -28,13 +37,24 @@ from __future__ import annotations
 from typing import Dict, Optional
 
 PEAKS: Dict[str, Dict[str, float]] = {
-    "NVIDIA H100 80GB HBM3": {"bf16_flops": 989e12, "hbm_bytes_s": 3.35e12},
+    "NVIDIA H100 80GB HBM3": {"bf16_flops": 989e12, "tf32_flops": 495e12, "fp32_flops": 67e12,
+                             "hbm_bytes_s": 3.35e12},
 }
 
 
 def peak(device_name: str, what: str) -> Optional[float]:
     row = PEAKS.get(device_name)
     return None if row is None else row[what]
+
+
+def flops(device_name: str, precision: str) -> Optional[float]:
+    """The card's least-time rate of products in ``precision``: 'bf16', or
+    'fp32' (the larger of a third of the TF32 peak, 3xTF32, and the fp32
+    peak); None without a peak."""
+    if precision == "bf16":
+        return peak(device_name, "bf16_flops")
+    tf32, fp32 = peak(device_name, "tf32_flops"), peak(device_name, "fp32_flops")
+    return None if tf32 is None or fp32 is None else max(tf32 / 3.0, fp32)
 
 
 def _conv_lengths(sizes: dict):
@@ -110,19 +130,21 @@ def decode_ops_per_smiles(sizes: dict) -> float:
     return gru_ops(sizes, False)["fwd"] + head_ops(sizes)
 
 
-def decode_bytes_per_request(sizes: dict, rows: int) -> float:
-    """A decode request's least bytes: the decoder's bf16 weights read once,
-    the fp32 latents read once, the int32 codes written once."""
+def decode_bytes_per_request(sizes: dict, rows: int, weight_bytes: int = 2) -> float:
+    """A decode request's least bytes: the decoder's weights read once
+    (bf16, or ``weight_bytes`` a value), the fp32 latents read once, the
+    int32 codes written once."""
     T, C, Lz, H, L = (sizes[k] for k in ("max_len", "charset_size", "latent_dim", "gru_hidden", "gru_layers"))
     weights = Lz * Lz + sum(((Lz + C) if li == 0 else H) * 3 * H + H * 3 * H for li in range(L)) + H * C
-    return 2.0 * weights + rows * (4.0 * Lz + 4.0 * T)
+    return float(weight_bytes) * weights + rows * (4.0 * Lz + 4.0 * T)
 
 
-def bound_s(ops: float, moved: float, device_name: str) -> Optional[float]:
+def bound_s(ops: float, moved: float, device_name: str, precision: str = "bf16") -> Optional[float]:
     """The least seconds the card could take: the larger of the operations
-    at the bf16 peak and the bytes at the memory rate; None without a peak."""
-    flops, rate = peak(device_name, "bf16_flops"), peak(device_name, "hbm_bytes_s")
-    if flops is None or rate is None:
+    at the peak of ``precision`` (``flops``) and the bytes at the memory
+    rate; None without a peak."""
+    rate_ops, rate = flops(device_name, precision), peak(device_name, "hbm_bytes_s")
+    if rate_ops is None or rate is None:
         return None
-    return max(ops / flops, moved / rate)
+    return max(ops / rate_ops, moved / rate)
 
